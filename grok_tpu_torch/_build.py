@@ -1,11 +1,19 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's native libraries.
 
-Every `csrc/*.cu` source is compiled by `nvcc` for Hopper (sm_90a) into
-one shared library with a plain C interface, loaded with ctypes.  The
-build happens at first use — the first launch on a CUDA tensor — never
-at import, into `_build/` beside this file (listed in .gitignore), keyed
-on a hash of the sources and flags so a changed source rebuilds.  A
-failed build raises with the compiler's output.
+Shared libraries with plain C interfaces, loaded with ctypes:
+
+  - the CUDA kernels: each `csrc/*.cu` source compiled by its own `nvcc`
+    for Hopper (sm_90a) into its own library, all compilers started
+    together, at the first launch on a CUDA tensor;
+  - the host runtime: `csrc/host/*.c` (the C Tier-2 packet coder and
+    the HT wire assembly and scan) compiled by the host C compiler, built
+    at the first host call that needs it (native/__init__.py).
+
+Nothing is built at import.  Builds go to `_build/` beside this file
+(listed in .gitignore), keyed on a hash of the sources and flags so a
+changed source rebuilds; concurrent builders each write a temporary file
+and rename it into place.  A failed build raises with the compiler's
+output.
 """
 
 from __future__ import annotations
@@ -17,21 +25,20 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
+HOST_CSRC = os.path.join(CSRC, "host")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CC_FLAGS = ["-O2", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: types.SimpleNamespace | None = None
+_host_lib: ctypes.CDLL | None = None
 build_log: str = ""                    # nvcc's output (ptxas -v usage)
-
-
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
-                  + glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -48,8 +55,8 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _digest(srcs: list[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(srcs: list[str], flags: list[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
@@ -57,27 +64,65 @@ def _digest(srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' shared library, built on first call."""
-    global _lib, build_log
+def _start(cmd: list[str], so: str):
+    """Start `cmd`, which writes to a temporary path appended to it."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([*cmd, "-o", tmp], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, so
+
+
+def _finish(job, what: str) -> str:
+    """Wait for a started build and move its output into place; returns
+    the compiler's output."""
+    proc, tmp, so = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} failed (exit {proc.returncode}):\n{log}")
+    os.replace(tmp, so)
+    return log
+
+
+def load_library() -> types.SimpleNamespace:
+    """The kernels' libraries, one attribute per csrc/*.cu source
+    (`.ht_decode`, `.ht_encode`), built on first call."""
+    global _libs, build_log
     with _lock:
-        if _lib is not None:
-            return _lib
-        srcs = _sources()
-        cu = [s for s in srcs if s.endswith(".cu")]
-        so = os.path.join(BUILD_DIR, f"libgrok_kernels_{_digest(srcs)}.so")
+        if _libs is not None:
+            return _libs
+        headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+        targets, jobs = {}, []
+        for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+            name = os.path.splitext(os.path.basename(src))[0]
+            digest = _digest([src, *headers], NVCC_FLAGS)
+            so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+            targets[name] = so
+            if not os.path.exists(so):
+                jobs.append((name, _start([_nvcc(), *NVCC_FLAGS, src], so)))
+        logs = [f"[{name}]\n{_finish(job, f'nvcc {name}.cu')}"
+                for name, job in jobs]
+        build_log = "\n".join(logs)
+        libs = types.SimpleNamespace(
+            **{name: ctypes.CDLL(so) for name, so in targets.items()})
+        from grok_tpu_torch.ops import ht_decode, ht_encode
+        ht_decode.bind(libs.ht_decode)
+        ht_encode.bind(libs.ht_encode)
+        _libs = libs
+        return libs
+
+
+def load_host_library() -> ctypes.CDLL:
+    """The host runtime's shared library, built on first call."""
+    global _host_lib
+    with _lock:
+        if _host_lib is not None:
+            return _host_lib
+        srcs = sorted(glob.glob(os.path.join(HOST_CSRC, "*.c")))
+        so = os.path.join(BUILD_DIR,
+                          f"libgrok_host_{_digest(srcs, CC_FLAGS)}.so")
         if not os.path.exists(so):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{so}.{os.getpid()}.tmp"
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                                  capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}):\n{build_log}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
-        from grok_tpu_torch.ops import ht_decode
-        ht_decode.bind(lib)
-        _lib = lib
-        return lib
+            cc = os.environ.get("CC") or shutil.which("cc") or "gcc"
+            _finish(_start([cc, *CC_FLAGS, *srcs], so), "host C build")
+        _host_lib = ctypes.CDLL(so)
+        return _host_lib

@@ -1,24 +1,35 @@
-"""Public device-decode surface of the PyTorch port.
+"""Public device surface of the PyTorch port: serving decode and encode.
 
-Mirrors grok_tpu/api.py `decompress_device_batch` and
-`decompress_device` for served streams: the device is always explicit
-(`device=`), the decoded int32 component planes stay resident on it, and
-streams outside the served scope raise NotImplementedError instead of
-falling back to a host decode.
+Mirrors grok_tpu/api.py `decompress_device[_batch]` and
+`compress_device[_batch]` for the served shapes.  The entry points run
+on the CUDA card unless the caller asks for another device (`device=`,
+"cuda" by default; a missing card raises, there is no CPU fallback).
+Decoded int32 component planes stay resident on the device; encodes take
+device tensors (kept where they are) or numpy arrays (uploaded) and
+return codestream bytes.  Streams or parameters outside the served scope
+raise NotImplementedError instead of falling back to a host codec.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import replace
 
+import numpy as np
 import torch
 
-from grok_tpu.api import _locate_codestream
-from grok_tpu.codestream import j2k
-from grok_tpu.codestream.j2k import TileHeader
-from grok_tpu.core.params import DecompressParams
+from grok_tpu_torch.codestream import j2k, jp2
+from grok_tpu_torch.codestream.j2k import (CodingStyle, CodingStyleComp,
+                                           CompInfo, MainHeader, QuantStyle,
+                                           TileHeader)
+from grok_tpu_torch.core.geometry import SizGrid
+from grok_tpu_torch.core.image import ColorSpace
+from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
+                                        DecompressParams, MCTMode)
+from grok_tpu_torch.core.quant import make_quantizer
 from grok_tpu_torch.pipeline.serve import (StagedBatch, stage_serving_batch,
                                            try_decode_serving_batch)
+from grok_tpu_torch.pipeline.serve_enc import try_encode_serving_batch
 
 
 def _params(dparams: DecompressParams | None) -> DecompressParams:
@@ -47,19 +58,19 @@ def _tile_body(cs, hdr, parts):
 
 def stage_device_batch(streams: list[bytes],
                        dparams: DecompressParams | None = None, *,
-                       device) -> StagedBatch:
+                       device="cuda") -> StagedBatch:
     """Parse N same-geometry codestreams on the host and upload their
     staged batch to `device`; .run() on the result decodes it."""
     dev = _device(device)
     dp = _params(dparams)
     if not streams:
         raise ValueError("no streams to stage")
-    first_cs, _ = _locate_codestream(streams[0], permissive=not dp.strict)
+    first_cs = jp2.locate_codestream(streams[0], permissive=not dp.strict)
     hdr = j2k.read_main_header(first_cs)
     mh = bytes(first_cs[:hdr.main_header_end])
     bodies, ths = [], []
     for s in streams:
-        cs, _ = _locate_codestream(s, permissive=not dp.strict)
+        cs = jp2.locate_codestream(s, permissive=not dp.strict)
         if bytes(cs[:hdr.main_header_end]) != mh:
             raise NotImplementedError("batch decode of streams with "
                                       "different main headers is not "
@@ -79,7 +90,7 @@ def stage_device_batch(streams: list[bytes],
 
 def decompress_device_batch(streams: list[bytes],
                             dparams: DecompressParams | None = None, *,
-                            device) -> list:
+                            device="cuda") -> list:
     """Decode N same-geometry codestreams in one batched device decode.
 
     All N streams' code-blocks share kernel launches, the N bodies go up
@@ -92,13 +103,13 @@ def decompress_device_batch(streams: list[bytes],
 
 
 def decompress_device(data: bytes, dparams: DecompressParams | None = None,
-                      *, device) -> list:
+                      *, device="cuda") -> list:
     """Decode one codestream to per-component int32 tensors resident on
     `device` (single-tile served streams; tile-part COD/QCD overrides
     are served through the plan key, as in the JAX package)."""
     dev = _device(device)
     dp = _params(dparams)
-    cs, _ = _locate_codestream(data, permissive=not dp.strict)
+    cs = jp2.locate_codestream(data, permissive=not dp.strict)
     hdr = j2k.read_main_header(cs)
     parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
     tiles = {p.tile_index for p in parts}
@@ -108,3 +119,167 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
     th, body = _tile_body(cs, hdr, parts)
     return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
                                     device=dev)[0]
+
+
+# ---------------------------------------------------------------------------
+# Encode
+# ---------------------------------------------------------------------------
+
+def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
+                       params: CompressParams) -> MainHeader:
+    """grok_tpu/api.py `_build_main_header` for an image at the canvas
+    origin whose components share one precision, without subsampling."""
+    params.validate()
+    if prec > 27:
+        # int32 coefficient pipeline: RCT (+1 bit), DWT band gain (+2
+        # bits) and the sign-magnitude shift must fit 31 bits
+        raise ValueError(
+            f"component precision {prec} exceeds the supported "
+            "27-bit bound for the int32 coefficient pipeline")
+    mct_mode = params.mct
+    if mct_mode is None:
+        mct_mode = MCTMode.RCT_OR_ICT if ncomps >= 3 else MCTMode.NONE
+    if mct_mode in (MCTMode.CUSTOM, MCTMode.AUTO_RD):
+        raise NotImplementedError(f"{mct_mode.name} MCT encode is not "
+                                  f"ported")
+    if params.roi_shift > 0:
+        raise NotImplementedError("ROI encode is not ported")
+    siz = SizGrid(xsiz=w, ysiz=h, xtsiz=params.tile_w, ytsiz=params.tile_h,
+                  xtosiz=params.tile_off_x, ytosiz=params.tile_off_y)
+    comps = [CompInfo(prec=prec, sgnd=sgnd, dx=1, dy=1)
+             for _ in range(ncomps)]
+    use_mct = 1 if mct_mode == MCTMode.RCT_OR_ICT and ncomps >= 3 else 0
+    prec_exps = None
+    if params.prec_w_exps:
+        prec_exps = list(zip(params.prec_w_exps, params.prec_h_exps))
+    cblk_style = params.cblk_style
+    if params.ht or params.ht_mixed:
+        cblk_style |= CBLK_HT
+    cs = CodingStyleComp(num_resolutions=params.num_resolutions,
+                         cblk_w_exp=params.cblk_w_exp,
+                         cblk_h_exp=params.cblk_h_exp,
+                         cblk_style=cblk_style,
+                         irreversible=params.irreversible,
+                         prec_exps=prec_exps)
+    cod = CodingStyle(prog_order=params.prog_order,
+                      num_layers=params.num_layers, mct=use_mct,
+                      sop=params.sop, eph=params.eph, comp=cs)
+    hdr = MainHeader(siz=siz, rsiz=int(params.rsiz), comps=comps, cod=cod)
+    if params.ht or params.ht_mixed:
+        # CAP (A.5.2 / ISO 15444-15): Pcap bit for Part 15 + one Ccap15
+        # entry (0 = HT-only code-blocks; bit 5 = mixed); Rsiz bit 14
+        hdr.cap = (1 << (32 - 15), [0x20 if params.ht_mixed else 0])
+        hdr.rsiz |= 0x4000
+    q = make_quantizer(params.num_resolutions, prec, params.irreversible,
+                       params.num_guard_bits, params.quant_step,
+                       derived=not params.quant_style_expounded
+                       and params.irreversible)
+    hdr.qcd = QuantStyle(style=q.style, guard_bits=q.guard_bits,
+                         steps=q.steps if q.style != 1 else q.steps[:1])
+    hdr.pocs = list(params.pocs)
+    return hdr
+
+
+def _main_header_bytes(hdr: MainHeader, params: CompressParams,
+                       tlm_entries: list[tuple[int, int]] | None) -> bytes:
+    out = bytearray(struct.pack(">H", j2k.SOC))
+    out += j2k.write_siz(hdr.siz, hdr.rsiz, hdr.comps)
+    if hdr.cap is not None:
+        out += j2k.write_cap(*hdr.cap)
+    out += j2k.write_cod(hdr.cod)
+    out += j2k.write_qcd(hdr.qcd)
+    if tlm_entries is not None:
+        out += j2k.write_tlm(tlm_entries)
+    if params.comment:
+        out += j2k.write_com(params.comment)
+    return bytes(out)
+
+
+def _frame_components(arrays) -> list:
+    """One frame as a list of (h, w) component arrays or tensors."""
+    if isinstance(arrays, (list, tuple)):
+        return list(arrays)
+    if arrays.ndim == 3:
+        return [arrays[:, :, c] for c in range(arrays.shape[2])]
+    return [arrays]
+
+
+def _on_device(a, dev: torch.device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.int32)
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+
+
+def compress_device_batch(arrays_list, params: CompressParams | None = None,
+                          prec: int = 8, sgnd: bool = False, *,
+                          device="cuda") -> list[bytes]:
+    """Encode N same-geometry frames to N codestreams in one batched
+    device encode — the encode mirror of decompress_device_batch.
+
+    arrays_list: one entry per frame, each a list of (h, w) component
+    arrays, or a single (h, w) / (h, w, c) array.  Torch tensors stay on
+    their device, which must be `device` (else ValueError); numpy arrays
+    are uploaded to `device`.  All frames' code-blocks share one K4
+    launch."""
+    params = params or CompressParams(ht=True)
+    if not arrays_list:
+        return []
+    frames = [_frame_components(f) for f in arrays_list]
+    want = torch.device(device)
+    for a in (a for f in frames for a in f if isinstance(a, torch.Tensor)):
+        # checked before the card is, so a mismatch raises with or
+        # without a card
+        if a.device.type != want.type or (
+                want.index is not None and a.device.index != want.index):
+            raise ValueError(f"a component tensor is on {a.device}, but "
+                             f"the encode was asked to run on {want}")
+    dev = _device(device)
+    frames = [[_on_device(a, dev) for a in f] for f in frames]
+    shapes = {tuple(tuple(c.shape) for c in f) for f in frames}
+    devs = {c.device for f in frames for c in f}
+    if len(shapes) != 1 or len(devs) != 1:
+        raise ValueError("compress_device_batch: frames must share their "
+                         "component shapes and device")
+    comp_shapes = shapes.pop()
+    if len(set(comp_shapes)) != 1 or len(comp_shapes[0]) != 2:
+        raise NotImplementedError("encode of subsampled components is not "
+                                  "ported")
+    h, w = comp_shapes[0]
+    hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params)
+    if hdr.siz.num_tiles != 1:
+        raise NotImplementedError("multi-tile encode is not ported")
+    if params.max_tile_parts != 1:
+        raise NotImplementedError("encode into several tile-parts is not "
+                                  "ported")
+    if params.write_plm:
+        raise NotImplementedError("PLM encode is not ported")
+    comps = [torch.stack([f[ci] for f in frames])
+             for ci in range(len(comp_shapes))]
+    results = try_encode_serving_batch(comps, hdr, params)
+    out = []
+    for res in results:
+        plt_seg = j2k.write_plt(res.packet_lens) if params.write_plt \
+            else b""
+        psot = 12 + len(plt_seg) + 2 + len(res.body)
+        tp = j2k.write_sot(0, psot, 0, 1) + plt_seg + \
+            struct.pack(">H", j2k.SOD) + res.body
+        mh = _main_header_bytes(
+            hdr, params, [(0, len(tp))] if params.write_tlm else None)
+        stream = mh + tp + struct.pack(">H", j2k.EOC)
+        if params.jp2:
+            stream = jp2.wrap_jp2(
+                stream, width=w, height=h, numcomps=len(comp_shapes),
+                prec=prec, sgnd=sgnd,
+                color_space=ColorSpace.GRAY if len(comp_shapes) == 1
+                else ColorSpace.SRGB)
+        out.append(stream)
+    return out
+
+
+def compress_device(arrays, params: CompressParams | None = None,
+                    prec: int = 8, sgnd: bool = False, *,
+                    device="cuda") -> bytes:
+    """Encode one frame (a list of (h, w) component arrays, or one
+    (h, w) / (h, w, c) array) to a codestream on the device."""
+    return compress_device_batch([arrays], params, prec, sgnd,
+                                 device=device)[0]

@@ -1,0 +1,134 @@
+"""Compression / decompression parameter surfaces of the port.
+
+The port's copy of grok_tpu/core/params.py, with the fields the port's
+entry points read.  Fields for routes the port has not ported yet (ROI,
+POC, PPM, several layers, rate and quality targets, HT refinement and
+mixed sets) stay, so that such a request is refused by name rather than
+ignored; the JAX package's execution switches (`backend`, `mesh`,
+`keep_device`) and host post-processing options have no counterpart.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from enum import IntEnum
+
+
+class ProgOrder(IntEnum):
+    LRCP = 0
+    RLCP = 1
+    RPCL = 2
+    PCRL = 3
+    CPRL = 4
+
+
+class MCTMode(IntEnum):
+    NONE = 0
+    RCT_OR_ICT = 1   # RCT when reversible, ICT when irreversible (Part 1)
+    CUSTOM = 2       # custom matrix (Part 2 style)
+    AUTO_RD = 3      # encode both ways and keep the R-D winner
+
+
+# Code-block style bits (SPcod/SPcoc; ISO 15444-1 Table A.19)
+CBLK_HT = 0x40           # HTJ2K (Part 15) block coder (SPcod/SPcoc bit 6)
+
+
+class RsizProfile(IntEnum):
+    NONE = 0x0000
+    CINEMA_2K = 0x0003
+    CINEMA_4K = 0x0004
+    BROADCAST = 0x0100
+    IMF = 0x0400
+    PART15_HT = 0x4000    # HTJ2K capability (CAP marker present)
+
+
+@dataclass
+class Poc:
+    """One progression-order change (POC marker entry)."""
+
+    rs: int; cs: int; layer_end: int; re: int; ce: int; order: ProgOrder
+
+
+@dataclass
+class CompressParams:
+    # tiling
+    tile_w: int = 0             # 0 -> single tile over the whole image
+    tile_h: int = 0
+    tile_off_x: int = 0
+    tile_off_y: int = 0
+    # transform / coding
+    num_resolutions: int = 6
+    cblk_w_exp: int = 6         # 64
+    cblk_h_exp: int = 6
+    cblk_style: int = 0
+    irreversible: bool = False  # False -> 5/3 + RCT, True -> 9/7 + ICT
+    mct: MCTMode | None = None  # None -> auto (on iff >= 3 comps)
+    prog_order: ProgOrder = ProgOrder.LRCP
+    prec_w_exps: list[int] = field(default_factory=list)   # per-resolution PPx
+    prec_h_exps: list[int] = field(default_factory=list)
+    pocs: list[Poc] = field(default_factory=list)
+    # rate control
+    num_layers: int = 1
+    rates: list[float] = field(default_factory=list)       # compression ratios per layer
+    quality: list[float] = field(default_factory=list)     # PSNR targets per layer
+    fixed_quality: bool = False
+    # quantization
+    num_guard_bits: int = 2
+    quant_step: float = 0.0     # 0 -> default derived steps
+    quant_style_expounded: bool = True
+    # ROI (Maxshift, RGN marker)
+    roi_comp: int = -1
+    roi_shift: int = 0
+    roi_rect: tuple[int, int, int, int] | None = None
+    # markers / framing
+    sop: bool = False
+    eph: bool = False
+    write_tlm: bool = False
+    write_plt: bool = False
+    write_plm: bool = False
+    write_ppm: bool = False
+    comment: str | None = None
+    rsiz: RsizProfile = RsizProfile.NONE
+    max_tile_parts: int = 1
+    # HTJ2K
+    ht: bool = False
+    ht_planes: int = 0          # HT refinement passes below the cleanup
+    ht_mixed: bool = False      # HT and Part-1 code-blocks mixed per block
+    # container
+    jp2: bool = False           # wrap codestream in JP2 boxes
+
+    def validate(self):
+        if not (1 <= self.num_resolutions <= 33):
+            raise ValueError("num_resolutions must be in [1, 33]")
+        if not (2 <= self.cblk_w_exp <= 10) or not (2 <= self.cblk_h_exp <= 10):
+            raise ValueError("code-block exponents must be in [2, 10]")
+        if self.cblk_w_exp + self.cblk_h_exp > 12:
+            raise ValueError("code-block area must be <= 4096")
+        if self.num_layers < 1:
+            raise ValueError("need at least one layer")
+        if self.rates and len(self.rates) != self.num_layers:
+            raise ValueError("len(rates) must equal num_layers")
+        if self.quality and len(self.quality) != self.num_layers:
+            raise ValueError("len(quality) must equal num_layers")
+        if self.prec_w_exps and len(self.prec_w_exps) < self.num_resolutions:
+            raise ValueError("need a precinct exponent per resolution")
+        if not (0 <= self.num_guard_bits <= 7):
+            raise ValueError("guard bits must be in [0, 7]")
+        if (self.ht or self.ht_mixed) and self.cblk_style & ~CBLK_HT:
+            raise ValueError(
+                "HTJ2K is a distinct block coder: Part-1 mode switches "
+                "(BYPASS/RESET/TERMALL/VSC/PTERM/SEGSYM) do not apply")
+        if self.ht_mixed and self.ht_planes:
+            raise ValueError(
+                "ht_mixed compares single-segment streams; the "
+                "ht_planes refinement extension is HT-only")
+
+
+@dataclass
+class DecompressParams:
+    reduce: int = 0                 # resolution reduction (discard levels)
+    max_layers: int = 0             # 0 -> all layers
+    window: tuple[int, int, int, int] | None = None   # canvas-coord region
+    strict: bool | None = None      # None: the serving surfaces' default,
+                                    # permissive (the C scan validates
+                                    # framing, not per-pass payloads)

@@ -1,0 +1,317 @@
+// HTJ2K (ISO 15444-15) cleanup-pass encode of a batch of code-blocks.
+//
+// Replaces the Pallas TPU kernel grok_tpu/ops/pallas_ht_enc.py
+// `_ht_encode_jit` (refine=False, reached through `pallas_ht_encode`),
+// with the same contract: per lane, mneg = (magnitude << 1) | sign as an
+// (NL, H, W) int32 block, the cleanup plane p, the block size and a
+// valid flag in; the clean LSB-first MagSgn, MEL and VLC sub-streams and
+// their bit counts out, byte-identical to the streams
+// grok_tpu/t1ht/scalar.py `ht_encode_block` hands to assemble_cleanup.
+// The host stuffs and interleaves them into wire segments.  The plain
+// PyTorch version is grok_tpu_torch/ops/ht_encode.py
+// `ht_encode_lanes_ref`; the two are held byte-identical on the card.
+//
+// Design.  One thread encodes one code-block, quad pair by quad pair, in
+// the order of the scalar coder.  Its state lives in registers and local
+// memory: the MEL run-length state (k, run), two rows of
+// (ebot << 4) | rho words of GW + 2 entries (the quad row above for the
+// context and kappa, the current one for the left neighbour), and one
+// 64-bit accumulator per stream that is flushed to global memory as
+// whole 32-bit words, so each output word is stored once.  Stores stop
+// at a stream's capacity: an overflowing stream reports -1 bits.  The
+// CxtVLC encode table (nfam * 8 << symb int32) is copied into shared
+// memory at block start.  None of the TPU kernel's staging (64-byte
+// windows, granule scratch, bit-sliced LUT planes) is carried over.
+//
+// Bound.  Serial encode latency per block and occupancy, as for the
+// decode (csrc/ht_decode.cu): the work is a bit-stream state machine,
+// one serial chain per block, and a batch has a few thousand lanes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define HT_N_CTX 8
+#define HT_MAX_GW 32          // blocks are at most 64 wide
+
+__constant__ int c_mel_e[13] = {0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5};
+
+struct Sink {
+    uint32_t* w;              // the lane's region, 4-byte aligned
+    int cap;                  // capacity in words
+    int pos;                  // words stored
+    uint64_t acc;
+    int nacc;
+    int nbits;
+    bool ovf;
+};
+
+// n <= 32 low bits of v, transmitted LSB first.
+__device__ __forceinline__ void sink_put(Sink& s, uint32_t v, int n)
+{
+    if (n <= 0)
+        return;
+    uint64_t m = n >= 32 ? 0xFFFFFFFFull : ((1ull << n) - 1ull);
+    s.acc |= ((uint64_t)v & m) << s.nacc;
+    s.nacc += n;
+    s.nbits += n;
+    if (s.nacc >= 32) {
+        if (s.pos < s.cap)
+            s.w[s.pos] = (uint32_t)s.acc;
+        else
+            s.ovf = true;
+        s.pos++;
+        s.acc >>= 32;
+        s.nacc -= 32;
+    }
+}
+
+__device__ __forceinline__ int sink_finish(Sink& s)
+{
+    if (s.nacc > 0) {
+        if (s.pos < s.cap)
+            s.w[s.pos] = (uint32_t)s.acc;
+        else
+            s.ovf = true;
+        s.pos++;
+    }
+    return s.ovf ? -1 : s.nbits;
+}
+
+struct Mel {
+    int k, run;
+};
+
+// One MEL event: a completed run of 2^e zero events emits a 1-bit; a
+// one event emits a 0-bit and the partial run length, e bits MSB first.
+__device__ __forceinline__ void mel_encode(Mel& m, Sink& s, int event)
+{
+    int e = c_mel_e[m.k];
+    if (!event) {
+        m.run += 1;
+        if (m.run == (1 << e)) {
+            sink_put(s, 1u, 1);
+            m.run = 0;
+            m.k = min(m.k + 1, 12);
+        }
+        return;
+    }
+    uint32_t r = 0;
+    for (int t = 0; t < e; t++)
+        r |= (uint32_t)((m.run >> (e - 1 - t)) & 1) << t;
+    sink_put(s, r << 1, 1 + e);
+    m.run = 0;
+    m.k = max(m.k - 1, 0);
+}
+
+// UVLC prefix/suffix of u >= 1 (prefix polarity applied); the suffix
+// carries the 5-bit escape extension for u >= 36.
+__device__ __forceinline__ void uvlc_parts(int u, int pxor, int& pl, int& pb,
+                                           int& sl, int& sb)
+{
+    if (u == 1) {
+        pl = 1; pb = 0; sl = 0; sb = 0;
+    } else if (u == 2) {
+        pl = 2; pb = 1; sl = 0; sb = 0;
+    } else if (u <= 4) {
+        pl = 3; pb = 3; sl = 1; sb = u - 3;
+    } else if (u <= 35) {
+        pl = 3; pb = 7; sl = 5; sb = u - 5;
+    } else {
+        pl = 3; pb = 7; sl = 10; sb = 31 | ((u - 36) << 5);
+    }
+    pb ^= pxor & ((1 << pl) - 1);
+}
+
+// UVLC of one quad pair.  Both u_off: prefixes then suffixes; in the
+// initial quad row a MEL event codes whether both u > 2 (then u - 2 is
+// coded); when it is clear, a 3-bit first prefix implies u1 <= 2, coded
+// in one raw bit.
+__device__ __forceinline__ void emit_u_pair(Sink& vlc, Mel& mel, Sink& smel,
+                                            bool initial, int u0, bool off0,
+                                            int u1, bool off1, int pxor)
+{
+    int l0 = 0, p0 = 0, s0 = 0, sb0 = 0, l1 = 0, p1 = 0, s1 = 0, sb1 = 0;
+    if (off0 && off1) {
+        if (initial) {
+            bool big = u0 > 2 && u1 > 2;
+            mel_encode(mel, smel, big ? 1 : 0);
+            if (big) {
+                uvlc_parts(u0 - 2, pxor, l0, p0, s0, sb0);
+                uvlc_parts(u1 - 2, pxor, l1, p1, s1, sb1);
+            } else {
+                uvlc_parts(u0, pxor, l0, p0, s0, sb0);
+                if (l0 == 3) {
+                    l1 = 1; p1 = u1 - 1; s1 = 0; sb1 = 0;
+                } else {
+                    uvlc_parts(u1, pxor, l1, p1, s1, sb1);
+                }
+            }
+        } else {
+            uvlc_parts(u0, pxor, l0, p0, s0, sb0);
+            uvlc_parts(u1, pxor, l1, p1, s1, sb1);
+        }
+        sink_put(vlc, (uint32_t)p0, l0);
+        sink_put(vlc, (uint32_t)p1, l1);
+        sink_put(vlc, (uint32_t)sb0, s0);
+        sink_put(vlc, (uint32_t)sb1, s1);
+    } else if (off0 || off1) {
+        uvlc_parts(off0 ? u0 : u1, pxor, l0, p0, s0, sb0);
+        sink_put(vlc, (uint32_t)p0, l0);
+        sink_put(vlc, (uint32_t)sb0, s0);
+    }
+}
+
+// Significance, CxtVLC codeword and MagSgn fields of one quad; the MEL
+// significance event for context-0 quads.  Writes the quad's state word
+// into cur[qx + 1] and returns u (u_off = u > 0).
+__device__ __forceinline__ int code_quad(const int* blk, int W, int bw,
+                                         int bh, int p, int g, int qx,
+                                         const int* prev, int* cur,
+                                         Mel& mel, Sink& smel, Sink& svlc,
+                                         Sink& sms, const int* lut,
+                                         int symb, int famoff)
+{
+    int rho = 0, ebot = 0, uact = 0;
+    uint32_t v[4];
+    int e[4];
+#pragma unroll
+    for (int i = 0; i < 4; i++) {
+        // quad scan order n0=(0,0) n1=(1,0) n2=(0,1) n3=(1,1), (dy, dx)
+        int y = 2 * g + (i & 1), x = 2 * qx + (i >> 1);
+        v[i] = 0;
+        e[i] = 0;
+        if (y < bh && x < bw) {
+            int mn = blk[y * W + x];
+            uint32_t vq = ((uint32_t)mn >> 1) >> p;
+            if (vq > 0) {
+                rho |= 1 << i;
+                v[i] = ((vq - 1u) << 1) | ((uint32_t)mn & 1u);
+                e[i] = 32 - __clz(v[i]);
+                uact = max(uact, e[i]);
+                if (i & 1)
+                    ebot = max(ebot, e[i]);
+            }
+        }
+    }
+    cur[qx + 1] = rho | (ebot << 4);
+    int rl = cur[qx] & 0xF;
+    int ra = prev[qx + 1] & 0xF;
+    int rar = prev[qx + 2] & 0xF;
+    int c = ((rl & 0xC) != 0) | (((ra & 0xA) != 0) << 1)
+        | (((rar & 0x2) != 0) << 2);
+    int base = (famoff + c) << symb;
+    if (c == 0) {
+        mel_encode(mel, smel, rho != 0);
+        if (rho == 0)
+            return 0;
+    }
+    if (rho == 0) {
+        int ent = lut[base];
+        sink_put(svlc, (uint32_t)(ent & 0x7F), ent >> 7);
+        return 0;
+    }
+    int eab = prev[qx + 1] >> 4;
+    int kappa = (rho & (rho - 1)) ? max(1, eab - 1) : 1;
+    int U = max(kappa, uact);
+    int u = U - kappa;
+    int sym = ((u > 0) << 4) | rho;
+    int ek = 0;
+#pragma unroll
+    for (int i = 0; i < 4; i++)
+        if (((rho >> i) & 1) && e[i] == U)
+            ek |= 1 << i;
+    int ent = 0;
+    if (ek && symb == 9)
+        ent = lut[base | (ek << 5) | sym];
+    if (ent == 0) {                  // no EMB entry: the eps_k = 0 symbol
+        ek = 0;
+        ent = lut[base | sym];
+    }
+    sink_put(svlc, (uint32_t)(ent & 0x7F), ent >> 7);
+#pragma unroll
+    for (int i = 0; i < 4; i++)
+        if ((rho >> i) & 1)
+            sink_put(sms, v[i], U - ((ek >> i) & 1));
+    return u;
+}
+
+__global__ void __launch_bounds__(128)
+ht_encode_kernel(const int* __restrict__ mneg, const int* __restrict__ pv,
+                 const int* __restrict__ wv, const int* __restrict__ hv,
+                 const int* __restrict__ valid,
+                 const int* __restrict__ lut_g, int lut_n, int symb,
+                 int nfam, int pxor, uint8_t* __restrict__ out, int row,
+                 int lms, int lmel, int lvlc, int* __restrict__ bits,
+                 int nl, int W, int H)
+{
+    extern __shared__ int lut[];
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
+        lut[i] = lut_g[i];
+    __syncthreads();
+
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= nl)
+        return;
+    int w = min(wv[lane], W), h = min(hv[lane], H);
+    if (valid[lane] != 1 || w <= 0 || h <= 0) {
+        bits[lane] = bits[nl + lane] = bits[2 * nl + lane] = 0;
+        return;
+    }
+    const int* blk = mneg + (size_t)lane * W * H;
+    uint8_t* o = out + (size_t)lane * row;
+    Sink sms = { (uint32_t*)o, lms / 4, 0, 0ull, 0, 0, false };
+    Sink smel = { (uint32_t*)(o + lms), lmel / 4, 0, 0ull, 0, 0, false };
+    Sink svlc = { (uint32_t*)(o + lms + lmel), lvlc / 4, 0, 0ull, 0, 0,
+                  false };
+    Mel mel = { 0, 0 };
+    int p = pv[lane];
+
+    int gw = (w + 1) >> 1, gh = (h + 1) >> 1;
+    int rows[2][HT_MAX_GW + 2];
+    for (int j = 0; j < HT_MAX_GW + 2; j++)
+        rows[0][j] = 0;
+    for (int g = 0; g < gh; g++) {
+        const int* prev = rows[g & 1];
+        int* cur = rows[(g + 1) & 1];
+        for (int j = 0; j < gw + 2; j++)
+            cur[j] = 0;
+        bool initial = g == 0;
+        int famoff = (nfam == 2 && initial) ? HT_N_CTX : 0;
+        for (int qx0 = 0; qx0 < gw; qx0 += 2) {
+            int u0 = code_quad(blk, W, w, h, p, g, qx0, prev, cur, mel,
+                               smel, svlc, sms, lut, symb, famoff);
+            int u1 = 0;
+            if (qx0 + 1 < gw)
+                u1 = code_quad(blk, W, w, h, p, g, qx0 + 1, prev, cur, mel,
+                               smel, svlc, sms, lut, symb, famoff);
+            if (u0 > 0 || u1 > 0)
+                emit_u_pair(svlc, mel, smel, initial, u0, u0 > 0, u1,
+                            u1 > 0, pxor);
+        }
+    }
+    if (mel.run > 0)                 // a pending run as a claimed full run
+        sink_put(smel, 1u, 1);
+    bits[lane] = sink_finish(sms);
+    bits[nl + lane] = sink_finish(smel);
+    bits[2 * nl + lane] = sink_finish(svlc);
+}
+
+extern "C" int grk_ht_encode_cleanup(const void* mneg, const void* p,
+                                     const void* w, const void* h,
+                                     const void* valid, const void* lut,
+                                     int lut_n, int symb, int nfam, int pxor,
+                                     void* out, int row, int lms, int lmel,
+                                     int lvlc, void* bits, int nl, int W,
+                                     int H, void* stream)
+{
+    if (nl <= 0)
+        return 0;
+    const int threads = 128;
+    int blocks = (nl + threads - 1) / threads;
+    size_t smem = (size_t)lut_n * sizeof(int);
+    ht_encode_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        (const int*)mneg, (const int*)p, (const int*)w, (const int*)h,
+        (const int*)valid, (const int*)lut, lut_n, symb, nfam, pxor,
+        (uint8_t*)out, row, lms, lmel, lvlc, (int*)bits, nl, W, H);
+    return (int)cudaGetLastError();
+}

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from grok_tpu.core.geometry import Rect
+from grok_tpu_torch.core.geometry import Rect
 
 ALPHA = -1.586134342059924
 BETA = -0.052980118572961

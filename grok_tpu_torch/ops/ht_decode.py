@@ -15,7 +15,7 @@ single-segment cleanup-only blocks.
     lanes, a Python loop over quad pairs in the order of the Pallas
     kernel's pair body (grok_tpu/ops/pallas_ht.py `_ht_decode_jit`).
   - `vlc_dec_lut` is the CxtVLC decode table both read, rebuilt from the
-    current grok_tpu.t1ht.tables state per tables.VERSION, so
+    port's t1ht.tables state per tables.VERSION, so the port's
     install_tables() reaches the kernel.
 
 Reads past a lane's buffer return 0, as the scalar readers specify.
@@ -29,6 +29,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from grok_tpu_torch.t1ht import tables as _t
 
 # Longest per-lane clean sub-stream the serving path stages (bytes):
 # dense 64x64 lossless streams are ~8 KB.
@@ -52,7 +54,6 @@ def vlc_dec_lut():
     fam 1 = the initial quad row when tables.two_families().  Invalid
     windows decode as the benign (sym 0, len 1), as in the Pallas
     kernel.  Memoised per tables.VERSION."""
-    from grok_tpu.t1ht import tables as _t
     got = _LUT_CACHE.get(_t.VERSION)
     if got is not None:
         return got
@@ -80,7 +81,6 @@ _DEV_LUT: dict = {}
 
 
 def _lut_on(device: torch.device) -> torch.Tensor:
-    from grok_tpu.t1ht import tables as _t
     key = (_t.VERSION, str(device))
     got = _DEV_LUT.get(key)
     if got is None:
@@ -112,7 +112,7 @@ def ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W: int,
     ms/mel/vlc: (NL, L+1) uint8 clean streams (each its own L); p, w, h,
     valid: (NL,) int32.  Arithmetic runs in int64 and wraps to int32 at
     the end, which gives the Pallas kernel's int32 results."""
-    from grok_tpu.t1ht.tables import N_CTX
+    N_CTX = _t.N_CTX
     dev = ms.device
     i64 = torch.int64
     NL = ms.shape[0]
@@ -356,7 +356,7 @@ def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int,
     if dev.type != "cuda":
         raise ValueError(f"no HT decode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
-    lib = load_library()
+    lib = load_library().ht_decode
     _, symb, nfam, pxor = vlc_dec_lut()
     lut = _lut_on(dev)
     out = torch.zeros((NL, H, W), dtype=torch.int32, device=dev)

@@ -28,7 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from grok_tpu.core.geometry import BAND_LL, Rect
+from grok_tpu_torch.core.geometry import BAND_LL, Rect
 from grok_tpu_torch.ops import dwt, mct
 from grok_tpu_torch.ops.ht_decode import ht_decode_lanes
 

@@ -1,0 +1,188 @@
+"""Cached serving-decode plans: everything derivable from a main header.
+
+The port's copy of the plan half of grok_tpu/pipeline/serve.py
+(`ServePlan`, `_build_plan`, `_plan_for`, `_th_ovr_key`), with the fields
+the port's serving decode reads: the geometry, the C Tier-2 parser's
+descriptor arrays, and per-block metadata in the parser's global block
+order.  Plans are cached per (main header, tile, reduce, mixed, tile
+overrides).  A plan holds no table state; the decode programs kept on it
+(pipeline/serve.py) are keyed on t1ht.tables.VERSION.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from grok_tpu_torch import native
+from grok_tpu_torch.core.geometry import BAND_LL
+from grok_tpu_torch.core.params import CBLK_HT
+from grok_tpu_torch.pipeline.tile import TileGeometry
+from grok_tpu_torch.t2.progression import iter_packets
+
+_PLANS: dict = {}
+_PLANS_MAX = 16
+
+
+@dataclass
+class ServePlan:
+    geo: object
+    prep: tuple                       # C t2_parse descriptor arrays
+    sop: bool
+    eph: bool
+    n_blks: int
+    # per-global-block-index metadata (aligned with the C parser)
+    mb: np.ndarray                    # Mb (numbps = mb - zb)
+    bucket: np.ndarray                # bucket id per block
+    bucket_dims: list                 # bucket id -> (Wpad, Hpad)
+    sig_tail: list                    # per block: (ci, r, orient, yoff,
+    #                                   xoff, bh, bw, delta, irrev)
+    coder: str                        # "ht", "mq" or "mixed"
+    rok: np.ndarray                   # block contributes at this reduce
+    comps_sig: tuple
+    mct_mode: int
+    ht_p_ext: int = 0                 # ht_planes COM extension (derive_p)
+    fast: dict = field(default_factory=dict)   # device programs, staging
+
+
+def _pow2_at_least(v: int, lo: int = 4, hi: int = 64) -> int:
+    p = lo
+    while p < v and p < hi:
+        p *= 2
+    return p
+
+
+def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
+    geo = TileGeometry.build(hdr, t, th)
+    if geo.rgn or geo.custom_mct is not None:
+        return None
+    if th is not None and th.ht_mixed_bitmap() is not None:
+        # HT MIXED sets: per-block HT/MQ routing by the per-stream COM
+        # bitmap; T2 parses with the default single-segment rule
+        if not all(cs.cblk_style == CBLK_HT for cs in geo.styles):
+            return None
+        coder = "mixed"
+    elif all(cs.cblk_style == CBLK_HT for cs in geo.styles):
+        coder = "ht"
+    elif all(cs.cblk_style == 0 for cs in geo.styles):
+        coder = "mq"
+    else:
+        return None
+
+    ctxs = geo.make_contexts(~CBLK_HT if coder == "mixed" else -1)
+    ctx_keys = list(ctxs.keys())
+    ctx_idx = {k: i for i, k in enumerate(ctx_keys)}
+    ctxs_flat = []
+    for k in ctx_keys:
+        ctx = ctxs[k]
+        bands = []
+        for (_o, bp) in ctx.bands:
+            bands.append((bp.cblk_grid_w, bp.cblk_grid_h,
+                          [g.idx_in_prec for g in bp.cblks]))
+        ctxs_flat.append((ctx.style, bands))
+    packet_list = list(iter_packets(geo.tcgs, geo.subsampling,
+                                    geo.cod.num_layers, geo.cod.prog_order,
+                                    geo.rect.x0, geo.rect.y0,
+                                    hdr.pocs or None))
+    packets = [(ctx_idx[(pc.comp, pc.res, pc.prec)], pc.layer)
+               for pc in packet_list]
+    prep = native.t2_prepare(ctxs_flat, packets)
+
+    # per-block metadata in the C parser's global block order:
+    # ctx (c, r, p) -> band -> cblk
+    mb_l, bucket_l, tails, rok_l = [], [], [], []
+    bucket_ids: dict = {}
+    bucket_dims: list = []
+    for (c, r, p) in ctx_keys:
+        quant = geo.quants[c]
+        irrev = bool(geo.styles[c].irreversible)
+        rg = geo.tcgs[c].resolutions[r]
+        numres_c = geo.styles[c].num_resolutions
+        r_lim_c = max(numres_c - reduce, 1) if reduce else numres_c
+        for bg in rg.bands:
+            mb = quant.mb(r, bg.orient)
+            delta = float(quant.delta(r, bg.orient))
+            for cb in bg.precincts[p].cblks:
+                mb_l.append(mb)
+                rok_l.append(r < r_lim_c)
+                if cb.rect.w > 64 or cb.rect.h > 64:
+                    return None   # beyond the device kernels' bucket cap
+                key = (_pow2_at_least(cb.rect.w), _pow2_at_least(cb.rect.h))
+                bid = bucket_ids.setdefault(key, len(bucket_ids))
+                if bid == len(bucket_dims):
+                    bucket_dims.append(key)
+                bucket_l.append(bid)
+                tails.append((c, r, bg.orient if r > 0 else BAND_LL,
+                              cb.rect.y0 - bg.rect.y0,
+                              cb.rect.x0 - bg.rect.x0,
+                              cb.rect.h, cb.rect.w, delta, irrev))
+
+    comps_sig = []
+    for c, tcg in enumerate(geo.tcgs):
+        cs = geo.styles[c]
+        numres = cs.num_resolutions
+        r_lim = max(numres - reduce, 1) if reduce else numres
+        bands = []
+        for rg in tcg.resolutions:
+            if rg.r >= r_lim:
+                continue
+            for bg in rg.bands:
+                bands.append((rg.r, bg.orient,
+                              (bg.rect.x0, bg.rect.y0, bg.rect.x1,
+                               bg.rect.y1),
+                              float(geo.quants[c].delta(rg.r, bg.orient))))
+        rect = geo.comp_rects[c]
+        # translation-normalized signature: shift the component rect by
+        # a multiple of 2^levels (every DWT parity preserved) and keep
+        # only band SIZES (positions never enter the program), so
+        # same-shaped tiles of a grid share one program
+        nl = numres - 1
+        txc = (rect.x0 >> nl) << nl
+        tyc = (rect.y0 >> nl) << nl
+        bands = [(r, o, (0, 0, bx1 - bx0, by1 - by0), d)
+                 for (r, o, (bx0, by0, bx1, by1), d) in bands]
+        comps_sig.append((
+            (rect.x0 - txc, rect.y0 - tyc,
+             rect.x1 - txc, rect.y1 - tyc), numres, r_lim,
+            hdr.comps[c].prec, hdr.comps[c].sgnd,
+            bool(cs.irreversible), tuple(bands)))
+    mct_mode = 0
+    if geo.cod.mct and len(comps_sig) >= 3:
+        mct_mode = 2 if geo.styles[0].irreversible else 1
+
+    return ServePlan(
+        geo=geo, prep=prep, sop=geo.cod.sop, eph=geo.cod.eph,
+        n_blks=len(mb_l), mb=np.asarray(mb_l, np.int32),
+        bucket=np.asarray(bucket_l, np.int32), bucket_dims=bucket_dims,
+        sig_tail=tails, coder=coder, rok=np.asarray(rok_l, bool),
+        comps_sig=tuple(comps_sig), mct_mode=mct_mode,
+        ht_p_ext=hdr.ht_planes_ext())
+
+
+def _th_ovr_key(th) -> tuple:
+    """Canonical key for the tile-part COD/QCD overrides a plan was
+    built from (dataclass reprs are deterministic): the overrides change
+    geometry/quant, so they join the plan cache key and must match
+    across a batch."""
+    if th is None:
+        return (None, None)
+    return (repr(th.cod) if th.cod is not None else None,
+            repr(th.qcd) if th.qcd is not None else None)
+
+
+def _plan_for(cs: bytes, hdr, t: int, th,
+              reduce: int = 0) -> ServePlan | None:
+    # the coder choice depends on the TILE-PART COM bitmap (mixed vs
+    # ht), which varies per stream under one main header — fold its
+    # presence into the key; per-tile COD/QCD overrides key the same way
+    mixed = th is not None and th.ht_mixed_bitmap() is not None
+    key = (bytes(cs[:hdr.main_header_end]), t, reduce, mixed,
+           _th_ovr_key(th))
+    plan = _PLANS.get(key)
+    if plan is None and key not in _PLANS:
+        plan = _build_plan(hdr, t, th, reduce)
+        if len(_PLANS) >= _PLANS_MAX:
+            _PLANS.pop(next(iter(_PLANS)))   # evict the oldest entry
+        _PLANS[key] = plan             # None cached too: don't re-derive
+    return plan

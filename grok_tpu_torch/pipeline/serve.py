@@ -1,19 +1,19 @@
 """Cached serving decode of HT streams on a PyTorch device.
 
-The HT branch of grok_tpu/pipeline/serve.py `try_decode_serving_batch`:
-the host work is the JAX package's own, shared rather than copied — the
-cached ServePlan (`_plan_for`, whose cache `t1ht.tables.install_tables`
-clears), the C Tier-2 parser and the C HT wire scan, which un-stuffs each
-block's MagSgn stream into one digest.  The digest and one per-lane meta
-array are uploaded from pinned host memory, and a DecodeProgram
-(pipeline/device.py), cached on the plan, does the rest on the device.
+The HT branch of grok_tpu/pipeline/serve.py `try_decode_serving_batch`,
+over the port's own host layers: the cached ServePlan (pipeline/plan.py),
+the C Tier-2 parser and the C HT wire scan (native/), which un-stuffs
+each block's MagSgn stream into one digest.  The digest and one per-lane
+meta array are uploaded from pinned host memory, and a DecodeProgram
+(pipeline/device.py), cached on the plan per table version, does the
+rest on the device.
 
 Scope: single-tile HT streams, one cleanup segment per block, all
 streams of a batch under one main header.  Anything else — Part-1/MQ,
 HT mixed, windowed, layer-capped, strict, layered or refined HT, PPM/PPT,
-per-component overrides, a mesh — raises NotImplementedError naming the
-route: the port has no general path, and a quiet host decode would hide
-the device.
+per-component overrides — raises NotImplementedError naming the route:
+the port has no general path, and a quiet host decode would hide the
+device.
 """
 
 from __future__ import annotations
@@ -23,10 +23,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from grok_tpu import native
-from grok_tpu.pipeline.serve import _plan_for, _th_ovr_key
-from grok_tpu.t1ht import tables
+from grok_tpu_torch import native
 from grok_tpu_torch.ops.ht_decode import MAX_STREAM, _quant_len
+from grok_tpu_torch.pipeline.plan import _plan_for, _th_ovr_key
+from grok_tpu_torch.t1ht import tables
 from grok_tpu_torch.pipeline.device import META_COLS, Bucket, DecodeProgram
 
 
@@ -51,10 +51,14 @@ class StagedBatch:
 def _program(plan, N: int, device: torch.device) -> DecodeProgram:
     """DecodeProgram for (plan, N, device, table version), cached on the
     plan: under full staging every stream contributes every block the
-    plan keeps, so the bucket layout depends on nothing else."""
+    plan keeps, so the bucket layout depends on nothing else.  Programs
+    of older table versions are dropped when a new one is built."""
     key = ("torch_prog", N, str(device), tables.VERSION)
     prog = plan.fast.get(key)
     if prog is None:
+        for k in [k for k in plan.fast if isinstance(k, tuple)
+                  and k[0] == "torch_prog" and k[3] != tables.VERSION]:
+            del plan.fast[k]
         fidx, bsel = _full_index(plan)
         buckets = tuple(
             Bucket(W, H, tuple(plan.sig_tail[gi] for gi in fidx[sel]))
@@ -106,12 +110,26 @@ def _upload(plan, arrays: list, device: torch.device) -> list:
     return out
 
 
+def stage_dims(sc: np.ndarray) -> tuple:
+    """(Lms, Lsuf, Dm) staging dims of one bucket's lanes from their
+    C-scan rows (native.ht_scan2 columns)."""
+    # shift-candidate bound for the un-stuff: the bit deficit is <= 4
+    # (VLC nibble) + stuffing deletions (the C scan's FF/0x7F counts)
+    dmax = int(np.maximum(sc[:, 5], 4 + sc[:, 6]).max())
+    need_d = -(-dmax // 8) + 1
+    if need_d > 64:
+        raise _unsupported("general path", "pathological stuffing density")
+    Dm = 1
+    while Dm < need_d:
+        Dm *= 2
+    return (_quant_len(int(sc[:, 2].max())), _quant_len(int(sc[:, 4].max())),
+            Dm)
+
+
 def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                         device, ths=None) -> StagedBatch:
     """Host staging of N same-geometry tile bodies and their upload."""
     device = torch.device(device)
-    if dp.mesh is not None:
-        raise _unsupported("sharded decode", "a mesh was given")
     if hdr.ppm is not None:
         raise _unsupported("general path", "PPM packed packet headers")
     if th.coc or th.qcc or th.rgn or th.pocs or th.ppt is not None:
@@ -217,19 +235,8 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         meta[:, 3] = sc[:, 4]
         meta[:, 4] = sc[:, 0]
         meta[:, 5] = v
-        # shift-candidate bound for the un-stuff: the bit deficit is <= 4
-        # (VLC nibble) + stuffing deletions (the C scan's FF/0x7F counts)
-        dmax = int(np.maximum(sc[:, 5], 4 + sc[:, 6]).max())
-        need_d = -(-dmax // 8) + 1
-        if need_d > 64:
-            raise _unsupported("general path", "pathological stuffing "
-                               "density")
-        Dm = 1
-        while Dm < need_d:
-            Dm *= 2
         metas.append(meta)
-        dims.append((_quant_len(int(sc[:, 2].max())),
-                     _quant_len(int(sc[:, 4].max())), Dm))
+        dims.append(stage_dims(sc))
     meta_all = np.concatenate(metas)
     body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
     return StagedBatch(prog, body_d, meta_d, dims)

@@ -1,0 +1,331 @@
+"""Batched HTJ2K serving encode on a PyTorch device.
+
+The HT branch of grok_tpu/pipeline/serve_enc.py `try_encode_serving_
+batch`: N same-geometry frames of one tile go through one device pass —
+
+  1. DC shift, RCT/ICT, forward DWT and quantization to
+     mneg = (magnitude << 1) | sign, on (N, h, w) stacks of all frames
+     (ops/mct.py, ops/dwt.py; 9/7 quantizes in f32 as the JAX device
+     path does);
+  2. every code-block of every frame gathered into one lane of an
+     (NL, H, W) tensor, frame-major (one gather over index tensors built
+     once per plan);
+  3. the HT cleanup encode, kernel K4 (ops/ht_encode.py), one launch;
+  4. one download of the per-lane stats (bit counts, largest magnitude),
+     then the used stream bytes compacted on the device by a prefix sum
+     over the per-lane byte counts and downloaded once;
+
+— and the host finishes: the C wire assembly (native.ht_assemble_batch)
+stuffs and interleaves each block's three streams, and the Tier-2 finish
+(pipeline/tile.py) emits the packets.
+
+Scope: HT cleanup-only code-blocks, one tile, one tile-part, one
+quality layer with no byte or quality target, default precincts, no
+ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything else raises
+NotImplementedError naming the route: the port has no host encoder to
+fall back to.  Reversible streams are byte-identical to the JAX
+package's encoders.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from grok_tpu_torch import native
+from grok_tpu_torch.core.geometry import Rect
+from grok_tpu_torch.core.params import CBLK_HT, MCTMode
+from grok_tpu_torch.ops import dwt, mct
+from grok_tpu_torch.ops.ht_encode import ht_encode_lanes
+from grok_tpu_torch.pipeline.tile import TileGeometry, finish_tile_encode
+from grok_tpu_torch.t1.records import EncodedBlock, PassInfo
+
+_EPLANS: dict = {}
+_EPLANS_MAX = 16
+
+
+def _unsupported(route: str, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{route} is not ported ({why}); the PyTorch port encodes "
+        f"single-tile, single-layer HT cleanup streams only")
+
+
+@dataclass
+class EncPlan:
+    geo: TileGeometry
+    blocks: list              # per block: (ci, r, orient, yoff, xoff, bh, bw)
+    lane_block: list          # per block: T2 key (c, r, p, band_i, cblk_i)
+    lane_mb: np.ndarray       # Mb per block
+    comps_sig: tuple          # per comp: (rect, numres, prec, sgnd, irrev,
+    #                           ((r, orient, delta), ...))
+    mct_mode: int             # 0 none, 1 RCT, 2 ICT
+    W: int                    # lane block dims: the largest block
+    H: int
+    caps: tuple               # per-lane (LMS, LMEL, LVLC) bytes
+    fast: dict = field(default_factory=dict)   # device index tensors
+
+
+def _cap_bytes(n: int) -> int:
+    return max(64, -(-(n + 8) // 32) * 32)
+
+
+def _build_plan(hdr, t: int) -> EncPlan:
+    geo = TileGeometry.build(hdr, t)
+    if geo.rgn:
+        raise _unsupported("ROI encode", "an RGN shift")
+    if geo.custom_mct is not None:
+        raise _unsupported("custom MCT encode", "a Part-2 MCT matrix")
+    if {cs.cblk_style for cs in geo.styles} != {CBLK_HT}:
+        raise _unsupported("Part-1/MQ encode (K5) or HT mode switches",
+                           "a code-block style other than HT cleanup")
+    if any(cs.prec_exps for cs in geo.styles):
+        raise _unsupported("general encode", "non-default precincts")
+    irrevs = {bool(cs.irreversible) for cs in geo.styles}
+    if len(irrevs) != 1:
+        raise _unsupported("general encode", "components mixing 5/3 and "
+                           "9/7")
+    mbmax = 0
+    W = H = 1
+    blocks, lane_block, lane_mb, comps_sig = [], [], [], []
+    for c, tcg in enumerate(geo.tcgs):
+        quant = geo.quants[c]
+        cs = geo.styles[c]
+        bands_sig = []
+        for rg in tcg.resolutions:
+            for band_i, bg in enumerate(rg.bands):
+                bands_sig.append((rg.r, bg.orient,
+                                  float(quant.delta(rg.r, bg.orient))))
+                mb = quant.mb(rg.r, bg.orient)
+                mbmax = max(mbmax, mb)
+                for p in range(rg.num_precincts):
+                    for cblk_i, cb in enumerate(bg.precincts[p].cblks):
+                        blocks.append((c, rg.r, bg.orient,
+                                       cb.rect.y0 - bg.rect.y0,
+                                       cb.rect.x0 - bg.rect.x0,
+                                       cb.rect.h, cb.rect.w))
+                        lane_block.append((c, rg.r, p, band_i, cblk_i))
+                        lane_mb.append(mb)
+                        W = max(W, cb.rect.w)
+                        H = max(H, cb.rect.h)
+        rect = geo.comp_rects[c]
+        comps_sig.append(((rect.x0, rect.y0, rect.x1, rect.y1),
+                          cs.num_resolutions, hdr.comps[c].prec,
+                          hdr.comps[c].sgnd, bool(cs.irreversible),
+                          tuple(bands_sig)))
+    if not blocks:
+        raise _unsupported("general encode", "the tile has no code-blocks")
+    if mbmax > 24:
+        raise _unsupported("general encode", f"Mb = {mbmax} > 24 magnitude "
+                           f"planes")
+    if W > 64 or H > 64:
+        raise _unsupported("general encode", "code-blocks over 64x64")
+    mct_mode = 0
+    if geo.cod.mct and len(comps_sig) >= 3:
+        mct_mode = 2 if geo.styles[0].irreversible else 1
+    # per-lane stream capacities: MagSgn <= Mb + 1 bits per sample; MEL
+    # <= 2 significance events + 1 initial-pair event of <= 6 bits per
+    # quad pair (9 bits/quad); VLC <= 7-bit codeword + 8-bit UVLC per
+    # quad (Mb <= 24 keeps u below the UVLC escape)
+    nq = ((W + 1) // 2) * ((H + 1) // 2)
+    caps = (_cap_bytes(W * H * (mbmax + 2) // 8 + 16),
+            _cap_bytes(nq * 9 // 8 + 16), _cap_bytes(nq * 15 // 8 + 16))
+    return EncPlan(geo=geo, blocks=blocks, lane_block=lane_block,
+                   lane_mb=np.asarray(lane_mb, np.int32),
+                   comps_sig=tuple(comps_sig), mct_mode=mct_mode, W=W, H=H,
+                   caps=caps)
+
+
+def _hdr_key(hdr):
+    """Geometry identity for the plan cache: the SIZ/COD/QCD content."""
+    g = hdr.siz
+    return (g.xsiz, g.ysiz, g.xosiz, g.yosiz, g.xtsiz, g.ytsiz,
+            g.xtosiz, g.ytosiz,
+            tuple((c.prec, c.sgnd, c.dx, c.dy) for c in hdr.comps),
+            repr(hdr.cod), repr(hdr.qcd),
+            tuple(sorted((k, repr(v)) for k, v in hdr.coc.items())),
+            tuple(sorted((k, repr(v)) for k, v in hdr.qcc.items())))
+
+
+def _plan_for(hdr, t: int) -> EncPlan:
+    key = (_hdr_key(hdr), t)
+    plan = _EPLANS.get(key)
+    if plan is None:
+        plan = _build_plan(hdr, t)
+        if len(_EPLANS) >= _EPLANS_MAX:
+            _EPLANS.pop(next(iter(_EPLANS)))   # evict the oldest entry
+        _EPLANS[key] = plan
+    return plan
+
+
+def _stage_bands(comps: list, plan: EncPlan) -> dict:
+    """DC shift + MCT + forward DWT + quantization of (N, h, w) component
+    stacks -> {(ci, r, orient): (N, bh, bw) int32 (mag << 1) | neg}."""
+    outs = []
+    for ci, csig in enumerate(plan.comps_sig):
+        (_rect, _numres, prec, sgnd, _irrev, _bands) = csig
+        outs.append(mct.dc_shift_fwd(comps[ci].to(torch.int32), prec, sgnd))
+    if plan.mct_mode and len(outs) >= 3:
+        if plan.mct_mode == 2:
+            outs[:3] = mct.ict_fwd(*(o.to(torch.float32) for o in outs[:3]))
+        else:
+            outs[:3] = mct.rct_fwd(*outs[:3])
+    band_mneg = {}
+    for ci, csig in enumerate(plan.comps_sig):
+        (rect_t, numres, _prec, _sgnd, irrev, bands) = csig
+        blist = dwt.fwd_multilevel(outs[ci], Rect(*rect_t), numres, irrev)
+        for (r, orient, delta) in bands:
+            arr = blist[0] if r == 0 else blist[r][orient - 1]
+            if irrev:
+                inv = torch.tensor(1.0 / delta, dtype=torch.float32,
+                                   device=arr.device)
+                mag = torch.floor(arr.abs() * inv).to(torch.int32)
+            else:
+                mag = arr.abs().to(torch.int32)
+            band_mneg[(ci, r, orient)] = (mag << 1) | (arr < 0).to(
+                torch.int32)
+    return band_mneg
+
+
+def _lane_index(plan: EncPlan, N: int, device: torch.device):
+    """(band order, flat source index of every lane sample, per-lane w,
+    h): the gather that batches all N frames' code-blocks into lanes
+    (lane = frame * blocks + block), built once per (N, device).  Padded
+    samples index the zero appended after the last band."""
+    key = ("lanes", N, str(device))
+    got = plan.fast.get(key)
+    if got is not None:
+        return got
+    order, start = [], {}
+    pos = 0
+    for ci, tcg in enumerate(plan.geo.tcgs):
+        for rg in tcg.resolutions:
+            for bg in rg.bands:
+                key_b = (ci, rg.r, bg.orient)
+                start[key_b] = (pos, bg.rect.h, bg.rect.w)
+                order.append(key_b)
+                pos += N * bg.rect.h * bg.rect.w
+    W, H = plan.W, plan.H
+    blk = np.array([b[3:7] for b in plan.blocks], np.int64)
+    yoff, xoff, bh, bw = blk.T
+    band = np.array([start[b[:3]] for b in plan.blocks], np.int64)
+    s0, BH, BW = band.T
+    f = np.arange(N)[:, None, None, None]
+    j = np.arange(len(plan.blocks))[None, :, None, None]
+    y = np.arange(H)[None, None, :, None]
+    x = np.arange(W)[None, None, None, :]
+    inside = (y < bh[j]) & (x < bw[j])
+    src = s0[j] + f * BH[j] * BW[j] + (yoff[j] + y) * BW[j] + xoff[j] + x
+    src = np.where(inside, src, pos).reshape(-1)
+    wv = np.tile(bw, N).astype(np.int32)
+    hv = np.tile(bh, N).astype(np.int32)
+    got = (order, torch.from_numpy(src).to(device),
+           torch.from_numpy(wv).to(device), torch.from_numpy(hv).to(device))
+    plan.fast[key] = got
+    return got
+
+
+def stage_encode_lanes(comps: list, hdr, params):
+    """Steps 1-2 for N frames of one tile (comps[ci]: (N, h, w) integer
+    tensors on the device): the cached plan and K4's inputs (mneg, p, w,
+    h, valid), one lane per code-block of every frame.  Raises
+    NotImplementedError outside the served scope."""
+    if params.roi_shift > 0 or params.roi_rect is not None:
+        raise _unsupported("ROI encode", "roi_shift / roi_rect")
+    if params.write_ppm:
+        raise _unsupported("PPM encode", "write_ppm")
+    if params.pocs:
+        raise _unsupported("POC encode", "progression-order changes")
+    if params.mct == MCTMode.AUTO_RD:
+        raise _unsupported("AUTO_RD MCT encode", "mct=AUTO_RD")
+    if params.ht_mixed:
+        raise _unsupported("HT mixed encode (K4 + K5)", "ht_mixed")
+    if params.ht_planes:
+        raise _unsupported("HT refinement encode (K4 refine=True)",
+                           "ht_planes > 0")
+    if params.num_layers != 1 or params.fixed_quality or (
+            params.rates and any(r > 1 for r in params.rates)):
+        raise _unsupported("multi-layer or rate-targeted encode (PCRD)",
+                           "several layers or a byte or quality target")
+    plan = _plan_for(hdr, 0)
+    N = int(comps[0].shape[0])
+    device = comps[0].device
+    order, src, wv, hv = _lane_index(plan, N, device)
+    band_mneg = _stage_bands(comps, plan)
+    flat = torch.cat([band_mneg[k].reshape(-1) for k in order]
+                     + [band_mneg[order[0]].new_zeros(1)])
+    NL = N * len(plan.blocks)
+    mneg = flat[src].reshape(NL, plan.H, plan.W)
+    zeros = torch.zeros(NL, dtype=torch.int32, device=device)
+    return plan, (mneg, zeros, wv, hv, zeros + 1)
+
+
+def try_encode_serving_batch(comps: list, hdr, params) -> list:
+    """Encode N frames of one tile: comps[ci] is an (N, h, w) integer
+    tensor on the device.  Returns N TileEncodeResults; raises
+    NotImplementedError outside the served scope."""
+    plan, lanes = stage_encode_lanes(comps, hdr, params)
+    mneg = lanes[0]
+    NL = mneg.shape[0]
+    N = NL // len(plan.blocks)
+    device = mneg.device
+    mx = (mneg >> 1).reshape(NL, -1).amax(1)
+    LMS, LMEL, LVLC = plan.caps
+    streams, bits = ht_encode_lanes(*lanes, LMS, LMEL, LVLC)
+
+    # one download of the stats
+    stats = torch.cat([bits, mx[None]]).cpu().numpy().astype(np.int64)
+    bits_h, mx_h = stats[:3], stats[3]
+    if (bits_h < 0).any():
+        raise RuntimeError("HT encode: a stream exceeded its capacity "
+                           "(samples beyond the signalled precision?)")
+    numbps = np.frexp(mx_h.astype(np.float64))[1]      # bit length
+    coded = numbps > 0
+    cnt = ((bits_h + 7) >> 3) * coded                  # (3, NL) bytes
+    cnt_l = cnt.T.reshape(-1)                          # lane-major
+    total = int(cnt_l.sum())
+    offs = np.cumsum(cnt_l) - cnt_l
+
+    # compaction on the device: output byte j of stream segment s comes
+    # from its lane's region at (j - offset of s)
+    if total:
+        cnt_d = ((bits.to(torch.int64) + 7) >> 3) * (mx > 0)
+        cnt_dl = cnt_d.t().reshape(-1)
+        end = torch.cumsum(cnt_dl, 0)
+        jj = torch.arange(total, device=device)
+        seg = torch.searchsorted(end, jj, right=True)
+        region = torch.tensor([0, LMS, LMS + LMEL], device=device)
+        srcb = (seg // 3) * (LMS + LMEL + LVLC) + region[seg % 3] \
+            + jj - (end - cnt_dl)[seg]
+        body = streams.reshape(-1)[srcb].cpu().numpy()
+    else:
+        body = np.zeros(1, np.uint8)
+    res = native.ht_assemble_batch(
+        body, offs[0::3], bits_h[0], offs[1::3], bits_h[1], offs[2::3],
+        bits_h[2], np.where(coded, 0, -1))
+    if res is None:
+        raise RuntimeError("HT wire assembly overflowed (cleanup suffix "
+                           "over 4079 bytes)")
+    wire, wlens = res
+    wpos = np.cumsum(wlens) - wlens
+
+    B = len(plan.blocks)
+    jobs = [dict(key=kb, mb=int(mb))
+            for kb, mb in zip(plan.lane_block, plan.lane_mb)]
+    results = []
+    for fi in range(N):
+        encs = []
+        for lane in range(fi * B, (fi + 1) * B):
+            if not coded[lane]:
+                encs.append(EncodedBlock())
+                continue
+            seg_b = wire[wpos[lane]:wpos[lane] + wlens[lane]].tobytes()
+            # dist is read only by rate allocation, which the one-layer
+            # untargeted finish does not run
+            encs.append(EncodedBlock(
+                data=seg_b, numbps=int(numbps[lane]),
+                passes=[PassInfo(rate=len(seg_b), dist=0.0, term=True)],
+                seg_lens=[len(seg_b)], seg_passes=[1]))
+        results.append(finish_tile_encode(plan.geo, jobs, encs))
+    return results

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the HT cleanup CUDA kernel (a kernel has
-no CPU mode) against its plain PyTorch version and the scalar HT coder,
-and the serving decode on the card against the source pixels.
+"""Card-only tests of the port: the HT cleanup CUDA kernels (a kernel has
+no CPU mode) against their plain PyTorch versions and the scalar HT
+coder, and the serving decode and encode on the card against the source
+pixels and the host encoder.
 
 Every test skips without a CUDA card.  The file imports no JAX, so it
 runs on a machine with PyTorch and a card but no JAX:
@@ -19,7 +20,10 @@ from grok_tpu.t1ht.scalar import ht_decode_block, ht_encode_block  # noqa: E402,
 from grok_tpu.t1ht.wire import split_cleanup  # noqa: E402
 from grok_tpu.util.oracle import synthetic_image  # noqa: E402
 from grok_tpu_torch import api  # noqa: E402
+from grok_tpu_torch.core.params import CompressParams as PCP  # noqa: E402
 from grok_tpu_torch.ops import ht_decode as H  # noqa: E402
+from grok_tpu_torch.ops import ht_encode as E  # noqa: E402
+from grok_tpu_torch.t1ht import tables as PT  # noqa: E402
 from test_ht_tables_dropin import _synthetic_normative_tables  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -84,15 +88,27 @@ def test_kernel_matches_plain_version_and_scalar(card):
     _check_kernel(card, 0, [2, 9, 40, 300, 5000])
 
 
-def test_kernel_follows_install_tables(card):
+def _install_dropin():
+    """The drop-in table shape, in both packages: the scalar coder reads
+    the JAX package's tables, the port's kernels read the port's."""
     lens_ek, lens_init = _synthetic_normative_tables()
-    T.install_tables(lens=lens_ek, lens_init=lens_init,
-                     uvlc_prefix_xor=0b101)
+    for tables in (T, PT):
+        tables.install_tables(lens=lens_ek, lens_init=lens_init,
+                              uvlc_prefix_xor=0b101)
+        assert tables.two_families() and tables.tables_have_ek()
+
+
+def _reset_tables():
+    T.reset_tables()
+    PT.reset_tables()
+
+
+def test_kernel_follows_install_tables(card):
+    _install_dropin()
     try:
-        assert T.two_families() and T.tables_have_ek()
         _check_kernel(card, 1, [3, 8, 20])
     finally:
-        T.reset_tables()
+        _reset_tables()
 
 
 def test_kernel_rejects_mixed_devices(card):
@@ -117,3 +133,69 @@ def test_serving_decode_on_card(card):
         assert np.array_equal(comps[0].cpu().numpy(), img)
     got = api.decompress_device(compress(rgb, cp), device=card)
     assert np.array_equal(torch.stack(got, -1).cpu().numpy(), rgb)
+
+
+def _enc_lanes(seed, n, side):
+    rng = np.random.default_rng(seed)
+    mneg = np.zeros((n, side, side), np.int32)
+    ws, hs = [], []
+    for i in range(n):
+        w, h = int(rng.integers(1, side + 1)), int(rng.integers(1, side + 1))
+        mag = np.abs(rng.normal(0, float(10 ** rng.uniform(0, 4)),
+                                (h, w))).astype(np.int64)
+        mag[rng.random((h, w)) < rng.uniform(0, 0.9)] = 0
+        neg = rng.random((h, w)) < 0.5
+        mneg[i, :h, :w] = (mag << 1) | neg
+        ws.append(w)
+        hs.append(h)
+
+    def col(v):
+        return torch.tensor(v, dtype=torch.int32)
+    return (torch.from_numpy(mneg), col([i % 3 == 1 for i in range(n)]),
+            col(ws), col(hs), col([int(i != 5) for i in range(n)]))
+
+
+def _check_encoder(card, seed):
+    lanes = _enc_lanes(seed, 96, 64)
+    caps = (64 * 64 * 28 // 8 + 64, 1024, 2048)
+    dev = [t.to(card) for t in lanes]
+    before = E.ht_encode_lanes.launches
+    got = E.ht_encode_lanes(*dev, *caps)
+    torch.cuda.synchronize()
+    assert E.ht_encode_lanes.launches == before + 1
+    ref = E.ht_encode_lanes_ref(*lanes, *caps)
+    assert torch.equal(got[1].cpu(), ref[1])
+    # the kernel leaves the bytes past each stream's bits unwritten
+    assert torch.equal(E.clear_unused(*got, *caps[:2]).cpu(), ref[0])
+
+
+def test_encoder_matches_plain_version(card):
+    _check_encoder(card, 3)
+
+
+def test_encoder_follows_install_tables(card):
+    _install_dropin()
+    try:
+        _check_encoder(card, 4)
+    finally:
+        _reset_tables()
+
+
+def test_encoder_reports_overflow(card):
+    lanes = _enc_lanes(6, 8, 32)
+    dev = [t.to(card) for t in lanes]
+    _streams, bits = E.ht_encode_lanes(*dev, 8, 8, 8)
+    ref = E.ht_encode_lanes_ref(*lanes, 8, 8, 8)[1]
+    assert torch.equal(bits.cpu(), ref) and (ref < 0).any()
+
+
+def test_serving_encode_on_card(card):
+    cp = dict(ht=True, num_resolutions=3, cblk_w_exp=5, cblk_h_exp=5)
+    imgs = [synthetic_image(80, 96, 1, seed=20 + i) for i in range(3)]
+    before = E.ht_encode_lanes.launches
+    got = api.compress_device_batch(imgs, PCP(**cp), device=card)
+    assert E.ht_encode_lanes.launches > before
+    assert got == [compress(im, CompressParams(**cp)) for im in imgs]
+    rgb = synthetic_image(64, 96, 3, seed=5)
+    assert api.compress_device(rgb, PCP(**cp), device=card) == \
+        compress(rgb, CompressParams(**cp))

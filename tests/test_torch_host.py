@@ -1,0 +1,310 @@
+"""The port's own host layers (grok_tpu_torch/codestream, core, t2, t1ht,
+pipeline/plan.py, pipeline/tile.py, native/) held against the JAX
+package's originals on the same inputs, and the port's independence of
+the JAX package, checked on its sources."""
+
+import ast
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from grok_tpu import CompressParams, compress, native  # noqa: E402
+from grok_tpu.codestream import j2k as jj2k  # noqa: E402
+from grok_tpu.codestream import jp2 as jjp2  # noqa: E402
+from grok_tpu.core.quant import make_quantizer as jmake_quantizer  # noqa: E402
+from grok_tpu.pipeline import serve as jserve  # noqa: E402
+from grok_tpu.pipeline import tile as jtile  # noqa: E402
+from grok_tpu.t1ht import tables as T  # noqa: E402
+from grok_tpu.t1ht.scalar import ht_encode_block  # noqa: E402
+from grok_tpu.util.oracle import synthetic_image as jsynth  # noqa: E402
+from grok_tpu_torch import native as pnative  # noqa: E402
+from grok_tpu_torch.codestream import j2k as pj2k  # noqa: E402
+from grok_tpu_torch.codestream import jp2 as pjp2  # noqa: E402
+from grok_tpu_torch.core.quant import make_quantizer as pmake_quantizer  # noqa: E402,E501
+from grok_tpu_torch.pipeline import plan as pplan  # noqa: E402
+from grok_tpu_torch.pipeline import tile as ptile  # noqa: E402
+from grok_tpu_torch.t1.records import EncodedBlock, PassInfo  # noqa: E402
+from grok_tpu_torch.t1ht import tables as PT  # noqa: E402
+from grok_tpu_torch.util.synth import synthetic_image as psynth  # noqa: E402
+from test_ht_tables_dropin import _synthetic_normative_tables  # noqa: E402
+
+pytestmark = pytest.mark.skipif(not native.available(),
+                                reason="no C toolchain")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# (image shape, compress parameters): HT and Part-1, framing markers,
+# precincts, POC, several layers, tiles and tile-parts, JP2
+CONFIGS = [
+    ((48, 40, 1), dict(ht=True, num_resolutions=3, cblk_w_exp=4,
+                       cblk_h_exp=4)),
+    ((40, 56, 3), dict(ht=True, num_resolutions=2, write_plt=True,
+                       write_tlm=True, sop=True, eph=True, comment="c",
+                       prog_order=2)),
+    ((40, 40, 3), dict(irreversible=True, num_resolutions=3, num_layers=2,
+                       rates=[8.0, 2.0], prec_w_exps=[4, 5, 5],
+                       prec_h_exps=[4, 5, 5], jp2=True)),
+    ((64, 48, 1), dict(tile_w=32, tile_h=32, max_tile_parts=2,
+                       write_plm=True, num_resolutions=2)),
+]
+
+
+@pytest.fixture(scope="module")
+def streams():
+    out = []
+    for i, ((h, w, c), kw) in enumerate(CONFIGS):
+        img = jsynth(h, w, c, seed=40 + i)
+        out.append(compress(img, CompressParams(**kw)))
+    return out
+
+
+def _fields(obj):
+    return dataclasses.astuple(obj)
+
+
+def _parse(j2k, cs):
+    hdr = j2k.read_main_header(cs)
+    parts = j2k.read_tile_parts(cs, hdr, strict=True)
+    ths = {}
+    for p in parts:
+        ths.setdefault(p.tile_index, j2k.TileHeader())
+        j2k.read_tile_part_header(cs, p, hdr, ths[p.tile_index])
+    return hdr, parts, ths
+
+
+def test_headers_parse_to_equal_fields(streams):
+    for data in streams:
+        jcs = data
+        if jjp2.is_jp2(data):
+            s, e, _meta = jjp2.parse_jp2(data)
+            jcs = data[s:e]
+        pcs = pjp2.locate_codestream(data)
+        assert bytes(pcs) == bytes(jcs)
+        jh, jparts, jths = _parse(jj2k, jcs)
+        ph, pparts, pths = _parse(pj2k, pcs)
+        assert _fields(ph) == _fields(jh)
+        assert [_fields(p) for p in pparts] == [_fields(p) for p in jparts]
+        assert {t: _fields(th) for t, th in pths.items()} == \
+            {t: _fields(th) for t, th in jths.items()}
+
+
+def test_header_writers_and_jp2_wrap_emit_equal_bytes(streams):
+    jh = jj2k.read_main_header(streams[1])
+    ph = pj2k.read_main_header(streams[1])
+    for name, args in (("write_siz", lambda h: (h.siz, h.rsiz, h.comps)),
+                       ("write_cod", lambda h: (h.cod,)),
+                       ("write_qcd", lambda h: (h.qcd,)),
+                       ("write_cap", lambda h: h.cap)):
+        assert getattr(pj2k, name)(*args(ph)) == \
+            getattr(jj2k, name)(*args(jh)), name
+    for name, args in (("write_sot", (0, 1234, 0, 1)),
+                       ("write_tlm", ([(0, 99), (1, 70000)],)),
+                       ("write_plt", ([1, 127, 128, 70000],)),
+                       ("write_com", ("grok",))):
+        assert getattr(pj2k, name)(*args) == getattr(jj2k, name)(*args)
+    for nc in (1, 3, 4):
+        kw = dict(width=33, height=17, numcomps=nc, prec=8)
+        assert pjp2.wrap_jp2(b"cs", **kw) == jjp2.wrap_jp2(b"cs", **kw)
+
+
+@pytest.mark.parametrize("irrev", [False, True])
+def test_quantizer_steps_equal(irrev):
+    for numres, prec, base in ((6, 8, 0.0), (3, 12, 0.25), (1, 8, 0.0)):
+        jq = jmake_quantizer(numres, prec, irrev, 2, base)
+        pq = pmake_quantizer(numres, prec, irrev, 2, base)
+        assert _fields(pq) == _fields(jq)
+
+
+def test_synthetic_image_equal():
+    for shape in ((17, 23, 1), (8, 9, 3)):
+        assert np.array_equal(psynth(*shape, seed=3), jsynth(*shape, seed=3))
+
+
+def test_plan_for_gives_the_same_arrays(streams):
+    for data in streams[:3]:
+        cs = data if not jjp2.is_jp2(data) else \
+            pjp2.locate_codestream(data)
+        jh, jparts, jths = _parse(jj2k, cs)
+        ph, _pparts, pths = _parse(pj2k, cs)
+        for reduce in (0, 1):
+            jp = jserve._plan_for(cs, jh, 0, jths[0], reduce)
+            pp = pplan._plan_for(cs, ph, 0, pths[0], reduce)
+            assert (jp is None) == (pp is None)
+            if jp is None:
+                continue
+            for a, b in zip(pp.prep, jp.prep):
+                assert np.array_equal(np.asarray(a), np.asarray(b))
+            for f in ("sop", "eph", "n_blks", "bucket_dims", "sig_tail",
+                      "coder", "comps_sig", "mct_mode", "ht_p_ext"):
+                assert getattr(pp, f) == getattr(jp, f), f
+            for f in ("mb", "bucket", "rok"):
+                assert np.array_equal(getattr(pp, f), getattr(jp, f)), f
+
+
+def _body(data):
+    hdr, parts, ths = _parse(jj2k, data)
+    th = ths[0]
+    body = b"".join(data[p.data_start:p.data_end] for p in parts)
+    return hdr, th, body
+
+
+def test_c_t2_parse_and_ht_scan_give_the_same_outputs(streams):
+    for data in streams[:2]:
+        hdr, th, body = _body(data)
+        plan = jserve._plan_for(data, hdr, 0, th, 0)
+        jres = native.t2_parse_prepared(body, plan.prep, plan.sop, plan.eph)
+        pres = pnative.t2_parse_prepared(body, plan.prep, plan.sop, plan.eph)
+        for a, b in zip(pres, jres):
+            assert np.array_equal(np.asarray(a), np.asarray(b))
+        chunks = jres[3]
+        offs, lens = chunks[:, 4].astype(np.int64), chunks[:, 5]
+        jscan, jdig = native.ht_scan2(body, offs, lens)
+        pscan, pdig = pnative.ht_scan2(body, offs, lens)
+        assert np.array_equal(pscan, jscan) and np.array_equal(pdig, jdig)
+    # garbage framing: both refuse the same segments
+    rng = np.random.default_rng(0)
+    junk = rng.integers(0, 256, 4000, dtype=np.uint8).tobytes()
+    offs = rng.integers(0, 3000, 50).astype(np.int64)
+    lens = rng.integers(0, 900, 50).astype(np.int32)
+    assert all(np.array_equal(a, b) for a, b in zip(
+        pnative.ht_scan2(junk, offs, lens), native.ht_scan2(junk, offs,
+                                                            lens)))
+
+
+def test_c_ht_assemble_batch_gives_the_same_segments():
+    rng = np.random.default_rng(1)
+    buf = rng.choice(np.array([0xFF, 0x7F, 0x8F, 0x90, 0, 0x12], np.uint8),
+                     3000)
+    n = 40
+    args = [rng.integers(0, 2000, n), rng.integers(0, 3000, n),
+            rng.integers(0, 2000, n), rng.integers(0, 2000, n),
+            rng.integers(0, 2000, n), rng.integers(0, 2000, n),
+            np.where(rng.random(n) < 0.2, -1, 0)]
+    j_out, j_lens = native.ht_assemble_batch(buf, *args)
+    p_out, p_lens = pnative.ht_assemble_batch(buf, *args)
+    assert np.array_equal(p_lens, j_lens)
+    assert np.array_equal(p_out[:p_lens.sum()], j_out[:j_lens.sum()])
+
+
+def _tables_state(t):
+    return (t.VLC_ENC, t.VLC_DEC, t.VLC_ENC_INIT, t.VLC_DEC_INIT,
+            t.UVLC_PXOR, t.two_families(), t.tables_have_ek())
+
+
+def test_tables_equal_default_and_after_dropin_install():
+    assert _tables_state(PT) == _tables_state(T)
+    lens_ek, lens_init = _synthetic_normative_tables()
+    v0 = T.VERSION
+    PT.install_tables(lens=lens_ek, lens_init=lens_init,
+                      uvlc_prefix_xor=0b101)
+    try:
+        # the port's tables are its own: the JAX package's stay default
+        assert T.VERSION == v0 and not T.two_families()
+        T.install_tables(lens=lens_ek, lens_init=lens_init,
+                         uvlc_prefix_xor=0b101)
+        assert _tables_state(PT) == _tables_state(T)
+    finally:
+        T.reset_tables()
+        PT.reset_tables()
+    assert _tables_state(PT) == _tables_state(T)
+
+
+def test_install_tables_clears_the_ports_caches(streams):
+    # every cache that bakes table state is keyed on the port's VERSION:
+    # after an install its next use rebuilds it and drops the older one
+    from grok_tpu_torch.api import stage_device_batch
+    from grok_tpu_torch.ops import ht_decode, ht_encode
+    cpu = torch.device("cpu")
+
+    def use():
+        for mod in (ht_decode, ht_encode):
+            mod._lut_on(cpu)
+        return stage_device_batch(streams[:1], device="cpu")
+
+    use()
+    v0 = PT.VERSION
+    PT.reset_tables()
+    assert PT.VERSION == v0 + 1
+    staged = use()
+    for mod in (ht_decode, ht_encode):
+        assert list(mod._LUT_CACHE) == [PT.VERSION]
+        assert [k[0] for k in mod._DEV_LUT] == [PT.VERSION]
+    progs = [k for p in pplan._PLANS.values() if p is not None
+             for k in p.fast if isinstance(k, tuple) and k[0] == "torch_prog"]
+    assert progs and all(k[3] == PT.VERSION for k in progs)
+    img = jsynth(48, 40, 1, seed=40)
+    assert np.array_equal(staged.run()[0][0].numpy(), img)
+
+
+def test_finish_tile_encode_emits_the_same_bytes():
+    img = jsynth(72, 56, 3, seed=9)
+    for kw in (dict(), dict(sop=True, eph=True, prog_order=3)):
+        params = CompressParams(ht=True, num_resolutions=3, cblk_w_exp=4,
+                                cblk_h_exp=4, **kw)
+        data = compress(img, params)
+        jh = jj2k.read_main_header(data)
+        ph = pj2k.read_main_header(data)
+        jgeo = jtile.TileGeometry.build(jh, 0)
+        pgeo = ptile.TileGeometry.build(ph, 0)
+        rng = np.random.default_rng(2)
+        jobs, jencs, pencs = [], [], []
+        for c, tcg in enumerate(jgeo.tcgs):
+            for rg in tcg.resolutions:
+                for band_i, bg in enumerate(rg.bands):
+                    mb = jgeo.quants[c].mb(rg.r, bg.orient)
+                    for p in range(rg.num_precincts):
+                        for cblk_i, cb in enumerate(bg.precincts[p].cblks):
+                            mag = (np.abs(rng.normal(0, 20, (cb.rect.h,
+                                                             cb.rect.w)))
+                                   .astype(np.int64)) * (rng.random() < 0.8)
+                            enc = ht_encode_block(mag, rng.random(mag.shape)
+                                                  < 0.5, bg.orient)
+                            jobs.append(dict(key=(c, rg.r, p, band_i,
+                                                  cblk_i), mb=mb, weight=1.0))
+                            jencs.append(enc)
+                            pencs.append(EncodedBlock(
+                                data=enc.data, numbps=enc.numbps,
+                                passes=[PassInfo(q.rate, q.dist, q.term)
+                                        for q in enc.passes],
+                                seg_lens=list(enc.seg_lens),
+                                seg_passes=list(enc.seg_passes)))
+        want = jtile.finish_tile_encode(jgeo, jobs, jencs, [None])
+        got = ptile.finish_tile_encode(pgeo, jobs, pencs)
+        assert got.packets == want.packets and got.body == want.body
+        assert got.packet_lens == want.packet_lens
+
+
+_BANNED = ("jax", "jaxlib", "grok_tpu")
+
+
+def _sources():
+    pkg = os.path.join(REPO, "grok_tpu_torch")
+    for root, _dirs, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_no_jax_and_no_jax_package():
+    """Every import in the port and in chip_smoke.py, at module level or
+    inside a function, by its top-level name."""
+    bad = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for n in names:
+                if n.split(".")[0] in _BANNED:
+                    bad.append(f"{os.path.relpath(path, REPO)}:"
+                               f"{node.lineno} {n}")
+    assert not bad, bad

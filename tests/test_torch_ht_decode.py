@@ -18,19 +18,24 @@ from grok_tpu.ops.pallas_ht import (_vlc_dec_planes, ht_block_eligible,  # noqa:
 from grok_tpu.t1ht import tables as T  # noqa: E402
 from grok_tpu.t1ht.scalar import ht_decode_block, ht_encode_block  # noqa: E402,E501
 from grok_tpu_torch.ops import ht_decode as H  # noqa: E402
+from grok_tpu_torch.t1ht import tables as PT  # noqa: E402
 from test_ht_tables_dropin import _synthetic_normative_tables  # noqa: E402
 
 
 @pytest.fixture
 def normative_shaped():
     """Two table families, EMB symbols and flipped UVLC prefix polarity
-    (the drop-in shape of tests/test_ht_tables_dropin.py)."""
+    (the drop-in shape of tests/test_ht_tables_dropin.py), installed in
+    both packages: the scalar coder and the Pallas kernel read the JAX
+    package's tables, the port's coders read its own."""
     lens_ek, lens_init = _synthetic_normative_tables()
-    T.install_tables(lens=lens_ek, lens_init=lens_init,
-                     uvlc_prefix_xor=0b101)
-    assert T.two_families() and T.tables_have_ek()
+    for tables in (T, PT):
+        tables.install_tables(lens=lens_ek, lens_init=lens_init,
+                              uvlc_prefix_xor=0b101)
+        assert tables.two_families() and tables.tables_have_ek()
     yield
     T.reset_tables()
+    PT.reset_tables()
 
 
 def _make(rng, w, h, sigma, orient):

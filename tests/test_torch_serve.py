@@ -176,25 +176,29 @@ def test_no_cpu_fallback_for_a_cuda_device(gray):
 
 _GUARD = r"""
 import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "grok_tpu")
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if any(name == b or name.startswith(b + ".") for b in BLOCKED):
             raise ImportError("blocked: " + name)
 sys.meta_path.insert(0, Block())
 import numpy as np
 import grok_tpu_torch
-from grok_tpu import CompressParams, compress
-from grok_tpu.util.oracle import synthetic_image
+from grok_tpu_torch.util.synth import synthetic_image
 img = synthetic_image(40, 48, 1, seed=1)
-data = compress(img, CompressParams(ht=True, num_resolutions=2))
+data = grok_tpu_torch.compress_device(
+    img, grok_tpu_torch.CompressParams(ht=True, num_resolutions=2),
+    device="cpu")
 out = grok_tpu_torch.decompress_device_batch([data], device="cpu")
 assert np.array_equal(out[0][0].numpy(), img)
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules)
 print("GUARD-OK")
 """
 
 
 def test_port_imports_and_decodes_without_jax():
+    """The port encodes and decodes on the CPU with both JAX and the JAX
+    package refused at import."""
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
