@@ -8,21 +8,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
   1. device  — print the card's name and power limit; require CUDA.
   2. build   — build the CUDA kernels (one nvcc per csrc/*.cu, started
                together) and the host C runtime from the checkout.
-  3. encode  — the main encode path, grok_tpu_torch.api.
-               compress_device_batch on the card, with the launch counts
-               set to 0 before it and read after it:
-               (A) 8 frames of 512x512 8-bit gray, HT, 5 resolutions,
-               32x32 code-blocks (the bench headline's shape);
-               (B) one 1920x1080 8-bit RGB frame, HT lossless RCT + 5/3,
-               6 resolutions, 64x64 code-blocks.
+  3. encode  — the main encode paths, grok_tpu_torch.api.
+               compress_device_batch on the card, each path with the
+               launch counts set to 0 before it and read after it:
+               HT (K4): (A) 8 frames of 512x512 8-bit gray, 5
+               resolutions, 32x32 code-blocks; (B) one 1920x1080 8-bit
+               RGB frame, lossless RCT + 5/3, 6 resolutions, 64x64
+               code-blocks;
+               Part-1 (K5): (A1) and (B1), the same frames and settings
+               with Part-1 default-style code-blocks;
+               HT-mixed (K4 + K5): (A-mix), the (A) frames with
+               ht_mixed (on this content the Part-1 codeword is the
+               smaller for every block, so the bitmap names no HT block),
+               and (A-mix forced), the same encode with every other
+               block's Part-1 codeword padded so that HT wins it (the
+               device of grok_tpu's tests/test_ht_mixed.py), whose bitmap
+               must mark both HT and Part-1 blocks.
                The inputs are made by the port's synthetic_image and
                uploaded first (set-up).  Every rep must give the same
-               bytes, and a small encode on the card must equal the same
-               encode through the plain versions on the CPU.
-  4. decode  — the main decode path, decompress_device_batch on the card
+               bytes, and small HT and Part-1 encodes on the card must
+               equal the same encodes through the plain versions on the
+               CPU.
+  4. decode  — the main decode paths, decompress_device_batch on the card
                over the streams of phase 3, counts reset and read the
-               same way; every output must equal its source bit for bit.
-  5. K4      — the HT cleanup encoder on every lane of the encode path
+               same way per path (HT: K1, Part-1: K3, HT-mixed: K1 + K3);
+               every output must equal its source bit for bit.
+  5. K4      — the HT cleanup encoder on every lane of (A) and (B)
                against its plain version: byte-identical used stream
                bytes and bit counts; both timed on the same lanes.
   6. K4->K1  — 64 synthetic lanes of 1x1 to 64x64 encoded by K4,
@@ -31,6 +42,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                magnitudes and signs must come back.
   7. K1      — the HT cleanup decoder on the decode path's staged lanes
                against its plain version: bit-exact; both timed.
+  8. K5      — the Part-1 encoder against its plain version on every lane
+               of (A1) and on the bottom-edge lanes of (B1) (h <= 8: the
+               plain version steps all lanes in lockstep, so its time
+               follows the lanes' size, not their count): identical
+               lengths, used bytes, watermark rows and sigtype; both
+               timed on the same lanes.
+  9. K3      — the Part-1 decoder against its plain version on the
+               decode path's staged lanes of the same blocks: bit-exact;
+               both timed.
+ 10. K5->K3  — 64 synthetic lanes of 1x1 to 64x64 (h not a multiple of
+               4, w = 1, all-zero lanes, up to 16 planes) encoded by K5
+               and decoded by K3: the source must come back.
+ 11. vectors — K3 on the committed Part-1 mode-switch vectors
+               (grok_tpu_torch/t1/mq_vectors.npz: BYPASS, RESET,
+               TERMALL, VSC, PTERM, SEGSYM) against the scalar decodes
+               stored with them and against its plain version.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -52,6 +79,7 @@ import numpy as np
 REPS = 5                 # end-to-end reps after a warm-up; best reported
 KERNEL_REPS = 20         # kernel launches per timing window
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
+EDGE_H = 8               # (B1) lanes held against the plain versions
 _BLOCKED = ("jax", "jaxlib", "grok_tpu")
 
 
@@ -109,6 +137,32 @@ def _k1_bytes(meta, lanes, lut) -> int:
     return used + 16 * w.shape[0] + _nbytes(lut) + out
 
 
+def _k5_bytes(ins, lens, tables) -> int:
+    """Bytes the Part-1 encode must move: each lane's w*h int32 samples
+    and four int32 parameters read, the tables read once; the sentinel
+    and the used codeword bytes, the length, the watermark rows the lane
+    reaches and its w*h int8 sigtype written.  Padding and unused
+    capacity are not counted."""
+    _mneg, _ori, nb, w, h = ins
+    area = int((w.long() * h.long()).sum())
+    rows = int((3 * nb.long() - 2).clamp(min=0).sum())
+    nl = nb.shape[0]
+    return 4 * area + 16 * nl + _nbytes(*tables) \
+        + int(lens.long().sum()) + nl + 4 * nl + 4 * rows + area
+
+
+def _k3_bytes(lanes, tables) -> int:
+    """Bytes the Part-1 decode must move: each lane's used codeword bytes,
+    its seven int32 parameters and its segment table read, the tables
+    read once, and each lane's w*h int32 samples written."""
+    _body, _start, npass, _nb, _o, w, h, _st, ptbl = lanes
+    live = (npass > 0).long()
+    used = int((ptbl[:, 0, 1].long() * live).sum())
+    nl = w.shape[0]
+    return used + 28 * nl + _nbytes(ptbl) + _nbytes(*tables) \
+        + 4 * int((w.long() * h.long()).sum())
+
+
 def _kernel_ms(torch, fn) -> float:
     """Mean device time of fn() over KERNEL_REPS launches (CUDA events)."""
     ev0 = torch.cuda.Event(enable_timing=True)
@@ -155,25 +209,38 @@ def _host_split(serve_enc, call) -> dict:
     return spent
 
 
-def _synthetic_roundtrip(torch, dev, K):
-    """Phase 6: K4 -> C assembly -> C scan -> device un-stuff -> K1."""
-    ht_encode, ht_decode, native, stage_bytes, unstuff_suffix, stage_dims = K
-    rng = np.random.default_rng(7)
-    n, side = 64, 64
+def _synthetic_lanes(rng, n: int, side: int, sigma_exp: float):
+    """n lanes of 1x1 to side x side (lane 0 1x1, lane 1 w = 1, lane 2
+    all zero, heights not a multiple of 4 among the rest) as mneg
+    (n, side, side) int32, with their sizes and source planes."""
     mneg = np.zeros((n, side, side), np.int32)
     mags, negs, dims = [], [], []
     for i in range(n):
         w = 1 + (i * 37) % side if i else 1
         h = 1 + (i * 23) % side if i else 1
-        sigma = float(10 ** rng.uniform(0, 3.5))
+        if i == 1:
+            w = 1
+        sigma = float(10 ** rng.uniform(0, sigma_exp))
         mag = np.abs(rng.normal(0, sigma, (h, w))).astype(np.int64)
         mag[rng.random((h, w)) < 0.4] = 0
-        mag[0, 0] = max(int(mag[0, 0]), 1)
+        if i == 2:
+            mag[:] = 0
+        else:
+            mag[0, 0] = max(int(mag[0, 0]), 1)
         neg = rng.random((h, w)) < 0.5
         mneg[i, :h, :w] = (mag << 1) | neg
         mags.append(mag)
         negs.append(neg & (mag > 0))
         dims.append((w, h))
+    return mneg, mags, negs, dims
+
+
+def _synthetic_roundtrip(torch, dev, K):
+    """Phase 6: K4 -> C assembly -> C scan -> device un-stuff -> K1."""
+    ht_encode, ht_decode, native, stage_bytes, unstuff_suffix, stage_dims = K
+    n, side = 64, 64
+    mneg, mags, negs, dims = _synthetic_lanes(np.random.default_rng(7), n,
+                                              side, 3.5)
 
     def col(v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
@@ -191,17 +258,21 @@ def _synthetic_roundtrip(torch, dev, K):
     base = np.arange(n, dtype=np.int64) * row
     res = native.ht_assemble_batch(buf, base, bits[0], base + caps[0],
                                    bits[1], base + caps[0] + caps[1],
-                                   bits[2], np.zeros(n, np.int32))
+                                   bits[2], np.where(bits[0] > 0, 0, -1))
     if res is None:
         _fail("K4 round trip: the C assembler refused the streams")
     wire, wlens = res
     offs = np.cumsum(wlens) - wlens
-    scan = native.ht_scan2(wire[:int(wlens.sum())].tobytes(), offs, wlens)
+    coded = wlens > 0
+    scan = native.ht_scan2(wire[:int(wlens.sum())].tobytes(), offs[coded],
+                           wlens[coded])
     if scan is None or (scan[0][:, 0] < 0).any():
         _fail("K4 round trip: the C scan refused the assembled segments")
-    sc, digest = scan
-    body = torch.from_numpy(digest.copy()).to(dev)
-    m = torch.from_numpy(sc.astype(np.int64)).to(dev)
+    sc = np.zeros((n, 7), np.int64)
+    sc[coded], digest = scan
+    body = torch.from_numpy(digest.copy() if digest.size else
+                            np.zeros(16, np.uint8)).to(dev)
+    m = torch.from_numpy(sc).to(dev)
     lms, lsuf, dm = stage_dims(sc)
     ms = stage_bytes(body, m[:, 1], m[:, 2], lms, False)
     suf_f = stage_bytes(body, m[:, 3], m[:, 4], lsuf, False)
@@ -210,8 +281,8 @@ def _synthetic_roundtrip(torch, dev, K):
     u8 = torch.uint8
     got = ht_decode.ht_decode_lanes(
         ms.to(u8), mel.to(u8), vlc.to(u8), col([0] * n),
-        col([d[0] for d in dims]), col([d[1] for d in dims]), col([1] * n),
-        side, side).cpu().numpy()
+        col([d[0] for d in dims]), col([d[1] for d in dims]),
+        col(coded.astype(np.int32).tolist()), side, side).cpu().numpy()
     for j, ((w, h), mag, neg) in enumerate(zip(dims, mags, negs)):
         v = got[j, :h, :w]
         if not (np.array_equal(np.abs(v), 2 * mag)
@@ -220,6 +291,51 @@ def _synthetic_roundtrip(torch, dev, K):
                   f"({w}x{h})")
     print(f"K4 -> K1 round trip: {n} synthetic lanes of 1x1 to "
           f"{side}x{side} give back their magnitudes and signs", flush=True)
+
+
+def _mq_roundtrip(torch, dev, t1_encode, t1_decode):
+    """Phase 10: K5 -> K3 on synthetic lanes, up to 16 planes."""
+    n, side = 64, 64
+    mneg, mags, negs, dims = _synthetic_lanes(np.random.default_rng(9), n,
+                                              side, 4.0)
+    nb = [int(m.max()).bit_length() if m.size else 0 for m in mags]
+    if max(nb) > 16:
+        _fail("K5 -> K3 round trip: synthetic lanes over 16 planes")
+
+    def col(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    w, h = col([d[0] for d in dims]), col([d[1] for d in dims])
+    L = side * side * 8 + 64
+    out, lens, _rates, _st = t1_encode.t1_encode_lanes(
+        torch.from_numpy(mneg).to(dev), col([i % 4 for i in range(n)]),
+        col(nb), w, h, L, 3 * 16 - 2)
+    ln = lens.cpu().numpy().astype(np.int64)
+    if (ln < 0).any():
+        _fail("K5 round trip: a codeword exceeded its capacity")
+    body = torch.cat([out[j, 1:1 + int(ln[j])] for j in range(n)]
+                     + [torch.zeros(1, dtype=torch.uint8, device=dev)])
+    start = col((np.cumsum(ln) - ln).tolist())
+    zero = col([0] * n)
+    ptbl = torch.stack([zero, lens, zero], 1)[:, None].contiguous()
+    got = t1_decode.t1_decode_lanes(
+        body, start, col([max(3 * b - 2, 0) for b in nb]), col(nb),
+        col([i % 4 for i in range(n)]), w, h, zero, ptbl, side,
+        side).cpu().numpy()
+    for j, ((wj, hj), mag, neg) in enumerate(zip(dims, mags, negs)):
+        v = got[j, :hj, :wj]
+        if not (np.array_equal(np.abs(v) >> 1, mag)
+                and np.array_equal(v < 0, neg)):
+            _fail(f"K5 -> K3 round trip differs on synthetic lane {j} "
+                  f"({wj}x{hj})")
+    print(f"K5 -> K3 round trip: {n} synthetic lanes of 1x1 to "
+          f"{side}x{side}, up to {max(nb)} planes, give back their "
+          f"magnitudes and signs", flush=True)
+
+
+def _select(lanes, sel) -> tuple:
+    """The lanes where sel holds."""
+    return tuple(t[sel].contiguous() for t in lanes)
 
 
 def main() -> int:
@@ -236,12 +352,15 @@ def main() -> int:
           flush=True)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from grok_tpu_torch import _build, api, native
+    from grok_tpu_torch.codestream import j2k
     from grok_tpu_torch.core.params import CompressParams
-    from grok_tpu_torch.ops import ht_decode, ht_encode
+    from grok_tpu_torch.ops import ht_decode, ht_encode, t1_decode, t1_encode
     from grok_tpu_torch.pipeline import serve_enc
     from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
     from grok_tpu_torch.pipeline.serve import stage_dims
+    from grok_tpu_torch.t1 import vectors
     from grok_tpu_torch.util.synth import synthetic_image
+    t_start = time.perf_counter()
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -257,24 +376,38 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
+    gray = [synthetic_image(512, 512, 1, seed=100 + i) for i in range(8)]
+    rgb = [synthetic_image(1080, 1920, 3, seed=7)]
+    pa = dict(num_resolutions=5, cblk_w_exp=5, cblk_h_exp=5)
     work = {
-        "A": ([synthetic_image(512, 512, 1, seed=100 + i) for i in range(8)],
-              CompressParams(ht=True, num_resolutions=5, cblk_w_exp=5,
-                             cblk_h_exp=5)),
-        "B": ([synthetic_image(1080, 1920, 3, seed=7)],
-              CompressParams(ht=True, num_resolutions=6)),
+        "A": (gray, CompressParams(ht=True, **pa)),
+        "B": (rgb, CompressParams(ht=True, num_resolutions=6)),
+        "A1": (gray, CompressParams(**pa)),
+        "B1": (rgb, CompressParams(num_resolutions=6)),
+        "A-mix": (gray, CompressParams(ht_mixed=True, **pa)),
+        "A-mix forced": (gray, CompressParams(ht_mixed=True, **pa)),
     }
-    frames = {name: [[torch.from_numpy(im[..., c] if im.ndim == 3 else im)
+    up = {id(imgs): [[torch.from_numpy(im[..., c] if im.ndim == 3 else im)
                       .to(dev).to(torch.int32)
                       for c in range(im.shape[2] if im.ndim == 3 else 1)]
-                     for im in imgs] for name, (imgs, _p) in work.items()}
+                     for im in imgs] for imgs in (gray, rgb)}
+    frames = {name: up[id(imgs)] for name, (imgs, _p) in work.items()}
     torch.cuda.synchronize()
     print(f"setup: synthetic sources made and uploaded in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
+    counters = {"K1": ht_decode.ht_decode_lanes,
+                "K3": t1_decode.t1_decode_lanes,
+                "K4": ht_encode.ht_encode_lanes,
+                "K5": t1_encode.t1_encode_lanes}
+    paths = {"HT": ("A", "B"), "Part-1": ("A1", "B1"),
+             "HT-mixed": ("A-mix", "A-mix forced")}
 
     def counts_zero():
-        ht_encode.ht_encode_lanes.launches = 0
-        ht_decode.ht_decode_lanes.launches = 0
+        for fn in counters.values():
+            fn.launches = 0
+
+    def counts():
+        return {k: fn.launches for k, fn in counters.items()}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -290,62 +423,111 @@ def main() -> int:
               f" MP/s (median {med * 1e3:.3f} ms/call) [{card}]",
               flush=True)
 
-    # ---- 3. encode main path --------------------------------------------
+    def need(path, got, kernels):
+        print(f"{path} launches: {got}", flush=True)
+        for k in kernels:
+            if got[k] == 0:
+                _fail(f"the {path} path never launched {k}")
+
+    # ---- 3. encode main paths -------------------------------------------
     streams = {}
-    counts_zero()
-    for name, (imgs, params) in work.items():
-        times = []
-        for _ in range(REPS + 1):          # the first call is a warm-up
-            out, dt = timed(lambda: api.compress_device_batch(
-                frames[name], params, device=dev))
-            times.append(dt)
-            if name in streams and out != streams[name]:
-                _fail(f"encode {name}: reps gave different bytes")
-            streams[name] = out
-        npx = sum(im.shape[0] * im.shape[1] for im in imgs)
-        report("encode", name, times, len(imgs), npx)
-        print(f"encode {name}: {sum(len(s) for s in streams[name])} bytes "
-              f"for {len(imgs)} frame(s)", flush=True)
-    k4_launches = ht_encode.ht_encode_lanes.launches
-    if k4_launches == 0:
-        _fail("the encode path never launched the HT cleanup encoder")
+    enc_counts = {}
+    for path, names in paths.items():
+        counts_zero()
+        for name in names:
+            imgs, params = work[name]
+            times = []
+            encode = serve_enc._encode_mq
+            if name == "A-mix forced":
+                def fat_every_other(plan, lanes):
+                    encs = encode(plan, lanes)
+                    for e in encs[1::2]:
+                        if e.data:                   # loses to HT
+                            e.data = e.data + bytes(4096)
+                    return encs
+                serve_enc._encode_mq = fat_every_other
+            for _ in range(REPS + 1):      # the first call is a warm-up
+                out, dt = timed(lambda: api.compress_device_batch(
+                    frames[name], params, device=dev))
+                times.append(dt)
+                if name in streams and out != streams[name]:
+                    _fail(f"encode {name}: reps gave different bytes")
+                streams[name] = out
+            serve_enc._encode_mq = encode
+            npx = sum(im.shape[0] * im.shape[1] for im in imgs)
+            report("encode", name, times, len(imgs), npx)
+            print(f"encode {name}: {sum(len(s) for s in streams[name])} "
+                  f"bytes for {len(imgs)} frame(s)", flush=True)
+        enc_counts[path] = counts()
+        need(f"{path} encode", enc_counts[path],
+             {"HT": ["K4"], "Part-1": ["K5"], "HT-mixed": ["K4", "K5"]}[path])
+    # the forced mixed stream's bitmaps must name both HT and Part-1
+    # blocks
+    nblk = len(serve_enc._plan_for(api._build_main_header(
+        512, 512, 1, 8, False, work["A-mix"][1]), 0).blocks)
+    for name in paths["HT-mixed"]:
+        nht = []
+        for s in streams[name]:
+            hdr = j2k.read_main_header(s)
+            th = j2k.TileHeader()
+            for p in j2k.read_tile_parts(s, hdr):
+                j2k.read_tile_part_header(s, p, hdr, th)
+            bm = th.ht_mixed_bitmap()
+            if bm is None:
+                _fail(f"encode {name}: no HT-mixed bitmap")
+            nht.append(sum(bin(b).count("1") for b in bm))
+        print(f"encode {name}: the bitmaps mark {nht} HT blocks of {nblk} "
+              f"per frame", flush=True)
+        if name == "A-mix forced" and not all(0 < n < nblk for n in nht):
+            _fail(f"encode {name}: a bitmap without both HT and Part-1 "
+                  f"blocks")
+
     small = [synthetic_image(80, 96, 1, seed=20 + i) for i in range(3)]
     small_rgb = synthetic_image(64, 96, 3, seed=5)
-    sp = CompressParams(ht=True, num_resolutions=3, cblk_w_exp=5,
-                        cblk_h_exp=5)
-    if (api.compress_device_batch(small, sp, device=dev)
-            != api.compress_device_batch(small, sp, device="cpu")
-            or api.compress_device(small_rgb, sp, device=dev)
-            != api.compress_device(small_rgb, sp, device="cpu")):
-        _fail("encode on the card differs from the plain versions on the "
-              "CPU")
-    print("encode reference: 3 x 80x96 gray and 64x96 RGB byte-identical "
-          "to the CPU encode through the plain versions", flush=True)
+    for what, sp in (("HT", CompressParams(ht=True, num_resolutions=3,
+                                           cblk_w_exp=5, cblk_h_exp=5)),
+                     ("Part-1", CompressParams(num_resolutions=3,
+                                               cblk_w_exp=4,
+                                               cblk_h_exp=4))):
+        if (api.compress_device_batch(small, sp, device=dev)
+                != api.compress_device_batch(small, sp, device="cpu")
+                or api.compress_device(small_rgb, sp, device=dev)
+                != api.compress_device(small_rgb, sp, device="cpu")):
+            _fail(f"{what} encode on the card differs from the plain "
+                  f"versions on the CPU")
+        print(f"encode reference {what}: 3 x 80x96 gray and 64x96 RGB "
+              f"byte-identical to the CPU encode through the plain "
+              f"versions", flush=True)
 
-    # ---- 4. decode main path --------------------------------------------
-    counts_zero()
-    for name, (imgs, _params) in work.items():
-        times = []
-        for _ in range(REPS + 1):
-            out, dt = timed(lambda: api.decompress_device_batch(
-                streams[name], device=dev))
-            times.append(dt)
-            for img, comps in zip(imgs, out):
-                if any(c.device.type != "cuda" for c in comps):
-                    _fail(f"decode {name}: output left the card")
-                arr = torch.stack(comps, -1).cpu().numpy() \
-                    if img.ndim == 3 else comps[0].cpu().numpy()
-                if arr.shape != img.shape or not np.array_equal(arr, img):
-                    _fail(f"decode {name}: pixels differ from the source")
-        npx = sum(im.shape[0] * im.shape[1] for im in imgs)
-        report("decode", name, times, len(imgs), npx)
-        print(f"decode {name}: {len(imgs)} frame(s) bit-exact to the "
-              f"source", flush=True)
-    k1_launches = ht_decode.ht_decode_lanes.launches
-    if k1_launches == 0:
-        _fail("the decode path never launched the HT cleanup decoder")
+    # ---- 4. decode main paths --------------------------------------------
+    dec_counts = {}
+    for path, names in paths.items():
+        counts_zero()
+        for name in names:
+            imgs = work[name][0]
+            times = []
+            for _ in range(REPS + 1):
+                out, dt = timed(lambda: api.decompress_device_batch(
+                    streams[name], device=dev))
+                times.append(dt)
+                for img, comps in zip(imgs, out):
+                    if any(c.device.type != "cuda" for c in comps):
+                        _fail(f"decode {name}: output left the card")
+                    arr = torch.stack(comps, -1).cpu().numpy() \
+                        if img.ndim == 3 else comps[0].cpu().numpy()
+                    if arr.shape != img.shape or not np.array_equal(arr,
+                                                                    img):
+                        _fail(f"decode {name}: pixels differ from the "
+                              f"source")
+            npx = sum(im.shape[0] * im.shape[1] for im in imgs)
+            report("decode", name, times, len(imgs), npx)
+            print(f"decode {name}: {len(imgs)} frame(s) bit-exact to the "
+                  f"source", flush=True)
+        dec_counts[path] = counts()
+        need(f"{path} decode", dec_counts[path],
+             {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"]}[path])
 
-    for name in work:
+    for name in (n for n in work if n != "A-mix forced"):
         host, dev_t = [], []
         for _ in range(REPS):
             staged, dt0 = timed(lambda: api.stage_device_batch(
@@ -358,14 +540,39 @@ def main() -> int:
               f"{min(dev_t) * 1e3:.3f} ms (best of {REPS}) [{card}]",
               flush=True)
 
-    # ---- 5. K4 vs its plain version ---------------------------------------
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
-    for name, (imgs, params) in work.items():
+    def enc_lanes(name):
+        imgs, params = work[name]
         comps = [torch.stack([f[ci] for f in frames[name]])
                  for ci in range(len(frames[name][0]))]
         h, w = comps[0].shape[1:]
         hdr = api._build_main_header(h, w, len(comps), 8, False, params)
         plan, lanes = serve_enc.stage_encode_lanes(comps, hdr, params)
+        return comps, hdr, params, plan, lanes
+
+    for name in (n for n in work if n != "A-mix forced"):
+        comps, hdr, params, plan, _lanes = enc_lanes(name)
+
+        def device_part():
+            lanes = serve_enc.stage_encode_lanes(comps, hdr, params)[1]
+            if plan.coder == "ht":
+                ht_encode.ht_encode_lanes(*lanes, *plan.caps)
+            if plan.coder == "mq" or params.ht_mixed:
+                t1_encode.t1_encode_lanes(
+                    *serve_enc.mq_lane_inputs(plan, lanes), *plan.mq_caps)
+        _, dev_s = timed(device_part)
+        host = _host_split(serve_enc, lambda: timed(
+            lambda: api.compress_device_batch(frames[name], params,
+                                              device=dev))[1])
+        print(f"split encode {name}: device staging + block coders "
+              f"{dev_s * 1e3:.3f} ms, C wire assembly "
+              f"{host['assemble'] * 1e3:.3f} ms, Tier-2 finish "
+              f"{host['finish'] * 1e3:.3f} ms, whole call "
+              f"{host['call'] * 1e3:.3f} ms [{card}]", flush=True)
+
+    # ---- 5. K4 vs its plain version ---------------------------------------
+    k4 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    for name in paths["HT"]:
+        _comps, _hdr, _params, plan, lanes = enc_lanes(name)
         caps = plan.caps
         nl = lanes[0].shape[0]
         got = ht_encode.ht_encode_lanes(*lanes, *caps)
@@ -390,15 +597,6 @@ def main() -> int:
               f"{k_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
               f"ms ({nbytes} bytes), plain version {p_ms:.1f} ms on the "
               f"same lanes [{card}]", flush=True)
-        _, dev_s = timed(lambda: ht_encode.ht_encode_lanes(
-            *serve_enc.stage_encode_lanes(comps, hdr, params)[1], *caps))
-        host = _host_split(serve_enc, lambda: timed(
-            lambda: api.compress_device_batch(frames[name], params,
-                                              device=dev))[1])
-        print(f"split encode {name}: device staging + K4 {dev_s * 1e3:.3f}"
-              f" ms, C wire assembly {host['assemble'] * 1e3:.3f} ms, "
-              f"Tier-2 finish {host['finish'] * 1e3:.3f} ms, whole call "
-              f"{host['call'] * 1e3:.3f} ms [{card}]", flush=True)
 
     # ---- 6. K4 -> K1 round trip -------------------------------------------
     _synthetic_roundtrip(torch, dev, (ht_encode, ht_decode, native,
@@ -407,14 +605,14 @@ def main() -> int:
 
     # ---- 7. K1 vs its plain version ---------------------------------------
     k1 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
-    for name in work:
+    for name in paths["HT"]:
         staged = api.stage_device_batch(streams[name], device=dev)
         prog = staged.program
         k_ms = p_ms = 0.0
         nb0 = k1["bytes"]
         for bi, b in enumerate(prog.buckets):
             lanes = prog.stage(staged.body, staged.meta, bi,
-                               *staged.dims[bi])
+                               *staged.dims[bi][:3])
             got = ht_decode.ht_decode_lanes(*lanes, b.W, b.H)
             ref, dt = _plain_ms(torch, lambda: ht_decode.ht_decode_lanes_ref(
                 *lanes, b.W, b.H))
@@ -428,10 +626,8 @@ def main() -> int:
                       f"{b.W}x{b.H}: max abs err {err})")
             k_ms += _kernel_ms(torch, lambda: ht_decode.ht_decode_lanes(
                 *lanes, b.W, b.H))
-            lo = prog.lane_base[bi]
-            k1["bytes"] += _k1_bytes(
-                staged.meta[lo:lo + lanes[0].shape[0]], lanes,
-                ht_decode._lut_on(dev))
+            k1["bytes"] += _k1_bytes(prog.lane_meta(staged.meta, bi), lanes,
+                                     ht_decode._lut_on(dev))
         k1["ms"] += k_ms
         k1["plain_ms"] += p_ms
         nb = k1["bytes"] - nb0
@@ -440,22 +636,127 @@ def main() -> int:
               f"({nb} bytes), plain version {p_ms:.1f} ms [{card}]",
               flush=True)
 
+    tables = t1_decode.lut_on(dev)
+
+    # ---- 8. K5 vs its plain version ---------------------------------------
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    for name in paths["Part-1"]:
+        _comps, _hdr, _params, plan, lanes = enc_lanes(name)
+        ins = serve_enc.mq_lane_inputs(plan, lanes)
+        L, R = plan.mq_caps
+        full_ms = _kernel_ms(torch, lambda: t1_encode.t1_encode_lanes(
+            *ins, L, R))
+        nl_all = ins[0].shape[0]
+        if name == "B1":
+            # the bottom-edge blocks: h <= EDGE_H, w and h not multiples
+            # of the block size, cut to EDGE_H rows
+            ins = _select(ins, ins[4] <= EDGE_H)
+            ins = (ins[0][:, :EDGE_H].contiguous(),) + ins[1:]
+        nl = ins[0].shape[0]
+        Hs, Ws = ins[0].shape[1:]
+        got = t1_encode.t1_encode_lanes(*ins, L, R)
+        ref, p_ms = _plain_ms(torch, lambda: t1_encode.t1_encode_lanes_ref(
+            *ins, L, R))
+        lens = got[1]
+        col = torch.arange(L, device=dev)[None]
+        used = col <= lens.long()[:, None]          # sentinel + codeword
+        err = max(int((got[1] - ref[1]).abs().max()),
+                  int((torch.where(used, got[0].int(), 0)
+                       - torch.where(used, ref[0].int(), 0)).abs().max()),
+                  int((got[2] - ref[2]).abs().max()),
+                  int((got[3].int() - ref[3].int()).abs().max()))
+        k5["err"] = max(k5["err"], err)
+        sizes = sorted({(int(a), int(b)) for a, b in zip(ins[3], ins[4])})
+        print(f"K5 {name}: {nl} of {nl_all} lanes ({Ws}x{Hs}; w x h "
+              f"{sizes[:6]}{' ...' if len(sizes) > 6 else ''}) vs the "
+              f"plain version: max_abs_err {err}", flush=True)
+        if err or (lens < 0).any():
+            _fail(f"K5 disagrees with its plain version on {name}")
+        k_ms = _kernel_ms(torch, lambda: t1_encode.t1_encode_lanes(
+            *ins, L, R))
+        nbytes = _k5_bytes(ins, lens, tables)
+        k5["ms"] += k_ms
+        k5["plain_ms"] += p_ms
+        k5["bytes"] += nbytes
+        print(f"K5 {name}: 1 launch per encode, kernel {full_ms:.4f} ms on "
+              f"all {nl_all} lanes; on the {nl} compared lanes kernel "
+              f"{k_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+              f"ms ({nbytes} bytes), plain version {p_ms:.1f} ms [{card}]",
+              flush=True)
+
+    # ---- 9. K3 vs its plain version ---------------------------------------
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    for name in paths["Part-1"]:
+        staged = api.stage_device_batch(streams[name], device=dev)
+        lanes = staged.program.stage_mq(staged.body, staged.meta)
+        W, H = staged.program.mq_dims
+        full_ms = _kernel_ms(torch, lambda: t1_decode.t1_decode_lanes(
+            *lanes, W, H))
+        nl_all = lanes[1].shape[0]
+        if name == "B1":
+            # the same bottom-edge blocks as phase 8
+            lanes = (lanes[0],) + _select(lanes[1:], lanes[6] <= EDGE_H)
+            W, H = int(lanes[5].max()), EDGE_H
+        nl = lanes[1].shape[0]
+        got = t1_decode.t1_decode_lanes(*lanes, W, H)
+        ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
+            *lanes, W, H))
+        err = int((got.long() - ref.long()).abs().max())
+        k3["err"] = max(k3["err"], err)
+        print(f"K3 {name}: {nl} of {nl_all} lanes ({W}x{H}) vs the plain "
+              f"version: max_abs_err {err}", flush=True)
+        if err:
+            _fail(f"K3 disagrees with its plain version on {name}")
+        k_ms = _kernel_ms(torch, lambda: t1_decode.t1_decode_lanes(
+            *lanes, W, H))
+        nb = _k3_bytes(lanes, tables)
+        k3["ms"] += k_ms
+        k3["plain_ms"] += p_ms
+        k3["bytes"] += nb
+        print(f"K3 {name}: 1 launch per decode, kernel {full_ms:.4f} ms on "
+              f"all {nl_all} lanes; on the {nl} compared lanes kernel "
+              f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({nb} bytes), plain version {p_ms:.1f} ms [{card}]",
+              flush=True)
+
+    # ---- 10. K5 -> K3 round trip ------------------------------------------
+    _mq_roundtrip(torch, dev, t1_encode, t1_decode)
+
+    # ---- 11. mode-switch vectors ------------------------------------------
+    v = vectors.load()
+    la = vectors.k3_lanes(v, dev)
+    got = t1_decode.t1_decode_lanes(*la, vectors.SIDE, vectors.SIDE)
+    ref = t1_decode.t1_decode_lanes_ref(*la, vectors.SIDE, vectors.SIDE)
+    err = max(int(np.abs(got.cpu().numpy().astype(np.int64)
+                         - v["mag2"]).max()),
+              int((got.long() - ref.long()).abs().max()))
+    k3["err"] = max(k3["err"], err)
+    if err:
+        _fail(f"K3 on the mode-switch vectors: max abs err {err}")
+    print(f"K3 mode-switch vectors: {len(v['npass'])} lanes, styles "
+          f"{sorted({hex(s) for s in v['style'].tolist()})}, equal to the "
+          f"scalar decodes and the plain version", flush=True)
+
+    print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
+          flush=True)
     print(card, flush=True)
+
+    def row(name, src, replaces, launches, k):
+        return {"name": name, "route": "cuda",
+                "source": f"grok_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": launches, "max_abs_err": k["err"],
+                "ms": k["ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bytes"] / HBM_BYTES_PER_S * 1e3,
+                "bound_by": "bytes", "library_ms": None}
     print(json.dumps({"kernels": [
-        {"name": "ht_cleanup_decode", "route": "cuda",
-         "source": "grok_tpu_torch/csrc/ht_decode.cu",
-         "replaces": "grok_tpu/ops/pallas_ht.py:310",
-         "launches": k1_launches, "max_abs_err": k1["err"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bytes"] / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "ht_cleanup_encode", "route": "cuda",
-         "source": "grok_tpu_torch/csrc/ht_encode.cu",
-         "replaces": "grok_tpu/ops/pallas_ht_enc.py:125",
-         "launches": k4_launches, "max_abs_err": k4["err"],
-         "ms": k4["ms"], "plain_ms": k4["plain_ms"],
-         "bound_ms": k4["bytes"] / HBM_BYTES_PER_S * 1e3,
-         "bound_by": "bytes", "library_ms": None}]}), flush=True)
+        row("ht_cleanup_decode", "ht_decode.cu",
+            "grok_tpu/ops/pallas_ht.py:310", dec_counts["HT"]["K1"], k1),
+        row("ht_cleanup_encode", "ht_encode.cu",
+            "grok_tpu/ops/pallas_ht_enc.py:125", enc_counts["HT"]["K4"], k4),
+        row("mq_decode", "t1_decode.cu", "grok_tpu/ops/pallas_t1.py:150",
+            dec_counts["Part-1"]["K3"], k3),
+        row("mq_encode", "t1_encode.cu", "grok_tpu/ops/pallas_t1_enc.py:46",
+            enc_counts["Part-1"]["K5"], k5)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -219,8 +219,9 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     arrays_list: one entry per frame, each a list of (h, w) component
     arrays, or a single (h, w) / (h, w, c) array.  Torch tensors stay on
     their device, which must be `device` (else ValueError); numpy arrays
-    are uploaded to `device`.  All frames' code-blocks share one K4
-    launch."""
+    are uploaded to `device`.  All frames' code-blocks share one launch
+    of each block coder the stream uses (K4 for HT, K5 for Part-1, both
+    for HT-mixed)."""
     params = params or CompressParams(ht=True)
     if not arrays_list:
         return []
@@ -260,6 +261,7 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     for res in results:
         plt_seg = j2k.write_plt(res.packet_lens) if params.write_plt \
             else b""
+        plt_seg = res.com + plt_seg      # the HT-mixed bitmap COM first
         psot = 12 + len(plt_seg) + 2 + len(res.body)
         tp = j2k.write_sot(0, psot, 0, 1) + plt_seg + \
             struct.pack(">H", j2k.SOD) + res.body

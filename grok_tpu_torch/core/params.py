@@ -30,6 +30,12 @@ class MCTMode(IntEnum):
 
 
 # Code-block style bits (SPcod/SPcoc; ISO 15444-1 Table A.19)
+CBLK_BYPASS = 0x01       # selective arithmetic coding bypass (lazy)
+CBLK_RESET = 0x02        # reset context probabilities between passes
+CBLK_TERMALL = 0x04      # terminate on each coding pass
+CBLK_VSC = 0x08          # vertically stripe-causal context
+CBLK_PTERM = 0x10        # predictable termination
+CBLK_SEGSYM = 0x20       # segmentation symbols
 CBLK_HT = 0x40           # HTJ2K (Part 15) block coder (SPcod/SPcoc bit 6)
 
 

@@ -1,14 +1,21 @@
-"""Fused serving decode on the device: the `ht3` route of
+"""Fused serving decode on the device: the `ht3` and `mq3` routes of
 grok_tpu/pipeline/device.py `_build_decode_fn`, in PyTorch.
 
-One uploaded digest (per block: the clean MagSgn stream and the raw
-cleanup suffix, from the host C scan) and one per-lane meta array go in;
-per component int32 pixel planes of all N streams come out, resident on
-the device.  In between, per bucket of same-sized code-blocks:
+One uploaded body and one per-lane meta array go in; per component int32
+pixel planes of all N streams come out, resident on the device.  The body
+holds, per stream, the HT digest (per HT block: the clean MagSgn stream
+and the raw cleanup suffix, from the host C scan) and/or the raw Part-1
+codewords.  In between, per bucket of same-sized code-blocks:
 
-  1. stage each lane's sub-streams from the digest (masked byte gathers)
-     and un-stuff MEL and VLC from the raw suffix;
-  2. decode the HT cleanup pass (ops/ht_decode.py, kernel K1);
+  1. HT lanes: stage each lane's sub-streams from the digest (masked byte
+     gathers), un-stuff MEL and VLC from the raw suffix, and decode the
+     HT cleanup pass (ops/ht_decode.py, kernel K1);
+  2. Part-1 lanes: decode each codeword straight from the body with one
+     default-style segment [0, dlen) per block (ops/t1_decode.py, kernel
+     K3), the lanes of all buckets in one launch (each lane carries its
+     own size).  An HT-mixed plan runs both over the same lanes: the
+     coder a block does not use sees valid = 0 (K1) or numpasses = 0
+     (K3) and gives zeros, so the two outputs add;
 
 then for the whole batch:
 
@@ -31,9 +38,12 @@ import torch
 from grok_tpu_torch.core.geometry import BAND_LL, Rect
 from grok_tpu_torch.ops import dwt, mct
 from grok_tpu_torch.ops.ht_decode import ht_decode_lanes
+from grok_tpu_torch.ops.t1_decode import t1_decode_lanes
 
-# per-lane meta columns of the uploaded meta array
-META_COLS = 6     # ms_start, ms_len, suf_start, suf_len, p, valid
+# per-lane meta columns of the uploaded meta array: the HT lane (K1) and
+# the Part-1 lane (K3) of the same block
+META_COLS = 10    # ms_start, ms_len, suf_start, suf_len, p, valid,
+#                   mq_start, mq_len, npass, nbps
 
 
 def stage_bytes(body: torch.Tensor, start: torch.Tensor, ln: torch.Tensor,
@@ -116,8 +126,9 @@ def unstuff_suffix(suf_f: torch.Tensor, suf_r: torch.Tensor,
 
 @dataclass(frozen=True)
 class Bucket:
-    """One kernel launch: every stream's code-blocks of one padded size,
-    stream-major (lane = stream * len(blocks) + block)."""
+    """Every stream's code-blocks of one padded size, stream-major (lane =
+    stream * len(blocks) + block): one K1 launch; K3 takes the lanes of
+    all buckets in one launch."""
     W: int
     H: int
     blocks: tuple     # per block: (ci, r, orient, yoff, xoff, bh, bw,
@@ -152,7 +163,7 @@ class DecodeProgram:
                 pos += N * bh * bw
         self.total = pos
 
-        srcs, tgts, scales, whs = [], [], [], []
+        srcs, tgts, scales, whs, oris = [], [], [], [], []
         self.lane_base = []       # first lane of each bucket in the meta
         lanes = 0
         src_base = 0              # offset of the bucket in the cat output
@@ -182,6 +193,7 @@ class DecodeProgram:
                 scales.append(np.broadcast_to(half_delta[j],
                                               inside.shape)[inside])
             whs.append(np.tile(np.stack([bw, bh], 1), (N, 1)))
+            oris.append(np.tile([t[2] for t in b.blocks], N))
             lanes += N * nb
             src_base += N * nb * b.H * b.W
 
@@ -195,13 +207,21 @@ class DecodeProgram:
                       if self.irrev else None)
         self.wh = [(dev_t(a[:, 0], torch.int32), dev_t(a[:, 1], torch.int32))
                    for a in whs]
+        # K3 decodes the lanes of every bucket in one launch, in the
+        # largest bucket's block dims
+        self.mq_dims = (max(b.W for b in buckets), max(b.H for b in buckets))
+        self.mq_lanes = (dev_t(np.concatenate(oris), torch.int32),
+                         torch.cat([w for w, _h in self.wh]),
+                         torch.cat([h for _w, h in self.wh]))
+
+    def lane_meta(self, meta: torch.Tensor, bi: int) -> torch.Tensor:
+        lo = self.lane_base[bi]
+        return meta[lo:lo + self.N * len(self.buckets[bi].blocks)]
 
     def stage(self, body: torch.Tensor, meta: torch.Tensor, bi: int,
               Lms: int, Lsuf: int, Dm: int) -> tuple:
-        """Kernel inputs of bucket bi: (ms, mel, vlc, p, w, h, valid)."""
-        b = self.buckets[bi]
-        lo = self.lane_base[bi]
-        mt = meta[lo:lo + self.N * len(b.blocks)].to(torch.int64)
+        """K1's inputs of bucket bi: (ms, mel, vlc, p, w, h, valid)."""
+        mt = self.lane_meta(meta, bi).to(torch.int64)
         u8 = torch.uint8
         ms = stage_bytes(body, mt[:, 0], mt[:, 1], Lms, False)
         suf_f = stage_bytes(body, mt[:, 2], mt[:, 3], Lsuf, False)
@@ -211,16 +231,42 @@ class DecodeProgram:
         return (ms.to(u8), mel.to(u8), vlc.to(u8),
                 mt[:, 4].to(torch.int32), w, h, mt[:, 5].to(torch.int32))
 
+    def stage_mq(self, body: torch.Tensor, meta: torch.Tensor) -> tuple:
+        """K3's inputs for the lanes of every bucket, in meta order:
+        (body, start, npass, nbps, orient, w, h, style, ptbl), one
+        default-style codeword segment [0, dlen) per lane that opens at
+        pass 0 and is never raw.  Decode them in mq_dims."""
+        start, dlen, npass, nbps = (meta[:, k].contiguous()
+                                    for k in (6, 7, 8, 9))
+        zero = torch.zeros_like(dlen)
+        ptbl = torch.stack([zero, dlen, zero], 1)[:, None].contiguous()
+        ori, w, h = self.mq_lanes
+        return (body, start, npass, nbps, ori, w, h, zero, ptbl)
+
     def run(self, body: torch.Tensor, meta: torch.Tensor,
             dims: list) -> list:
-        """body: uint8 digest; meta: (lanes, META_COLS) int32; dims: per
-        bucket (Lms, Lsuf, Dm).  Returns N lists of per-component int32
+        """body: uint8 digest and/or raw codewords; meta: (lanes,
+        META_COLS) int32; dims: per bucket (Lms, Lsuf, Dm, any HT lane,
+        any Part-1 lane).  Returns N lists of per-component int32
         planes."""
-        # 1-2. stage + HT cleanup decode per bucket
+        # 1-2. the block decodes: K3 once over every Part-1 lane, K1 per
+        # bucket
+        if any(d[4] for d in dims):
+            mq = t1_decode_lanes(*self.stage_mq(body, meta), *self.mq_dims)
         ms2 = []
         for bi, b in enumerate(self.buckets):
-            lanes = self.stage(body, meta, bi, *dims[bi])
-            ms2.append(ht_decode_lanes(*lanes, b.W, b.H).reshape(-1))
+            Lms, Lsuf, Dm, any_ht, any_mq = dims[bi]
+            n = self.N * len(b.blocks)
+            if any_ht:
+                out = ht_decode_lanes(*self.stage(body, meta, bi, Lms, Lsuf,
+                                                  Dm), b.W, b.H)
+            else:
+                out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
+                                  device=self.device)
+            if any_mq:
+                lo = self.lane_base[bi]
+                out = out + mq[lo:lo + n, :b.H, :b.W]
+            ms2.append(out.reshape(-1))
         m = torch.cat(ms2)[self.src]
 
         # 3. dequantize + place (signed mag2 carries the half-bit)

@@ -18,7 +18,7 @@ import numpy as np
 from grok_tpu_torch import native
 from grok_tpu_torch.core.geometry import BAND_LL
 from grok_tpu_torch.core.params import CBLK_HT
-from grok_tpu_torch.pipeline.tile import TileGeometry
+from grok_tpu_torch.pipeline.tile import TileGeometry, canon_block_indices
 from grok_tpu_torch.t2.progression import iter_packets
 
 _PLANS: dict = {}
@@ -43,6 +43,8 @@ class ServePlan:
     comps_sig: tuple
     mct_mode: int
     ht_p_ext: int = 0                 # ht_planes COM extension (derive_p)
+    canon_idx: np.ndarray | None = None   # mixed: each block's index in
+    #                                       the HT-mixed bitmap
     fast: dict = field(default_factory=dict)   # device programs, staging
 
 
@@ -91,19 +93,22 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
 
     # per-block metadata in the C parser's global block order:
     # ctx (c, r, p) -> band -> cblk
-    mb_l, bucket_l, tails, rok_l = [], [], [], []
+    mb_l, bucket_l, tails, rok_l, canon_l = [], [], [], [], []
     bucket_ids: dict = {}
     bucket_dims: list = []
+    canon = canon_block_indices(geo) if coder == "mixed" else None
     for (c, r, p) in ctx_keys:
         quant = geo.quants[c]
         irrev = bool(geo.styles[c].irreversible)
         rg = geo.tcgs[c].resolutions[r]
         numres_c = geo.styles[c].num_resolutions
         r_lim_c = max(numres_c - reduce, 1) if reduce else numres_c
-        for bg in rg.bands:
+        for band_i, bg in enumerate(rg.bands):
             mb = quant.mb(r, bg.orient)
             delta = float(quant.delta(r, bg.orient))
-            for cb in bg.precincts[p].cblks:
+            for cblk_i, cb in enumerate(bg.precincts[p].cblks):
+                if canon is not None:
+                    canon_l.append(canon[(c, r, band_i, p, cblk_i)])
                 mb_l.append(mb)
                 rok_l.append(r < r_lim_c)
                 if cb.rect.w > 64 or cb.rect.h > 64:
@@ -157,7 +162,9 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         bucket=np.asarray(bucket_l, np.int32), bucket_dims=bucket_dims,
         sig_tail=tails, coder=coder, rok=np.asarray(rok_l, bool),
         comps_sig=tuple(comps_sig), mct_mode=mct_mode,
-        ht_p_ext=hdr.ht_planes_ext())
+        ht_p_ext=hdr.ht_planes_ext(),
+        canon_idx=np.asarray(canon_l, np.int64) if canon is not None
+        else None)
 
 
 def _th_ovr_key(th) -> tuple:

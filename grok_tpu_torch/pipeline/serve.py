@@ -1,19 +1,25 @@
-"""Cached serving decode of HT streams on a PyTorch device.
+"""Cached serving decode of HT, Part-1 and HT-mixed streams on a
+PyTorch device.
 
-The HT branch of grok_tpu/pipeline/serve.py `try_decode_serving_batch`,
-over the port's own host layers: the cached ServePlan (pipeline/plan.py),
-the C Tier-2 parser and the C HT wire scan (native/), which un-stuffs
-each block's MagSgn stream into one digest.  The digest and one per-lane
+The `ht`, `mq` and `mixed` branches of grok_tpu/pipeline/serve.py
+`try_decode_serving_batch`, over the port's own host layers: the cached
+ServePlan (pipeline/plan.py), the C Tier-2 parser and the C HT wire scan
+(native/), which un-stuffs each HT block's MagSgn stream into one
+digest.  Part-1 blocks keep their raw codewords: a block's per-layer
+chunks of a multi-layer stream are concatenated into one compact body.
+HT-mixed streams route each block by the tile-part COM bitmap, and
+upload both the raw body and the digest.  The bytes and one per-lane
 meta array are uploaded from pinned host memory, and a DecodeProgram
 (pipeline/device.py), cached on the plan per table version, does the
 rest on the device.
 
-Scope: single-tile HT streams, one cleanup segment per block, all
-streams of a batch under one main header.  Anything else — Part-1/MQ,
-HT mixed, windowed, layer-capped, strict, layered or refined HT, PPM/PPT,
-per-component overrides — raises NotImplementedError naming the route:
-the port has no general path, and a quiet host decode would hide the
-device.
+Scope: single-tile streams of HT cleanup-only, Part-1 default-style
+(one codeword segment per block, any number of layers) or HT-mixed
+code-blocks, all streams of a batch under one main header.  Anything
+else — Part-1 mode switches, windowed, layer-capped, strict, layered or
+refined HT, PPM/PPT, per-component overrides — raises
+NotImplementedError naming the route: the port has no general path, and
+a quiet host decode would hide the device.
 """
 
 from __future__ import annotations
@@ -33,16 +39,18 @@ from grok_tpu_torch.pipeline.device import META_COLS, Bucket, DecodeProgram
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{route} is not ported ({why}); the PyTorch port serves "
-        f"single-tile HT cleanup streams only")
+        f"single-tile HT cleanup, Part-1 default-style and HT-mixed "
+        f"streams only")
 
 
 @dataclass
 class StagedBatch:
     """A batch ready on the device: run() decodes it."""
     program: DecodeProgram
-    body: torch.Tensor        # uint8 digest
+    body: torch.Tensor        # uint8 digest and/or raw codewords
     meta: torch.Tensor        # (lanes, META_COLS) int32
-    dims: list                # per bucket (Lms, Lsuf, Dm)
+    dims: list                # per bucket (Lms, Lsuf, Dm, any HT lane,
+    #                           any Part-1 lane)
 
     def run(self) -> list:
         return self.program.run(self.body, self.meta, self.dims)
@@ -126,6 +134,51 @@ def stage_dims(sc: np.ndarray) -> tuple:
             Dm)
 
 
+def _scan_ht(plan, body: bytes, offs, lens, numbps, si: int):
+    """C wire scan of a stream's HT blocks -> (scan rows with the cleanup
+    plane in column 0, digest); raises outside the K1 route's scope."""
+    res = native.ht_scan2(body, offs, lens)
+    if res is None:
+        raise _unsupported("general path", "HT wire scan overflow")
+    scan, dig = res
+    if (scan[:, 0] < 0).any():
+        raise _unsupported("general path", f"stream {si}: invalid HT "
+                           f"framing")
+    # per-block cleanup plane (t1ht.scalar.derive_p: cleanup-only, so
+    # p = 0 unless the ht_planes COM extension is present), kept in scan
+    # column 0 (the validity flag)
+    scan[:, 0] = np.minimum(plan.ht_p_ext, np.maximum(numbps - 1, 0))
+    # the kernel's UVLC has no 13-bit escape: u <= numbps - p <= 24
+    if ((numbps - scan[:, 0]) > 24).any():
+        raise _unsupported("general path", "more than 24 magnitude planes "
+                           "below the cleanup plane")
+    if scan.size and int(scan[:, 2:5:2].max()) > MAX_STREAM:
+        raise _unsupported("general path", "a sub-stream longer than "
+                           f"{MAX_STREAM} bytes")
+    return scan, dig
+
+
+def _concat_layers(body: bytes, chunks: np.ndarray, n_blks: int):
+    """Multi-layer Part-1: a default-style block's per-layer chunks are
+    contributions to one codeword segment, concatenated per block (in
+    layer order) into a compact body.  Returns (body, offs, lens)."""
+    ch = chunks[np.lexsort((chunks[:, 1], chunks[:, 0]))]
+    bview = np.frombuffer(body, np.uint8)
+    buf = np.empty(int(ch[:, 5].sum()), np.uint8)
+    offs = np.zeros(n_blks, np.int64)
+    lens = np.zeros(n_blks, np.int32)
+    first = np.ones(n_blks, bool)
+    pos = 0
+    for b, _l, _s, _p, off, ln in ch.tolist():
+        if first[b]:
+            offs[b] = pos
+            first[b] = False
+        buf[pos:pos + ln] = bview[off:off + ln]
+        lens[b] += ln
+        pos += ln
+    return buf.tobytes(), offs, lens
+
+
 def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                         device, ths=None) -> StagedBatch:
     """Host staging of N same-geometry tile bodies and their upload."""
@@ -147,20 +200,24 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         raise _unsupported("strict decode", "strict=True")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
-        raise _unsupported("general path", "the stream has no serving plan")
-    if plan.coder == "mq":
-        raise _unsupported("Part-1/MQ (mq3) route", "Part-1 code-blocks")
-    if plan.coder != "ht" or any(
+        raise _unsupported("Part-1/MQ mode switches or general path",
+                           "the stream has no serving plan")
+    ths_l = list(ths) if ths is not None else [th] * len(bodies)
+    if plan.coder != "mixed" and any(
             q is not None and q.ht_mixed_bitmap() is not None
-            for q in (ths or ())):
-        raise _unsupported("HT mixed route", "an HT/MQ mixed stream")
+            for q in ths_l):
+        raise _unsupported("general path", "a batch mixing HT-mixed and "
+                           "other streams")
 
     N = len(bodies)
     fidx, bsel = _full_index(plan)
     nf = fidx.size
     scans = np.zeros((N, nf, 7), np.int64)
-    valid = np.zeros((N, nf), bool)
-    digests = []
+    valid = np.zeros((N, nf), bool)           # HT lanes (K1)
+    mqrows = np.zeros((N, nf, 4), np.int64)   # Part-1 lanes (K3): offset
+    #                                           in the stream's raw body,
+    #                                           length, npass, numbps
+    srcs = []          # per stream: raw body (mq, mixed), digest (ht, mixed)
     for si, body in enumerate(bodies):
         parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
                                           plan.eph)
@@ -173,53 +230,78 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
             raise _unsupported("general path",
                                "multi-segment code-blocks")
         if len(chunks) != int(np.count_nonzero(incl)):
-            raise _unsupported("layered HT serving", "more than one layer")
-        offs = np.zeros(plan.n_blks, np.int64)
-        lens = np.zeros(plan.n_blks, np.int32)
-        offs[chunks[:, 0]] = chunks[:, 4]
-        lens[chunks[:, 0]] = chunks[:, 5]
+            if plan.coder != "mq":
+                raise _unsupported("layered HT serving",
+                                   "more than one layer")
+            body, offs, lens = _concat_layers(body, chunks, plan.n_blks)
+        else:
+            offs = np.zeros(plan.n_blks, np.int64)
+            lens = np.zeros(plan.n_blks, np.int32)
+            offs[chunks[:, 0]] = chunks[:, 4]
+            lens[chunks[:, 0]] = chunks[:, 5]
         idx = np.nonzero(incl & plan.rok)[0]
         if idx.size == 0:
             raise _unsupported("general path", f"stream {si}: no coded "
                                f"code-blocks")
         numbps = plan.mb[idx] - zb[idx]
-        if not (npass[idx] == 1).all():
+        npz = npass[idx]
+        pos = np.searchsorted(fidx, idx)
+        if plan.coder == "ht":
+            hsel = np.ones(idx.size, bool)
+        elif plan.coder == "mq":
+            hsel = np.zeros(idx.size, bool)
+        else:
+            # the stream's bitmap routes each block to its coder
+            bm = ths_l[si].ht_mixed_bitmap() \
+                if ths_l[si] is not None else None
+            if bm is None:
+                raise _unsupported("general path", f"stream {si}: no "
+                                   f"HT-mixed bitmap")
+            bma = np.frombuffer(bm, np.uint8)
+            cidx = plan.canon_idx[idx]
+            if int(cidx.max()) >= bma.size * 8:
+                raise _unsupported("general path", f"stream {si}: a short "
+                                   f"HT-mixed bitmap")
+            hsel = ((bma[cidx >> 3] >> (cidx & 7)) & 1).astype(bool)
+        if not (npz[hsel] == 1).all():
             raise _unsupported("HT refinement (K2) route",
                                "SigProp/MagRef passes")
-        res = native.ht_scan2(body, offs[idx], lens[idx])
-        if res is None:
-            raise _unsupported("general path", "HT wire scan overflow")
-        scan, dig = res
-        if (scan[:, 0] < 0).any():
-            raise _unsupported("general path", "invalid HT framing")
-        # per-block cleanup plane (t1ht.scalar.derive_p: cleanup-only,
-        # so p = 0 unless the ht_planes COM extension is present), kept
-        # in scan column 0 (the validity flag)
-        scan[:, 0] = np.minimum(plan.ht_p_ext, np.maximum(numbps - 1, 0))
-        # the kernel's UVLC has no 13-bit escape: u <= numbps - p <= 24
-        if ((numbps - scan[:, 0]) > 24).any():
-            raise _unsupported("general path", "more than 24 magnitude "
-                               "planes below the cleanup plane")
-        if int(scan[:, 2:5:2].max()) > MAX_STREAM:
-            raise _unsupported("general path", "a sub-stream longer than "
-                               f"{MAX_STREAM} bytes")
-        pos = np.searchsorted(fidx, idx)
-        scans[si, pos] = scan
-        valid[si, pos] = True
-        digests.append(dig)
+        if not ((npz[~hsel] >= 1) & (npz[~hsel] <= 109)).all() or (
+                (~hsel).any() and not ((numbps[~hsel] >= 0)
+                                       & (numbps[~hsel] <= 30)).all()):
+            raise _unsupported("general path", "a Part-1 block outside "
+                               "1..109 passes or 0..30 magnitude planes")
+        if plan.coder != "ht":
+            srcs.append(body)
+            m = ~hsel
+            mqrows[si, pos[m]] = np.stack(
+                [offs[idx][m], lens[idx][m], npz[m], numbps[m]], 1)
+        if plan.coder != "mq":
+            dig = b""
+            if hsel.any():
+                scan, dig = _scan_ht(plan, body, offs[idx][hsel],
+                                     lens[idx][hsel], numbps[hsel], si)
+                scans[si, pos[hsel]] = scan
+                valid[si, pos[hsel]] = True
+            srcs.append(dig)
 
-    # one digest for all streams, each at a 16-byte-aligned base
-    bases = np.zeros(N, np.int64)
-    pos = 0
-    for si, d in enumerate(digests):
-        bases[si] = pos
-        pos += -(-len(d) // 16) * 16
-    body_cat = np.zeros(max(16, pos), np.uint8)
-    for b, d in zip(bases, digests):
-        body_cat[b:b + len(d)] = d
+    # one upload for all streams, each piece at a 16-byte-aligned base
+    bases = np.zeros(len(srcs), np.int64)
+    top = 0
+    for k, b in enumerate(srcs):
+        bases[k] = top
+        top += -(-len(b) // 16) * 16
+    body_cat = np.zeros(max(16, top), np.uint8)
+    for b, base in zip(srcs, bases):
+        body_cat[base:base + len(b)] = np.frombuffer(b, np.uint8) \
+            if not isinstance(b, np.ndarray) else b
+    per = len(srcs) // N
+    raw_base = bases[0::per] if plan.coder != "ht" else np.zeros(N)
+    dig_base = bases[per - 1::per] if plan.coder != "mq" else np.zeros(N)
 
     # full staging: a lane for every kept block of every stream (stream
-    # major); blocks a stream does not include stay zero (valid = 0)
+    # major); blocks a stream does not include, or codes with the other
+    # coder, stay zero (valid = 0, npass = 0)
     prog = _program(plan, N, device)
     metas, dims = [], []
     for sel in bsel:
@@ -227,16 +309,21 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
             continue
         sc = scans[:, sel].reshape(-1, 7)
         v = valid[:, sel].reshape(-1)
-        base = np.repeat(bases, sel.size)
+        mqr = mqrows[:, sel].reshape(-1, 4)
+        dbase = np.repeat(dig_base, sel.size)
         meta = np.zeros((sc.shape[0], META_COLS), np.int32)
-        meta[:, 0] = np.where(v, sc[:, 1] + base, 0)
+        meta[:, 0] = np.where(v, sc[:, 1] + dbase, 0)
         meta[:, 1] = sc[:, 2]
-        meta[:, 2] = np.where(v, sc[:, 3] + base, 0)
+        meta[:, 2] = np.where(v, sc[:, 3] + dbase, 0)
         meta[:, 3] = sc[:, 4]
         meta[:, 4] = sc[:, 0]
         meta[:, 5] = v
+        mq_on = mqr[:, 2] > 0
+        meta[:, 6] = np.where(mq_on, mqr[:, 0] + np.repeat(raw_base,
+                                                           sel.size), 0)
+        meta[:, 7:10] = mqr[:, 1:4]
         metas.append(meta)
-        dims.append(stage_dims(sc))
+        dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
     meta_all = np.concatenate(metas)
     body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
     return StagedBatch(prog, body_d, meta_d, dims)

@@ -1,7 +1,9 @@
-"""Batched HTJ2K serving encode on a PyTorch device.
+"""Batched serving encode on a PyTorch device: HTJ2K, Part-1 and
+HT-mixed.
 
-The HT branch of grok_tpu/pipeline/serve_enc.py `try_encode_serving_
-batch`: N same-geometry frames of one tile go through one device pass —
+The untargeted branches of grok_tpu/pipeline/serve_enc.py `try_encode_
+serving_batch`: N same-geometry frames of one tile go through one device
+pass —
 
   1. DC shift, RCT/ICT, forward DWT and quantization to
      mneg = (magnitude << 1) | sign, on (N, h, w) stacks of all frames
@@ -9,22 +11,27 @@ batch`: N same-geometry frames of one tile go through one device pass —
      path does);
   2. every code-block of every frame gathered into one lane of an
      (NL, H, W) tensor, frame-major (one gather over index tensors built
-     once per plan);
-  3. the HT cleanup encode, kernel K4 (ops/ht_encode.py), one launch;
-  4. one download of the per-lane stats (bit counts, largest magnitude),
-     then the used stream bytes compacted on the device by a prefix sum
-     over the per-lane byte counts and downloaded once;
+     once per plan), each lane with its own (w, h);
+  3. one launch of the block coder: the HT cleanup encode, kernel K4
+     (ops/ht_encode.py), for HT code-blocks; the EBCOT/MQ encode, kernel
+     K5 (ops/t1_encode.py), for Part-1 default-style code-blocks; both
+     for HT-mixed sets, which keep the smaller codeword per block (HT on
+     ties) and name the HT blocks in a COM bitmap, as the JAX package's
+     mixed encoder does;
+  4. one download of the per-lane stats, then the used bytes compacted on
+     the device by a prefix sum over the per-lane byte counts and
+     downloaded once;
 
-— and the host finishes: the C wire assembly (native.ht_assemble_batch)
-stuffs and interleaves each block's three streams, and the Tier-2 finish
-(pipeline/tile.py) emits the packets.
+— and the host finishes: for HT the C wire assembly (native.ht_assemble_
+batch) stuffs and interleaves each block's three streams; the Tier-2
+finish (pipeline/tile.py) emits the packets.
 
-Scope: HT cleanup-only code-blocks, one tile, one tile-part, one
-quality layer with no byte or quality target, default precincts, no
-ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything else raises
-NotImplementedError naming the route: the port has no host encoder to
-fall back to.  Reversible streams are byte-identical to the JAX
-package's encoders.
+Scope: HT cleanup-only or Part-1 default-style code-blocks (or HT-mixed
+sets of the two), one tile, one tile-part, one quality layer with no byte
+or quality target, default precincts, no ROI, no custom or AUTO_RD MCT,
+Mb <= 24.  Anything else raises NotImplementedError naming the route: the
+port has no host encoder to fall back to.  Reversible streams are
+byte-identical to the JAX package's encoders.
 """
 
 from __future__ import annotations
@@ -35,11 +42,15 @@ import numpy as np
 import torch
 
 from grok_tpu_torch import native
+from grok_tpu_torch.codestream import j2k
 from grok_tpu_torch.core.geometry import Rect
 from grok_tpu_torch.core.params import CBLK_HT, MCTMode
 from grok_tpu_torch.ops import dwt, mct
-from grok_tpu_torch.ops.ht_encode import ht_encode_lanes
-from grok_tpu_torch.pipeline.tile import TileGeometry, finish_tile_encode
+from grok_tpu_torch.ops.ht_encode import _bitlen, ht_encode_lanes
+from grok_tpu_torch.ops.t1_encode import (rates_from_watermarks,
+                                          t1_encode_lanes)
+from grok_tpu_torch.pipeline.tile import (TileGeometry, canon_block_indices,
+                                          finish_tile_encode)
 from grok_tpu_torch.t1.records import EncodedBlock, PassInfo
 
 _EPLANS: dict = {}
@@ -49,7 +60,8 @@ _EPLANS_MAX = 16
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{route} is not ported ({why}); the PyTorch port encodes "
-        f"single-tile, single-layer HT cleanup streams only")
+        f"single-tile, single-layer HT cleanup, Part-1 default-style and "
+        f"HT-mixed streams only")
 
 
 @dataclass
@@ -63,7 +75,10 @@ class EncPlan:
     mct_mode: int             # 0 none, 1 RCT, 2 ICT
     W: int                    # lane block dims: the largest block
     H: int
-    caps: tuple               # per-lane (LMS, LMEL, LVLC) bytes
+    coder: str                # "ht" (K4, or K4 + K5 when mixed) or "mq"
+    caps: tuple               # per-lane (LMS, LMEL, LVLC) bytes (K4)
+    mq_caps: tuple            # per-lane byte capacity and watermark rows
+    #                           (L, R) (K5)
     fast: dict = field(default_factory=dict)   # device index tensors
 
 
@@ -77,9 +92,15 @@ def _build_plan(hdr, t: int) -> EncPlan:
         raise _unsupported("ROI encode", "an RGN shift")
     if geo.custom_mct is not None:
         raise _unsupported("custom MCT encode", "a Part-2 MCT matrix")
-    if {cs.cblk_style for cs in geo.styles} != {CBLK_HT}:
-        raise _unsupported("Part-1/MQ encode (K5) or HT mode switches",
-                           "a code-block style other than HT cleanup")
+    styles = {cs.cblk_style for cs in geo.styles}
+    if styles == {CBLK_HT}:
+        coder = "ht"
+    elif styles == {0}:
+        coder = "mq"
+    else:
+        raise _unsupported("Part-1 mode switches encode",
+                           "a code-block style other than HT cleanup or "
+                           "the Part-1 default")
     if any(cs.prec_exps for cs in geo.styles):
         raise _unsupported("general encode", "non-default precincts")
     irrevs = {bool(cs.irreversible) for cs in geo.styles}
@@ -131,10 +152,16 @@ def _build_plan(hdr, t: int) -> EncPlan:
     nq = ((W + 1) // 2) * ((H + 1) // 2)
     caps = (_cap_bytes(W * H * (mbmax + 2) // 8 + 16),
             _cap_bytes(nq * 9 // 8 + 16), _cap_bytes(nq * 15 // 8 + 16))
+    # Part-1 codeword capacity: 4 bits per sample and magnitude plane
+    # (the MQ coder spends about one bit per decision on noise-like data,
+    # a decision per sample and plane plus a sign), and one watermark row
+    # per pass of the deepest block
+    mq_caps = (_cap_bytes(W * H * (mbmax + 1) // 2 + 64),
+               max(3 * mbmax - 2, 1))
     return EncPlan(geo=geo, blocks=blocks, lane_block=lane_block,
                    lane_mb=np.asarray(lane_mb, np.int32),
                    comps_sig=tuple(comps_sig), mct_mode=mct_mode, W=W, H=H,
-                   caps=caps)
+                   coder=coder, caps=caps, mq_caps=mq_caps)
 
 
 def _hdr_key(hdr):
@@ -239,8 +266,6 @@ def stage_encode_lanes(comps: list, hdr, params):
         raise _unsupported("POC encode", "progression-order changes")
     if params.mct == MCTMode.AUTO_RD:
         raise _unsupported("AUTO_RD MCT encode", "mct=AUTO_RD")
-    if params.ht_mixed:
-        raise _unsupported("HT mixed encode (K4 + K5)", "ht_mixed")
     if params.ht_planes:
         raise _unsupported("HT refinement encode (K4 refine=True)",
                            "ht_planes > 0")
@@ -261,14 +286,40 @@ def stage_encode_lanes(comps: list, hdr, params):
     return plan, (mneg, zeros, wv, hv, zeros + 1)
 
 
-def try_encode_serving_batch(comps: list, hdr, params) -> list:
-    """Encode N frames of one tile: comps[ci] is an (N, h, w) integer
-    tensor on the device.  Returns N TileEncodeResults; raises
-    NotImplementedError outside the served scope."""
-    plan, lanes = stage_encode_lanes(comps, hdr, params)
+def mq_lane_inputs(plan: EncPlan, lanes: tuple) -> tuple:
+    """K5's inputs (mneg, orient, numbps, w, h) from the staged lanes:
+    numbps is each lane's magnitude bit length, computed on the
+    device."""
+    mneg, _p, wv, hv, _valid = lanes
+    NL = mneg.shape[0]
+    key = ("orient", NL, str(mneg.device))
+    ori = plan.fast.get(key)
+    if ori is None:
+        ori = torch.from_numpy(np.tile(np.array(
+            [b[2] for b in plan.blocks], np.int32), NL // len(plan.blocks)))
+        ori = plan.fast[key] = ori.to(mneg.device)
+    mx = (mneg >> 1).reshape(NL, -1).amax(1).to(torch.int64)
+    return mneg, ori, _bitlen(mx).to(torch.int32), wv, hv
+
+
+def _compact(buf: torch.Tensor, first: torch.Tensor, cnt: torch.Tensor,
+             total: int) -> np.ndarray:
+    """Download the used bytes of every segment at once: segment i is
+    cnt[i] bytes from buf.reshape(-1)[first[i]:], gathered back to back
+    on the device by a prefix sum over cnt."""
+    if not total:
+        return np.zeros(1, np.uint8)
+    end = torch.cumsum(cnt, 0)
+    jj = torch.arange(total, device=buf.device)
+    seg = torch.searchsorted(end, jj, right=True)
+    return buf.reshape(-1)[first[seg] + jj - (end - cnt)[seg]].cpu().numpy()
+
+
+def _encode_ht(plan: EncPlan, lanes: tuple) -> list:
+    """K4 over the staged lanes, then the C wire assembly: one
+    EncodedBlock per lane (frame-major)."""
     mneg = lanes[0]
     NL = mneg.shape[0]
-    N = NL // len(plan.blocks)
     device = mneg.device
     mx = (mneg >> 1).reshape(NL, -1).amax(1)
     LMS, LMEL, LVLC = plan.caps
@@ -284,23 +335,14 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
     coded = numbps > 0
     cnt = ((bits_h + 7) >> 3) * coded                  # (3, NL) bytes
     cnt_l = cnt.T.reshape(-1)                          # lane-major
-    total = int(cnt_l.sum())
     offs = np.cumsum(cnt_l) - cnt_l
 
-    # compaction on the device: output byte j of stream segment s comes
-    # from its lane's region at (j - offset of s)
-    if total:
-        cnt_d = ((bits.to(torch.int64) + 7) >> 3) * (mx > 0)
-        cnt_dl = cnt_d.t().reshape(-1)
-        end = torch.cumsum(cnt_dl, 0)
-        jj = torch.arange(total, device=device)
-        seg = torch.searchsorted(end, jj, right=True)
-        region = torch.tensor([0, LMS, LMS + LMEL], device=device)
-        srcb = (seg // 3) * (LMS + LMEL + LVLC) + region[seg % 3] \
-            + jj - (end - cnt_dl)[seg]
-        body = streams.reshape(-1)[srcb].cpu().numpy()
-    else:
-        body = np.zeros(1, np.uint8)
+    # stream segment s of lane l starts at its region of the lane's row
+    seg = torch.arange(3 * NL, device=device)
+    region = torch.tensor([0, LMS, LMS + LMEL], device=device)
+    first = (seg // 3) * (LMS + LMEL + LVLC) + region[seg % 3]
+    cnt_d = (((bits.to(torch.int64) + 7) >> 3) * (mx > 0)).t().reshape(-1)
+    body = _compact(streams, first, cnt_d, int(cnt_l.sum()))
     res = native.ht_assemble_batch(
         body, offs[0::3], bits_h[0], offs[1::3], bits_h[1], offs[2::3],
         bits_h[2], np.where(coded, 0, -1))
@@ -309,23 +351,109 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
                            "over 4079 bytes)")
     wire, wlens = res
     wpos = np.cumsum(wlens) - wlens
+    encs = []
+    for lane in range(NL):
+        if not coded[lane]:
+            encs.append(EncodedBlock())
+            continue
+        seg_b = wire[wpos[lane]:wpos[lane] + wlens[lane]].tobytes()
+        # dist is read only by rate allocation, which the one-layer
+        # untargeted finish does not run
+        encs.append(EncodedBlock(
+            data=seg_b, numbps=int(numbps[lane]),
+            passes=[PassInfo(rate=len(seg_b), dist=0.0, term=True)],
+            seg_lens=[len(seg_b)], seg_passes=[1]))
+    return encs
 
+
+def _encode_mq(plan: EncPlan, lanes: tuple) -> list:
+    """K5 over the staged lanes: one EncodedBlock per lane (frame-major),
+    a single codeword segment with rates from the watermarks."""
+    mneg, ori, nb, wv, hv = mq_lane_inputs(plan, lanes)
+    NL = mneg.shape[0]
+    L, R = plan.mq_caps
+    out, lens, rates, _sigtype = t1_encode_lanes(mneg, ori, nb, wv, hv, L, R)
+
+    # one download of the stats: length, numbps, watermark rows
+    stats = torch.cat([lens[:, None], nb[:, None], rates], 1).cpu().numpy()
+    lens_h = stats[:, 0].astype(np.int64)
+    nb_h = stats[:, 1]
+    if (lens_h < 0).any():
+        raise RuntimeError("Part-1 encode: a codeword exceeded its "
+                           "capacity (samples beyond the signalled "
+                           "precision?)")
+    over = nb_h > np.tile(plan.lane_mb, NL // len(plan.blocks))
+    if over.any():
+        raise ValueError(f"block overflows Mb: {int(nb_h[over].max())} "
+                         f"magnitude planes; raise guard bits")
+    offs = np.cumsum(lens_h) - lens_h
+    # a lane's codeword follows the carry sentinel at byte 0 of its row
+    first = torch.arange(NL, device=out.device) * L + 1
+    body = _compact(out, first, lens.to(torch.int64), int(lens_h.sum()))
+    encs = []
+    for lane in range(NL):
+        n = int(nb_h[lane])
+        if n == 0:
+            encs.append(EncodedBlock())
+            continue
+        ln = int(lens_h[lane])
+        rr = rates_from_watermarks(stats[lane, 2:], n, ln)
+        encs.append(EncodedBlock(
+            data=body[offs[lane]:offs[lane] + ln].tobytes(), numbps=n,
+            passes=[PassInfo(rate=v, dist=0.0, term=t == len(rr) - 1)
+                    for t, v in enumerate(rr)],
+            seg_lens=[ln], seg_passes=[len(rr)]))
+    return encs
+
+
+def _canon(plan: EncPlan) -> list:
+    """Each block's canonical index (pipeline/tile.py canon_block_
+    indices), in plan block order."""
+    got = plan.fast.get("canon")
+    if got is None:
+        canon = canon_block_indices(plan.geo)
+        got = plan.fast["canon"] = [canon[(c, r, band_i, p, cblk_i)]
+                                    for (c, r, p, band_i, cblk_i)
+                                    in plan.lane_block]
+    return got
+
+
+def try_encode_serving_batch(comps: list, hdr, params) -> list:
+    """Encode N frames of one tile: comps[ci] is an (N, h, w) integer
+    tensor on the device.  Returns N TileEncodeResults; raises
+    NotImplementedError outside the served scope."""
+    plan, lanes = stage_encode_lanes(comps, hdr, params)
     B = len(plan.blocks)
+    N = lanes[0].shape[0] // B
+    mixed = bool(params.ht_mixed) and plan.coder == "ht"
+    if plan.coder == "mq":
+        encs = _encode_mq(plan, lanes)
+    else:
+        encs = _encode_ht(plan, lanes)
+    if mixed:
+        # both coders on the same lanes; the smaller codeword wins per
+        # block, HT on ties (grok_tpu/pipeline/tile.py encode_tile)
+        encs_mq = _encode_mq(plan, lanes)
+        canon = _canon(plan)
+        nbytes = (len(canon) + 7) // 8
     jobs = [dict(key=kb, mb=int(mb))
             for kb, mb in zip(plan.lane_block, plan.lane_mb)]
     results = []
     for fi in range(N):
-        encs = []
-        for lane in range(fi * B, (fi + 1) * B):
-            if not coded[lane]:
-                encs.append(EncodedBlock())
-                continue
-            seg_b = wire[wpos[lane]:wpos[lane] + wlens[lane]].tobytes()
-            # dist is read only by rate allocation, which the one-layer
-            # untargeted finish does not run
-            encs.append(EncodedBlock(
-                data=seg_b, numbps=int(numbps[lane]),
-                passes=[PassInfo(rate=len(seg_b), dist=0.0, term=True)],
-                seg_lens=[len(seg_b)], seg_passes=[1]))
-        results.append(finish_tile_encode(plan.geo, jobs, encs))
+        frame = encs[fi * B:(fi + 1) * B]
+        if not mixed:
+            results.append(finish_tile_encode(plan.geo, jobs, frame))
+            continue
+        bitmap = bytearray(nbytes)
+        for bi, ci in enumerate(canon):
+            mq_e = encs_mq[fi * B + bi]
+            if len(frame[bi].data) <= len(mq_e.data):
+                bitmap[ci >> 3] |= 1 << (ci & 7)          # an HT block
+            else:
+                frame[bi] = mq_e
+        res = finish_tile_encode(plan.geo, jobs, frame,
+                                 seg_style_mask=~CBLK_HT)
+        res.com = j2k.write_com(b"GRKTPU_HTMIX=" + bytes(bitmap),
+                                binary=True)
+        results.append(res)
     return results

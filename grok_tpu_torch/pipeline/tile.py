@@ -2,8 +2,9 @@
 
 The port's copy of the host half of grok_tpu/pipeline/tile.py:
 `TileGeometry` (geometry + coding state shared by the serving decode and
-encode plans), `TileEncodeResult`, and `finish_tile_encode` for the
-serving shape the port encodes — one quality layer with no byte or
+encode plans), `canon_block_indices` (the HT-mixed bitmap's block
+order), `TileEncodeResult`, and `finish_tile_encode` for the serving
+shape the port encodes — one quality layer with no byte or
 quality target, where every pass ships and no rate allocation runs.
 Packets are emitted by the C Tier-2 coder (native.t2_emit).
 
@@ -89,23 +90,44 @@ class TileGeometry:
         return ctxs
 
 
+def canon_block_indices(geo: TileGeometry) -> dict[tuple, int]:
+    """Canonical flat index of every code-block in the tile: nested
+    (component, resolution, band, precinct, cblk) enumeration over the
+    full geometry, shared by the HT-mixed bitmap writer and reader.
+    Key: (c, r, band_i, p, cblk_i)."""
+    idx: dict[tuple, int] = {}
+    n = 0
+    for c, tcg in enumerate(geo.tcgs):
+        for rg in tcg.resolutions:
+            for band_i, bg in enumerate(rg.bands):
+                for p in range(rg.num_precincts):
+                    for cblk_i in range(len(bg.precincts[p].cblks)):
+                        idx[(c, rg.r, band_i, p, cblk_i)] = n
+                        n += 1
+    return idx
+
+
 @dataclass
 class TileEncodeResult:
     packets: list[bytes]             # in progression order
     packet_lens: list[int]
     body: bytes                      # concatenated packets
+    com: bytes = b""                 # tile-part COM (the HT-mixed bitmap)
 
 
-def finish_tile_encode(geo: TileGeometry, ejobs: list[dict],
-                       encs: list) -> TileEncodeResult:
+def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
+                       seg_style_mask: int = -1) -> TileEncodeResult:
     """Tier-2 emission over already-coded blocks for one quality layer
     with no byte or quality target: every pass of every block ships, so
     no rate allocation runs.  ejobs need only key (c, r, p, band_i,
-    cblk_i) and mb per block; encs are the EncodedBlocks."""
+    cblk_i) and mb per block; encs are the EncodedBlocks.
+    seg_style_mask: AND-mask on the Tier-2 segmentation style (HT-mixed
+    sets emit with ~CBLK_HT); the emitter chunks each block's codeword
+    by its passes' termination flags."""
     if geo.cod.num_layers != 1:
         raise NotImplementedError(
             "multi-layer Tier-2 finish (PCRD) is not ported")
-    ctxs = geo.make_contexts()
+    ctxs = geo.make_contexts(seg_style_mask)
     for j, enc in zip(ejobs, encs):
         c, r, p, band_i, cblk_i = j["key"]
         mb = j["mb"]

@@ -1,7 +1,8 @@
-"""Card-only tests of the port: the HT cleanup CUDA kernels (a kernel has
-no CPU mode) against their plain PyTorch versions and the scalar HT
-coder, and the serving decode and encode on the card against the source
-pixels and the host encoder.
+"""Card-only tests of the port: the HT cleanup and Part-1 CUDA kernels (a
+kernel has no CPU mode) against their plain PyTorch versions, the scalar
+HT coder and the committed Part-1 mode-switch vectors, and the serving
+decode and encode on the card against the source pixels, the host
+encoder and the port's CPU encode.
 
 Every test skips without a CUDA card.  The file imports no JAX, so it
 runs on a machine with PyTorch and a card but no JAX:
@@ -23,6 +24,9 @@ from grok_tpu_torch import api  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams as PCP  # noqa: E402
 from grok_tpu_torch.ops import ht_decode as H  # noqa: E402
 from grok_tpu_torch.ops import ht_encode as E  # noqa: E402
+from grok_tpu_torch.ops import t1_decode as D3  # noqa: E402
+from grok_tpu_torch.ops import t1_encode as E5  # noqa: E402
+from grok_tpu_torch.t1 import vectors  # noqa: E402
 from grok_tpu_torch.t1ht import tables as PT  # noqa: E402
 from test_ht_tables_dropin import _synthetic_normative_tables  # noqa: E402
 
@@ -199,3 +203,83 @@ def test_serving_encode_on_card(card):
     rgb = synthetic_image(64, 96, 3, seed=5)
     assert api.compress_device(rgb, PCP(**cp), device=card) == \
         compress(rgb, CompressParams(**cp))
+
+
+def _mq_lanes(seed, n, side, maxnb):
+    """K5's inputs: n lanes of random sizes up to side x side."""
+    rng = np.random.default_rng(seed)
+    mneg = np.zeros((n, side, side), np.int32)
+    ws, hs, nbs = [], [], []
+    for i in range(n):
+        w, h = int(rng.integers(1, side + 1)), int(rng.integers(1, side + 1))
+        nb = int(rng.integers(0, maxnb + 1))
+        mag = rng.integers(0, 1 << nb, (h, w)) if nb \
+            else np.zeros((h, w), np.int64)
+        mag[rng.random((h, w)) < rng.uniform(0, 0.9)] = 0
+        mneg[i, :h, :w] = (mag << 1) | (rng.random((h, w)) < 0.5)
+        ws.append(w)
+        hs.append(h)
+        nbs.append(int(mag.max()).bit_length())
+
+    def col(v):
+        return torch.tensor(v, dtype=torch.int32)
+    return (torch.from_numpy(mneg), col([i % 4 for i in range(n)]), col(nbs),
+            col(ws), col(hs))
+
+
+def test_part1_kernels_match_plain_versions(card):
+    ins = _mq_lanes(7, 48, 64, 12)
+    L, R = 64 * 64 * 4 + 64, 3 * 12 - 2
+    before = E5.t1_encode_lanes.launches
+    got = E5.t1_encode_lanes(*[t.to(card) for t in ins], L, R)
+    torch.cuda.synchronize()
+    assert E5.t1_encode_lanes.launches == before + 1
+    ref = E5.t1_encode_lanes_ref(*ins, L, R)
+    lens = got[1].cpu()
+    assert torch.equal(lens, ref[1]) and (lens >= 0).all()
+    assert torch.equal(got[2].cpu(), ref[2])
+    assert torch.equal(got[3].cpu(), ref[3])
+    for j in range(lens.shape[0]):
+        n = int(lens[j])
+        assert torch.equal(got[0][j, :1 + n].cpu(), ref[0][j, :1 + n]), j
+    # K3 on the codewords: equal to its plain version and to the source
+    body = torch.cat([ref[0][j, 1:1 + int(lens[j])]
+                      for j in range(lens.shape[0])]
+                     + [torch.zeros(1, dtype=torch.uint8)])
+    start = (torch.cumsum(lens, 0) - lens).int()
+    zero = torch.zeros_like(lens)
+    ptbl = torch.stack([zero, lens, zero], 1)[:, None].contiguous()
+    args = (body, start, (3 * ins[2] - 2).clamp(min=0).int(), ins[2],
+            ins[1], ins[3], ins[4], zero, ptbl)
+    before = D3.t1_decode_lanes.launches
+    dec = D3.t1_decode_lanes(*[a.to(card) for a in args], 64, 64).cpu()
+    assert D3.t1_decode_lanes.launches == before + 1
+    assert torch.equal(dec, D3.t1_decode_lanes_ref(*args, 64, 64))
+    assert torch.equal(dec.abs() >> 1, ins[0] >> 1)
+
+
+def test_part1_encoder_reports_overflow(card):
+    ins = _mq_lanes(8, 16, 32, 10)
+    got = E5.t1_encode_lanes(*[t.to(card) for t in ins], 16, 28)[1].cpu()
+    assert torch.equal(got, E5.t1_encode_lanes_ref(*ins, 16, 28)[1])
+    assert (got == -1).any()
+
+
+def test_part1_decoder_on_mode_switch_vectors(card):
+    v = vectors.load()
+    la = vectors.k3_lanes(v, card)
+    got = D3.t1_decode_lanes(*la, vectors.SIDE, vectors.SIDE).cpu().numpy()
+    assert np.array_equal(got, v["mag2"])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(ht_mixed=True)])
+def test_part1_and_mixed_serving_encode_on_card(card, kw):
+    cp = PCP(num_resolutions=3, cblk_w_exp=4, cblk_h_exp=4, **kw)
+    imgs = [synthetic_image(40, 56, 1, seed=30 + i) for i in range(2)]
+    before = E5.t1_encode_lanes.launches
+    got = api.compress_device_batch(imgs, cp, device=card)
+    assert E5.t1_encode_lanes.launches > before
+    assert got == api.compress_device_batch(imgs, cp, device="cpu")
+    out = api.decompress_device_batch(got, device=card)
+    for img, comps in zip(imgs, out):
+        assert np.array_equal(comps[0].cpu().numpy(), img)

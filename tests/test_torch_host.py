@@ -1,5 +1,5 @@
-"""The port's own host layers (grok_tpu_torch/codestream, core, t2, t1ht,
-pipeline/plan.py, pipeline/tile.py, native/) held against the JAX
+"""The port's own host layers (grok_tpu_torch/codestream, core, t1, t2,
+t1ht, pipeline/plan.py, pipeline/tile.py, native/) held against the JAX
 package's originals on the same inputs, and the port's independence of
 the JAX package, checked on its sources."""
 
@@ -18,6 +18,10 @@ from grok_tpu.codestream import jp2 as jjp2  # noqa: E402
 from grok_tpu.core.quant import make_quantizer as jmake_quantizer  # noqa: E402
 from grok_tpu.pipeline import serve as jserve  # noqa: E402
 from grok_tpu.pipeline import tile as jtile  # noqa: E402
+from grok_tpu.ops import pallas_t1 as jpt1  # noqa: E402
+from grok_tpu.t1 import luts as jluts  # noqa: E402
+from grok_tpu.t1 import mq as jmq  # noqa: E402
+from grok_tpu.t1 import t1_scalar as jscalar  # noqa: E402
 from grok_tpu.t1ht import tables as T  # noqa: E402
 from grok_tpu.t1ht.scalar import ht_encode_block  # noqa: E402
 from grok_tpu.util.oracle import synthetic_image as jsynth  # noqa: E402
@@ -25,8 +29,13 @@ from grok_tpu_torch import native as pnative  # noqa: E402
 from grok_tpu_torch.codestream import j2k as pj2k  # noqa: E402
 from grok_tpu_torch.codestream import jp2 as pjp2  # noqa: E402
 from grok_tpu_torch.core.quant import make_quantizer as pmake_quantizer  # noqa: E402,E501
+from grok_tpu_torch.core.params import CBLK_HT  # noqa: E402
+from grok_tpu_torch.ops import t1_decode as pt1d  # noqa: E402
 from grok_tpu_torch.pipeline import plan as pplan  # noqa: E402
 from grok_tpu_torch.pipeline import tile as ptile  # noqa: E402
+from grok_tpu_torch.t1 import luts as pluts  # noqa: E402
+from grok_tpu_torch.t1 import mq as pmq  # noqa: E402
+from grok_tpu_torch.t1 import records as precords  # noqa: E402
 from grok_tpu_torch.t1.records import EncodedBlock, PassInfo  # noqa: E402
 from grok_tpu_torch.t1ht import tables as PT  # noqa: E402
 from grok_tpu_torch.util.synth import synthetic_image as psynth  # noqa: E402
@@ -225,6 +234,7 @@ def test_install_tables_clears_the_ports_caches(streams):
             mod._lut_on(cpu)
         return stage_device_batch(streams[:1], device="cpu")
 
+    pplan._PLANS.clear()      # plans of earlier tests in this process
     use()
     v0 = PT.VERSION
     PT.reset_tables()
@@ -276,6 +286,120 @@ def test_finish_tile_encode_emits_the_same_bytes():
         got = ptile.finish_tile_encode(pgeo, jobs, pencs)
         assert got.packets == want.packets and got.body == want.body
         assert got.packet_lens == want.packet_lens
+
+
+def test_mq_tables_and_initial_states_equal():
+    assert pmq.MQ_TABLE == jmq.MQ_TABLE
+    for name in ("MQ_QE", "MQ_NMPS", "MQ_NLPS", "MQ_SWITCH"):
+        a, b = getattr(pmq, name), getattr(jmq, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    for name in ("N_CTX", "CTX_ZC", "CTX_SC", "CTX_MAG", "CTX_RL",
+                 "CTX_UNI"):
+        assert getattr(pmq, name) == getattr(jmq, name), name
+    assert pmq.initial_ctx_states() == jmq.initial_ctx_states()
+    packed = pt1d.mq_table().astype(np.int64)
+    assert np.array_equal(packed & 0xFFFF, jmq.MQ_QE)
+    assert np.array_equal((packed >> 16) & 0x3F, jmq.MQ_NMPS)
+    assert np.array_equal((packed >> 22) & 0x3F, jmq.MQ_NLPS)
+    assert np.array_equal(packed >> 28, jmq.MQ_SWITCH)
+
+
+def test_context_luts_equal():
+    assert np.array_equal(pluts.build_zc_lut(), jluts.build_zc_lut())
+    for a, b in zip(pluts.build_sc_lut(), jluts.build_sc_lut()):
+        assert np.array_equal(a, b)
+    for nb in (False, True):
+        for ref in (False, True):
+            assert pluts.mr_context(nb, ref) == jluts.mr_context(nb, ref)
+    # the kernels' flag-word LUT against the Pallas kernel's arithmetic
+    lut = pt1d.flag_luts().astype(np.int64)
+    f = np.arange(4096)
+    ctx, xr = (np.asarray(a) for a in jpt1._sc_from_flags(f))
+    assert np.array_equal(lut[1024 + f] & 15, ctx + 9)
+    assert np.array_equal(lut[1024 + f] >> 4, xr)
+    f = np.arange(256)
+    h = ((f >> 3) & 1) + ((f >> 4) & 1)
+    v = ((f >> 1) & 1) + ((f >> 6) & 1)
+    d = (f & 1) + ((f >> 2) & 1) + ((f >> 5) & 1) + ((f >> 7) & 1)
+    for orient in range(4):
+        want = np.asarray(jpt1._zc_ctx_arith(np.full(256, orient), h, v, d))
+        assert np.array_equal(lut[(orient << 8) | f], want), orient
+
+
+def test_pass_structure_equal():
+    for nb in range(31):
+        sched = precords.pass_schedule(nb)
+        assert sched == jscalar.pass_schedule(nb)
+        for style in range(0x80):
+            assert precords.segment_pass_counts(len(sched), style) == \
+                jscalar.segment_pass_counts(len(sched), style)
+            assert [precords.is_raw_pass(p, t, style)
+                    for p, (t, _bp) in enumerate(sched)] == \
+                [jscalar.is_raw_pass(p, t, style)
+                 for p, (t, _bp) in enumerate(sched)]
+    assert (precords.PASS_SIG, precords.PASS_REF, precords.PASS_CLN) == \
+        (jscalar.PASS_SIG, jscalar.PASS_REF, jscalar.PASS_CLN)
+
+
+@pytest.mark.parametrize("shape, kw", [
+    ((48, 40, 1), dict(num_resolutions=3, cblk_w_exp=4, cblk_h_exp=4)),
+    ((37, 61, 3), dict(num_resolutions=4, cblk_w_exp=3, cblk_h_exp=5)),
+    ((64, 64, 1), dict(num_resolutions=2, prec_w_exps=[4, 5],
+                       prec_h_exps=[4, 5])),
+])
+def test_canon_block_indices_equal(shape, kw):
+    img = jsynth(*shape, seed=3)
+    data = compress(img, CompressParams(ht_mixed=True, **kw))
+    jh, _jparts, jths = _parse(jj2k, data)
+    ph, _pparts, pths = _parse(pj2k, data)
+    jgeo = jtile.TileGeometry.build(jh, 0)
+    pgeo = ptile.TileGeometry.build(ph, 0)
+    assert ptile.canon_block_indices(pgeo) == jtile.canon_block_indices(jgeo)
+    jp = jserve._plan_for(data, jh, 0, jths[0], 0)
+    pp = pplan._plan_for(data, ph, 0, pths[0], 0)
+    assert jp.coder == pp.coder == "mixed"
+    assert np.array_equal(pp.canon_idx, jp.canon_idx)
+
+
+def test_finish_tile_encode_mixed_blocks_emits_the_same_bytes():
+    """HT and Part-1 blocks of one tile under the HT-mixed segmentation
+    mask (~CBLK_HT), as the mixed encode finishes them."""
+    img = jsynth(40, 56, 1, seed=4)
+    params = CompressParams(ht_mixed=True, num_resolutions=3, cblk_w_exp=4,
+                            cblk_h_exp=4)
+    data = compress(img, params)
+    jgeo = jtile.TileGeometry.build(jj2k.read_main_header(data), 0)
+    pgeo = ptile.TileGeometry.build(pj2k.read_main_header(data), 0)
+    rng = np.random.default_rng(5)
+    jobs, jencs, pencs = [], [], []
+    for c, tcg in enumerate(jgeo.tcgs):
+        for rg in tcg.resolutions:
+            for band_i, bg in enumerate(rg.bands):
+                mb = jgeo.quants[c].mb(rg.r, bg.orient)
+                for p in range(rg.num_precincts):
+                    for cblk_i, cb in enumerate(bg.precincts[p].cblks):
+                        mag = np.abs(rng.normal(0, 12, (cb.rect.h,
+                                                        cb.rect.w)))
+                        mag = mag.astype(np.int64)
+                        neg = rng.random(mag.shape) < 0.5
+                        enc = (ht_encode_block if len(jobs) % 2
+                               else jscalar.encode_block)(mag, neg,
+                                                          bg.orient)
+                        jobs.append(dict(key=(c, rg.r, p, band_i, cblk_i),
+                                         mb=mb, weight=1.0))
+                        jencs.append(enc)
+                        pencs.append(EncodedBlock(
+                            data=enc.data, numbps=enc.numbps,
+                            passes=[PassInfo(q.rate, q.dist, q.term)
+                                    for q in enc.passes],
+                            seg_lens=list(enc.seg_lens),
+                            seg_passes=list(enc.seg_passes)))
+    want = jtile.finish_tile_encode(jgeo, jobs, jencs, [None],
+                                    seg_style_mask=~CBLK_HT)
+    got = ptile.finish_tile_encode(pgeo, jobs, pencs,
+                                   seg_style_mask=~CBLK_HT)
+    assert got.packets == want.packets and got.body == want.body
+    assert got.com == b""
 
 
 _BANNED = ("jax", "jaxlib", "grok_tpu")

@@ -95,8 +95,8 @@ def test_out_of_scope_parameters_raise(rgb):
             (dict(num_layers=2), "multi-layer"),
             (dict(rates=[8.0]), "rate-targeted"),
             (dict(ht_planes=2), "refinement"),
-            (dict(ht_mixed=True, ht=False), "mixed"),
-            (dict(ht=False), "Part-1"),
+            (dict(ht_mixed=True, ht=False, rates=[8.0]), "rate-targeted"),
+            (dict(ht=False, cblk_style=0x01), "Part-1 mode switches"),
             (dict(pocs=[poc]), "POC"),
             (dict(write_ppm=True), "PPM"),
             (dict(write_plm=True), "PLM"),
