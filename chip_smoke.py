@@ -23,16 +23,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and (A-mix forced), the same encode with every other
                block's Part-1 codeword padded so that HT wins it (the
                device of grok_tpu's tests/test_ht_mixed.py), whose bitmap
-               must mark both HT and Part-1 blocks.
+               must mark both HT and Part-1 blocks;
+               refined HT (K4r): (A-r), the (A) frames with ht_planes=1;
+               (B-r), the (B) frame with ht_planes=2 in 3 layers at
+               byte-rate targets 40:1, 10:1 and 4:1 (the PCRD finish).
                The inputs are made by the port's synthetic_image and
                uploaded first (set-up).  Every rep must give the same
-               bytes, and small HT and Part-1 encodes on the card must
-               equal the same encodes through the plain versions on the
-               CPU.
+               bytes, and small HT, Part-1, refined and layered encodes
+               on the card must equal the same encodes through the plain
+               versions on the CPU.  Each (B-r) layer prefix must keep to
+               its byte budget.  The served paths must launch neither K4r
+               nor K2, the refined one neither K4 nor K5.
   4. decode  — the main decode paths, decompress_device_batch on the card
                over the streams of phase 3, counts reset and read the
-               same way per path (HT: K1, Part-1: K3, HT-mixed: K1 + K3);
-               every output must equal its source bit for bit.
+               same way per path (HT: K1, Part-1: K3, HT-mixed: K1 + K3,
+               refined HT: K2 and K1 through the general route, stream by
+               stream); every served output must equal its source bit for
+               bit; (A-r) must equal its decode through the plain versions
+               on the CPU (ht_planes=1 drops plane-0 samples that have no
+               significant neighbour, so it is within 1 of the source, not
+               lossless); (B-r) decoded at 1, 2 and 3 layers must rise in
+               PSNR with every layer.
   5. K4      — the HT cleanup encoder on every lane of (A) and (B)
                against its plain version: byte-identical used stream
                bytes and bit counts; both timed on the same lanes.
@@ -58,6 +69,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                (grok_tpu_torch/t1/mq_vectors.npz: BYPASS, RESET,
                TERMALL, VSC, PTERM, SEGSYM) against the scalar decodes
                stored with them and against its plain version.
+ 12. K4r     — the refined HT encoder against its plain version on every
+               lane of (A-r) and on the bottom-edge lanes of (B-r) (cut to
+               EDGE_H rows as in phase 8): byte-identical used bytes of
+               all five streams, bit counts and SigProp significance
+               maps; both timed.
+ 13. K2      — the refined HT decoder against its plain version on the
+               general route's staged lanes: every refined lane of (A-r)'s
+               first frame and of the full-layer (B-r) decode, and every
+               lane (K1 and K2) of (B-r)'s bottom-edge buckets (H <=
+               EDGE_H); bit-exact; both timed.
+ 14. K4r->K2 — 64 synthetic lanes of 1x1 to 64x64 (w = 1, h not a
+               multiple of 4, all-zero lanes) at cleanup planes 1..3
+               encoded by K4r, wire-assembled, raw-stuffed, scanned and
+               un-stuffed by the port's C runtime, staged as the general
+               route does and decoded by K2: equal to the plain version,
+               every cleanup-significant sample exact to plane p - 1 and
+               every SigProp sample at its plane-(p - 1) value.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -79,7 +107,7 @@ import numpy as np
 REPS = 5                 # end-to-end reps after a warm-up; best reported
 KERNEL_REPS = 20         # kernel launches per timing window
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
-EDGE_H = 8               # (B1) lanes held against the plain versions
+EDGE_H = 8               # (B1), (B-r) lanes held against the plain versions
 _BLOCKED = ("jax", "jaxlib", "grok_tpu")
 
 
@@ -333,6 +361,121 @@ def _mq_roundtrip(torch, dev, t1_encode, t1_decode):
           f"magnitudes and signs", flush=True)
 
 
+def _k4r_bytes(lanes, bits, lut) -> int:
+    """Bytes the refined HT encode must move: as the cleanup's
+    (_k4_bytes) for the five streams and their five bit counts, plus
+    each valid lane's w*h uint8 SigProp significance map written."""
+    mneg, _p, w, h, valid = lanes
+    v = (valid == 1).long()
+    area = int((w.long() * h.long() * v).sum())
+    words = 4 * int(((bits.long().clamp(min=0) + 31) >> 5).sum())
+    nl = mneg.shape[0]
+    return 5 * area + 16 * nl + _nbytes(lut) + words + 20 * nl
+
+
+def _k2_bytes(meta, lanes, lut) -> int:
+    """Bytes the refined HT decode must move on its lanes: each lane's
+    used MagSgn, cleanup suffix, SigProp and MagRef bytes (as the host
+    staging measured them) and its five int32 parameters read, the LUT
+    read once, and each lane's w*h int32 samples written."""
+    w, h = lanes[6], lanes[7]
+    used = int(meta[:, [1, 3, 5, 7]].sum())
+    return used + 20 * w.shape[0] + _nbytes(lut) \
+        + 4 * int((w.long() * h.long()).sum())
+
+
+def _refine_roundtrip(torch, dev, K):
+    """Phase 14: K4r -> C assembly and raw stuffing -> C scan and
+    un-stuffing -> device staging -> K2."""
+    ht_encode, ht_decode, native, stage_bytes, unstuff_suffix, stage_dims = K
+    n, side = 64, 64
+    mneg, mags, negs, dims = _synthetic_lanes(np.random.default_rng(11), n,
+                                              side, 3.5)
+    nb = [int(m.max()).bit_length() if m.size else 0 for m in mags]
+    pv = [min(1 + i % 3, max(b - 1, 0)) for i, b in enumerate(nb)]
+
+    def col(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    caps = (side * side * 28 // 8 + 64, 1024, 2048)
+    lsp, lmr = ht_encode.refine_caps(side, side)
+    w, h = col([d[0] for d in dims]), col([d[1] for d in dims])
+    streams, bits, _ns = ht_encode.ht_encode_lanes(
+        torch.from_numpy(mneg).to(dev), col(pv), w, h, col([1] * n), *caps,
+        refine=True)
+    buf = streams.cpu().numpy().reshape(-1)
+    bits = bits.cpu().numpy().astype(np.int64)
+    if (bits < 0).any():
+        _fail("K4r round trip: a stream exceeded its capacity")
+    row = sum(caps) + lsp + lmr
+    base = np.arange(n, dtype=np.int64) * row
+    res = native.ht_assemble_batch(buf, base, bits[0], base + caps[0],
+                                   bits[1], base + caps[0] + caps[1],
+                                   bits[2], np.where(bits[0] > 0, 0, -1))
+    if res is None:
+        _fail("K4r round trip: the C assembler refused the streams")
+    wire, wlens = res
+    coded = wlens > 0
+    offs = np.cumsum(wlens) - wlens
+    scan = native.ht_scan2(wire[:int(wlens.sum())].tobytes(), offs[coded],
+                           wlens[coded])
+    if scan is None or (scan[0][:, 0] < 0).any():
+        _fail("K4r round trip: the C scan refused the assembled segments")
+    sc = np.zeros((n, 7), np.int64)
+    sc[coded], digest = scan
+    parts, starts, lens = [digest], [], []
+    top = len(digest)
+    for s, cap_off in ((3, sum(caps)), (4, sum(caps) + lsp)):
+        rw, rl = native.ht_raw_batch(buf, base + cap_off, bits[s])
+        cl, cll = native.ht_unstuff_batch(rw[:int(rl.sum())].tobytes(),
+                                          np.cumsum(rl) - rl, rl)
+        parts.append(cl[:int(cll.sum())])
+        starts.append(top + np.cumsum(cll) - cll)
+        lens.append(cll)
+        top += int(cll.sum())
+    body = torch.from_numpy(np.concatenate(parts + [np.zeros(16, np.uint8)])
+                            ).to(dev)
+    m = torch.from_numpy(sc).to(dev)
+    lms, lsuf, dm = stage_dims(sc)
+    lrf = ht_decode._quant_len(int(max(lens[0].max(), lens[1].max())))
+    ms = stage_bytes(body, m[:, 1], m[:, 2], lms, False)
+    suf_f = stage_bytes(body, m[:, 3], m[:, 4], lsuf, False)
+    suf_r = stage_bytes(body, m[:, 3], m[:, 4] - 1, lsuf, True)
+    mel, vlc = unstuff_suffix(suf_f, suf_r, dm)
+    sp, mr = (stage_bytes(body, torch.from_numpy(a).to(dev),
+                          torch.from_numpy(b).to(dev), lrf, False)
+              for a, b in zip(starts, lens))
+    u8 = torch.uint8
+    args = (ms.to(u8), mel.to(u8), vlc.to(u8), col(pv), w, h,
+            col(coded.astype(np.int32).tolist()), side, side, sp.to(u8),
+            mr.to(u8), col([3] * n))
+    got = ht_decode.ht_decode_lanes(*args)
+    if not torch.equal(got, ht_decode.ht_decode_lanes_ref(*args)):
+        _fail("K4r -> K2 round trip: K2 differs from its plain version")
+    got = got.cpu().numpy()
+    for j, ((wj, hj), mag, neg) in enumerate(zip(dims, mags, negs)):
+        v = got[j, :hj, :wj]
+        p = pv[j]
+        if p == 0:
+            ok = np.array_equal(np.abs(v), 2 * mag)
+        else:
+            bp = p - 1
+            half_bp = 1 << bp if bp else 0
+            csig = (mag >> p) > 0
+            new = (v != 0) & ~csig
+            ok = (np.array_equal(np.abs(v)[csig],
+                                 ((mag >> bp) << p)[csig] + half_bp)
+                  and (mag[new] >> bp == 1).all()
+                  and (np.abs(v)[new] == (1 << p) + half_bp).all())
+        if not (ok and np.array_equal(v < 0, neg & (v != 0))):
+            _fail(f"K4r -> K2 round trip differs on synthetic lane {j} "
+                  f"({wj}x{hj}, p = {p})")
+    print(f"K4r -> K2 round trip: {n} synthetic lanes of 1x1 to "
+          f"{side}x{side} at cleanup planes 1..3 give back every sample to "
+          f"plane p - 1 ({int(sum(len(x) for x in parts[1:]))} clean "
+          f"refinement bytes)", flush=True)
+
+
 def _select(lanes, sel) -> tuple:
     """The lanes where sel holds."""
     return tuple(t[sel].contiguous() for t in lanes)
@@ -358,6 +501,8 @@ def main() -> int:
     from grok_tpu_torch.pipeline import serve_enc
     from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
     from grok_tpu_torch.pipeline.serve import stage_dims
+    from grok_tpu_torch.t2.rate import (layer_budget_consts,
+                                        layer_targets_for_tile)
     from grok_tpu_torch.t1 import vectors
     from grok_tpu_torch.util.synth import synthetic_image
     t_start = time.perf_counter()
@@ -386,6 +531,9 @@ def main() -> int:
         "B1": (rgb, CompressParams(num_resolutions=6)),
         "A-mix": (gray, CompressParams(ht_mixed=True, **pa)),
         "A-mix forced": (gray, CompressParams(ht_mixed=True, **pa)),
+        "A-r": (gray, CompressParams(ht=True, ht_planes=1, **pa)),
+        "B-r": (rgb, CompressParams(ht=True, num_resolutions=6, ht_planes=2,
+                                    num_layers=3, rates=[40.0, 10.0, 4.0])),
     }
     up = {id(imgs): [[torch.from_numpy(im[..., c] if im.ndim == 3 else im)
                       .to(dev).to(torch.int32)
@@ -395,19 +543,24 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: synthetic sources made and uploaded in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    counters = {"K1": ht_decode.ht_decode_lanes,
-                "K3": t1_decode.t1_decode_lanes,
-                "K4": ht_encode.ht_encode_lanes,
-                "K5": t1_encode.t1_encode_lanes}
+    # each kernel's launch count: (wrapper, attribute)
+    counters = {"K1": (ht_decode.ht_decode_lanes, "launches"),
+                "K2": (ht_decode.ht_decode_lanes, "refine_launches"),
+                "K3": (t1_decode.t1_decode_lanes, "launches"),
+                "K4": (ht_encode.ht_encode_lanes, "launches"),
+                "K4r": (ht_encode.ht_encode_lanes, "refine_launches"),
+                "K5": (t1_encode.t1_encode_lanes, "launches")}
     paths = {"HT": ("A", "B"), "Part-1": ("A1", "B1"),
-             "HT-mixed": ("A-mix", "A-mix forced")}
+             "HT-mixed": ("A-mix", "A-mix forced"),
+             "HT-refined": ("A-r", "B-r")}
+    refined = paths["HT-refined"]
 
     def counts_zero():
-        for fn in counters.values():
-            fn.launches = 0
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
 
     def counts():
-        return {k: fn.launches for k, fn in counters.items()}
+        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -423,11 +576,14 @@ def main() -> int:
               f" MP/s (median {med * 1e3:.3f} ms/call) [{card}]",
               flush=True)
 
-    def need(path, got, kernels):
+    def need(path, got, kernels, absent):
         print(f"{path} launches: {got}", flush=True)
         for k in kernels:
             if got[k] == 0:
                 _fail(f"the {path} path never launched {k}")
+        for k in absent:
+            if got[k]:
+                _fail(f"the {path} path launched {k}")
 
     # ---- 3. encode main paths -------------------------------------------
     streams = {}
@@ -460,7 +616,9 @@ def main() -> int:
                   f"bytes for {len(imgs)} frame(s)", flush=True)
         enc_counts[path] = counts()
         need(f"{path} encode", enc_counts[path],
-             {"HT": ["K4"], "Part-1": ["K5"], "HT-mixed": ["K4", "K5"]}[path])
+             {"HT": ["K4"], "Part-1": ["K5"], "HT-mixed": ["K4", "K5"],
+              "HT-refined": ["K4r"]}[path],
+             ["K4", "K5"] if path == "HT-refined" else ["K4r", "K2"])
     # the forced mixed stream's bitmaps must name both HT and Part-1
     # blocks
     nblk = len(serve_enc._plan_for(api._build_main_header(
@@ -484,8 +642,8 @@ def main() -> int:
 
     small = [synthetic_image(80, 96, 1, seed=20 + i) for i in range(3)]
     small_rgb = synthetic_image(64, 96, 3, seed=5)
-    for what, sp in (("HT", CompressParams(ht=True, num_resolutions=3,
-                                           cblk_w_exp=5, cblk_h_exp=5)),
+    sp3 = dict(num_resolutions=3, cblk_w_exp=5, cblk_h_exp=5)
+    for what, sp in (("HT", CompressParams(ht=True, **sp3)),
                      ("Part-1", CompressParams(num_resolutions=3,
                                                cblk_w_exp=4,
                                                cblk_h_exp=4))):
@@ -498,8 +656,52 @@ def main() -> int:
         print(f"encode reference {what}: 3 x 80x96 gray and 64x96 RGB "
               f"byte-identical to the CPU encode through the plain "
               f"versions", flush=True)
+    small_r = [synthetic_image(128, 96, 1, seed=60 + i) for i in range(2)]
+    for what, sp in (("A-r", CompressParams(ht=True, ht_planes=1, **sp3)),
+                     ("B-r", CompressParams(ht=True, ht_planes=2,
+                                            num_layers=3,
+                                            rates=[40.0, 10.0, 4.0],
+                                            **sp3))):
+        if (api.compress_device_batch(small_r, sp, device=dev)
+                != api.compress_device_batch(small_r, sp, device="cpu")
+                or api.compress_device(small_rgb, sp, device=dev)
+                != api.compress_device(small_rgb, sp, device="cpu")):
+            _fail(f"{what} encode on the card differs from the plain "
+                  f"versions on the CPU")
+        print(f"encode reference {what}: 2 x 128x96 gray and 64x96 RGB "
+              f"byte-identical to the CPU encode through the plain "
+              f"versions", flush=True)
+
+    # (B-r): every layer prefix within its byte budget (the PCRD targets
+    # of t2/rate.py, on the tile's packet bytes)
+    b_comps = [torch.stack([f[ci] for f in frames["B-r"]]) for ci in range(3)]
+    b_params = work["B-r"][1]
+    b_hdr = api._build_main_header(1080, 1920, 3, 8, False, b_params)
+    b_res = serve_enc.try_encode_serving_batch(b_comps, b_hdr, b_params)[0]
+    if not streams["B-r"][0].endswith(b_res.body + b"\xff\xd9"):
+        _fail("encode B-r: the tile body differs from the API stream's")
+    targets = layer_targets_for_tile(layer_budget_consts(b_hdr, b_params),
+                                     b_hdr.siz.tile_rect(0), b_params)
+    per_layer = len(b_res.packet_lens) // b_params.num_layers
+    prefix = [int(sum(b_res.packet_lens[:per_layer * (k + 1)]))
+              for k in range(b_params.num_layers)]
+    print(f"encode B-r: layer prefixes {prefix} bytes, budgets "
+          f"{[round(t, 1) for t in targets]}", flush=True)
+    if any(p > t for p, t in zip(prefix, targets)):
+        _fail("encode B-r: a layer prefix exceeds its byte budget")
 
     # ---- 4. decode main paths --------------------------------------------
+    def pixels(comps):
+        return torch.stack(comps, -1).cpu().numpy() if len(comps) > 1 \
+            else comps[0].cpu().numpy()
+
+    def psnr(a, img):
+        mse = np.mean((a.astype(np.float64) - img) ** 2)
+        return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
+
+    # the refined streams' reference decodes: the plain versions on the CPU
+    want = {"A-r": [pixels(c) for c in api.decompress_device_batch(
+        streams["A-r"], device="cpu")]}
     dec_counts = {}
     for path, names in paths.items():
         counts_zero()
@@ -510,24 +712,69 @@ def main() -> int:
                 out, dt = timed(lambda: api.decompress_device_batch(
                     streams[name], device=dev))
                 times.append(dt)
-                for img, comps in zip(imgs, out):
+                for fi, (img, comps) in enumerate(zip(imgs, out)):
                     if any(c.device.type != "cuda" for c in comps):
                         _fail(f"decode {name}: output left the card")
-                    arr = torch.stack(comps, -1).cpu().numpy() \
-                        if img.ndim == 3 else comps[0].cpu().numpy()
-                    if arr.shape != img.shape or not np.array_equal(arr,
-                                                                    img):
+                    arr = pixels(comps)
+                    ref = want[name][fi] if name == "A-r" else img
+                    if name == "B-r":
+                        continue                 # lossy: layers below
+                    if arr.shape != ref.shape or not np.array_equal(arr,
+                                                                    ref):
                         _fail(f"decode {name}: pixels differ from the "
-                              f"source")
+                              f"{'CPU decode' if name in want else 'source'}")
             npx = sum(im.shape[0] * im.shape[1] for im in imgs)
             report("decode", name, times, len(imgs), npx)
-            print(f"decode {name}: {len(imgs)} frame(s) bit-exact to the "
-                  f"source", flush=True)
+            if name == "A-r":
+                err = [int(np.abs(a.astype(np.int64) - im).max())
+                       for a, im in zip(want[name], imgs)]
+                ndiff = [int((a != im).sum()) for a, im in zip(want[name],
+                                                               imgs)]
+                print(f"decode {name}: {len(imgs)} frames bit-exact to the "
+                      f"plain versions' decode on the CPU; against the "
+                      f"source max abs err {err}, pixels differing "
+                      f"{ndiff}", flush=True)
+                if max(err) > 1:
+                    _fail(f"decode {name}: more than 1 from the source")
+            elif name == "B-r":
+                img = imgs[0]
+                layered = []
+                for k in (1, 2, 3):
+                    o = api.decompress_device(
+                        streams[name][0], api.DecompressParams(max_layers=k),
+                        device=dev)
+                    layered.append(psnr(pixels(o), img))
+                full = psnr(pixels(out[0]), img)
+                print(f"decode {name}: PSNR at 1, 2, 3 layers {layered} dB "
+                      f"(full decode {full} dB) [{card}]", flush=True)
+                if not (layered[0] < layered[1] < layered[2]) or \
+                        layered[2] != full:
+                    _fail(f"decode {name}: PSNR does not rise with every "
+                          f"layer")
+            else:
+                print(f"decode {name}: {len(imgs)} frame(s) bit-exact to "
+                      f"the source", flush=True)
         dec_counts[path] = counts()
         need(f"{path} decode", dec_counts[path],
-             {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"]}[path])
+             {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
+              "HT-refined": ["K2"]}[path],
+             ["K4", "K5"] if path == "HT-refined" else ["K4r", "K2"])
 
-    for name in (n for n in work if n != "A-mix forced"):
+    for name in refined:
+        host, dev_t = [], []
+        for _ in range(REPS):
+            staged, dt0 = timed(lambda: api.stage_general_device(
+                streams[name][0], device=dev))
+            _, dt1 = timed(staged.run)
+            host.append(dt0)
+            dev_t.append(dt1)
+        print(f"split decode {name} (general route, first frame): host "
+              f"parse+stage+upload {min(host) * 1e3:.3f} ms, device blocks"
+              f"+synthesis {min(dev_t) * 1e3:.3f} ms (best of {REPS}) "
+              f"[{card}]", flush=True)
+
+    for name in (n for n in work if n != "A-mix forced"
+                 and n not in refined):
         host, dev_t = [], []
         for _ in range(REPS):
             staged, dt0 = timed(lambda: api.stage_device_batch(
@@ -555,7 +802,8 @@ def main() -> int:
         def device_part():
             lanes = serve_enc.stage_encode_lanes(comps, hdr, params)[1]
             if plan.coder == "ht":
-                ht_encode.ht_encode_lanes(*lanes, *plan.caps)
+                ht_encode.ht_encode_lanes(*lanes, *plan.caps,
+                                          refine=bool(params.ht_planes))
             if plan.coder == "mq" or params.ht_mixed:
                 t1_encode.t1_encode_lanes(
                     *serve_enc.mq_lane_inputs(plan, lanes), *plan.mq_caps)
@@ -737,6 +985,103 @@ def main() -> int:
           f"{sorted({hex(s) for s in v['style'].tolist()})}, equal to the "
           f"scalar decodes and the plain version", flush=True)
 
+    # ---- 12. K4r vs its plain version --------------------------------------
+    k4r = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    for name in refined:
+        _comps, _hdr, _params, plan, lanes = enc_lanes(name)
+        caps = plan.caps
+        full_ms = _kernel_ms(torch, lambda: ht_encode.ht_encode_lanes(
+            *lanes, *caps, refine=True))
+        nl_all = lanes[0].shape[0]
+        if name == "B-r":
+            # the bottom-edge blocks, cut to EDGE_H rows (phase 8)
+            lanes = _select(lanes, lanes[3] <= EDGE_H)
+            lanes = (lanes[0][:, :EDGE_H].contiguous(),) + lanes[1:]
+        nl = lanes[0].shape[0]
+        Hs, Ws = lanes[0].shape[1:]
+        allcaps = caps + ht_encode.refine_caps(Ws, Hs)
+        got = ht_encode.ht_encode_lanes(*lanes, *caps, refine=True)
+
+        def plain():
+            st, bt = ht_encode.ht_encode_lanes_ref(*lanes, *caps)
+            sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(*lanes,
+                                                           *allcaps[3:])
+            return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
+        ref, p_ms = _plain_ms(torch, plain)
+        used = ht_encode.clear_unused(got[0], got[1], *allcaps[:-1])
+        err = max(int((used.int() - ref[0].int()).abs().max()),
+                  int((got[1] - ref[1]).abs().max()),
+                  int((got[2].int() - ref[2].int()).abs().max()))
+        k4r["err"] = max(k4r["err"], err)
+        nref = int((lanes[1] > 0).sum())
+        print(f"K4r {name}: {nl} of {nl_all} lanes ({Ws}x{Hs}, {nref} with "
+              f"a cleanup plane above 0) vs the plain version: max_abs_err "
+              f"{err}", flush=True)
+        if err or (got[1] < 0).any():
+            _fail(f"K4r disagrees with its plain version on {name}")
+        k_ms = _kernel_ms(torch, lambda: ht_encode.ht_encode_lanes(
+            *lanes, *caps, refine=True))
+        nbytes = _k4r_bytes(lanes, got[1], ht_encode._lut_on(dev))
+        k4r["ms"] += k_ms
+        k4r["plain_ms"] += p_ms
+        k4r["bytes"] += nbytes
+        print(f"K4r {name}: 1 launch per encode, kernel {full_ms:.4f} ms on "
+              f"all {nl_all} lanes; on the {nl} compared lanes kernel "
+              f"{k_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+              f"ms ({nbytes} bytes), plain version {p_ms:.1f} ms [{card}]",
+              flush=True)
+
+    # ---- 13. K2 vs its plain version ---------------------------------------
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    for name in refined:
+        staged = api.stage_general_device(streams[name][0], device=dev)
+        k_ms = p_ms = 0.0
+        nb0, nk2 = k2["bytes"], 0
+        for bi, b in enumerate(staged.program.buckets):
+            la = staged.lanes[bi]
+            meta = staged.meta[bi]
+            sel = [("refined", la[10])]
+            if name == "B-r" and b.H <= EDGE_H:
+                sel.append(("edge (K1 + K2)", np.ones_like(la[10])))
+            for what, mask in sel:
+                if not mask.any():
+                    continue
+                idx = torch.from_numpy(np.nonzero(mask)[0]).to(dev)
+                t = [x.index_select(0, idx) for x in la[:10]]
+                args = (*t[:3], *t[5:9], b.W, b.H, t[3], t[4], t[9])
+                if what == "refined":
+                    got = ht_decode.ht_decode_lanes(*args)
+                else:
+                    got = ht_decode.decode_ht_blocks(*t, la[10][mask], b.W,
+                                                     b.H)
+                ref, dt = _plain_ms(torch, lambda: ht_decode
+                                    .ht_decode_lanes_ref(*args))
+                err = int((got.long() - ref.long()).abs().max())
+                k2["err"] = max(k2["err"], err)
+                print(f"K2 {name} bucket {b.W}x{b.H} {what} lanes "
+                      f"{idx.numel()}: max_abs_err {err}", flush=True)
+                if err:
+                    _fail(f"K2 disagrees with its plain version ({name} "
+                          f"{b.W}x{b.H} {what})")
+                if what == "refined":
+                    p_ms += dt
+                    nk2 += 1
+                    k_ms += _kernel_ms(torch, lambda: ht_decode
+                                       .ht_decode_lanes(*args))
+                    k2["bytes"] += _k2_bytes(meta[mask], t,
+                                             ht_decode._lut_on(dev))
+        k2["ms"] += k_ms
+        k2["plain_ms"] += p_ms
+        nb = k2["bytes"] - nb0
+        print(f"K2 {name}: {nk2} launches per decode (first frame), kernel "
+              f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
+              f"({nb} bytes), plain version {p_ms:.1f} ms [{card}]",
+              flush=True)
+
+    # ---- 14. K4r -> K2 round trip ------------------------------------------
+    _refine_roundtrip(torch, dev, (ht_encode, ht_decode, native,
+                                   stage_bytes, unstuff_suffix, stage_dims))
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -756,7 +1101,13 @@ def main() -> int:
         row("mq_decode", "t1_decode.cu", "grok_tpu/ops/pallas_t1.py:150",
             dec_counts["Part-1"]["K3"], k3),
         row("mq_encode", "t1_encode.cu", "grok_tpu/ops/pallas_t1_enc.py:46",
-            enc_counts["Part-1"]["K5"], k5)]}), flush=True)
+            enc_counts["Part-1"]["K5"], k5),
+        row("ht_refine_decode", "ht_decode.cu",
+            "grok_tpu/ops/pallas_ht.py:293", dec_counts["HT-refined"]["K2"],
+            k2),
+        row("ht_refine_encode", "ht_encode.cu",
+            "grok_tpu/ops/pallas_ht_enc.py:722",
+            enc_counts["HT-refined"]["K4r"], k4r)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -27,9 +27,11 @@ from grok_tpu_torch.core.image import ColorSpace
 from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
                                         DecompressParams, MCTMode)
 from grok_tpu_torch.core.quant import make_quantizer
-from grok_tpu_torch.pipeline.serve import (StagedBatch, stage_serving_batch,
+from grok_tpu_torch.pipeline.serve import (GeneralRoute, StagedBatch,
+                                           stage_serving_batch,
                                            try_decode_serving_batch)
 from grok_tpu_torch.pipeline.serve_enc import try_encode_serving_batch
+from grok_tpu_torch.pipeline.tile import decode_tile, stage_general
 
 
 def _params(dparams: DecompressParams | None) -> DecompressParams:
@@ -96,19 +98,40 @@ def decompress_device_batch(streams: list[bytes],
     All N streams' code-blocks share kernel launches, the N bodies go up
     as one digest, and every stream's inverse DWT/MCT runs on stacked
     tensors.  Returns N lists of per-component int32 tensors on
-    `device`."""
+    `device`.  HT streams with refinement passes, which the serving
+    decode declines, decode stream by stream through decompress_device,
+    as the JAX package's batch decode does."""
     if not streams:
         return []
-    return stage_device_batch(streams, dparams, device=device).run()
+    try:
+        staged = stage_device_batch(streams, dparams, device=device)
+    except GeneralRoute:
+        return [decompress_device(s, dparams, device=device)
+                for s in streams]
+    return staged.run()
 
 
 def decompress_device(data: bytes, dparams: DecompressParams | None = None,
                       *, device="cuda") -> list:
     """Decode one codestream to per-component int32 tensors resident on
     `device` (single-tile served streams; tile-part COD/QCD overrides
-    are served through the plan key, as in the JAX package)."""
+    are served through the plan key, as in the JAX package).  An HT
+    stream the serving decode declines (refinement passes) decodes
+    through the general device route, pipeline/tile.py decode_tile, on
+    the same device."""
     dev = _device(device)
     dp = _params(dparams)
+    cs, hdr, t, th, body = _one_tile(data, dp)
+    try:
+        return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
+                                        device=dev)[0]
+    except GeneralRoute:
+        return decode_tile(cs, hdr, t, th, body, dp, device=dev)
+
+
+def _one_tile(data: bytes, dp: DecompressParams) -> tuple:
+    """(codestream, main header, tile index, tile header, tile body) of a
+    single-tile stream."""
     cs = jp2.locate_codestream(data, permissive=not dp.strict)
     hdr = j2k.read_main_header(cs)
     parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
@@ -117,8 +140,20 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
         raise NotImplementedError("multi-tile decode is not ported")
     t = tiles.pop()
     th, body = _tile_body(cs, hdr, parts)
-    return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
-                                    device=dev)[0]
+    return cs, hdr, t, th, body
+
+
+def stage_general_device(data: bytes,
+                         dparams: DecompressParams | None = None, *,
+                         device="cuda"):
+    """Stage one single-tile HT stream for the general decode route on
+    `device` (pipeline/tile.py stage_general); .run() on the result
+    decodes it, as decompress_device does for a stream the serving
+    decode declines."""
+    dev = _device(device)
+    dp = _params(dparams)
+    cs, hdr, t, th, body = _one_tile(data, dp)
+    return stage_general(cs, hdr, t, th, body, dp, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +227,12 @@ def _main_header_bytes(hdr: MainHeader, params: CompressParams,
         out += j2k.write_tlm(tlm_entries)
     if params.comment:
         out += j2k.write_com(params.comment)
+    if params.ht_planes:
+        # ht_planes >= 1 extension: the global HT cleanup plane P is
+        # signalled once here (the segments stay standard-framed);
+        # decoders compute the per-block plane min(P, numbps-1)
+        # (t1ht/scalar.py derive_p).  Standard readers skip the COM.
+        out += j2k.write_com("GRKTPU_HTP=%d" % params.ht_planes)
     return bytes(out)
 
 

@@ -2,9 +2,9 @@
 
 The port's copy of grok_tpu/core/params.py, with the fields the port's
 entry points read.  Fields for routes the port has not ported yet (ROI,
-POC, PPM, several layers, rate and quality targets, HT refinement and
-mixed sets) stay, so that such a request is refused by name rather than
-ignored; the JAX package's execution switches (`backend`, `mesh`,
+POC, PPM, quality targets, several layers or byte targets on Part-1 or
+HT-mixed encodes) stay, so that such a request is refused by name rather
+than ignored; the JAX package's execution switches (`backend`, `mesh`,
 `keep_device`) and host post-processing options have no counterpart.
 """
 

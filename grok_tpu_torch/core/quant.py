@@ -3,8 +3,9 @@
 The port's copy of grok_tpu/core/quant.py, trimmed to what the port
 calls: the step sizes the encoder signals in QCD (reversible:
 exponent-only; irreversible: Delta_b = 2^(Rb - eps_b) * (1 + mu_b / 2^11)
-from the 9/7 band synthesis norms) and the Quantizer the tile geometry
-resolves from QCD/QCC.  Quantizing and dequantizing run on the device
+from the 9/7 band synthesis norms), the 5/3 and 9/7 band norms and band
+levels behind the PCRD distortion weights, and the Quantizer the tile
+geometry resolves from QCD/QCC.  Quantizing and dequantizing run on the device
 (pipeline/serve_enc.py, pipeline/device.py).
 
 Reference parity: [grok: src/lib/core/ quantizer setup in CodingParams;
@@ -30,9 +31,8 @@ QSTYLE_EXPOUNDED = 2  # (eps, mu) per band
 
 
 @lru_cache(maxsize=None)
-def _norms_1d(max_level: int = 10) -> tuple:
-    """L2 norms of the 1D 9/7 synthesis basis: (low[levels+1],
-    high[levels+1]).
+def _norms_1d(irreversible: bool, max_level: int = 10) -> tuple:
+    """L2 norms of the 1D synthesis basis: (low[levels+1], high[levels+1]).
 
     low[l] = norm of the level-l lowpass synthesis function; high[l] for
     highpass.  Computed by pushing a centered unit impulse through the
@@ -43,11 +43,12 @@ def _norms_1d(max_level: int = 10) -> tuple:
     """
     lows = [1.0]
     highs = [1.0]
-    inv = dwt_np.inv97_1d
+    inv = dwt_np.inv97_1d if irreversible else dwt_np.inv53_1d
+    amp = 1.0 if irreversible else float(1 << 24)   # defeat integer rounding
     for lvl in range(1, max_level + 1):
         half = 32
         imp = np.zeros(half, dtype=np.float64)
-        imp[half // 2] = 1.0
+        imp[half // 2] = amp
         zero = np.zeros(half, dtype=np.float64)
         for which, acc in ((0, lows), (1, highs)):
             cur = inv(zero if which else imp, imp if which else zero,
@@ -55,17 +56,17 @@ def _norms_1d(max_level: int = 10) -> tuple:
             for _ in range(lvl - 1):
                 cur = inv(cur, np.zeros_like(cur), 0, 2 * cur.shape[-1])
             acc.append(float(np.sqrt(np.sum(
-                np.asarray(cur, dtype=np.float64) ** 2))))
+                np.asarray(cur, dtype=np.float64) ** 2))) / amp)
     return tuple(lows), tuple(highs)
 
 
-def band_norm(level: int, orient: int) -> float:
-    """L2 norm of the 2D 9/7 synthesis basis for a band.
+def band_norm(irreversible: bool, level: int, orient: int) -> float:
+    """L2 norm of the 2D synthesis basis for a band.
 
     level: decomposition level of the band (1 = finest); for LL it is the
     remaining level count.  Separable: 2D norm = product of 1D norms.
     """
-    lows, highs = _norms_1d()
+    lows, highs = _norms_1d(irreversible)
     lvl = min(level, len(lows) - 1)
     extra = level - lvl    # beyond the table: norms scale geometrically
     lo = lows[lvl] * (lows[-1] / lows[-2]) ** extra
@@ -129,7 +130,7 @@ def default_stepsizes(num_resolutions: int, prec: int, irreversible: bool,
         lvl = band_level(num_resolutions, r) if r > 0 else max(nl, 1)
         if r == 0 and nl == 0:
             lvl = 0
-        norm = band_norm(lvl, orient) if lvl > 0 else 1.0
+        norm = band_norm(True, lvl, orient) if lvl > 0 else 1.0
         return encode_stepsize(base / norm, prec)
 
     out.append((BAND_LL, one(0, BAND_LL)))

@@ -1,15 +1,19 @@
 /* HT cleanup-segment wire transforms (ISO/IEC 15444-15 structure).
  *
- * The port's copy of grok_tpu/native/ht_wire.c (without the raw
- * refinement-segment stuffing, which only HT SigProp/MagRef encodes
- * use): C mirrors of the Python oracle in grok_tpu/t1ht/scalar.py
- * (assemble_cleanup and the wire readers) for the serving paths:
+ * The port's copy of grok_tpu/native/ht_wire.c: C mirrors of the Python
+ * oracle in grok_tpu/t1ht/scalar.py (assemble_cleanup, _finish_raw and
+ * the wire readers) for the device paths:
  *
  *   - grk_ht_scan2: batch wire -> clean split (the serving decode's
  *     staging step: parse framing, un-stuff all three sub-streams into
  *     a digest buffer the device gathers from).
  *   - grk_ht_assemble_batch: batch clean -> wire assembly (the serving
  *     encode's final step over the downloaded device streams).
+ *   - grk_ht_raw_batch: batch clean -> wire stuffing of the HT SigProp
+ *     and HT MagRef segments (the refined encode).
+ *   - grk_ht_unstuff_batch: batch wire -> clean un-stuffing of those
+ *     segments (the general decode route's staging; the port's own
+ *     addition, byte-identical to grok_tpu/t1ht/wire.py _unstuff_lsb).
  *
  * Byte-identity with the JAX package's copy is held by
  * tests/test_torch_host.py; see grok_tpu/t1ht/scalar.py for the wire
@@ -228,7 +232,61 @@ int grk_ht_assemble_batch(const uint8_t *buf,
     return 0;
 }
 
+/* Stuff n raw (HT SigProp / HT MagRef) streams: clean LSB-first bits ->
+ * wire bytes with 0xFF stuffing and a guaranteed non-0xFF final byte
+ * (t1ht.scalar._finish_raw).  Streams are written back-to-back into
+ * out; olens[k] = wire length.  Returns 0, or 1 on capacity overflow. */
+int grk_ht_raw_batch(const uint8_t *buf, const long long *off,
+                     const long long *bits, int n,
+                     uint8_t *out, long long ocap, long long *olens)
+{
+    long long pos = 0;
+    for (int k = 0; k < n; k++) {
+        long long worst = bits[k] / 7 + 8;
+        if (pos + worst > ocap)
+            return 1;
+        long long m = stuff_lsb(buf + off[k], bits[k], out + pos);
+        if (m && out[pos + m - 1] == 0xFF)
+            out[pos + m++] = 0x00;
+        olens[k] = m;
+        pos += m;
+    }
+    return 0;
+}
+
 /* ---- wire -> clean (un-stuffing; pointwise in the wire bytes) ---------- */
+
+/* Un-stuff n raw forward LSB-first segments (HT SigProp / HT MagRef) at
+ * body[off[i] .. off[i]+len[i]): a byte following 0xFF carries 7 payload
+ * bits.  The clean bytes go back-to-back into out, the last byte of each
+ * zero-padded; olens[i] = clean length.  Byte-identical to
+ * t1ht/wire.py _unstuff_lsb.  Returns 0, or 1 if a segment lies outside
+ * the body or out would overflow (ocap >= sum(len) suffices). */
+int grk_ht_unstuff_batch(const uint8_t *body, long long blen,
+                         const long long *off, const int *len, int n,
+                         uint8_t *out, long long ocap, long long *olens)
+{
+    long long d = 0;
+    for (int i = 0; i < n; i++) {
+        long long o = off[i];
+        long long L = len[i];
+        if (o < 0 || L < 0 || o + L > blen || d + L > ocap)
+            return 1;
+        sink_t s = { out + d, 0, 0, 0 };
+        int prev_ff = 0;
+        for (long long j = 0; j < L; j++) {
+            int b = body[o + j];
+            if (prev_ff)
+                sink_bits(&s, (uint32_t)(b & 0x7F), 7);
+            else
+                sink_bits(&s, (uint32_t)b, 8);
+            prev_ff = (b == 0xFF);
+        }
+        olens[i] = sink_flush(&s);
+        d += olens[i];
+    }
+    return 0;
+}
 
 /* Scan n cleanup segments at body[off[i] .. off[i]+len[i]): un-stuff
  * the MagSgn stream into clean LSB-first bytes appended to digest and

@@ -1,4 +1,7 @@
-// HTJ2K (ISO 15444-15) cleanup-pass decode of a batch of code-blocks.
+// HTJ2K (ISO 15444-15) decode of a batch of code-blocks: the cleanup pass
+// (kernel K1, `ht_cleanup_kernel`) and the cleanup followed by the HT
+// SigProp and HT MagRef refinement passes (kernel K2, `ht_refine_kernel`,
+// below).
 //
 // Replaces the Pallas TPU kernel grok_tpu/ops/pallas_ht.py
 // `_ht_decode_jit` (refine=False, reached through `pallas_ht_decode`),
@@ -194,34 +197,13 @@ __device__ __forceinline__ int magsgn_quad(int sym, int top_p, int u,
     return rho | (ebot << 4);
 }
 
-__global__ void __launch_bounds__(128)
-ht_cleanup_kernel(const uint8_t* __restrict__ ms, int ms_len,
-                  const uint8_t* __restrict__ mel, int mel_len,
-                  const uint8_t* __restrict__ vlc, int vlc_len,
-                  const int* __restrict__ pv, const int* __restrict__ wv,
-                  const int* __restrict__ hv, const int* __restrict__ valid,
-                  const int* __restrict__ lut_g, int lut_n, int symb,
-                  int nfam, int pxor, int* __restrict__ out, int nl, int W,
-                  int H)
+// The cleanup pass of one valid lane into its (H, W) output block o.
+__device__ void decode_cleanup(Stream sms, Stream smel, Stream svlc, int p,
+                               int w, int h, const int* lut, int symb,
+                               int nfam, int pxor, int* o, int W)
 {
-    extern __shared__ int lut[];
-    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
-        lut[i] = lut_g[i];
-    __syncthreads();
-
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= nl || valid[lane] != 1)
-        return;
-    int w = min(wv[lane], W), h = min(hv[lane], H);
-    if (w <= 0 || h <= 0)
-        return;
-    int p = pv[lane];
     int p1 = p + 1;
     uint32_t half = p > 0 ? shl32(1u, p) : 0u;
-    Stream sms = { ms + (size_t)lane * ms_len, ms_len };
-    Stream smel = { mel + (size_t)lane * mel_len, mel_len };
-    Stream svlc = { vlc + (size_t)lane * vlc_len, vlc_len };
-    int* o = out + (size_t)lane * W * H;
 
     int gw = (w + 1) >> 1, gh = (h + 1) >> 1;
     int rows[2][HT_MAX_GW + 2];
@@ -264,6 +246,150 @@ ht_cleanup_kernel(const uint8_t* __restrict__ ms, int ms_len,
     }
 }
 
+__global__ void __launch_bounds__(128)
+ht_cleanup_kernel(const uint8_t* __restrict__ ms, int ms_len,
+                  const uint8_t* __restrict__ mel, int mel_len,
+                  const uint8_t* __restrict__ vlc, int vlc_len,
+                  const int* __restrict__ pv, const int* __restrict__ wv,
+                  const int* __restrict__ hv, const int* __restrict__ valid,
+                  const int* __restrict__ lut_g, int lut_n, int symb,
+                  int nfam, int pxor, int* __restrict__ out, int nl, int W,
+                  int H)
+{
+    extern __shared__ int lut[];
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
+        lut[i] = lut_g[i];
+    __syncthreads();
+
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= nl || valid[lane] != 1)
+        return;
+    int w = min(wv[lane], W), h = min(hv[lane], H);
+    if (w <= 0 || h <= 0)
+        return;
+    Stream sms = { ms + (size_t)lane * ms_len, ms_len };
+    Stream smel = { mel + (size_t)lane * mel_len, mel_len };
+    Stream svlc = { vlc + (size_t)lane * vlc_len, vlc_len };
+    decode_cleanup(sms, smel, svlc, pv[lane], w, h, lut, symb, nfam, pxor,
+                   out + (size_t)lane * W * H, W);
+}
+
+// ---- K2: cleanup, then HT SigProp and HT MagRef at plane p - 1 --------
+//
+// Replaces the refine=True variant of the same Pallas kernel
+// (`_ht_decode_jit` via `pallas_ht_decode_refine`, grok_tpu/ops/
+// pallas_ht.py:293 and :722-818), bit-exact to grok_tpu/t1ht/scalar.py
+// `ht_decode_block` for 2- and 3-pass blocks; the plain version is
+// ht_decode.py `ht_decode_lanes_ref` with sp, mr and npass.  The same
+// thread decodes the lane's cleanup into its output block, then scans it
+// in 4-row stripes (columns left to right, rows top to bottom within a
+// stripe column): SigProp reads one significance bit for each
+// insignificant sample with a significant 3 x 3 neighbour (and its sign
+// when set), setting it to +-((1 << p) + half_bp); MagRef appends one
+// magnitude bit to each sample the cleanup made significant.  The
+// significance lives in local memory as one 64-bit word per row for the
+// whole scan (sg) plus the cleanup's own (cs), so a neighbourhood test
+// is three shifts; the refinement streams are read like the cleanup's,
+// four bytes straight from device memory per read, 0 past the buffer.
+// The TPU kernel's staged windows and its H >= 4 padding of the stripe
+// loops are not carried over.  Bound as for the cleanup: one serial
+// chain per lane.
+
+// bits x-1, x, x+1 of a row word (0 beyond the row)
+__device__ __forceinline__ uint64_t nb3(uint64_t row, int x)
+{
+    return (x > 0 ? row >> (x - 1) : row << 1) & 7ull;
+}
+
+__global__ void __launch_bounds__(128)
+ht_refine_kernel(const uint8_t* __restrict__ ms, int ms_len,
+                 const uint8_t* __restrict__ mel, int mel_len,
+                 const uint8_t* __restrict__ vlc, int vlc_len,
+                 const int* __restrict__ pv, const int* __restrict__ wv,
+                 const int* __restrict__ hv, const int* __restrict__ valid,
+                 const int* __restrict__ lut_g, int lut_n, int symb,
+                 int nfam, int pxor, int* __restrict__ out, int nl, int W,
+                 int H, const uint8_t* __restrict__ sp, int sp_len,
+                 const uint8_t* __restrict__ mr, int mr_len,
+                 const int* __restrict__ npv)
+{
+    extern __shared__ int lut[];
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
+        lut[i] = lut_g[i];
+    __syncthreads();
+
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= nl || valid[lane] != 1)
+        return;
+    int w = min(wv[lane], W), h = min(hv[lane], H);
+    if (w <= 0 || h <= 0)
+        return;
+    int p = pv[lane];
+    Stream sms = { ms + (size_t)lane * ms_len, ms_len };
+    Stream smel = { mel + (size_t)lane * mel_len, mel_len };
+    Stream svlc = { vlc + (size_t)lane * vlc_len, vlc_len };
+    int* o = out + (size_t)lane * W * H;
+    decode_cleanup(sms, smel, svlc, p, w, h, lut, symb, nfam, pxor, o, W);
+    int np = npv[lane];
+    if (np < 2 || p <= 0)
+        return;
+
+    uint32_t half = shl32(1u, p);
+    uint32_t half_bp = p > 1 ? shl32(1u, p - 1) : 0u;
+    uint64_t sg[64], cs[64];
+    for (int y = 0; y < h; y++) {
+        uint64_t r = 0;
+        for (int x = 0; x < w; x++)
+            if (o[y * W + x] != 0)
+                r |= 1ull << x;
+        sg[y] = cs[y] = r;
+    }
+
+    Stream ssp = { sp + (size_t)lane * sp_len, sp_len };
+    uint32_t mag_new = half + half_bp;
+    int bp = 0;
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                if ((sg[y] >> x) & 1ull)
+                    continue;
+                uint64_t n = nb3(sg[y], x);
+                if (y > 0)
+                    n |= nb3(sg[y - 1], x);
+                if (y + 1 < h)
+                    n |= nb3(sg[y + 1], x);
+                if (!n)
+                    continue;
+                uint32_t w2 = bits_at(ssp, bp);
+                if (!(w2 & 1u)) {
+                    bp += 1;
+                    continue;
+                }
+                bp += 2;
+                o[y * W + x] = (w2 & 2u) ? (int)(0u - mag_new)
+                                         : (int)mag_new;
+                sg[y] |= 1ull << x;
+            }
+    if (np < 3)
+        return;
+
+    Stream smr = { mr + (size_t)lane * mr_len, mr_len };
+    bp = 0;
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                if (!((cs[y] >> x) & 1ull))
+                    continue;
+                uint32_t bit = bits_at(smr, bp) & 1u;
+                bp += 1;
+                int cur = o[y * W + x];
+                uint32_t av = cur < 0 ? 0u - (uint32_t)cur : (uint32_t)cur;
+                uint32_t vq = (av - half) >> (p + 1);
+                uint32_t nm = shl32((vq << 1) | bit, p) + half_bp;
+                o[y * W + x] = cur < 0 ? (int)(0u - nm) : (int)nm;
+            }
+}
+
 extern "C" int grk_ht_decode_cleanup(const void* ms, int ms_len,
                                      const void* mel, int mel_len,
                                      const void* vlc, int vlc_len,
@@ -283,5 +409,32 @@ extern "C" int grk_ht_decode_cleanup(const void* ms, int ms_len,
         (const uint8_t*)vlc, vlc_len, (const int*)p, (const int*)w,
         (const int*)h, (const int*)valid, (const int*)lut, lut_n, symb, nfam,
         pxor, (int*)out, nl, W, H);
+    return (int)cudaGetLastError();
+}
+
+// out must be zeroed by the caller: the kernel writes significant samples
+// only.
+extern "C" int grk_ht_decode_refine(const void* ms, int ms_len,
+                                    const void* mel, int mel_len,
+                                    const void* vlc, int vlc_len,
+                                    const void* p, const void* w,
+                                    const void* h, const void* valid,
+                                    const void* lut, int lut_n, int symb,
+                                    int nfam, int pxor, void* out, int nl,
+                                    int W, int H, const void* sp, int sp_len,
+                                    const void* mr, int mr_len,
+                                    const void* npass, void* stream)
+{
+    if (nl <= 0)
+        return 0;
+    const int threads = 128;
+    int blocks = (nl + threads - 1) / threads;
+    size_t smem = (size_t)lut_n * sizeof(int);
+    ht_refine_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+        (const uint8_t*)ms, ms_len, (const uint8_t*)mel, mel_len,
+        (const uint8_t*)vlc, vlc_len, (const int*)p, (const int*)w,
+        (const int*)h, (const int*)valid, (const int*)lut, lut_n, symb, nfam,
+        pxor, (int*)out, nl, W, H, (const uint8_t*)sp, sp_len,
+        (const uint8_t*)mr, mr_len, (const int*)npass);
     return (int)cudaGetLastError();
 }

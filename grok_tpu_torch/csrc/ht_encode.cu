@@ -1,4 +1,7 @@
-// HTJ2K (ISO 15444-15) cleanup-pass encode of a batch of code-blocks.
+// HTJ2K (ISO 15444-15) encode of a batch of code-blocks: the cleanup pass
+// (kernel K4, `ht_encode_kernel`) and the cleanup followed by the HT
+// SigProp and HT MagRef refinement passes (kernel K4r,
+// `ht_encode_refine_kernel`, below).
 //
 // Replaces the Pallas TPU kernel grok_tpu/ops/pallas_ht_enc.py
 // `_ht_encode_jit` (refine=False, reached through `pallas_ht_encode`),
@@ -235,36 +238,18 @@ __device__ __forceinline__ int code_quad(const int* blk, int W, int bw,
     return u;
 }
 
-__global__ void __launch_bounds__(128)
-ht_encode_kernel(const int* __restrict__ mneg, const int* __restrict__ pv,
-                 const int* __restrict__ wv, const int* __restrict__ hv,
-                 const int* __restrict__ valid,
-                 const int* __restrict__ lut_g, int lut_n, int symb,
-                 int nfam, int pxor, uint8_t* __restrict__ out, int row,
-                 int lms, int lmel, int lvlc, int* __restrict__ bits,
-                 int nl, int W, int H)
+// The cleanup pass of one valid lane: its three streams at o, their bit
+// counts at bits[lane], bits[nl + lane], bits[2 nl + lane].
+__device__ void encode_cleanup(const int* blk, int W, int w, int h, int p,
+                               const int* lut, int symb, int nfam, int pxor,
+                               uint8_t* o, int lms, int lmel, int lvlc,
+                               int* bits, int nl, int lane)
 {
-    extern __shared__ int lut[];
-    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
-        lut[i] = lut_g[i];
-    __syncthreads();
-
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= nl)
-        return;
-    int w = min(wv[lane], W), h = min(hv[lane], H);
-    if (valid[lane] != 1 || w <= 0 || h <= 0) {
-        bits[lane] = bits[nl + lane] = bits[2 * nl + lane] = 0;
-        return;
-    }
-    const int* blk = mneg + (size_t)lane * W * H;
-    uint8_t* o = out + (size_t)lane * row;
     Sink sms = { (uint32_t*)o, lms / 4, 0, 0ull, 0, 0, false };
     Sink smel = { (uint32_t*)(o + lms), lmel / 4, 0, 0ull, 0, 0, false };
     Sink svlc = { (uint32_t*)(o + lms + lmel), lvlc / 4, 0, 0ull, 0, 0,
                   false };
     Mel mel = { 0, 0 };
-    int p = pv[lane];
 
     int gw = (w + 1) >> 1, gh = (h + 1) >> 1;
     int rows[2][HT_MAX_GW + 2];
@@ -296,6 +281,137 @@ ht_encode_kernel(const int* __restrict__ mneg, const int* __restrict__ pv,
     bits[2 * nl + lane] = sink_finish(svlc);
 }
 
+__global__ void __launch_bounds__(128)
+ht_encode_kernel(const int* __restrict__ mneg, const int* __restrict__ pv,
+                 const int* __restrict__ wv, const int* __restrict__ hv,
+                 const int* __restrict__ valid,
+                 const int* __restrict__ lut_g, int lut_n, int symb,
+                 int nfam, int pxor, uint8_t* __restrict__ out, int row,
+                 int lms, int lmel, int lvlc, int* __restrict__ bits,
+                 int nl, int W, int H)
+{
+    extern __shared__ int lut[];
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
+        lut[i] = lut_g[i];
+    __syncthreads();
+
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= nl)
+        return;
+    int w = min(wv[lane], W), h = min(hv[lane], H);
+    if (valid[lane] != 1 || w <= 0 || h <= 0) {
+        bits[lane] = bits[nl + lane] = bits[2 * nl + lane] = 0;
+        return;
+    }
+    encode_cleanup(mneg + (size_t)lane * W * H, W, w, h, pv[lane], lut,
+                   symb, nfam, pxor, out + (size_t)lane * row, lms, lmel,
+                   lvlc, bits, nl, lane);
+}
+
+// ---- K4r: HT SigProp + HT MagRef at plane p - 1 -----------------------
+//
+// Replaces the refine=True variant of the same Pallas kernel
+// (`_ht_encode_jit`, grok_tpu/ops/pallas_ht_enc.py:722-807), byte-
+// identical to grok_tpu/t1ht/scalar.py `_encode_sigprop` and
+// `_encode_magref`; the plain version is ht_encode.py
+// `ht_refine_lanes_ref` after `ht_encode_lanes_ref`.  The same thread
+// codes the lane's cleanup, then scans it twice in 4-row stripes
+// (columns left to right, rows top to bottom within a stripe column),
+// with the lane's significance as one 64-bit word per row in local
+// memory: a 3 x 3 neighbourhood test is three shifts.  SigProp sets the
+// bits of the samples it makes significant (causal for the rest of the
+// scan) and writes them to ns; MagRef reads the cleanup significance
+// again from the samples.  No TPU staging (16-word windows, H >= 4
+// padding of the stripe loops) is carried over.  Bound as for the
+// cleanup: one serial chain per lane.
+
+// bits x-1, x, x+1 of a row word (0 beyond the row)
+__device__ __forceinline__ uint64_t nb3(uint64_t row, int x)
+{
+    return (x > 0 ? row >> (x - 1) : row << 1) & 7ull;
+}
+
+__global__ void __launch_bounds__(128)
+ht_encode_refine_kernel(const int* __restrict__ mneg,
+                        const int* __restrict__ pv,
+                        const int* __restrict__ wv,
+                        const int* __restrict__ hv,
+                        const int* __restrict__ valid,
+                        const int* __restrict__ lut_g, int lut_n, int symb,
+                        int nfam, int pxor, uint8_t* __restrict__ out,
+                        int row, int lms, int lmel, int lvlc, int lsp,
+                        int lmr, int* __restrict__ bits,
+                        uint8_t* __restrict__ ns, int nl, int W, int H)
+{
+    extern __shared__ int lut[];
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
+        lut[i] = lut_g[i];
+    __syncthreads();
+
+    int lane = blockIdx.x * blockDim.x + threadIdx.x;
+    if (lane >= nl)
+        return;
+    int w = min(wv[lane], W), h = min(hv[lane], H);
+    if (valid[lane] != 1 || w <= 0 || h <= 0) {
+        for (int s = 0; s < 5; s++)
+            bits[s * nl + lane] = 0;
+        return;
+    }
+    const int* blk = mneg + (size_t)lane * W * H;
+    uint8_t* o = out + (size_t)lane * row;
+    int p = pv[lane];
+    encode_cleanup(blk, W, w, h, p, lut, symb, nfam, pxor, o, lms, lmel,
+                   lvlc, bits, nl, lane);
+    if (p <= 0) {
+        bits[3 * nl + lane] = bits[4 * nl + lane] = 0;
+        return;
+    }
+    int bp = p - 1;
+    uint64_t sg[64];                 // significance, one word per row
+    for (int y = 0; y < h; y++) {
+        uint64_t r = 0;
+        for (int x = 0; x < w; x++)
+            if ((((uint32_t)blk[y * W + x] >> 1) >> p) > 0)
+                r |= 1ull << x;
+        sg[y] = r;
+    }
+    uint8_t* nsl = ns + (size_t)lane * W * H;
+    Sink ssp = { (uint32_t*)(o + lms + lmel + lvlc), lsp / 4, 0, 0ull, 0, 0,
+                 false };
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                if ((sg[y] >> x) & 1ull)
+                    continue;
+                uint64_t n = nb3(sg[y], x);
+                if (y > 0)
+                    n |= nb3(sg[y - 1], x);
+                if (y + 1 < h)
+                    n |= nb3(sg[y + 1], x);
+                if (!n)
+                    continue;
+                uint32_t mn = (uint32_t)blk[y * W + x];
+                uint32_t bit = ((mn >> 1) >> bp) & 1u;
+                sink_put(ssp, bit | ((mn & 1u) << 1), 1 + (int)bit);
+                if (bit) {
+                    sg[y] |= 1ull << x;
+                    nsl[y * W + x] = 1;
+                }
+            }
+    bits[3 * nl + lane] = sink_finish(ssp);
+
+    Sink smr = { (uint32_t*)(o + lms + lmel + lvlc + lsp), lmr / 4, 0, 0ull,
+                 0, 0, false };
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                uint32_t mag = (uint32_t)blk[y * W + x] >> 1;
+                if ((mag >> p) > 0)
+                    sink_put(smr, (mag >> bp) & 1u, 1);
+            }
+    bits[4 * nl + lane] = sink_finish(smr);
+}
+
 extern "C" int grk_ht_encode_cleanup(const void* mneg, const void* p,
                                      const void* w, const void* h,
                                      const void* valid, const void* lut,
@@ -313,5 +429,29 @@ extern "C" int grk_ht_encode_cleanup(const void* mneg, const void* p,
         (const int*)mneg, (const int*)p, (const int*)w, (const int*)h,
         (const int*)valid, (const int*)lut, lut_n, symb, nfam, pxor,
         (uint8_t*)out, row, lms, lmel, lvlc, (int*)bits, nl, W, H);
+    return (int)cudaGetLastError();
+}
+
+// ns must be zeroed by the caller: the kernel writes only its 1s.
+extern "C" int grk_ht_encode_refine(const void* mneg, const void* p,
+                                    const void* w, const void* h,
+                                    const void* valid, const void* lut,
+                                    int lut_n, int symb, int nfam, int pxor,
+                                    void* out, int row, int lms, int lmel,
+                                    int lvlc, int lsp, int lmr, void* bits,
+                                    void* ns, int nl, int W, int H,
+                                    void* stream)
+{
+    if (nl <= 0)
+        return 0;
+    const int threads = 128;
+    int blocks = (nl + threads - 1) / threads;
+    size_t smem = (size_t)lut_n * sizeof(int);
+    ht_encode_refine_kernel<<<blocks, threads, smem,
+                              (cudaStream_t)stream>>>(
+        (const int*)mneg, (const int*)p, (const int*)w, (const int*)h,
+        (const int*)valid, (const int*)lut, lut_n, symb, nfam, pxor,
+        (uint8_t*)out, row, lms, lmel, lvlc, lsp, lmr, (int*)bits,
+        (uint8_t*)ns, nl, W, H);
     return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 """Host runtime of the port: the C Tier-2 packet coder and the C HT wire
-transforms, bound with ctypes.
+transforms (cleanup assembly and scan, refinement-segment stuffing and
+un-stuffing), bound with ctypes.
 
 The port's copy of the serving half of grok_tpu/native/__init__.py,
 over its own copy of the C sources (csrc/host/t2.c, csrc/host/ht_wire.c),
@@ -44,6 +45,13 @@ def _lib():
         lib.grk_ht_assemble_batch.argtypes = [
             u8p, llp, llp, llp, llp, llp, llp, ip, ctypes.c_int, u8p,
             ctypes.c_longlong, llp]
+        lib.grk_ht_raw_batch.restype = ctypes.c_int
+        lib.grk_ht_raw_batch.argtypes = [
+            u8p, llp, llp, ctypes.c_int, u8p, ctypes.c_longlong, llp]
+        lib.grk_ht_unstuff_batch.restype = ctypes.c_int
+        lib.grk_ht_unstuff_batch.argtypes = [
+            ctypes.c_char_p, ctypes.c_longlong, llp, ip, ctypes.c_int,
+            u8p, ctypes.c_longlong, llp]
         lib.grk_t2_emit.restype = ctypes.c_int
         lib.grk_t2_emit.argtypes = [
             ctypes.c_int, ip, ip, ip, ip, ip, ip,
@@ -178,6 +186,45 @@ def ht_assemble_batch(buf: np.ndarray, ms_off, ms_bits, mel_off, mel_bits,
         _llp(olens))
     if rc:
         return None
+    return out, olens
+
+
+def ht_raw_batch(buf: np.ndarray, offs, bits):
+    """Stuff n raw (HT SigProp / HT MagRef) clean streams into wire
+    segments (0xFF stuffing + non-0xFF terminator), back-to-back.
+    Returns (out uint8 buffer, lens (n,) int64); byte-identical to
+    grok_tpu.t1ht.scalar._finish_raw."""
+    lib = _lib()
+    n = len(offs)
+    offs = np.ascontiguousarray(offs, np.int64)
+    bits = np.ascontiguousarray(bits, np.int64)
+    buf = np.ascontiguousarray(buf, np.uint8)
+    ocap = int(bits.sum() // 7 + int(bits.sum() + 7) // 8 + 16 * n + 64)
+    out = np.zeros(ocap, np.uint8)
+    olens = np.zeros(n, np.int64)
+    rc = lib.grk_ht_raw_batch(_u8p(buf), _llp(offs), _llp(bits), n,
+                              _u8p(out), ocap, _llp(olens))
+    if rc:
+        raise ValueError("raw segment capacity overflow")
+    return out, olens
+
+
+def ht_unstuff_batch(body: bytes, offs, lens):
+    """Un-stuff n raw HT SigProp / HT MagRef wire segments (body[offs[i]:
+    offs[i] + lens[i]]) into clean LSB-first bytes, back-to-back.
+    Returns (out uint8 buffer, clean lens (n,) int64); each segment is
+    byte-identical to t1ht/wire.py _unstuff_lsb of its wire bytes."""
+    lib = _lib()
+    n = len(offs)
+    offs = np.ascontiguousarray(offs, np.int64)
+    lens = np.ascontiguousarray(lens, np.int32)
+    ocap = int(lens.sum()) + 8
+    out = np.zeros(ocap, np.uint8)
+    olens = np.zeros(n, np.int64)
+    rc = lib.grk_ht_unstuff_batch(body, len(body), _llp(offs), _ip(lens), n,
+                                  _u8p(out), ocap, _llp(olens))
+    if rc:
+        raise ValueError("a refinement segment lies outside the tile body")
     return out, olens
 
 

@@ -1,4 +1,5 @@
-"""Batched HTJ2K (Part 15) cleanup-pass decode: kernel K1 of the port.
+"""Batched HTJ2K (Part 15) decode: kernels K1 (cleanup) and K2 (cleanup,
+then HT SigProp and HT MagRef) of the port.
 
 One lane is one code-block.  Inputs are the block's three clean
 (un-stuffed, LSB-first) sub-streams — MagSgn, MEL and VLC — as zero-padded
@@ -14,6 +15,14 @@ single-segment cleanup-only blocks.
   - `ht_decode_lanes_ref` is the plain PyTorch version: vectorised over
     lanes, a Python loop over quad pairs in the order of the Pallas
     kernel's pair body (grok_tpu/ops/pallas_ht.py `_ht_decode_jit`).
+  - `ht_decode_lanes(..., sp, mr, npass)` is K2, the refine=True variant
+    of the same TPU kernel (`pallas_ht_decode_refine`): after the
+    cleanup, the lanes with p > 0 and 2 or 3 passes run SigProp and
+    MagRef at plane p - 1 from two more clean streams.  Its plain
+    version is `ht_decode_lanes_ref` with the same arguments.
+  - `decode_ht_blocks` decodes one bucket of blocks of a refined stream
+    (the general decode route): K1 on its cleanup-only blocks, K2 on
+    the others.
   - `vlc_dec_lut` is the CxtVLC decode table both read, rebuilt from the
     port's t1ht.tables state per tables.VERSION, so the port's
     install_tables() reaches the kernel.
@@ -30,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from grok_tpu_torch.ops.ht_encode import stripe_order
 from grok_tpu_torch.t1ht import tables as _t
 
 # Longest per-lane clean sub-stream the serving path stages (bytes):
@@ -105,13 +115,95 @@ def _bitlen(x: torch.Tensor) -> torch.Tensor:
     return n + (v >= 1).to(x.dtype)
 
 
-def ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W: int,
-                        H: int) -> torch.Tensor:
-    """Plain PyTorch cleanup decode of NL lanes -> (NL, H, W) int32.
+def ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int,
+                        sp=None, mr=None, npass=None) -> torch.Tensor:
+    """Plain PyTorch decode of NL lanes -> (NL, H, W) int32: the cleanup,
+    then with sp, mr, npass given the refinement passes of
+    `_refine_ref`.
 
     ms/mel/vlc: (NL, L+1) uint8 clean streams (each its own L); p, w, h,
     valid: (NL,) int32.  Arithmetic runs in int64 and wraps to int32 at
     the end, which gives the Pallas kernel's int32 results."""
+    out = _cleanup_ref(ms, mel, vlc, p, w, h, valid, W, H)
+    if sp is None:
+        return out
+    return _refine_ref(out, sp, mr, p, w, h, valid, npass)
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values wrapped to int32 two's complement, as the int32
+    Pallas arithmetic does."""
+    x = x & 0xFFFFFFFF
+    return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
+
+
+def _refine_ref(out, sp, mr, p, w, h, valid, npass) -> torch.Tensor:
+    """HT SigProp (npass >= 2) and HT MagRef (npass >= 3) at plane p - 1
+    over the cleanup output `out` of the lanes with p > 0, in the 4-row
+    stripe scan (grok_tpu/ops/pallas_ht.py:722-818): a sample SigProp
+    makes significant becomes +-((1 << p) + half_bp), half_bp = 1 <<
+    (p - 1) for p > 1 and 0 at p = 1; MagRef appends one magnitude bit to
+    each cleanup-significant sample only.  SigProp steps the scan
+    position by position (its significance is causal); MagRef reads its
+    bits at positions given by a prefix count."""
+    dev = out.device
+    i64 = torch.int64
+    NL, H, W = out.shape
+    pp = p.to(i64)
+    npl = npass.to(i64)
+    on = (valid.to(i64) == 1) & (pp > 0)
+    v = out.to(i64).reshape(NL, H * W)
+    yy = torch.arange(H, device=dev)[:, None].expand(H, W).reshape(-1)
+    xx = torch.arange(W, device=dev)[None, :].expand(H, W).reshape(-1)
+    inside = (yy[None] < h.to(i64)[:, None]) & (xx[None] < w.to(i64)[:, None])
+    csig = inside & (v != 0)                  # cleanup significant
+    order = torch.from_numpy(stripe_order(W, H)).to(dev)
+    half = torch.where(pp > 0, torch.ones_like(pp) << pp, 0)[:, None]
+    half_bp = torch.where(pp > 1, torch.ones_like(pp) << (pp - 1).clamp(
+        min=0), 0)[:, None]
+    pb = pp[:, None]
+
+    def padded(buf):
+        return torch.nn.functional.pad(buf.to(i64), (0, 1))
+
+    def bit_at(buf, bp):
+        off = (bp >> 3).clamp(max=buf.shape[1] - 1)
+        return (torch.gather(buf, 1, off) >> (bp & 7)) & 1
+
+    # MagRef first in the code, in effect after SigProp: it refines only
+    # the cleanup-significant samples, which SigProp never touches
+    mrb = padded(mr)
+    cond = (csig & (on & (npl >= 3))[:, None])[:, order]
+    bpos = torch.cumsum(cond.to(i64), 1) - cond.to(i64)
+    bit = bit_at(mrb, bpos)
+    cur = v[:, order]
+    vq = (cur.abs() - half) >> (pb + 1)
+    nm = (((vq << 1) | bit) << pb) + half_bp
+    ref = v.clone()
+    ref[:, order] = torch.where(cond, torch.where(cur < 0, -nm, nm), cur)
+
+    spb = padded(sp)
+    act = inside & (on & (npl >= 2))[:, None]
+    st = torch.nn.functional.pad(csig.reshape(NL, H, W), (1, 1, 1, 1))
+    mag_new = (torch.ones_like(pp) << pp) + half_bp[:, 0]
+    bp = torch.zeros(NL, dtype=i64, device=dev)
+    for k in order.tolist():
+        y, x = divmod(k, W)
+        cand = act[:, k] & ~st[:, y + 1, x + 1] \
+            & st[:, y:y + 3, x:x + 3].reshape(NL, 9).any(1)
+        b = bit_at(spb, bp[:, None])[:, 0]
+        s = bit_at(spb, bp[:, None] + 1)[:, 0]
+        new = cand & (b == 1)
+        bp = bp + torch.where(new, 2, torch.where(cand, 1, 0))
+        ref[:, k] = torch.where(new, torch.where(s == 1, -mag_new, mag_new),
+                                ref[:, k])
+        st[:, y + 1, x + 1] |= new
+    return _wrap32(ref).reshape(NL, H, W)
+
+
+def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int,
+                 H: int) -> torch.Tensor:
+    """Plain PyTorch cleanup decode of NL lanes -> (NL, H, W) int32."""
     N_CTX = _t.N_CTX
     dev = ms.device
     i64 = torch.int64
@@ -313,9 +405,7 @@ def ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W: int,
                 rho[:, g + 1, qx1 + 1] = torch.where(
                     act1, st1, rho[:, g + 1, qx1 + 1])
                 write_quad(g, qx1, sv1, sm1)
-    # wrap to int32 two's complement, as the int32 Pallas arithmetic does
-    out = out & 0xFFFFFFFF
-    return torch.where(out >= (1 << 31), out - (1 << 32), out).to(torch.int32)
+    return _wrap32(out)
 
 
 def _check(name, t, dtype, shape0, device):
@@ -329,30 +419,43 @@ def _check(name, t, dtype, shape0, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int,
-                    H: int) -> torch.Tensor:
+def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
+                    sp=None, mr=None, npass=None) -> torch.Tensor:
     """Cleanup-decode NL lanes -> signed mag2 (NL, H, W) int32.
 
     ms/mel/vlc: (NL, L+1) uint8 clean LSB-first streams, zero-padded
     (each stream may have its own L); p, w, h, valid: (NL,) int32.
     W, H: the bucket's block dims (4..64); every lane has w <= W and
     h <= H.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel, and anything the kernel does not take raises."""
+    kernel, and anything the kernel does not take raises.
+
+    With sp, mr ((NL, L+1) uint8 clean HT SigProp and HT MagRef streams)
+    and npass ((NL,) int32, 1..3 passes) this is kernel K2: each lane's
+    cleanup, then SigProp (npass >= 2) and MagRef (npass >= 3) at plane
+    p - 1 for the lanes with p > 0, in one launch."""
     dev = ms.device
     NL = ms.shape[0]
-    for name, t in (("ms", ms), ("mel", mel), ("vlc", vlc)):
+    refine = sp is not None
+    if refine != (mr is not None) or refine != (npass is not None):
+        raise ValueError("sp, mr and npass come together")
+    streams = (("ms", ms), ("mel", mel), ("vlc", vlc)) + (
+        (("sp", sp), ("mr", mr)) if refine else ())
+    for name, t in streams:
         _check(name, t, torch.uint8, NL, dev)
         if t.dim() != 2 or t.shape[1] < 1:
             raise ValueError(f"{name} must be (NL, L+1), got "
                              f"{tuple(t.shape)}")
-    for name, t in (("p", p), ("w", w), ("h", h), ("valid", valid)):
+    params = (("p", p), ("w", w), ("h", h), ("valid", valid)) + (
+        (("npass", npass),) if refine else ())
+    for name, t in params:
         _check(name, t, torch.int32, NL, dev)
         if t.dim() != 1:
             raise ValueError(f"{name} must be (NL,), got {tuple(t.shape)}")
     if not (1 <= W <= 64 and 1 <= H <= 64):
         raise ValueError(f"block dims {W}x{H} outside 1..64")
     if dev.type == "cpu":
-        return ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W, H)
+        return ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W, H, sp,
+                                   mr, npass)
     if dev.type != "cuda":
         raise ValueError(f"no HT decode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
@@ -363,25 +466,67 @@ def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int,
     if NL == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.grk_ht_decode_cleanup(
-        ms.data_ptr(), ms.shape[1], mel.data_ptr(), mel.shape[1],
-        vlc.data_ptr(), vlc.shape[1], p.data_ptr(), w.data_ptr(),
-        h.data_ptr(), valid.data_ptr(), lut.data_ptr(), lut.numel(),
-        symb, nfam, pxor, out.data_ptr(), NL, W, H, stream)
+    args = (ms.data_ptr(), ms.shape[1], mel.data_ptr(), mel.shape[1],
+            vlc.data_ptr(), vlc.shape[1], p.data_ptr(), w.data_ptr(),
+            h.data_ptr(), valid.data_ptr(), lut.data_ptr(), lut.numel(),
+            symb, nfam, pxor, out.data_ptr(), NL, W, H)
+    if refine:
+        rc = lib.grk_ht_decode_refine(*args, sp.data_ptr(), sp.shape[1],
+                                      mr.data_ptr(), mr.shape[1],
+                                      npass.data_ptr(), stream)
+    else:
+        rc = lib.grk_ht_decode_cleanup(*args, stream)
     if rc != 0:
-        raise RuntimeError(f"HT cleanup decode kernel launch failed: "
-                           f"cudaError {rc}")
-    ht_decode_lanes.launches += 1
+        raise RuntimeError(f"HT {'refine' if refine else 'cleanup'} decode "
+                           f"kernel launch failed: cudaError {rc}")
+    if refine:
+        ht_decode_lanes.refine_launches += 1
+    else:
+        ht_decode_lanes.launches += 1
     return out
 
 
-ht_decode_lanes.launches = 0
+ht_decode_lanes.launches = 0            # K1 launches
+ht_decode_lanes.refine_launches = 0     # K2 launches
+
+
+def decode_ht_blocks(ms, mel, vlc, sp, mr, p, w, h, valid, npass,
+                     refine: np.ndarray, W: int, H: int) -> torch.Tensor:
+    """Decode one bucket of W x H HT code-blocks -> (NL, H, W) int32: one
+    K1 launch over the cleanup-only lanes and one K2 launch over the
+    refined lanes (host mask `refine`), as grok_tpu/ops/pallas_ht.py
+    `decode_ht_blocks` buckets them.  Arguments as ht_decode_lanes';
+    every lane is staged with its SigProp and MagRef streams (empty for
+    cleanup-only blocks)."""
+    NL = ms.shape[0]
+    refine = np.asarray(refine, bool)
+    if refine.shape != (NL,):
+        raise ValueError(f"refine must be ({NL},), got {refine.shape}")
+    groups = ((np.nonzero(~refine)[0], False), (np.nonzero(refine)[0], True))
+    if refine.all() or not refine.any():
+        # one launch over every lane, no selection
+        rf = bool(refine.any())
+        return ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W, H,
+                               *((sp, mr, npass) if rf else ()))
+    out = torch.zeros((NL, H, W), dtype=torch.int32, device=ms.device)
+    for idx, rf in groups:
+        sel = torch.from_numpy(idx).to(ms.device)
+        pick = [t.index_select(0, sel) for t in
+                (ms, mel, vlc, p, w, h, valid)]
+        extra = [t.index_select(0, sel) for t in (sp, mr, npass)] \
+            if rf else []
+        out[sel] = ht_decode_lanes(*pick, W, H, *extra)
+    return out
 
 
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C entry point's signature on the loaded library."""
+    """Declare the C entry points' signatures on the loaded library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    head = [vp, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
+            ci, ci, ci]
     fn = lib.grk_ht_decode_cleanup
-    fn.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, ci,
-                   ci, ci, ci, vp, ci, ci, ci, vp]
+    fn.argtypes = head + [vp]
+    fn.restype = ci
+    fn = lib.grk_ht_decode_refine
+    fn.argtypes = head + [vp, ci, vp, ci, vp, vp]
     fn.restype = ci

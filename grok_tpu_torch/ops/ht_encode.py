@@ -1,4 +1,5 @@
-"""Batched HTJ2K (Part 15) cleanup-pass encode: kernel K4 of the port.
+"""Batched HTJ2K (Part 15) encode: kernels K4 (cleanup) and K4r (cleanup,
+then HT SigProp and HT MagRef) of the port.
 
 One lane is one code-block.  Inputs are the block's quantized samples as
 mneg = (magnitude << 1) | sign in an (NL, H, W) int32 tensor, its
@@ -20,6 +21,11 @@ pallas_ht_enc.py `_ht_encode_jit` with refine=False.
     fields, UVLC codes) is computed for all quads at once; the MEL
     run-length state is a Python loop over the event slots; each
     stream's writes are placed by a prefix sum of their bit lengths.
+  - `ht_encode_lanes(..., refine=True)` is K4r, the refine=True variant
+    of the same TPU kernel (the ht_planes encode): the lanes with p > 0
+    also code SigProp and MagRef at plane p - 1 into two more clean
+    streams, and report where SigProp made samples significant.  Its
+    plain version is `ht_encode_lanes_ref` then `ht_refine_lanes_ref`.
   - `vlc_enc_lut` is the CxtVLC encode table both read, rebuilt from the
     port's t1ht.tables state per tables.VERSION (two table families,
     EMB symbols and the UVLC prefix polarity follow install_tables()).
@@ -284,6 +290,74 @@ def ht_encode_lanes_ref(mneg, p, w, h, valid, LMS: int, LMEL: int,
             torch.stack([ms_bits, mel_bits, vlc_bits]))
 
 
+def _cap_bytes(n: int) -> int:
+    """A stream capacity of at least n + 8 bytes: a multiple of 32, at
+    least 64 (grok_tpu/ops/pallas_ht_enc.py `_cap_bytes`)."""
+    return max(64, -(-(n + 8) // 32) * 32)
+
+
+def refine_caps(W: int, H: int) -> tuple[int, int]:
+    """(LSP, LMR): the SigProp and MagRef stream capacities of W x H
+    lanes (clean bits: SigProp <= 2 per sample, MagRef <= 1)."""
+    return _cap_bytes(W * H * 2 // 8 + 16), _cap_bytes(W * H // 8 + 16)
+
+
+def stripe_order(W: int, H: int) -> np.ndarray:
+    """Flat sample indices y * W + x of a W x H block in the refinement
+    passes' scan: 4-row stripes top to bottom, columns left to right
+    within a stripe, rows top to bottom within a column (t1ht/scalar.py
+    `_stripe_scan`).  A lane of w <= W, h <= H visits its own samples in
+    this order when the others are masked."""
+    return np.array([y * W + x for y0 in range(0, H, 4) for x in range(W)
+                     for y in range(y0, min(y0 + 4, H))], np.int64)
+
+
+def ht_refine_lanes_ref(mneg, p, w, h, valid, LSP: int, LMR: int):
+    """Plain PyTorch HT SigProp + HT MagRef encode at plane p - 1 of the
+    lanes with p > 0 (t1ht/scalar.py `_encode_sigprop`, `_encode_magref`)
+    -> (sp (NL, LSP), mr (NL, LMR) uint8, bits (2, NL) int32, ns
+    (NL, H, W) uint8, 1 where SigProp made a sample significant).
+
+    SigProp is causal in the stripe scan (a sample it makes significant
+    counts for the samples after it), so it steps the scan position by
+    position over all lanes at once; MagRef reads only the cleanup
+    significance and is placed in one pass."""
+    dev = mneg.device
+    i64 = torch.int64
+    NL, H, W = mneg.shape
+    pp = p.to(i64)
+    rmask = (valid.to(i64) == 1) & (pp > 0)
+    bp = (pp - 1).clamp(min=0)[:, None]
+    m = mneg.to(i64).reshape(NL, H * W)
+    yy = torch.arange(H, device=dev)[:, None].expand(H, W).reshape(-1)
+    xx = torch.arange(W, device=dev)[None, :].expand(H, W).reshape(-1)
+    inside = (yy[None] < h.to(i64)[:, None]) & (xx[None] < w.to(i64)[:, None])
+    act = inside & rmask[:, None]
+    sig0 = act & (((m >> 1) >> pp[:, None]) > 0)        # cleanup significant
+    bit = ((m >> 1) >> bp) & 1
+    order = torch.from_numpy(stripe_order(W, H)).to(dev)
+
+    # MagRef: one raw bit per cleanup-significant sample, in scan order
+    mr, mr_bits = _place(bit[:, order], sig0[:, order].to(i64), LMR)
+
+    # SigProp: significance and sign of the insignificant samples with a
+    # significant neighbour
+    st = torch.nn.functional.pad(sig0.reshape(NL, H, W), (1, 1, 1, 1))
+    vals, lens = [], []
+    for k in order.tolist():
+        y, x = divmod(k, W)
+        cand = act[:, k] & ~st[:, y + 1, x + 1] \
+            & st[:, y:y + 3, x:x + 3].reshape(NL, 9).any(1)
+        b = bit[:, k]
+        new = cand & (b == 1)
+        vals.append(b | ((m[:, k] & 1) << 1))
+        lens.append(torch.where(cand, 1 + b, 0))
+        st[:, y + 1, x + 1] |= new
+    sp, sp_bits = _place(torch.stack(vals, 1), torch.stack(lens, 1), LSP)
+    ns = (st[:, 1:H + 1, 1:W + 1] & ~sig0.reshape(NL, H, W)).to(torch.uint8)
+    return sp, mr, torch.stack([sp_bits, mr_bits]), ns
+
+
 def _check(name, t, dtype, shape0, device):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -295,7 +369,8 @@ def _check(name, t, dtype, shape0, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int):
+def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int,
+                    refine: bool = False):
     """Cleanup-encode NL lanes -> (streams (NL, LMS+LMEL+LVLC) uint8,
     bits (3, NL) int32); see the module docstring for the layout.
 
@@ -303,7 +378,15 @@ def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int):
     int32, every lane with w <= W and h <= H.  LMS, LMEL, LVLC: per-lane
     stream capacities in bytes, multiples of 4.  CPU tensors run the
     plain version; CUDA tensors launch the kernel, and anything the
-    kernel does not take raises."""
+    kernel does not take raises.
+
+    refine=True is kernel K4r: the lanes with p > 0 also code HT SigProp
+    and HT MagRef at plane p - 1, in the same launch.  It returns
+    (streams (NL, LMS+LMEL+LVLC+LSP+LMR) uint8, bits (5, NL) int32, ns
+    (NL, H, W) uint8), the two clean refinement streams after the
+    cleanup's three (LSP, LMR = refine_caps(W, H)) and ns = 1 where
+    SigProp made a sample significant; lanes with p = 0 code the cleanup
+    only (0 refinement bits)."""
     dev = mneg.device
     if mneg.dim() != 3:
         raise ValueError(f"mneg must be (NL, H, W), got {tuple(mneg.shape)}")
@@ -318,53 +401,78 @@ def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int):
     for name, L in (("LMS", LMS), ("LMEL", LMEL), ("LVLC", LVLC)):
         if L < 4 or L % 4:
             raise ValueError(f"{name} = {L} is not a positive multiple of 4")
+    LSP, LMR = refine_caps(W, H)
     if dev.type == "cpu":
-        return ht_encode_lanes_ref(mneg, p, w, h, valid, LMS, LMEL, LVLC)
+        streams, bits = ht_encode_lanes_ref(mneg, p, w, h, valid, LMS, LMEL,
+                                            LVLC)
+        if not refine:
+            return streams, bits
+        sp, mr, rbits, ns = ht_refine_lanes_ref(mneg, p, w, h, valid, LSP,
+                                                LMR)
+        return (torch.cat([streams, sp, mr], 1), torch.cat([bits, rbits]),
+                ns)
     if dev.type != "cuda":
         raise ValueError(f"no HT encode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
     lib = load_library().ht_encode
     _, symb, nfam, pxor = vlc_enc_lut()
     lut = _lut_on(dev)
-    row = LMS + LMEL + LVLC
+    row = LMS + LMEL + LVLC + (LSP + LMR if refine else 0)
     # the kernel writes every bit count and each stream's used words
     streams = torch.empty((NL, row), dtype=torch.uint8, device=dev)
-    bits = torch.empty((3, NL), dtype=torch.int32, device=dev)
+    bits = torch.empty((5 if refine else 3, NL), dtype=torch.int32,
+                       device=dev)
+    ns = torch.zeros((NL, H, W), dtype=torch.uint8, device=dev) \
+        if refine else None
     if NL == 0:
-        return streams, bits
+        return (streams, bits, ns) if refine else (streams, bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.grk_ht_encode_cleanup(
-        mneg.data_ptr(), p.data_ptr(), w.data_ptr(), h.data_ptr(),
-        valid.data_ptr(), lut.data_ptr(), lut.numel(), symb, nfam, pxor,
-        streams.data_ptr(), row, LMS, LMEL, LVLC, bits.data_ptr(), NL, W,
-        H, stream)
+    args = (mneg.data_ptr(), p.data_ptr(), w.data_ptr(), h.data_ptr(),
+            valid.data_ptr(), lut.data_ptr(), lut.numel(), symb, nfam, pxor,
+            streams.data_ptr(), row, LMS, LMEL, LVLC)
+    if refine:
+        rc = lib.grk_ht_encode_refine(*args, LSP, LMR, bits.data_ptr(),
+                                      ns.data_ptr(), NL, W, H, stream)
+    else:
+        rc = lib.grk_ht_encode_cleanup(*args, bits.data_ptr(), NL, W, H,
+                                       stream)
     if rc != 0:
-        raise RuntimeError(f"HT cleanup encode kernel launch failed: "
-                           f"cudaError {rc}")
+        raise RuntimeError(f"HT {'refine' if refine else 'cleanup'} encode "
+                           f"kernel launch failed: cudaError {rc}")
+    if refine:
+        ht_encode_lanes.refine_launches += 1
+        return streams, bits, ns
     ht_encode_lanes.launches += 1
     return streams, bits
 
 
-ht_encode_lanes.launches = 0
+ht_encode_lanes.launches = 0            # K4 launches
+ht_encode_lanes.refine_launches = 0     # K4r launches
 
 
-def clear_unused(streams, bits, LMS: int, LMEL: int):
+def clear_unused(streams, bits, *caps: int):
     """streams with every byte past each stream's ceil(bits / 8) set to 0
     (all of a stream whose count is -1): the bytes two encodes of the
-    same lanes must agree on."""
+    same lanes must agree on.  caps: the capacities of every stream but
+    the last (LMS, LMEL for the cleanup; LMS, LMEL, LVLC, LSP with the
+    refinement streams)."""
     col = torch.arange(streams.shape[1], device=streams.device)[None]
     nbytes = (bits.to(torch.int64) + 7) >> 3            # -1 bits -> 0
     keep = torch.zeros(streams.shape, dtype=torch.bool,
                        device=streams.device)
-    for s, lo in enumerate((0, LMS, LMS + LMEL)):
+    starts = np.concatenate([[0], np.cumsum(caps)]).tolist()
+    for s, lo in enumerate(starts):
         keep |= (col >= lo) & (col < lo + nbytes[s][:, None])
     return torch.where(keep, streams, 0)
 
 
 def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C entry point's signature on the loaded library."""
+    """Declare the C entry points' signatures on the loaded library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    head = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, ci, ci, ci]
     fn = lib.grk_ht_encode_cleanup
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, ci, ci,
-                   ci, vp, ci, ci, ci, vp]
+    fn.argtypes = head + [vp, ci, ci, ci, vp]
+    fn.restype = ci
+    fn = lib.grk_ht_encode_refine
+    fn.argtypes = head + [ci, ci, vp, vp, ci, ci, ci, vp]
     fn.restype = ci

@@ -25,7 +25,9 @@ then for the whole batch:
   5. inverse RCT/ICT and the DC shift with clipping.
 
 A DecodeProgram is built once per signature (plan geometry, batch size,
-bucket layout, table version) and cached by the caller.
+bucket layout, table version) and cached by the caller.  The general
+decode route (pipeline/tile.py decode_tile) runs its own block decodes
+and hands their outputs to steps 3-5 (`synthesize`).
 """
 
 from __future__ import annotations
@@ -266,8 +268,14 @@ class DecodeProgram:
             if any_mq:
                 lo = self.lane_base[bi]
                 out = out + mq[lo:lo + n, :b.H, :b.W]
-            ms2.append(out.reshape(-1))
-        m = torch.cat(ms2)[self.src]
+            ms2.append(out)
+        return self.synthesize(ms2)
+
+    def synthesize(self, outs: list) -> list:
+        """Steps 3-5 from the block decodes: outs[bi] is bucket bi's
+        (N * blocks, H, W) int32 signed mag2 with the half-bit, in lane
+        order.  Returns N lists of per-component int32 planes."""
+        m = torch.cat([o.reshape(-1) for o in outs])[self.src]
 
         # 3. dequantize + place (signed mag2 carries the half-bit)
         m2 = m.abs()

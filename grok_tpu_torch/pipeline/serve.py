@@ -15,10 +15,14 @@ rest on the device.
 
 Scope: single-tile streams of HT cleanup-only, Part-1 default-style
 (one codeword segment per block, any number of layers) or HT-mixed
-code-blocks, all streams of a batch under one main header.  Anything
-else — Part-1 mode switches, windowed, layer-capped, strict, layered or
-refined HT, PPM/PPT, per-component overrides — raises
-NotImplementedError naming the route: the port has no general path, and
+code-blocks, all streams of a batch under one main header.  HT streams
+with refinement passes (several codeword segments per block), or
+layered HT streams decoded under a layer cap, raise GeneralRoute, which
+the entry points answer with the general device route
+(pipeline/tile.py decode_tile, kernels K1 and K2), as the JAX package's
+serving decode declines them to its decode_tile.  Anything
+else — Part-1 mode switches, windowed, layer-capped, strict, PPM/PPT,
+per-component overrides — raises NotImplementedError naming the route:
 a quiet host decode would hide the device.
 """
 
@@ -41,6 +45,18 @@ def _unsupported(route: str, why: str) -> NotImplementedError:
         f"{route} is not ported ({why}); the PyTorch port serves "
         f"single-tile HT cleanup, Part-1 default-style and HT-mixed "
         f"streams only")
+
+
+class GeneralRoute(NotImplementedError):
+    """The serving decode declines an HT stream that the general device
+    route (pipeline/tile.py decode_tile) decodes: refinement passes,
+    several codeword segments per block, or a layer cap on a stream of
+    several layers.  The entry points catch this class only; every other
+    decline stays a NotImplementedError."""
+
+    def __init__(self, why: str):
+        super().__init__(f"the HT serving decode declines {why}: the "
+                         f"general device route decodes such streams")
 
 
 @dataclass
@@ -194,14 +210,16 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                            "batch streams with different tile overrides")
     if dp.window is not None:
         raise _unsupported("windowed serving", "a window was given")
-    if dp.max_layers:
-        raise _unsupported("layer-capped serving", "max_layers was given")
     if dp.strict:
         raise _unsupported("strict decode", "strict=True")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
         raise _unsupported("Part-1/MQ mode switches or general path",
                            "the stream has no serving plan")
+    if dp.max_layers:
+        if plan.coder == "ht" and plan.geo.cod.num_layers > 1:
+            raise GeneralRoute("a layer cap on a layered HT stream")
+        raise _unsupported("layer-capped serving", "max_layers was given")
     ths_l = list(ths) if ths is not None else [th] * len(bodies)
     if plan.coder != "mixed" and any(
             q is not None and q.ht_mixed_bitmap() is not None
@@ -227,6 +245,9 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         incl, zb, npass, chunks, _end = parsed
         incl = np.asarray(incl, bool)
         if (chunks[:, 2] != 0).any():
+            if plan.coder == "ht":
+                raise GeneralRoute("multi-segment code-blocks (HT "
+                                   "refinement passes)")
             raise _unsupported("general path",
                                "multi-segment code-blocks")
         if len(chunks) != int(np.count_nonzero(incl)):
@@ -264,7 +285,9 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                                    f"HT-mixed bitmap")
             hsel = ((bma[cidx >> 3] >> (cidx & 7)) & 1).astype(bool)
         if not (npz[hsel] == 1).all():
-            raise _unsupported("HT refinement (K2) route",
+            if plan.coder == "ht":
+                raise GeneralRoute("HT SigProp/MagRef refinement passes")
+            raise _unsupported("HT refinement in HT-mixed sets",
                                "SigProp/MagRef passes")
         if not ((npz[~hsel] >= 1) & (npz[~hsel] <= 109)).all() or (
                 (~hsel).any() and not ((numbps[~hsel] >= 0)

@@ -13,25 +13,34 @@ pass —
      (NL, H, W) tensor, frame-major (one gather over index tensors built
      once per plan), each lane with its own (w, h);
   3. one launch of the block coder: the HT cleanup encode, kernel K4
-     (ops/ht_encode.py), for HT code-blocks; the EBCOT/MQ encode, kernel
-     K5 (ops/t1_encode.py), for Part-1 default-style code-blocks; both
-     for HT-mixed sets, which keep the smaller codeword per block (HT on
+     (ops/ht_encode.py), for HT code-blocks, or with ht_planes = P > 0
+     kernel K4r, which codes each lane's cleanup at plane min(P,
+     numbps - 1) and, where that plane is above 0, HT SigProp and HT
+     MagRef at the plane below; the EBCOT/MQ encode, kernel K5
+     (ops/t1_encode.py), for Part-1 default-style code-blocks; both for
+     HT-mixed sets, which keep the smaller codeword per block (HT on
      ties) and name the HT blocks in a COM bitmap, as the JAX package's
      mixed encoder does;
-  4. one download of the per-lane stats, then the used bytes compacted on
-     the device by a prefix sum over the per-lane byte counts and
-     downloaded once;
+  4. for a multi-layer or byte-rate-targeted HT encode, each lane's exact
+     distortion after each of its passes, summed in int64 on the device
+     in one pass over the staged lanes;
+  5. one download of the per-lane stats (bit counts, magnitude, the
+     distortion sums), then the used bytes compacted on the device by a
+     prefix sum over the per-lane byte counts and downloaded once;
 
 — and the host finishes: for HT the C wire assembly (native.ht_assemble_
-batch) stuffs and interleaves each block's three streams; the Tier-2
-finish (pipeline/tile.py) emits the packets.
+batch) stuffs and interleaves each block's three cleanup streams and
+native.ht_raw_batch stuffs the refinement streams; the Tier-2 finish
+(pipeline/tile.py) runs the PCRD allocation for several layers or byte
+targets and emits the packets.
 
-Scope: HT cleanup-only or Part-1 default-style code-blocks (or HT-mixed
-sets of the two), one tile, one tile-part, one quality layer with no byte
-or quality target, default precincts, no ROI, no custom or AUTO_RD MCT,
-Mb <= 24.  Anything else raises NotImplementedError naming the route: the
-port has no host encoder to fall back to.  Reversible streams are
-byte-identical to the JAX package's encoders.
+Scope: HT code-blocks (cleanup-only or refined, any number of layers,
+byte-rate targets), Part-1 default-style code-blocks or HT-mixed sets of
+the two (one quality layer with no target), one tile, one tile-part,
+default precincts, no ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything
+else raises NotImplementedError naming the route: the port has no host
+encoder to fall back to.  Reversible streams are byte-identical to the
+JAX package's encoders.
 """
 
 from __future__ import annotations
@@ -45,13 +54,17 @@ from grok_tpu_torch import native
 from grok_tpu_torch.codestream import j2k
 from grok_tpu_torch.core.geometry import Rect
 from grok_tpu_torch.core.params import CBLK_HT, MCTMode
+from grok_tpu_torch.core.quant import band_level, band_norm
 from grok_tpu_torch.ops import dwt, mct
-from grok_tpu_torch.ops.ht_encode import _bitlen, ht_encode_lanes
+from grok_tpu_torch.ops.ht_encode import (_bitlen, _cap_bytes,
+                                          ht_encode_lanes, refine_caps)
 from grok_tpu_torch.ops.t1_encode import (rates_from_watermarks,
                                           t1_encode_lanes)
 from grok_tpu_torch.pipeline.tile import (TileGeometry, canon_block_indices,
                                           finish_tile_encode)
 from grok_tpu_torch.t1.records import EncodedBlock, PassInfo
+from grok_tpu_torch.t2.rate import layer_budget_consts, layer_targets_for_tile
+from grok_tpu_torch.transform.mct_np import mct_component_norms
 
 _EPLANS: dict = {}
 _EPLANS_MAX = 16
@@ -60,8 +73,9 @@ _EPLANS_MAX = 16
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{route} is not ported ({why}); the PyTorch port encodes "
-        f"single-tile, single-layer HT cleanup, Part-1 default-style and "
-        f"HT-mixed streams only")
+        f"single-tile HT streams (refined, layered and rate-targeted "
+        f"too) and single-layer Part-1 default-style and HT-mixed streams "
+        f"only")
 
 
 @dataclass
@@ -70,6 +84,7 @@ class EncPlan:
     blocks: list              # per block: (ci, r, orient, yoff, xoff, bh, bw)
     lane_block: list          # per block: T2 key (c, r, p, band_i, cblk_i)
     lane_mb: np.ndarray       # Mb per block
+    lane_w: np.ndarray        # PCRD distortion weight per block
     comps_sig: tuple          # per comp: (rect, numres, prec, sgnd, irrev,
     #                           ((r, orient, delta), ...))
     mct_mode: int             # 0 none, 1 RCT, 2 ICT
@@ -80,10 +95,6 @@ class EncPlan:
     mq_caps: tuple            # per-lane byte capacity and watermark rows
     #                           (L, R) (K5)
     fast: dict = field(default_factory=dict)   # device index tensors
-
-
-def _cap_bytes(n: int) -> int:
-    return max(64, -(-(n + 8) // 32) * 32)
 
 
 def _build_plan(hdr, t: int) -> EncPlan:
@@ -107,12 +118,16 @@ def _build_plan(hdr, t: int) -> EncPlan:
     if len(irrevs) != 1:
         raise _unsupported("general encode", "components mixing 5/3 and "
                            "9/7")
+    mct_norms = mct_component_norms(bool(geo.styles[0].irreversible)) \
+        if geo.cod.mct else None
     mbmax = 0
     W = H = 1
-    blocks, lane_block, lane_mb, comps_sig = [], [], [], []
+    blocks, lane_block, lane_mb, lane_w, comps_sig = [], [], [], [], []
     for c, tcg in enumerate(geo.tcgs):
         quant = geo.quants[c]
         cs = geo.styles[c]
+        wc = float(mct_norms[c]) if mct_norms is not None and \
+            c < len(mct_norms) else 1.0
         bands_sig = []
         for rg in tcg.resolutions:
             for band_i, bg in enumerate(rg.bands):
@@ -120,6 +135,13 @@ def _build_plan(hdr, t: int) -> EncPlan:
                                   float(quant.delta(rg.r, bg.orient))))
                 mb = quant.mb(rg.r, bg.orient)
                 mbmax = max(mbmax, mb)
+                # PCRD weight, op for op as the JAX package's encoders
+                delta = quant.delta(rg.r, bg.orient)
+                lvl = band_level(cs.num_resolutions, rg.r) \
+                    if rg.r > 0 else cs.num_resolutions - 1
+                bnorm = band_norm(bool(cs.irreversible), max(lvl, 0),
+                                  bg.orient) if lvl > 0 else 1.0
+                wgt = (delta * bnorm * wc) ** 2
                 for p in range(rg.num_precincts):
                     for cblk_i, cb in enumerate(bg.precincts[p].cblks):
                         blocks.append((c, rg.r, bg.orient,
@@ -128,6 +150,7 @@ def _build_plan(hdr, t: int) -> EncPlan:
                                        cb.rect.h, cb.rect.w))
                         lane_block.append((c, rg.r, p, band_i, cblk_i))
                         lane_mb.append(mb)
+                        lane_w.append(wgt)
                         W = max(W, cb.rect.w)
                         H = max(H, cb.rect.h)
         rect = geo.comp_rects[c]
@@ -160,6 +183,7 @@ def _build_plan(hdr, t: int) -> EncPlan:
                max(3 * mbmax - 2, 1))
     return EncPlan(geo=geo, blocks=blocks, lane_block=lane_block,
                    lane_mb=np.asarray(lane_mb, np.int32),
+                   lane_w=np.asarray(lane_w, np.float64),
                    comps_sig=tuple(comps_sig), mct_mode=mct_mode, W=W, H=H,
                    coder=coder, caps=caps, mq_caps=mq_caps)
 
@@ -253,11 +277,19 @@ def _lane_index(plan: EncPlan, N: int, device: torch.device):
     return got
 
 
+def targeted(params) -> bool:
+    """Whether the encode needs the PCRD allocation: several layers or a
+    byte-rate target (a ratio above 1)."""
+    return params.num_layers != 1 or bool(
+        params.rates and any(r > 1 for r in params.rates))
+
+
 def stage_encode_lanes(comps: list, hdr, params):
     """Steps 1-2 for N frames of one tile (comps[ci]: (N, h, w) integer
-    tensors on the device): the cached plan and K4's inputs (mneg, p, w,
-    h, valid), one lane per code-block of every frame.  Raises
-    NotImplementedError outside the served scope."""
+    tensors on the device): the cached plan and K4's (or K4r's) inputs
+    (mneg, p, w, h, valid), one lane per code-block of every frame; p is
+    each lane's cleanup plane, min(ht_planes, numbps - 1), computed on
+    the device.  Raises NotImplementedError outside the served scope."""
     if params.roi_shift > 0 or params.roi_rect is not None:
         raise _unsupported("ROI encode", "roi_shift / roi_rect")
     if params.write_ppm:
@@ -266,14 +298,19 @@ def stage_encode_lanes(comps: list, hdr, params):
         raise _unsupported("POC encode", "progression-order changes")
     if params.mct == MCTMode.AUTO_RD:
         raise _unsupported("AUTO_RD MCT encode", "mct=AUTO_RD")
-    if params.ht_planes:
-        raise _unsupported("HT refinement encode (K4 refine=True)",
-                           "ht_planes > 0")
-    if params.num_layers != 1 or params.fixed_quality or (
-            params.rates and any(r > 1 for r in params.rates)):
-        raise _unsupported("multi-layer or rate-targeted encode (PCRD)",
-                           "several layers or a byte or quality target")
+    if params.fixed_quality:
+        raise _unsupported("fixed-quality encode (PCRD)", "fixed_quality: "
+                           "quality targets")
     plan = _plan_for(hdr, 0)
+    if plan.coder != "ht" or params.ht_mixed:
+        if params.ht_planes:
+            raise _unsupported("HT refinement encode of Part-1 or HT-mixed "
+                               "code-blocks", "ht_planes > 0")
+        if targeted(params):
+            raise _unsupported(
+                "multi-layer or rate-targeted encode (PCRD) of Part-1 or "
+                "HT-mixed code-blocks", "several layers or a byte target: "
+                "the Part-1 per-pass distortions are not ported")
     N = int(comps[0].shape[0])
     device = comps[0].device
     order, src, wv, hv = _lane_index(plan, N, device)
@@ -282,8 +319,14 @@ def stage_encode_lanes(comps: list, hdr, params):
                      + [band_mneg[order[0]].new_zeros(1)])
     NL = N * len(plan.blocks)
     mneg = flat[src].reshape(NL, plan.H, plan.W)
-    zeros = torch.zeros(NL, dtype=torch.int32, device=device)
-    return plan, (mneg, zeros, wv, hv, zeros + 1)
+    P = int(params.ht_planes or 0)
+    if P:
+        # the encoder clamp: each lane's cleanup plane min(P, numbps - 1)
+        mx = (mneg >> 1).reshape(NL, -1).amax(1).to(torch.int64)
+        pv = (_bitlen(mx) - 1).clamp(min=0, max=P).to(torch.int32)
+    else:
+        pv = torch.zeros(NL, dtype=torch.int32, device=device)
+    return plan, (mneg, pv, wv, hv, torch.ones_like(pv))
 
 
 def mq_lane_inputs(plan: EncPlan, lanes: tuple) -> tuple:
@@ -315,54 +358,122 @@ def _compact(buf: torch.Tensor, first: torch.Tensor, cnt: torch.Tensor,
     return buf.reshape(-1)[first[seg] + jj - (end - cnt)[seg]].cpu().numpy()
 
 
-def _encode_ht(plan: EncPlan, lanes: tuple) -> list:
-    """K4 over the staged lanes, then the C wire assembly: one
-    EncodedBlock per lane (frame-major)."""
-    mneg = lanes[0]
+def _dist_stats(mneg, p, ns) -> torch.Tensor:
+    """Exact per-lane distortion sums, in int64, for the PCRD finish
+    (grok_tpu/pipeline/serve_enc.py `_build_encode_fn`'s model, summed
+    whole instead of in 12- and 13-bit halves): row 0 = sum m^2; then
+    without ns the count of significant samples, with ns the residuals
+    E_x = sum (2m - 2 rec_x)^2 in half-sample units after the cleanup,
+    SigProp and MagRef passes (rec of t1ht/scalar.py ht_encode_block,
+    the SigProp reconstruction from the kernel's ns).  Sums stay below
+    2^63 for Mb <= 24 and 64 x 64 blocks."""
+    NL = mneg.shape[0]
+    mag = (mneg >> 1).reshape(NL, -1).to(torch.int64)
+    rows = [(mag * mag).sum(1)]
+    if ns is None:
+        rows.append((mag > 0).sum(1))
+        return torch.stack(rows)
+    pl = p.to(torch.int64)[:, None]
+    M = mag << 1
+    vq = mag >> pl
+    sig = vq > 0
+    rec_p = torch.where(sig, (vq << (pl + 1)) + (1 << pl), 0)
+    bp = (pl - 1).clamp(min=0)
+    rec_sp = torch.where(ns.reshape(NL, -1) > 0, 3 << bp, rec_p)
+    rec_mr = torch.where(sig, ((mag >> bp) << (bp + 1)) + (1 << bp),
+                         rec_sp)
+    for rec in (rec_p, rec_sp, rec_mr):
+        rows.append(((M - rec) ** 2).sum(1))
+    return torch.stack(rows)
+
+
+def _encode_ht(plan: EncPlan, lanes: tuple, P: int, want_dist: bool) -> list:
+    """K4 (P = 0) or K4r (P > 0) over the staged lanes, then the C wire
+    assembly: one EncodedBlock per lane (frame-major), with three passes
+    (cleanup, SigProp, MagRef) where the lane's cleanup plane is above 0.
+    want_dist: compute each pass's exact distortion (the PCRD finish)."""
+    mneg, pv = lanes[0], lanes[1]
     NL = mneg.shape[0]
     device = mneg.device
     mx = (mneg >> 1).reshape(NL, -1).amax(1)
     LMS, LMEL, LVLC = plan.caps
-    streams, bits = ht_encode_lanes(*lanes, LMS, LMEL, LVLC)
+    refine = P > 0
+    if refine:
+        streams, bits, ns = ht_encode_lanes(*lanes, LMS, LMEL, LVLC,
+                                            refine=True)
+        caps = (LMS, LMEL, LVLC) + refine_caps(plan.W, plan.H)
+    else:
+        streams, bits = ht_encode_lanes(*lanes, LMS, LMEL, LVLC)
+        ns, caps = None, (LMS, LMEL, LVLC)
+    nst = len(caps)
 
-    # one download of the stats
-    stats = torch.cat([bits, mx[None]]).cpu().numpy().astype(np.int64)
-    bits_h, mx_h = stats[:3], stats[3]
+    # one download of the stats: bit counts, magnitude, distortion sums
+    rows = [bits.to(torch.int64), mx[None].to(torch.int64)]
+    if want_dist:
+        rows.append(_dist_stats(mneg, pv, ns))
+    stats = torch.cat(rows).cpu().numpy()
+    bits_h, mx_h = stats[:nst], stats[nst]
     if (bits_h < 0).any():
         raise RuntimeError("HT encode: a stream exceeded its capacity "
                            "(samples beyond the signalled precision?)")
     numbps = np.frexp(mx_h.astype(np.float64))[1]      # bit length
     coded = numbps > 0
-    cnt = ((bits_h + 7) >> 3) * coded                  # (3, NL) bytes
+    if want_dist:
+        # f64 exactly as the JAX package rebuilds it: sum m^2 - 0.25 * E
+        d = stats[nst + 1:].astype(np.float64)
+        dist = d[0][None] - 0.25 * d[1:]               # (1 or 3, NL)
+    cnt = ((bits_h + 7) >> 3) * coded                  # (nst, NL) bytes
     cnt_l = cnt.T.reshape(-1)                          # lane-major
-    offs = np.cumsum(cnt_l) - cnt_l
+    offs = (np.cumsum(cnt_l) - cnt_l).reshape(NL, nst).T
 
     # stream segment s of lane l starts at its region of the lane's row
-    seg = torch.arange(3 * NL, device=device)
-    region = torch.tensor([0, LMS, LMS + LMEL], device=device)
-    first = (seg // 3) * (LMS + LMEL + LVLC) + region[seg % 3]
+    seg = torch.arange(nst * NL, device=device)
+    region = torch.tensor(np.cumsum((0,) + caps[:-1]), device=device)
+    first = (seg // nst) * sum(caps) + region[seg % nst]
     cnt_d = (((bits.to(torch.int64) + 7) >> 3) * (mx > 0)).t().reshape(-1)
     body = _compact(streams, first, cnt_d, int(cnt_l.sum()))
     res = native.ht_assemble_batch(
-        body, offs[0::3], bits_h[0], offs[1::3], bits_h[1], offs[2::3],
-        bits_h[2], np.where(coded, 0, -1))
+        body, offs[0], bits_h[0], offs[1], bits_h[1], offs[2], bits_h[2],
+        np.where(coded, 0, -1))
     if res is None:
         raise RuntimeError("HT wire assembly overflowed (cleanup suffix "
                            "over 4079 bytes)")
     wire, wlens = res
     wpos = np.cumsum(wlens) - wlens
+    if refine:
+        # raw stuffing of the SigProp and MagRef streams (empty where the
+        # lane codes the cleanup only)
+        rw = [native.ht_raw_batch(body, offs[s], bits_h[s] * coded)
+              for s in (3, 4)]
+        rpos = [np.cumsum(ln) - ln for _w, ln in rw]
     encs = []
     for lane in range(NL):
         if not coded[lane]:
             encs.append(EncodedBlock())
             continue
         seg_b = wire[wpos[lane]:wpos[lane] + wlens[lane]].tobytes()
+        sl = len(seg_b)
+        nb = int(numbps[lane])
+        p_eff = min(P, nb - 1) if refine else 0
         # dist is read only by rate allocation, which the one-layer
         # untargeted finish does not run
+        dl = dist[:, lane] if want_dist else np.zeros(3)
+        if p_eff > 0:
+            sp_b, mr_b = (w[pos[lane]:pos[lane] + ln[lane]].tobytes()
+                          for (w, ln), pos in zip(rw, rpos))
+            encs.append(EncodedBlock(
+                data=seg_b + sp_b + mr_b, numbps=nb,
+                passes=[PassInfo(rate=sl, dist=float(dl[0]), term=True),
+                        PassInfo(rate=sl + len(sp_b), dist=float(dl[1]),
+                                 term=True),
+                        PassInfo(rate=sl + len(sp_b) + len(mr_b),
+                                 dist=float(dl[2]), term=True)],
+                seg_lens=[sl, len(sp_b), len(mr_b)], seg_passes=[1, 1, 1]))
+            continue
         encs.append(EncodedBlock(
-            data=seg_b, numbps=int(numbps[lane]),
-            passes=[PassInfo(rate=len(seg_b), dist=0.0, term=True)],
-            seg_lens=[len(seg_b)], seg_passes=[1]))
+            data=seg_b, numbps=nb,
+            passes=[PassInfo(rate=sl, dist=float(dl[0]), term=True)],
+            seg_lens=[sl], seg_passes=[1]))
     return encs
 
 
@@ -418,6 +529,16 @@ def _canon(plan: EncPlan) -> list:
     return got
 
 
+def _layer_targets(hdr, geo, params) -> list:
+    """Per-tile cumulative layer byte budgets (None = every remaining
+    pass) by the same helpers as the JAX package's encoders (t2/rate.py),
+    so the PCRD targets, and the streams, agree."""
+    if not (params.rates and any(r > 1 for r in params.rates)):
+        return [None] * params.num_layers
+    return layer_targets_for_tile(layer_budget_consts(hdr, params),
+                                  geo.rect, params)
+
+
 def try_encode_serving_batch(comps: list, hdr, params) -> list:
     """Encode N frames of one tile: comps[ci] is an (N, h, w) integer
     tensor on the device.  Returns N TileEncodeResults; raises
@@ -426,23 +547,26 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
     B = len(plan.blocks)
     N = lanes[0].shape[0] // B
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
+    targets = _layer_targets(hdr, plan.geo, params)
     if plan.coder == "mq":
         encs = _encode_mq(plan, lanes)
     else:
-        encs = _encode_ht(plan, lanes)
+        encs = _encode_ht(plan, lanes, int(params.ht_planes or 0),
+                          targeted(params))
     if mixed:
         # both coders on the same lanes; the smaller codeword wins per
         # block, HT on ties (grok_tpu/pipeline/tile.py encode_tile)
         encs_mq = _encode_mq(plan, lanes)
         canon = _canon(plan)
         nbytes = (len(canon) + 7) // 8
-    jobs = [dict(key=kb, mb=int(mb))
-            for kb, mb in zip(plan.lane_block, plan.lane_mb)]
+    jobs = [dict(key=kb, mb=int(mb), weight=float(w))
+            for kb, mb, w in zip(plan.lane_block, plan.lane_mb, plan.lane_w)]
     results = []
     for fi in range(N):
         frame = encs[fi * B:(fi + 1) * B]
         if not mixed:
-            results.append(finish_tile_encode(plan.geo, jobs, frame))
+            results.append(finish_tile_encode(plan.geo, jobs, frame,
+                                              targets))
             continue
         bitmap = bytearray(nbytes)
         for bi, ci in enumerate(canon):
@@ -451,7 +575,7 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
                 bitmap[ci >> 3] |= 1 << (ci & 7)          # an HT block
             else:
                 frame[bi] = mq_e
-        res = finish_tile_encode(plan.geo, jobs, frame,
+        res = finish_tile_encode(plan.geo, jobs, frame, targets,
                                  seg_style_mask=~CBLK_HT)
         res.com = j2k.write_com(b"GRKTPU_HTMIX=" + bytes(bitmap),
                                 binary=True)

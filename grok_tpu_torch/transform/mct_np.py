@@ -1,0 +1,33 @@
+"""The per-component PCRD distortion weights of the colour transforms.
+
+The port's copy of `mct_component_norms` from grok_tpu/transform/
+mct_np.py, for the RCT and the ICT (the port encodes no custom MCT);
+the transforms themselves run on the device (ops/mct.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# ICT inverse coefficient matrix (ISO/IEC 15444-1 G-4)
+ICT_INV = np.array([
+    [1.0, 0.0, 1.402],
+    [1.0, -0.344136, -0.714136],
+    [1.0, 1.772, 0.0],
+])
+
+
+def mct_component_norms(irreversible: bool) -> np.ndarray:
+    """L2 norm of each inverse-transform column: the per-component distortion
+    weight used by PCRD (error in transformed comp c scales pixel MSE by
+    norm[c]^2)."""
+    if irreversible:
+        inv = ICT_INV
+    else:
+        # RCT inverse linearized: G = Y - (Cb+Cr)/4; R = Cr + G; B = Cb + G
+        inv = np.array([
+            [1.0, -0.25, 0.75],
+            [1.0, -0.25, -0.25],
+            [1.0, 0.75, -0.25],
+        ])
+    return np.sqrt((inv ** 2).sum(axis=0))

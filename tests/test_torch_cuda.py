@@ -283,3 +283,51 @@ def test_part1_and_mixed_serving_encode_on_card(card, kw):
     out = api.decompress_device_batch(got, device=card)
     for img, comps in zip(imgs, out):
         assert np.array_equal(comps[0].cpu().numpy(), img)
+
+
+def test_refine_kernels_match_plain_versions(card):
+    """K4r and K2 on 96 lanes of up to 64x64 (cleanup planes 0..3): the
+    encode byte-identical to its plain version, the decode of its streams
+    at every pass count bit-exact to its plain version."""
+    lanes = _enc_lanes(9, 96, 64)
+    lanes = (lanes[0], torch.tensor([i % 4 for i in range(96)],
+                                    dtype=torch.int32)) + lanes[2:]
+    caps = (64 * 64 * 28 // 8 + 64, 1024, 2048)
+    dev = [t.to(card) for t in lanes]
+    before = E.ht_encode_lanes.refine_launches
+    got = E.ht_encode_lanes(*dev, *caps, refine=True)
+    torch.cuda.synchronize()
+    assert E.ht_encode_lanes.refine_launches == before + 1
+    ref = E.ht_encode_lanes(*lanes, *caps, refine=True)
+    assert torch.equal(got[1].cpu(), ref[1]) and (ref[1] >= 0).all()
+    allcaps = caps + E.refine_caps(64, 64)
+    used = E.clear_unused(got[0], got[1], *allcaps[:-1]).cpu()
+    assert torch.equal(used, E.clear_unused(*ref[:2], *allcaps[:-1]))
+    assert torch.equal(got[2].cpu(), ref[2])
+    starts = np.cumsum((0,) + allcaps)
+    cut = [torch.nn.functional.pad(used[:, a:b], (0, 1)).contiguous()
+           for a, b in zip(starts[:-1], starts[1:])]
+    for n in (1, 2, 3):
+        npv = torch.full((96,), n, dtype=torch.int32)
+        args = (*cut[:3], *lanes[1:], 64, 64, cut[3], cut[4], npv)
+        before = H.ht_decode_lanes.refine_launches
+        out = H.ht_decode_lanes(*[a.to(card) if torch.is_tensor(a) else a
+                                  for a in args])
+        torch.cuda.synchronize()
+        assert H.ht_decode_lanes.refine_launches == before + 1
+        assert torch.equal(out.cpu(), H.ht_decode_lanes_ref(*args))
+
+
+def test_refined_serving_encode_and_general_decode_on_card(card):
+    cp = dict(ht=True, num_resolutions=3, cblk_w_exp=5, cblk_h_exp=5,
+              ht_planes=2, num_layers=2, rates=[4.0, 1.5])
+    img = synthetic_image(64, 96, 3, seed=5)
+    got = api.compress_device(img, PCP(**cp), device=card)
+    assert got == api.compress_device(img, PCP(**cp), device="cpu")
+    assert got == compress(img, CompressParams(**cp))
+    for k in (1, 2):
+        dp = api.DecompressParams(max_layers=k)
+        out = api.decompress_device(got, dp, device=card)
+        assert all(c.device.type == "cuda" for c in out)
+        want = api.decompress_device(got, dp, device="cpu")
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, want))

@@ -402,6 +402,186 @@ def test_finish_tile_encode_mixed_blocks_emits_the_same_bytes():
     assert got.com == b""
 
 
+@pytest.mark.parametrize("irrev", [False, True])
+def test_band_norms_and_mct_norms_equal(irrev):
+    from grok_tpu.core.quant import band_norm as jnorm
+    from grok_tpu.transform.mct_np import mct_component_norms as jmct
+    from grok_tpu_torch.core.quant import band_norm as pnorm
+    from grok_tpu_torch.transform.mct_np import mct_component_norms as pmct
+    for level in range(0, 14):
+        for orient in range(4):
+            assert pnorm(irrev, level, orient) == jnorm(irrev, level, orient)
+    assert np.array_equal(pmct(irrev), jmct(irrev))
+
+
+def test_derive_p_equal():
+    from grok_tpu.t1ht.scalar import derive_p as jderive
+    from grok_tpu_torch.t1ht.scalar import derive_p as pderive
+    for npass in range(0, 4):
+        for numbps in range(0, 30):
+            for ext in (None, 0, 1, 2, 3, 7):
+                assert pderive(npass, numbps, ext) == \
+                    jderive(npass, numbps, ext)
+
+
+def test_unstuff_copy_and_c_unstuff_batch_equal():
+    from grok_tpu.t1ht.wire import _unstuff_lsb as junstuff
+    from grok_tpu_torch.t1ht.wire import _unstuff_lsb as punstuff
+    rng = np.random.default_rng(3)
+    body = rng.choice(np.array([0xFF, 0x7F, 0x8F, 0x90, 0, 0x12], np.uint8),
+                      4000)
+    body[::5] = rng.integers(0, 256, body[::5].size)
+    n = 60
+    offs = rng.integers(0, 3000, n).astype(np.int64)
+    lens = rng.integers(0, 900, n).astype(np.int32)
+    lens[:3] = 0
+    out, olens = pnative.ht_unstuff_batch(body.tobytes(), offs, lens)
+    pos = np.cumsum(olens) - olens
+    for i in range(n):
+        seg = body[offs[i]:offs[i] + lens[i]]
+        want = junstuff(seg)
+        assert punstuff(seg) == want
+        assert out[pos[i]:pos[i] + olens[i]].tobytes() == want, i
+    with pytest.raises(ValueError):
+        pnative.ht_unstuff_batch(body.tobytes(), [3990], [20])
+
+
+def test_c_ht_raw_batch_gives_the_same_segments():
+    rng = np.random.default_rng(4)
+    buf = rng.choice(np.array([0xFF, 0x7F, 0xFE, 0x90, 0, 0x12], np.uint8),
+                     3000)
+    n = 40
+    offs = rng.integers(0, 2000, n)
+    bits = rng.integers(0, 6000, n)
+    bits[:2] = 0
+    j_out, j_lens = native.ht_raw_batch(buf, offs, bits)
+    p_out, p_lens = pnative.ht_raw_batch(buf, offs, bits)
+    assert np.array_equal(p_lens, j_lens)
+    assert np.array_equal(p_out[:p_lens.sum()], j_out[:j_lens.sum()])
+
+
+def _hulls(seed, nb):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(nb):
+        k = int(rng.integers(0, 6))
+        rates = np.cumsum(rng.integers(0, 400, k)).astype(np.float64)
+        dists = np.cumsum(rng.random(k) * rng.choice([0, 1, 1e3, 1e6],
+                                                     k)).astype(np.float64)
+        out.append((rates, dists))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rate_allocation_copy_equal(seed):
+    from grok_tpu.t2 import rate as jrate
+    from grok_tpu_torch.t2 import rate as prate
+    rd = _hulls(seed, 40)
+    jh = [jrate.convex_hull(r, d) for r, d in rd]
+    ph = [prate.convex_hull(r, d) for r, d in rd]
+    for a, b in zip(ph, jh):
+        assert np.array_equal(a.pass_idx, b.pass_idx)
+        assert np.array_equal(a.slopes, b.slopes)
+        for lam in (0.0, 1.0, 50.0, 1e4):
+            assert prate.passes_for_lambda(a, lam, 1) == \
+                jrate.passes_for_lambda(b, lam, 1)
+    prev = np.zeros(len(ph), np.int64)
+    for lam in (0.0, 3.0, 1e3):
+        assert np.array_equal(prate._HullBank(ph).passes(lam, prev),
+                              jrate._HullBank(jh).passes(lam, prev))
+    rates = [r for r, _d in rd]
+    cum = np.asarray([len(r) for r in rates], np.int64)
+    assert prate._cum_lookup(prate._cum_table(rates), cum) == \
+        jrate._cum_lookup(jrate._cum_table(rates), cum)
+    totals = [len(r) for r in rates]
+
+    def simulate(layer_cum):
+        # a deterministic stand-in for the Tier-2 size: bodies + headers
+        last = [lc[-1] for lc in layer_cum]
+        return int(sum(rates[b][n - 1] for b, n in enumerate(last) if n)
+                   + 7 * sum(last) + 40)
+    targets = [1500.0, 6000.0, None]
+    assert prate.allocate_layers(ph, 3, targets, simulate, totals,
+                                 pass_rates=rates) == \
+        jrate.allocate_layers(jh, 3, targets, simulate, totals,
+                              pass_rates=rates)
+
+
+def test_layer_targets_equal():
+    from grok_tpu.api import _build_main_header as jbuild
+    from grok_tpu.core.image import Image
+    from grok_tpu.t2 import rate as jrate
+    from grok_tpu_torch.api import _build_main_header as pbuild
+    from grok_tpu_torch.core.params import CompressParams as PCP
+    from grok_tpu_torch.t2 import rate as prate
+    kw = dict(ht=True, num_resolutions=3, ht_planes=2, num_layers=3,
+              rates=[40.0, 10.0, 1.0], comment="x")
+    img = jsynth(72, 56, 3, seed=9)
+    jp, pp = CompressParams(**kw), PCP(**kw)
+    jh = jbuild(Image.from_array(img), jp)
+    ph = pbuild(72, 56, 3, 8, False, pp)
+    jc, pc = jrate.layer_budget_consts(jh, jp), prate.layer_budget_consts(ph,
+                                                                         pp)
+    assert pc == jc
+    rect = ph.siz.tile_rect(0)
+    assert prate.layer_targets_for_tile(pc, rect, pp) == \
+        jrate.layer_targets_for_tile(jc, jh.siz.tile_rect(0), jp)
+
+
+def test_block_dec_state_assembles_the_same_segments():
+    from grok_tpu.t2.packet import BlockDecState as JState
+    from grok_tpu.t2.packet import Chunk as JChunk
+    from grok_tpu_torch.t2.packet import BlockDecState as PState
+    from grok_tpu_torch.t2.packet import Chunk as PChunk
+    body = bytes(range(256)) * 4
+    rows = [(0, 0, 1, 0, 10), (1, 1, 1, 10, 7), (1, 2, 1, 17, 3),
+            (2, 0, 2, 30, 0), (3, 1, 1, 40, 5)]
+    js, ps = JState(included=True), PState(included=True)
+    for lay, segno, npk, off, ln in rows:
+        js.chunks.append(JChunk(lay, segno, npk, off, ln))
+        ps.chunks.append(PChunk(lay, segno, npk, off, ln))
+    for cap in range(0, 5):
+        assert ps.assemble(body, cap) == js.assemble(body, cap)
+
+
+def test_finish_tile_encode_layers_emits_the_same_bytes():
+    """The PCRD branch: refined HT blocks (three terminated passes each)
+    allocated into three layers, two of them byte-targeted."""
+    img = jsynth(72, 56, 1, seed=11)
+    params = CompressParams(ht=True, num_resolutions=3, cblk_w_exp=4,
+                            cblk_h_exp=4, num_layers=3)
+    data = compress(img, params)
+    jgeo = jtile.TileGeometry.build(jj2k.read_main_header(data), 0)
+    pgeo = ptile.TileGeometry.build(pj2k.read_main_header(data), 0)
+    rng = np.random.default_rng(6)
+    jobs, jencs, pencs = [], [], []
+    for c, tcg in enumerate(jgeo.tcgs):
+        for rg in tcg.resolutions:
+            for band_i, bg in enumerate(rg.bands):
+                mb = jgeo.quants[c].mb(rg.r, bg.orient)
+                for p in range(rg.num_precincts):
+                    for cblk_i, cb in enumerate(bg.precincts[p].cblks):
+                        mag = (np.abs(rng.normal(0, 40, (cb.rect.h,
+                                                         cb.rect.w)))
+                               .astype(np.int64)) * (rng.random() < 0.9)
+                        enc = ht_encode_block(mag, rng.random(mag.shape)
+                                              < 0.5, bg.orient, p=2)
+                        jobs.append(dict(key=(c, rg.r, p, band_i, cblk_i),
+                                         mb=mb, weight=float(rng.random())))
+                        jencs.append(enc)
+                        pencs.append(EncodedBlock(
+                            data=enc.data, numbps=enc.numbps,
+                            passes=[PassInfo(q.rate, q.dist, q.term)
+                                    for q in enc.passes],
+                            seg_lens=list(enc.seg_lens),
+                            seg_passes=list(enc.seg_passes)))
+    targets = [600.0, 1800.0, None]
+    want = jtile.finish_tile_encode(jgeo, jobs, jencs, targets)
+    got = ptile.finish_tile_encode(pgeo, jobs, pencs, targets)
+    assert got.packets == want.packets and got.body == want.body
+    assert len(got.packets) > 3 and len(got.body) > 600
+
+
 _BANNED = ("jax", "jaxlib", "grok_tpu")
 
 

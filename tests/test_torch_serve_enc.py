@@ -92,9 +92,8 @@ def test_lossy_ict_97_decodes_within_one_of_jax_device_encode(
 def test_out_of_scope_parameters_raise(rgb):
     poc = Poc(rs=0, cs=0, layer_end=1, re=3, ce=3, order=ProgOrder.LRCP)
     for kw, what in (
-            (dict(num_layers=2), "multi-layer"),
-            (dict(rates=[8.0]), "rate-targeted"),
-            (dict(ht_planes=2), "refinement"),
+            (dict(ht=False, rates=[8.0]), "rate-targeted"),
+            (dict(ht=False, num_layers=2), "multi-layer"),
             (dict(ht_mixed=True, ht=False, rates=[8.0]), "rate-targeted"),
             (dict(ht=False, cblk_style=0x01), "Part-1 mode switches"),
             (dict(pocs=[poc]), "POC"),
