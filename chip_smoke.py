@@ -26,24 +26,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                must mark both HT and Part-1 blocks;
                refined HT (K4r): (A-r), the (A) frames with ht_planes=1;
                (B-r), the (B) frame with ht_planes=2 in 3 layers at
-               byte-rate targets 40:1, 10:1 and 4:1 (the PCRD finish).
+               byte-rate targets 40:1, 10:1 and 4:1 (the PCRD finish);
+               Part-1 targeted (K5, and K3 for the trial decodes of the
+               minimal-flush truncation refinement): (A1-t), the (A1)
+               frames in one layer at 4:1; (B1-t), the (B1) frame in 3
+               layers at 40:1, 10:1 and 4:1.
                The inputs are made by the port's synthetic_image and
                uploaded first (set-up).  Every rep must give the same
-               bytes, and small HT, Part-1, refined and layered encodes
-               on the card must equal the same encodes through the plain
-               versions on the CPU.  Each (B-r) layer prefix must keep to
-               its byte budget.  The served paths must launch neither K4r
-               nor K2, the refined one neither K4 nor K5.
+               bytes, and small HT, Part-1, refined, layered and targeted
+               Part-1 encodes on the card must equal the same encodes
+               through the plain versions on the CPU.  Each (B-r) and
+               (B1-t) layer prefix must keep to its byte budget, and the
+               refinement must shrink at least one (A1-t) block.  The
+               served paths must launch neither K4r nor K2, the refined
+               one neither K4 nor K5, the targeted Part-1 one none of K1,
+               K2, K4 and K4r.
   4. decode  — the main decode paths, decompress_device_batch on the card
                over the streams of phase 3, counts reset and read the
-               same way per path (HT: K1, Part-1: K3, HT-mixed: K1 + K3,
-               refined HT: K2 and K1 through the general route, stream by
-               stream); every served output must equal its source bit for
-               bit; (A-r) must equal its decode through the plain versions
-               on the CPU (ht_planes=1 drops plane-0 samples that have no
-               significant neighbour, so it is within 1 of the source, not
-               lossless); (B-r) decoded at 1, 2 and 3 layers must rise in
-               PSNR with every layer.
+               same way per path (HT: K1, Part-1 and Part-1 targeted: K3,
+               HT-mixed: K1 + K3, refined HT: K2 and K1 through the
+               general route, stream by stream); every lossless output
+               must equal its source bit for bit; (A-r) and (A1-t) must
+               equal their decodes through the plain versions on the CPU
+               (ht_planes=1 drops plane-0 samples that have no
+               significant neighbour, so (A-r) is within 1 of the source,
+               not lossless); (B-r) and (B1-t) decoded at 1, 2 and 3
+               layers must rise in PSNR with every layer, 3 layers equal
+               to the full decode.
   5. K4      — the HT cleanup encoder on every lane of (A) and (B)
                against its plain version: byte-identical used stream
                bytes and bit counts; both timed on the same lanes.
@@ -86,6 +95,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                route does and decoded by K2: equal to the plain version,
                every cleanup-significant sample exact to plane p - 1 and
                every SigProp sample at its plane-(p - 1) value.
+ 15. P1      — the per-lane gather through the hardware-validation tool
+               (grok_tpu_torch/tools/hw_validate.py run_gather_probe) at
+               64 and 65536 rows of 128 lanes: equal to its plain version
+               and to torch.take_along_dim; kernel, plain, library and
+               bound times.
+ 16. K3 trial — K3 on the refinement's trial-decode lanes of (A1-t)'s
+               first frame (32x32 blocks, so every lane whole) against its
+               plain version: bit-exact; both timed.
+ 17. tool    — the tool's serve_mq_enc_rt: the 512x512 Part-1 encode at
+               4:1 and in 3 layers at 16:1, 4:1 and 1:1, every rep the
+               same bytes, a 128x96 encode equal to the CPU encode.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -95,6 +115,7 @@ jax, jaxlib and grok_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.abc
 import json
 import os
@@ -105,7 +126,6 @@ import time
 import numpy as np
 
 REPS = 5                 # end-to-end reps after a warm-up; best reported
-KERNEL_REPS = 20         # kernel launches per timing window
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 EDGE_H = 8               # (B1), (B-r) lanes held against the plain versions
 _BLOCKED = ("jax", "jaxlib", "grok_tpu")
@@ -191,19 +211,6 @@ def _k3_bytes(lanes, tables) -> int:
         + 4 * int((w.long() * h.long()).sum())
 
 
-def _kernel_ms(torch, fn) -> float:
-    """Mean device time of fn() over KERNEL_REPS launches (CUDA events)."""
-    ev0 = torch.cuda.Event(enable_timing=True)
-    ev1 = torch.cuda.Event(enable_timing=True)
-    fn()
-    ev0.record()
-    for _ in range(KERNEL_REPS):
-        fn()
-    ev1.record()
-    torch.cuda.synchronize()
-    return ev0.elapsed_time(ev1) / KERNEL_REPS
-
-
 def _plain_ms(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -212,11 +219,14 @@ def _plain_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _host_split(serve_enc, call) -> dict:
-    """Host seconds of the C wire assembly and the Tier-2 finish inside
-    one encode call (wrapped for this call only), and the call's own."""
-    spent = {"assemble": 0.0, "finish": 0.0}
-    orig = (serve_enc.native.ht_assemble_batch, serve_enc.finish_tile_encode)
+def _host_split(serve_enc, tile, call) -> dict:
+    """Seconds of the C wire assembly, the Tier-2 finish and, inside the
+    finish, the Part-1 truncation refinement (its trial decodes run on the
+    card and are waited for) in one encode call (wrapped for this call
+    only), and the call's own."""
+    spent = {"assemble": 0.0, "finish": 0.0, "refine": 0.0}
+    orig = (serve_enc.native.ht_assemble_batch, serve_enc.finish_tile_encode,
+            tile._refine_truncations)
 
     def timed_as(key, fn):
         def run(*a, **k):
@@ -229,11 +239,12 @@ def _host_split(serve_enc, call) -> dict:
 
     serve_enc.native.ht_assemble_batch = timed_as("assemble", orig[0])
     serve_enc.finish_tile_encode = timed_as("finish", orig[1])
+    tile._refine_truncations = timed_as("refine", orig[2])
     try:
         spent["call"] = call()
     finally:
-        serve_enc.native.ht_assemble_batch, serve_enc.finish_tile_encode = \
-            orig
+        (serve_enc.native.ht_assemble_batch, serve_enc.finish_tile_encode,
+         tile._refine_truncations) = orig
     return spent
 
 
@@ -263,9 +274,9 @@ def _synthetic_lanes(rng, n: int, side: int, sigma_exp: float):
     return mneg, mags, negs, dims
 
 
-def _synthetic_roundtrip(torch, dev, K):
-    """Phase 6: K4 -> C assembly -> C scan -> device un-stuff -> K1."""
-    ht_encode, ht_decode, native, stage_bytes, unstuff_suffix, stage_dims = K
+def _synthetic_roundtrip(torch, dev, ht_decode, hw_validate):
+    """Phase 6: K4 -> C assembly -> C scan -> device un-stuff -> K1
+    (hw_validate.ht_decode_inputs, the path of the tool's ht_dec)."""
     n, side = 64, 64
     mneg, mags, negs, dims = _synthetic_lanes(np.random.default_rng(7), n,
                                               side, 3.5)
@@ -273,44 +284,10 @@ def _synthetic_roundtrip(torch, dev, K):
     def col(v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
-    caps = (side * side * 28 // 8 + 64, 1024, 2048)
-    streams, bits = ht_encode.ht_encode_lanes(
-        torch.from_numpy(mneg).to(dev), col([0] * n),
-        col([d[0] for d in dims]), col([d[1] for d in dims]), col([1] * n),
-        *caps)
-    buf = streams.cpu().numpy().reshape(-1)
-    bits = bits.cpu().numpy().astype(np.int64)
-    if (bits < 0).any():
-        _fail("K4 round trip: a stream exceeded its capacity")
-    row = sum(caps)
-    base = np.arange(n, dtype=np.int64) * row
-    res = native.ht_assemble_batch(buf, base, bits[0], base + caps[0],
-                                   bits[1], base + caps[0] + caps[1],
-                                   bits[2], np.where(bits[0] > 0, 0, -1))
-    if res is None:
-        _fail("K4 round trip: the C assembler refused the streams")
-    wire, wlens = res
-    offs = np.cumsum(wlens) - wlens
-    coded = wlens > 0
-    scan = native.ht_scan2(wire[:int(wlens.sum())].tobytes(), offs[coded],
-                           wlens[coded])
-    if scan is None or (scan[0][:, 0] < 0).any():
-        _fail("K4 round trip: the C scan refused the assembled segments")
-    sc = np.zeros((n, 7), np.int64)
-    sc[coded], digest = scan
-    body = torch.from_numpy(digest.copy() if digest.size else
-                            np.zeros(16, np.uint8)).to(dev)
-    m = torch.from_numpy(sc).to(dev)
-    lms, lsuf, dm = stage_dims(sc)
-    ms = stage_bytes(body, m[:, 1], m[:, 2], lms, False)
-    suf_f = stage_bytes(body, m[:, 3], m[:, 4], lsuf, False)
-    suf_r = stage_bytes(body, m[:, 3], m[:, 4] - 1, lsuf, True)
-    mel, vlc = unstuff_suffix(suf_f, suf_r, dm)
-    u8 = torch.uint8
-    got = ht_decode.ht_decode_lanes(
-        ms.to(u8), mel.to(u8), vlc.to(u8), col([0] * n),
-        col([d[0] for d in dims]), col([d[1] for d in dims]),
-        col(coded.astype(np.int32).tolist()), side, side).cpu().numpy()
+    lanes = hw_validate.ht_decode_inputs(
+        torch.from_numpy(mneg).to(dev), col([d[0] for d in dims]),
+        col([d[1] for d in dims]), (side * side * 28 // 8 + 64, 1024, 2048))
+    got = ht_decode.ht_decode_lanes(*lanes, side, side).cpu().numpy()
     for j, ((w, h), mag, neg) in enumerate(zip(dims, mags, negs)):
         v = got[j, :h, :w]
         if not (np.array_equal(np.abs(v), 2 * mag)
@@ -321,8 +298,9 @@ def _synthetic_roundtrip(torch, dev, K):
           f"{side}x{side} give back their magnitudes and signs", flush=True)
 
 
-def _mq_roundtrip(torch, dev, t1_encode, t1_decode):
-    """Phase 10: K5 -> K3 on synthetic lanes, up to 16 planes."""
+def _mq_roundtrip(torch, dev, t1_encode, t1_decode, hw_validate):
+    """Phase 10: K5 -> K3 on synthetic lanes, up to 16 planes (the K3
+    lanes staged by hw_validate.mq_decode_inputs)."""
     n, side = 64, 64
     mneg, mags, negs, dims = _synthetic_lanes(np.random.default_rng(9), n,
                                               side, 4.0)
@@ -333,22 +311,12 @@ def _mq_roundtrip(torch, dev, t1_encode, t1_decode):
     def col(v):
         return torch.tensor(v, dtype=torch.int32, device=dev)
 
-    w, h = col([d[0] for d in dims]), col([d[1] for d in dims])
-    L = side * side * 8 + 64
+    ins = (torch.from_numpy(mneg).to(dev), col([i % 4 for i in range(n)]),
+           col(nb), col([d[0] for d in dims]), col([d[1] for d in dims]))
     out, lens, _rates, _st = t1_encode.t1_encode_lanes(
-        torch.from_numpy(mneg).to(dev), col([i % 4 for i in range(n)]),
-        col(nb), w, h, L, 3 * 16 - 2)
-    ln = lens.cpu().numpy().astype(np.int64)
-    if (ln < 0).any():
-        _fail("K5 round trip: a codeword exceeded its capacity")
-    body = torch.cat([out[j, 1:1 + int(ln[j])] for j in range(n)]
-                     + [torch.zeros(1, dtype=torch.uint8, device=dev)])
-    start = col((np.cumsum(ln) - ln).tolist())
-    zero = col([0] * n)
-    ptbl = torch.stack([zero, lens, zero], 1)[:, None].contiguous()
+        *ins, side * side * 8 + 64, 3 * 16 - 2)
     got = t1_decode.t1_decode_lanes(
-        body, start, col([max(3 * b - 2, 0) for b in nb]), col(nb),
-        col([i % 4 for i in range(n)]), w, h, zero, ptbl, side,
+        *hw_validate.mq_decode_inputs(ins, out, lens), side,
         side).cpu().numpy()
     for j, ((wj, hj), mag, neg) in enumerate(zip(dims, mags, negs)):
         v = got[j, :hj, :wj]
@@ -498,12 +466,13 @@ def main() -> int:
     from grok_tpu_torch.codestream import j2k
     from grok_tpu_torch.core.params import CompressParams
     from grok_tpu_torch.ops import ht_decode, ht_encode, t1_decode, t1_encode
-    from grok_tpu_torch.pipeline import serve_enc
+    from grok_tpu_torch.pipeline import serve_enc, tile
     from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
     from grok_tpu_torch.pipeline.serve import stage_dims
     from grok_tpu_torch.t2.rate import (layer_budget_consts,
                                         layer_targets_for_tile)
     from grok_tpu_torch.t1 import vectors
+    from grok_tpu_torch.tools import hw_validate
     from grok_tpu_torch.util.synth import synthetic_image
     t_start = time.perf_counter()
 
@@ -534,6 +503,9 @@ def main() -> int:
         "A-r": (gray, CompressParams(ht=True, ht_planes=1, **pa)),
         "B-r": (rgb, CompressParams(ht=True, num_resolutions=6, ht_planes=2,
                                     num_layers=3, rates=[40.0, 10.0, 4.0])),
+        "A1-t": (gray, CompressParams(rates=[4.0], **pa)),
+        "B1-t": (rgb, CompressParams(num_resolutions=6, num_layers=3,
+                                     rates=[40.0, 10.0, 4.0])),
     }
     up = {id(imgs): [[torch.from_numpy(im[..., c] if im.ndim == 3 else im)
                       .to(dev).to(torch.int32)
@@ -543,24 +515,23 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"setup: synthetic sources made and uploaded in "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    # each kernel's launch count: (wrapper, attribute)
-    counters = {"K1": (ht_decode.ht_decode_lanes, "launches"),
-                "K2": (ht_decode.ht_decode_lanes, "refine_launches"),
-                "K3": (t1_decode.t1_decode_lanes, "launches"),
-                "K4": (ht_encode.ht_encode_lanes, "launches"),
-                "K4r": (ht_encode.ht_encode_lanes, "refine_launches"),
-                "K5": (t1_encode.t1_encode_lanes, "launches")}
+    # each kernel's launch count: hw_validate.COUNTERS
+    counts_zero, counts = hw_validate.zero_counts, hw_validate.launch_counts
+    kernel_ms = hw_validate.kernel_ms    # CUDA events, KERNEL_REPS launches
     paths = {"HT": ("A", "B"), "Part-1": ("A1", "B1"),
              "HT-mixed": ("A-mix", "A-mix forced"),
-             "HT-refined": ("A-r", "B-r")}
+             "HT-refined": ("A-r", "B-r"),
+             "Part-1 targeted": ("A1-t", "B1-t")}
     refined = paths["HT-refined"]
-
-    def counts_zero():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-
-    def counts():
-        return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    layered = ("B-r", "B1-t")          # lossy: held by layer below
+    # the kernels each path must launch, and those it must not
+    enc_need = {"HT": ["K4"], "Part-1": ["K5"], "HT-mixed": ["K4", "K5"],
+                "HT-refined": ["K4r"], "Part-1 targeted": ["K5", "K3"]}
+    dec_need = {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
+                "HT-refined": ["K2"], "Part-1 targeted": ["K3"]}
+    absent = {p: ["K4r", "K2"] for p in paths}
+    absent["HT-refined"] = ["K4", "K5"]
+    absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r"]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -593,32 +564,26 @@ def main() -> int:
         for name in names:
             imgs, params = work[name]
             times = []
-            encode = serve_enc._encode_mq
-            if name == "A-mix forced":
-                def fat_every_other(plan, lanes):
-                    encs = encode(plan, lanes)
-                    for e in encs[1::2]:
-                        if e.data:                   # loses to HT
-                            e.data = e.data + bytes(4096)
-                    return encs
-                serve_enc._encode_mq = fat_every_other
-            for _ in range(REPS + 1):      # the first call is a warm-up
-                out, dt = timed(lambda: api.compress_device_batch(
-                    frames[name], params, device=dev))
-                times.append(dt)
-                if name in streams and out != streams[name]:
-                    _fail(f"encode {name}: reps gave different bytes")
-                streams[name] = out
-            serve_enc._encode_mq = encode
+            with (hw_validate.forced_ht_blocks() if name == "A-mix forced"
+                  else contextlib.nullcontext()):
+                for _ in range(REPS + 1):  # the first call is a warm-up
+                    out, dt = timed(lambda: api.compress_device_batch(
+                        frames[name], params, device=dev))
+                    times.append(dt)
+                    if name in streams and out != streams[name]:
+                        _fail(f"encode {name}: reps gave different bytes")
+                    streams[name] = out
             npx = sum(im.shape[0] * im.shape[1] for im in imgs)
             report("encode", name, times, len(imgs), npx)
             print(f"encode {name}: {sum(len(s) for s in streams[name])} "
                   f"bytes for {len(imgs)} frame(s)", flush=True)
         enc_counts[path] = counts()
-        need(f"{path} encode", enc_counts[path],
-             {"HT": ["K4"], "Part-1": ["K5"], "HT-mixed": ["K4", "K5"],
-              "HT-refined": ["K4r"]}[path],
-             ["K4", "K5"] if path == "HT-refined" else ["K4r", "K2"])
+        need(f"{path} encode", enc_counts[path], enc_need[path],
+             absent[path])
+    n_k3 = enc_counts["Part-1 targeted"]["K3"]
+    print(f"Part-1 targeted encode: K3 launched {n_k3} times for the trial "
+          f"decodes over {REPS + 1} calls of (A1-t) and of (B1-t) (one "
+          f"launch per frame with candidates)", flush=True)
     # the forced mixed stream's bitmaps must name both HT and Part-1
     # blocks
     nblk = len(serve_enc._plan_for(api._build_main_header(
@@ -671,24 +636,60 @@ def main() -> int:
         print(f"encode reference {what}: 2 x 128x96 gray and 64x96 RGB "
               f"byte-identical to the CPU encode through the plain "
               f"versions", flush=True)
+    sp3p1 = dict(sp3, cblk_w_exp=4, cblk_h_exp=4)
+    for what, sp in (("A1-t", CompressParams(rates=[4.0], **sp3p1)),
+                     ("B1-t", CompressParams(num_layers=3,
+                                             rates=[40.0, 10.0, 4.0],
+                                             **sp3p1))):
+        if (api.compress_device_batch(small_r[:1], sp, device=dev)
+                != api.compress_device_batch(small_r[:1], sp, device="cpu")
+                or api.compress_device(small_rgb, sp, device=dev)
+                != api.compress_device(small_rgb, sp, device="cpu")):
+            _fail(f"{what} encode on the card differs from the plain "
+                  f"versions on the CPU")
+        print(f"encode reference {what}: 128x96 gray and 64x96 RGB "
+              f"byte-identical to the CPU encode through the plain "
+              f"versions", flush=True)
 
-    # (B-r): every layer prefix within its byte budget (the PCRD targets
-    # of t2/rate.py, on the tile's packet bytes)
-    b_comps = [torch.stack([f[ci] for f in frames["B-r"]]) for ci in range(3)]
-    b_params = work["B-r"][1]
-    b_hdr = api._build_main_header(1080, 1920, 3, 8, False, b_params)
-    b_res = serve_enc.try_encode_serving_batch(b_comps, b_hdr, b_params)[0]
-    if not streams["B-r"][0].endswith(b_res.body + b"\xff\xd9"):
-        _fail("encode B-r: the tile body differs from the API stream's")
-    targets = layer_targets_for_tile(layer_budget_consts(b_hdr, b_params),
-                                     b_hdr.siz.tile_rect(0), b_params)
-    per_layer = len(b_res.packet_lens) // b_params.num_layers
-    prefix = [int(sum(b_res.packet_lens[:per_layer * (k + 1)]))
-              for k in range(b_params.num_layers)]
-    print(f"encode B-r: layer prefixes {prefix} bytes, budgets "
-          f"{[round(t, 1) for t in targets]}", flush=True)
-    if any(p > t for p, t in zip(prefix, targets)):
-        _fail("encode B-r: a layer prefix exceeds its byte budget")
+    def tile_results(name):
+        """The serving encode's per-frame tile results, and the check that
+        the API's stream carries the same tile body."""
+        comps = [torch.stack([f[ci] for f in frames[name]])
+                 for ci in range(len(frames[name][0]))]
+        params = work[name][1]
+        h, w = comps[0].shape[1:]
+        hdr = api._build_main_header(h, w, len(comps), 8, False, params)
+        res = serve_enc.try_encode_serving_batch(comps, hdr, params)
+        if not all(s.endswith(r.body + b"\xff\xd9")
+                   for s, r in zip(streams[name], res)):
+            _fail(f"encode {name}: the tile body differs from the API "
+                  f"stream's")
+        return hdr, params, res
+
+    # (B-r), (B1-t): every layer prefix within its byte budget (the PCRD
+    # targets of t2/rate.py, on the tile's packet bytes)
+    for name in layered:
+        b_hdr, b_params, b_res = tile_results(name)
+        targets = layer_targets_for_tile(layer_budget_consts(b_hdr,
+                                                             b_params),
+                                         b_hdr.siz.tile_rect(0), b_params)
+        per_layer = len(b_res[0].packet_lens) // b_params.num_layers
+        prefix = [int(sum(b_res[0].packet_lens[:per_layer * (k + 1)]))
+                  for k in range(b_params.num_layers)]
+        print(f"encode {name}: layer prefixes {prefix} bytes, budgets "
+              f"{[round(t, 1) for t in targets]}", flush=True)
+        if any(p > t for p, t in zip(prefix, targets)):
+            _fail(f"encode {name}: a layer prefix exceeds its byte budget")
+    # the minimal-flush refinement of the targeted Part-1 encodes
+    for name in paths["Part-1 targeted"]:
+        res = tile_results(name)[2]
+        print(f"encode {name}: the refinement shrank "
+              f"{sum(r.refined for r in res)} blocks by "
+              f"{sum(r.reclaimed for r in res)} bytes in all "
+              f"({sum(r.trial_lanes for r in res)} trial-decode lanes, "
+              f"{len(res)} frame(s))", flush=True)
+        if name == "A1-t" and not sum(r.refined for r in res):
+            _fail("encode A1-t: the refinement shrank no block")
 
     # ---- 4. decode main paths --------------------------------------------
     def pixels(comps):
@@ -699,9 +700,15 @@ def main() -> int:
         mse = np.mean((a.astype(np.float64) - img) ** 2)
         return float("inf") if mse == 0 else 10 * np.log10(255 ** 2 / mse)
 
-    # the refined streams' reference decodes: the plain versions on the CPU
-    want = {"A-r": [pixels(c) for c in api.decompress_device_batch(
-        streams["A-r"], device="cpu")]}
+    # the refined and targeted streams' reference decodes: the plain
+    # versions on the CPU
+    want = {}
+    for name in ("A-r", "A1-t"):
+        t0 = time.perf_counter()
+        want[name] = [pixels(c) for c in api.decompress_device_batch(
+            streams[name], device="cpu")]
+        print(f"decode {name} on the CPU through the plain versions: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
     dec_counts = {}
     for path, names in paths.items():
         counts_zero()
@@ -716,8 +723,8 @@ def main() -> int:
                     if any(c.device.type != "cuda" for c in comps):
                         _fail(f"decode {name}: output left the card")
                     arr = pixels(comps)
-                    ref = want[name][fi] if name == "A-r" else img
-                    if name == "B-r":
+                    ref = want[name][fi] if name in want else img
+                    if name in layered:
                         continue                 # lossy: layers below
                     if arr.shape != ref.shape or not np.array_equal(arr,
                                                                     ref):
@@ -736,29 +743,32 @@ def main() -> int:
                       f"{ndiff}", flush=True)
                 if max(err) > 1:
                     _fail(f"decode {name}: more than 1 from the source")
-            elif name == "B-r":
+            elif name == "A1-t":
+                db = [psnr(a, im) for a, im in zip(want[name], imgs)]
+                print(f"decode {name}: {len(imgs)} frames bit-exact to the "
+                      f"plain versions' decode on the CPU; PSNR against the "
+                      f"source {db} dB", flush=True)
+            elif name in layered:
                 img = imgs[0]
-                layered = []
+                by_layer = []
                 for k in (1, 2, 3):
                     o = api.decompress_device(
                         streams[name][0], api.DecompressParams(max_layers=k),
                         device=dev)
-                    layered.append(psnr(pixels(o), img))
+                    by_layer.append(psnr(pixels(o), img))
                 full = psnr(pixels(out[0]), img)
-                print(f"decode {name}: PSNR at 1, 2, 3 layers {layered} dB "
+                print(f"decode {name}: PSNR at 1, 2, 3 layers {by_layer} dB "
                       f"(full decode {full} dB) [{card}]", flush=True)
-                if not (layered[0] < layered[1] < layered[2]) or \
-                        layered[2] != full:
+                if not (by_layer[0] < by_layer[1] < by_layer[2]) or \
+                        by_layer[2] != full:
                     _fail(f"decode {name}: PSNR does not rise with every "
                           f"layer")
             else:
                 print(f"decode {name}: {len(imgs)} frame(s) bit-exact to "
                       f"the source", flush=True)
         dec_counts[path] = counts()
-        need(f"{path} decode", dec_counts[path],
-             {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
-              "HT-refined": ["K2"]}[path],
-             ["K4", "K5"] if path == "HT-refined" else ["K4r", "K2"])
+        need(f"{path} decode", dec_counts[path], dec_need[path],
+             absent[path] + (["K5"] if path == "Part-1 targeted" else []))
 
     for name in refined:
         host, dev_t = [], []
@@ -808,13 +818,15 @@ def main() -> int:
                 t1_encode.t1_encode_lanes(
                     *serve_enc.mq_lane_inputs(plan, lanes), *plan.mq_caps)
         _, dev_s = timed(device_part)
-        host = _host_split(serve_enc, lambda: timed(
+        host = _host_split(serve_enc, tile, lambda: timed(
             lambda: api.compress_device_batch(frames[name], params,
                                               device=dev))[1])
         print(f"split encode {name}: device staging + block coders "
               f"{dev_s * 1e3:.3f} ms, C wire assembly "
               f"{host['assemble'] * 1e3:.3f} ms, Tier-2 finish "
-              f"{host['finish'] * 1e3:.3f} ms, whole call "
+              f"{host['finish'] * 1e3:.3f} ms (of which the truncation "
+              f"refinement and its trial decodes "
+              f"{host['refine'] * 1e3:.3f} ms), whole call "
               f"{host['call'] * 1e3:.3f} ms [{card}]", flush=True)
 
     # ---- 5. K4 vs its plain version ---------------------------------------
@@ -835,7 +847,7 @@ def main() -> int:
               f"version: max_abs_err {err}", flush=True)
         if err:
             _fail(f"K4 disagrees with its plain version on {name}")
-        k_ms = _kernel_ms(torch, lambda: ht_encode.ht_encode_lanes(
+        k_ms = kernel_ms(dev, lambda: ht_encode.ht_encode_lanes(
             *lanes, *caps))
         nbytes = _k4_bytes(lanes, got[1], ht_encode._lut_on(dev))
         k4["ms"] += k_ms
@@ -847,9 +859,7 @@ def main() -> int:
               f"same lanes [{card}]", flush=True)
 
     # ---- 6. K4 -> K1 round trip -------------------------------------------
-    _synthetic_roundtrip(torch, dev, (ht_encode, ht_decode, native,
-                                      stage_bytes, unstuff_suffix,
-                                      stage_dims))
+    _synthetic_roundtrip(torch, dev, ht_decode, hw_validate)
 
     # ---- 7. K1 vs its plain version ---------------------------------------
     k1 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
@@ -872,7 +882,7 @@ def main() -> int:
             if err:
                 _fail(f"K1 disagrees with its plain version ({name} "
                       f"{b.W}x{b.H}: max abs err {err})")
-            k_ms += _kernel_ms(torch, lambda: ht_decode.ht_decode_lanes(
+            k_ms += kernel_ms(dev, lambda: ht_decode.ht_decode_lanes(
                 *lanes, b.W, b.H))
             k1["bytes"] += _k1_bytes(prog.lane_meta(staged.meta, bi), lanes,
                                      ht_decode._lut_on(dev))
@@ -892,7 +902,7 @@ def main() -> int:
         _comps, _hdr, _params, plan, lanes = enc_lanes(name)
         ins = serve_enc.mq_lane_inputs(plan, lanes)
         L, R = plan.mq_caps
-        full_ms = _kernel_ms(torch, lambda: t1_encode.t1_encode_lanes(
+        full_ms = kernel_ms(dev, lambda: t1_encode.t1_encode_lanes(
             *ins, L, R))
         nl_all = ins[0].shape[0]
         if name == "B1":
@@ -920,7 +930,7 @@ def main() -> int:
               f"plain version: max_abs_err {err}", flush=True)
         if err or (lens < 0).any():
             _fail(f"K5 disagrees with its plain version on {name}")
-        k_ms = _kernel_ms(torch, lambda: t1_encode.t1_encode_lanes(
+        k_ms = kernel_ms(dev, lambda: t1_encode.t1_encode_lanes(
             *ins, L, R))
         nbytes = _k5_bytes(ins, lens, tables)
         k5["ms"] += k_ms
@@ -938,7 +948,7 @@ def main() -> int:
         staged = api.stage_device_batch(streams[name], device=dev)
         lanes = staged.program.stage_mq(staged.body, staged.meta)
         W, H = staged.program.mq_dims
-        full_ms = _kernel_ms(torch, lambda: t1_decode.t1_decode_lanes(
+        full_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
             *lanes, W, H))
         nl_all = lanes[1].shape[0]
         if name == "B1":
@@ -955,7 +965,7 @@ def main() -> int:
               f"version: max_abs_err {err}", flush=True)
         if err:
             _fail(f"K3 disagrees with its plain version on {name}")
-        k_ms = _kernel_ms(torch, lambda: t1_decode.t1_decode_lanes(
+        k_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
             *lanes, W, H))
         nb = _k3_bytes(lanes, tables)
         k3["ms"] += k_ms
@@ -968,7 +978,7 @@ def main() -> int:
               flush=True)
 
     # ---- 10. K5 -> K3 round trip ------------------------------------------
-    _mq_roundtrip(torch, dev, t1_encode, t1_decode)
+    _mq_roundtrip(torch, dev, t1_encode, t1_decode, hw_validate)
 
     # ---- 11. mode-switch vectors ------------------------------------------
     v = vectors.load()
@@ -990,7 +1000,7 @@ def main() -> int:
     for name in refined:
         _comps, _hdr, _params, plan, lanes = enc_lanes(name)
         caps = plan.caps
-        full_ms = _kernel_ms(torch, lambda: ht_encode.ht_encode_lanes(
+        full_ms = kernel_ms(dev, lambda: ht_encode.ht_encode_lanes(
             *lanes, *caps, refine=True))
         nl_all = lanes[0].shape[0]
         if name == "B-r":
@@ -1019,7 +1029,7 @@ def main() -> int:
               f"{err}", flush=True)
         if err or (got[1] < 0).any():
             _fail(f"K4r disagrees with its plain version on {name}")
-        k_ms = _kernel_ms(torch, lambda: ht_encode.ht_encode_lanes(
+        k_ms = kernel_ms(dev, lambda: ht_encode.ht_encode_lanes(
             *lanes, *caps, refine=True))
         nbytes = _k4r_bytes(lanes, got[1], ht_encode._lut_on(dev))
         k4r["ms"] += k_ms
@@ -1066,7 +1076,7 @@ def main() -> int:
                 if what == "refined":
                     p_ms += dt
                     nk2 += 1
-                    k_ms += _kernel_ms(torch, lambda: ht_decode
+                    k_ms += kernel_ms(dev, lambda: ht_decode
                                        .ht_decode_lanes(*args))
                     k2["bytes"] += _k2_bytes(meta[mask], t,
                                              ht_decode._lut_on(dev))
@@ -1082,17 +1092,74 @@ def main() -> int:
     _refine_roundtrip(torch, dev, (ht_encode, ht_decode, native,
                                    stage_bytes, unstuff_suffix, stage_dims))
 
+    # ---- 15. P1 through the hardware-validation tool -----------------------
+    # the probe's own launches count (run_gather_probe reads the counter
+    # around its checked call), not the timing windows'
+    p1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0,
+          "bytes": 0}
+    p1_launches = 0
+    for rows in hw_validate.GATHER_ROWS:
+        r = hw_validate.run_gather_probe(dev, rows=rows)
+        if not r["ok"]:
+            _fail(f"P1 disagrees with its plain version or take_along_dim "
+                  f"at {rows} rows")
+        for key in ("ms", "plain_ms", "library_ms"):
+            p1[key] += r[key]
+        p1["bytes"] += r["bytes"]
+        p1_launches += r["launches"]
+    print(f"P1 launches: {p1_launches}", flush=True)
+    if not p1_launches:
+        _fail("the gather probe never launched P1")
+
+    # ---- 16. K3 on the refinement's trial-decode lanes ----------------------
+    grabbed = []
+    refine = tile._refine_truncations
+
+    def grab(ejobs, encs, layer_cum, device):
+        if not grabbed:
+            grabbed.append(tile.trial_decode_lanes(ejobs, encs, layer_cum,
+                                                   device))
+        return refine(ejobs, encs, layer_cum, device)
+    tile._refine_truncations = grab
+    try:
+        api.compress_device_batch(frames["A1-t"][:1], work["A1-t"][1],
+                                  device=dev)
+    finally:
+        tile._refine_truncations = refine
+    cands, lanes, W, H = grabbed[0]
+    got = t1_decode.t1_decode_lanes(*lanes, W, H)
+    ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
+        *lanes, W, H))
+    err = int((got.long() - ref.long()).abs().max())
+    k3["err"] = max(k3["err"], err)
+    nl = lanes[1].shape[0]
+    print(f"K3 trial decodes A1-t frame 0: {nl} lanes of {len(cands)} "
+          f"candidate blocks ({W}x{H}) vs the plain version: max_abs_err "
+          f"{err}", flush=True)
+    if err:
+        _fail("K3 disagrees with its plain version on the trial-decode lanes")
+    k_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
+    nb = _k3_bytes(lanes, tables)
+    print(f"K3 trial decodes A1-t frame 0: 1 launch per frame, kernel "
+          f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} "
+          f"bytes), plain version {p_ms:.1f} ms [{card}]", flush=True)
+
+    # ---- 17. the tool's rate-targeted Part-1 serving check ----------------
+    r = hw_validate.run_serve_mq_enc_rt(dev)
+    if not r["ok"]:
+        _fail("hw_validate serve_mq_enc_rt failed")
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
 
-    def row(name, src, replaces, launches, k):
+    def row(name, src, replaces, launches, k, library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"grok_tpu_torch/csrc/{src}", "replaces": replaces,
                 "launches": launches, "max_abs_err": k["err"],
                 "ms": k["ms"], "plain_ms": k["plain_ms"],
                 "bound_ms": k["bytes"] / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", "library_ms": library_ms}
     print(json.dumps({"kernels": [
         row("ht_cleanup_decode", "ht_decode.cu",
             "grok_tpu/ops/pallas_ht.py:310", dec_counts["HT"]["K1"], k1),
@@ -1107,7 +1174,9 @@ def main() -> int:
             k2),
         row("ht_refine_encode", "ht_encode.cu",
             "grok_tpu/ops/pallas_ht_enc.py:722",
-            enc_counts["HT-refined"]["K4r"], k4r)]}), flush=True)
+            enc_counts["HT-refined"]["K4r"], k4r),
+        row("lane_gather", "lane_gather.cu", "tools/hw_validate.py:383",
+            p1_launches, p1, p1["library_ms"])]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -86,8 +86,8 @@ def _finish(job, what: str) -> str:
 
 def load_library() -> types.SimpleNamespace:
     """The kernels' libraries, one attribute per csrc/*.cu source
-    (`.ht_decode`, `.ht_encode`, `.t1_decode`, `.t1_encode`), built on
-    first call."""
+    (`.ht_decode`, `.ht_encode`, `.lane_gather`, `.t1_decode`,
+    `.t1_encode`), built on first call."""
     global _libs, build_log
     with _lock:
         if _libs is not None:
@@ -106,9 +106,9 @@ def load_library() -> types.SimpleNamespace:
         build_log = "\n".join(logs)
         libs = types.SimpleNamespace(
             **{name: ctypes.CDLL(so) for name, so in targets.items()})
-        from grok_tpu_torch.ops import ht_decode, ht_encode, t1_decode, \
-            t1_encode
-        for mod in (ht_decode, ht_encode, t1_decode, t1_encode):
+        from grok_tpu_torch.ops import ht_decode, ht_encode, lane_gather, \
+            t1_decode, t1_encode
+        for mod in (ht_decode, ht_encode, lane_gather, t1_decode, t1_encode):
             mod.bind(getattr(libs, mod.__name__.rsplit(".", 1)[1]))
         _libs = libs
         return libs

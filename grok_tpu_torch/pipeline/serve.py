@@ -15,15 +15,16 @@ rest on the device.
 
 Scope: single-tile streams of HT cleanup-only, Part-1 default-style
 (one codeword segment per block, any number of layers) or HT-mixed
-code-blocks, all streams of a batch under one main header.  HT streams
-with refinement passes (several codeword segments per block), or
-layered HT streams decoded under a layer cap, raise GeneralRoute, which
-the entry points answer with the general device route
-(pipeline/tile.py decode_tile, kernels K1 and K2), as the JAX package's
-serving decode declines them to its decode_tile.  Anything
-else — Part-1 mode switches, windowed, layer-capped, strict, PPM/PPT,
-per-component overrides — raises NotImplementedError naming the route:
-a quiet host decode would hide the device.
+code-blocks, all streams of a batch under one main header, decoded whole
+or under a layer cap (dp.max_layers: each stream's chunks of later
+layers dropped).  HT streams with refinement passes (several codeword
+segments per block), or layered HT streams decoded under a layer cap,
+raise GeneralRoute, which the entry points answer with the general
+device route (pipeline/tile.py decode_tile, kernels K1 and K2), as the
+JAX package's serving decode declines them to its decode_tile.  Anything
+else — Part-1 mode switches, layered HT-mixed streams, windowed, strict,
+PPM/PPT, per-component overrides — raises NotImplementedError naming the
+route: a quiet host decode would hide the device.
 """
 
 from __future__ import annotations
@@ -216,10 +217,8 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
     if plan is None:
         raise _unsupported("Part-1/MQ mode switches or general path",
                            "the stream has no serving plan")
-    if dp.max_layers:
-        if plan.coder == "ht" and plan.geo.cod.num_layers > 1:
-            raise GeneralRoute("a layer cap on a layered HT stream")
-        raise _unsupported("layer-capped serving", "max_layers was given")
+    if dp.max_layers and plan.coder == "ht" and plan.geo.cod.num_layers > 1:
+        raise GeneralRoute("a layer cap on a layered HT stream")
     ths_l = list(ths) if ths is not None else [th] * len(bodies)
     if plan.coder != "mixed" and any(
             q is not None and q.ht_mixed_bitmap() is not None
@@ -244,6 +243,16 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                                f"failed")
         incl, zb, npass, chunks, _end = parsed
         incl = np.asarray(incl, bool)
+        if dp.max_layers:
+            # a layer cap: drop the chunks of layers at or past it and
+            # rebuild inclusion and pass counts from the rest (zb stays
+            # valid: it was signalled at first inclusion), as
+            # grok_tpu/pipeline/serve.py does
+            chunks = chunks[chunks[:, 1] < dp.max_layers]
+            npass = np.zeros_like(npass)
+            np.add.at(npass, chunks[:, 0], chunks[:, 3])
+            incl = np.zeros_like(incl)
+            incl[chunks[:, 0]] = True
         if (chunks[:, 2] != 0).any():
             if plan.coder == "ht":
                 raise GeneralRoute("multi-segment code-blocks (HT "

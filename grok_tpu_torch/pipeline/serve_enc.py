@@ -21,22 +21,26 @@ pass —
      HT-mixed sets, which keep the smaller codeword per block (HT on
      ties) and name the HT blocks in a COM bitmap, as the JAX package's
      mixed encoder does;
-  4. for a multi-layer or byte-rate-targeted HT encode, each lane's exact
-     distortion after each of its passes, summed in int64 on the device
-     in one pass over the staged lanes;
-  5. one download of the per-lane stats (bit counts, magnitude, the
-     distortion sums), then the used bytes compacted on the device by a
-     prefix sum over the per-lane byte counts and downloaded once;
+  4. for a multi-layer or byte-rate-targeted HT or Part-1 encode, each
+     lane's exact distortion after each of its passes, summed in int64 on
+     the device (one pass over the staged lanes for HT, one pass row at a
+     time for Part-1);
+  5. one download of the per-lane stats (bit counts or lengths and
+     watermarks, magnitude, the distortion sums), then the used bytes
+     compacted on the device by a prefix sum over the per-lane byte
+     counts and downloaded once;
 
 — and the host finishes: for HT the C wire assembly (native.ht_assemble_
 batch) stuffs and interleaves each block's three cleanup streams and
 native.ht_raw_batch stuffs the refinement streams; the Tier-2 finish
 (pipeline/tile.py) runs the PCRD allocation for several layers or byte
-targets and emits the packets.
+targets, shrinks each targeted Part-1 block's final truncation by trial
+decodes on the device (K3), and emits the packets.
 
 Scope: HT code-blocks (cleanup-only or refined, any number of layers,
-byte-rate targets), Part-1 default-style code-blocks or HT-mixed sets of
-the two (one quality layer with no target), one tile, one tile-part,
+byte-rate targets), Part-1 default-style code-blocks (any number of
+layers, byte-rate targets) or HT-mixed sets of the two (one quality
+layer with no target), one tile, one tile-part,
 default precincts, no ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything
 else raises NotImplementedError naming the route: the port has no host
 encoder to fall back to.  Reversible streams are byte-identical to the
@@ -62,7 +66,7 @@ from grok_tpu_torch.ops.t1_encode import (rates_from_watermarks,
                                           t1_encode_lanes)
 from grok_tpu_torch.pipeline.tile import (TileGeometry, canon_block_indices,
                                           finish_tile_encode)
-from grok_tpu_torch.t1.records import EncodedBlock, PassInfo
+from grok_tpu_torch.t1.records import SIG_SPP, EncodedBlock, PassInfo
 from grok_tpu_torch.t2.rate import layer_budget_consts, layer_targets_for_tile
 from grok_tpu_torch.transform.mct_np import mct_component_norms
 
@@ -73,9 +77,9 @@ _EPLANS_MAX = 16
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{route} is not ported ({why}); the PyTorch port encodes "
-        f"single-tile HT streams (refined, layered and rate-targeted "
-        f"too) and single-layer Part-1 default-style and HT-mixed streams "
-        f"only")
+        f"single-tile HT and Part-1 default-style streams (layered and "
+        f"rate-targeted too, HT refined too) and single-layer HT-mixed "
+        f"streams only")
 
 
 @dataclass
@@ -306,11 +310,11 @@ def stage_encode_lanes(comps: list, hdr, params):
         if params.ht_planes:
             raise _unsupported("HT refinement encode of Part-1 or HT-mixed "
                                "code-blocks", "ht_planes > 0")
-        if targeted(params):
+        if params.ht_mixed and targeted(params):
+            # the JAX package codes these on the host too
             raise _unsupported(
-                "multi-layer or rate-targeted encode (PCRD) of Part-1 or "
-                "HT-mixed code-blocks", "several layers or a byte target: "
-                "the Part-1 per-pass distortions are not ported")
+                "multi-layer or rate-targeted encode (PCRD) of HT-mixed "
+                "code-blocks", "several layers or a byte target")
     N = int(comps[0].shape[0])
     device = comps[0].device
     order, src, wv, hv = _lane_index(plan, N, device)
@@ -477,18 +481,67 @@ def _encode_ht(plan: EncPlan, lanes: tuple, P: int, want_dist: bool) -> list:
     return encs
 
 
-def _encode_mq(plan: EncPlan, lanes: tuple) -> list:
+def _mq_dist_stats(mneg, sigtype, numbps, R: int) -> torch.Tensor:
+    """Exact per-pass distortion sums of Part-1 lanes, in int64, for the
+    PCRD finish (grok_tpu/pipeline/serve_enc.py `_mq_dstat`'s model,
+    summed whole instead of in 12- and 13-bit halves): row 0 = sum m^2,
+    then row 1 + r = E_r = sum (2m - 2 rec_r)^2 in half-sample units
+    after pass row r of the watermark layout (row 0 the cleanup at the MSB
+    plane; rows 3j-2, 3j-1, 3j SPP, MRP and CLN at plane index j), with
+    rec the scalar coder's reconstruction: 0 until the sample's
+    significance pass, then (m >> g << g) + 2^g / 2 at the plane g last
+    coded (g = bp + 1 at the SPP of plane bp for samples not significant
+    there yet).  K5's sigtype says whether a sample that becomes
+    significant at its MSB plane does so in the SPP or the cleanup.  Rows
+    past a lane's 3 numbps - 2 passes are not meaningful; the host reads
+    only the lane's own.  One row is summed at a time (no (R, NL, H*W)
+    temporary); the sums stay below 2^63 for Mb <= 24 and 64 x 64
+    blocks."""
+    NL = mneg.shape[0]
+    mg = (mneg >> 1).reshape(NL, -1).to(torch.int64)
+    M = mg << 1
+    msb = _bitlen(mg) - 1                            # -1 where m = 0
+    st_spp = sigtype.reshape(NL, -1) == SIG_SPP
+    nb = numbps.to(torch.int64)[:, None]
+    rows = [(mg * mg).sum(1)]
+    for r in range(R):
+        j = 0 if r == 0 else (r + 2) // 3
+        pt = 2 if r == 0 else r - (3 * j - 2)        # 0 SPP, 1 MRP, 2 CLN
+        bp = (nb - 1 - j).clamp(min=0)
+        g = bp
+        if pt == 2:
+            signow = (mg > 0) & (msb >= bp)
+        else:
+            signow = (msb > bp) | ((msb == bp) & st_spp)
+            if pt == 0:
+                g = torch.where(msb == bp, bp, bp + 1)
+        rec2 = torch.where(signow, ((mg >> g) << (g + 1)) + (1 << g), 0)
+        rows.append(((M - rec2) ** 2).sum(1))
+    return torch.stack(rows)
+
+
+def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False) -> list:
     """K5 over the staged lanes: one EncodedBlock per lane (frame-major),
-    a single codeword segment with rates from the watermarks."""
+    a single codeword segment with rates from the watermarks.  want_dist:
+    each pass's exact distortion too (the PCRD finish), downloaded with
+    the stats."""
     mneg, ori, nb, wv, hv = mq_lane_inputs(plan, lanes)
     NL = mneg.shape[0]
     L, R = plan.mq_caps
-    out, lens, rates, _sigtype = t1_encode_lanes(mneg, ori, nb, wv, hv, L, R)
+    out, lens, rates, sigtype = t1_encode_lanes(mneg, ori, nb, wv, hv, L, R)
 
-    # one download of the stats: length, numbps, watermark rows
-    stats = torch.cat([lens[:, None], nb[:, None], rates], 1).cpu().numpy()
-    lens_h = stats[:, 0].astype(np.int64)
+    # one download of the stats: length, numbps, watermark rows and the
+    # distortion sums
+    cols = [lens[:, None], nb[:, None], rates]
+    if want_dist:
+        cols.append(_mq_dist_stats(mneg, sigtype, nb, R).t())
+    stats = torch.cat([c.to(torch.int64) for c in cols], 1).cpu().numpy()
+    lens_h = stats[:, 0]
     nb_h = stats[:, 1]
+    if want_dist:
+        # f64 exactly as the JAX package rebuilds it: sum m^2 - 0.25 * E_t
+        d = stats[:, 2 + R:].astype(np.float64)
+        dist = d[:, :1] - 0.25 * d[:, 1:]                # (NL, R)
     if (lens_h < 0).any():
         raise RuntimeError("Part-1 encode: a codeword exceeded its "
                            "capacity (samples beyond the signalled "
@@ -508,10 +561,13 @@ def _encode_mq(plan: EncPlan, lanes: tuple) -> list:
             encs.append(EncodedBlock())
             continue
         ln = int(lens_h[lane])
-        rr = rates_from_watermarks(stats[lane, 2:], n, ln)
+        rr = rates_from_watermarks(stats[lane, 2:2 + R], n, ln)
+        # dist is read only by rate allocation, which the one-layer
+        # untargeted finish does not run
         encs.append(EncodedBlock(
             data=body[offs[lane]:offs[lane] + ln].tobytes(), numbps=n,
-            passes=[PassInfo(rate=v, dist=0.0, term=t == len(rr) - 1)
+            passes=[PassInfo(rate=v, dist=float(dist[lane, t])
+                             if want_dist else 0.0, term=t == len(rr) - 1)
                     for t, v in enumerate(rr)],
             seg_lens=[ln], seg_passes=[len(rr)]))
     return encs
@@ -549,7 +605,7 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
     targets = _layer_targets(hdr, plan.geo, params)
     if plan.coder == "mq":
-        encs = _encode_mq(plan, lanes)
+        encs = _encode_mq(plan, lanes, targeted(params))
     else:
         encs = _encode_ht(plan, lanes, int(params.ht_planes or 0),
                           targeted(params))
@@ -561,12 +617,19 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
         nbytes = (len(canon) + 7) // 8
     jobs = [dict(key=kb, mb=int(mb), weight=float(w))
             for kb, mb, w in zip(plan.lane_block, plan.lane_mb, plan.lane_w)]
+    if plan.coder == "mq":
+        # style, orient and size turn on the finish's minimal-flush
+        # truncation refinement of targeted Part-1 blocks (as in
+        # grok_tpu/pipeline/serve_enc.py)
+        for j, (_c, _r, orient, _y, _x, bh, bw) in zip(jobs, plan.blocks):
+            j.update(style=0, orient=int(orient), w=int(bw), h=int(bh))
     results = []
     for fi in range(N):
         frame = encs[fi * B:(fi + 1) * B]
         if not mixed:
             results.append(finish_tile_encode(plan.geo, jobs, frame,
-                                              targets))
+                                              targets, device=lanes[0]
+                                              .device))
             continue
         bitmap = bytearray(nbytes)
         for bi, ci in enumerate(canon):

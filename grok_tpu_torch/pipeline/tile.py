@@ -4,10 +4,11 @@ The port's copy of grok_tpu/pipeline/tile.py, for what the port serves:
 `TileGeometry` (geometry + coding state shared by the decode and encode
 plans), `canon_block_indices` (the HT-mixed bitmap's block order),
 `TileEncodeResult`, `finish_tile_encode` (the PCRD rate allocation over
-several layers or byte targets, t2/rate.py, and the packet emission by
-the C Tier-2 coder, native.t2_emit), and `decode_tile`, the general
-device decode route for HT streams the serving decode declines (refined
-blocks), with kernels K1 and K2.
+several layers or byte targets, t2/rate.py, the Part-1 minimal-flush
+truncation refinement by trial decodes with kernel K3, and the packet
+emission by the C Tier-2 coder, native.t2_emit), and `decode_tile`, the
+general device decode route for HT streams the serving decode declines
+(refined blocks), with kernels K1 and K2.
 
 Reference parity: [grok: src/lib/core/tile/TileProcessor.cpp ::
 compressTile] — behavior normative per ISO 15444-1.
@@ -118,11 +119,105 @@ class TileEncodeResult:
     packet_lens: list[int]
     body: bytes                      # concatenated packets
     com: bytes = b""                 # tile-part COM (the HT-mixed bitmap)
+    refined: int = 0                 # blocks the minimal-flush refinement
+    #                                  shrank
+    reclaimed: int = 0               # bytes it took off their truncations
+    trial_lanes: int = 0             # its trial decodes
+
+
+def trial_decode_lanes(ejobs: list[dict], encs: list, layer_cum: list,
+                       device) -> tuple:
+    """The minimal-flush refinement's candidates and their K3 lanes.
+
+    A candidate is a single-segment, non-HT block (its job carries style,
+    orient, w and h) whose final truncation p ends on a pass that is not
+    terminated.  Its prefix lengths hi = min(rate_p, len(data)) and then
+    hi - 1 down to lo = max(rate_(p-1) or 2, hi - 8) each become a lane
+    that decodes p passes of one segment of that length, every lane of a
+    block reading the block's bytes at the same start of one body.
+    Returns (cands: (entry index, p, [lengths]) per block, the
+    t1_decode_lanes arguments on `device` (None without candidates), W,
+    H)."""
+    import torch
+
+    from grok_tpu_torch.core.params import CBLK_HT
+
+    cands, datas, rows = [], [], []
+    pos = 0
+    for i, (j, enc) in enumerate(zip(ejobs, encs)):
+        p = layer_cum[i][-1] if layer_cum[i] else 0
+        if (p <= 0 or p >= len(enc.passes) or len(enc.seg_lens) != 1
+                or enc.passes[p - 1].term
+                or "style" not in j or "orient" not in j
+                or j["style"] & CBLK_HT):
+            continue
+        hi = min(enc.passes[p - 1].rate, len(enc.data))
+        lo = max(enc.passes[p - 2].rate if p >= 2 else 2, hi - 8)
+        lens = [hi] + list(range(hi - 1, lo - 1, -1))
+        cands.append((i, p, lens))
+        for r in lens:
+            rows.append((pos, r, p, enc.numbps, j["orient"], j["w"], j["h"],
+                         j["style"]))
+        datas.append(enc.data)
+        pos += len(enc.data)
+    if not cands:
+        return cands, None, 0, 0
+    a = np.asarray(rows, np.int32)
+    NL = a.shape[0]
+    ptbl = np.zeros((NL, 1, 3), np.int32)
+    ptbl[:, 0, 1] = a[:, 1]                      # one segment of length r
+    body = np.frombuffer(b"".join(datas) + b"\0", np.uint8).copy()
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    args = (dev(body), dev(a[:, 0]), dev(a[:, 2]), dev(a[:, 3]),
+            dev(a[:, 4]), dev(a[:, 5]), dev(a[:, 6]), dev(a[:, 7]),
+            dev(ptbl))
+    return cands, args, int(a[:, 5].max()), int(a[:, 6].max())
+
+
+def _refine_truncations(ejobs: list[dict], encs: list, layer_cum: list,
+                        device) -> tuple:
+    """The Part-1 minimal-flush refinement of grok_tpu/pipeline/tile.py
+    `finish_tile_encode`: a non-terminated pass's rate carries the MQ
+    flush's pessimism (+5 bytes), so each candidate block's final
+    truncation shrinks to the smallest prefix r such that every length
+    from r to hi - 1 decodes the same signed samples as hi (the JAX
+    package's downward scan with its early break).  Every candidate
+    prefix of the tile is decoded in one t1_decode_lanes call on `device`
+    (K3 on a CUDA device, the plain version on the CPU).  The shrunk
+    rates are written into the blocks' PassInfo.  Returns ([(entry index,
+    pass index, new rate)], lanes decoded)."""
+    import torch
+
+    from grok_tpu_torch.ops import t1_decode
+
+    cands, args, W, H = trial_decode_lanes(ejobs, encs, layer_cum, device)
+    if not cands:
+        return [], 0
+    out = t1_decode.t1_decode_lanes(*args, W, H)
+    first = np.cumsum([0] + [len(c[2]) for c in cands])
+    ref = torch.from_numpy(np.repeat(first[:-1], [len(c[2]) for c in cands])
+                           ).to(out.device)
+    same = (out == out[ref]).reshape(out.shape[0], -1).all(1).cpu().numpy()
+    changes = []
+    for (i, p, lens), f in zip(cands, first):
+        best = lens[0]
+        for k in range(1, len(lens)):      # the tail is contiguous
+            if not same[f + k]:
+                break
+            best = lens[k]
+        pi = encs[i].passes[p - 1]
+        if best < pi.rate:
+            changes.append((i, p - 1, best))
+            pi.rate = best
+    return changes, int(first[-1])
 
 
 def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
                        layer_targets: list | None = None,
-                       seg_style_mask: int = -1) -> TileEncodeResult:
+                       seg_style_mask: int = -1,
+                       device="cpu") -> TileEncodeResult:
     """Rate allocation + Tier-2 emission over already-coded blocks.
 
     ejobs need key (c, r, p, band_i, cblk_i), mb and, for the PCRD
@@ -132,13 +227,14 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
     ships every pass of every block and runs no allocation; otherwise
     the convex hulls and the layer allocation (t2/rate.py) pick each
     block's passes per layer, with every candidate allocation sized by
-    the C emitter, as grok_tpu/pipeline/tile.py `finish_tile_encode`
-    does for byte targets (its quality targets and its Part-1
-    minimal-flush refinement are not ported: the port's targeted
-    encodes are HT, whose passes all terminate).  seg_style_mask:
-    AND-mask on the Tier-2 segmentation style (HT-mixed sets emit with
-    ~CBLK_HT); the emitter chunks each block's codeword by its passes'
-    termination flags."""
+    the C emitter, and the Part-1 minimal-flush refinement shrinks the
+    final truncation of blocks whose jobs carry style, orient, w and h
+    (_refine_truncations: trial decodes on `device`, the serving
+    encode's), as grok_tpu/pipeline/tile.py `finish_tile_encode` does
+    for byte targets (its quality targets are not ported).
+    seg_style_mask: AND-mask on the Tier-2 segmentation style (HT-mixed
+    sets emit with ~CBLK_HT); the emitter chunks each block's codeword by
+    its passes' termination flags."""
     num_layers = geo.cod.num_layers
     trivial = num_layers == 1 and (
         not layer_targets or all(t is None for t in layer_targets))
@@ -217,7 +313,17 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
         layer_cum = allocate_layers(hulls, num_layers, layer_targets or [],
                                     simulate, totals,
                                     pass_rates=rate_tables)
+        changes, trials = _refine_truncations(ejobs, encs, layer_cum, device)
+        for i, pno, rate in changes:
+            # the prepared arrays hold the rates as they were allocated
+            prep["pass_rates"][prep["pass_off"][e2g[i]] + pno] = rate
         packets = emit(layer_cum, num_layers)
+        return TileEncodeResult(
+            packets=packets, packet_lens=[len(p) for p in packets],
+            body=b"".join(packets), refined=len(changes),
+            reclaimed=sum(int(rate_tables[i][pno]) - rate
+                          for i, pno, rate in changes),
+            trial_lanes=trials)
     if packets is None:
         raise RuntimeError("the C Tier-2 emitter declined the tile")
     return TileEncodeResult(packets=packets,

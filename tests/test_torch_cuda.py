@@ -1,7 +1,8 @@
-"""Card-only tests of the port: the HT cleanup and Part-1 CUDA kernels (a
-kernel has no CPU mode) against their plain PyTorch versions, the scalar
-HT coder and the committed Part-1 mode-switch vectors, and the serving
-decode and encode on the card against the source pixels, the host
+"""Card-only tests of the port: the HT, Part-1 and per-lane gather CUDA
+kernels (a kernel has no CPU mode) against their plain PyTorch versions,
+the scalar HT coder, the committed Part-1 mode-switch vectors and
+torch.take_along_dim, and the serving decode and encode (targeted and
+layered Part-1 too) on the card against the source pixels, the host
 encoder and the port's CPU encode.
 
 Every test skips without a CUDA card.  The file imports no JAX, so it
@@ -24,6 +25,7 @@ from grok_tpu_torch import api  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams as PCP  # noqa: E402
 from grok_tpu_torch.ops import ht_decode as H  # noqa: E402
 from grok_tpu_torch.ops import ht_encode as E  # noqa: E402
+from grok_tpu_torch.ops import lane_gather as G  # noqa: E402
 from grok_tpu_torch.ops import t1_decode as D3  # noqa: E402
 from grok_tpu_torch.ops import t1_encode as E5  # noqa: E402
 from grok_tpu_torch.t1 import vectors  # noqa: E402
@@ -316,6 +318,42 @@ def test_refine_kernels_match_plain_versions(card):
         torch.cuda.synchronize()
         assert H.ht_decode_lanes.refine_launches == before + 1
         assert torch.equal(out.cpu(), H.ht_decode_lanes_ref(*args))
+
+
+@pytest.mark.parametrize("rows, L", [(64, 128), (1000, 7), (3, 1)])
+def test_lane_gather_matches_plain_version_and_library(card, rows, L):
+    rng = np.random.default_rng(rows)
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (rows, L),
+                                      dtype=np.int32)).to(card)
+    idx = torch.from_numpy(rng.integers(0, rows, (rows, L),
+                                        dtype=np.int32)).to(card)
+    before = G.lane_gather.launches
+    got = G.lane_gather(x, idx)
+    torch.cuda.synchronize()
+    assert G.lane_gather.launches == before + 1
+    assert torch.equal(got, G.lane_gather_ref(x, idx))
+    assert torch.equal(got, torch.take_along_dim(x, idx.long(), dim=0))
+
+
+@pytest.mark.parametrize("kw", [dict(rates=[4.0]),
+                                dict(num_layers=3, rates=[40.0, 10.0, 4.0])])
+def test_targeted_part1_serving_encode_on_card(card, kw):
+    """The rate-targeted and layered Part-1 encode on the card (K5, the
+    distortion sums, the PCRD finish, trial decodes with K3) equals the
+    CPU encode through the plain versions and the host encoder; its
+    layer-capped decodes on the card equal the CPU decodes."""
+    cp = dict(num_resolutions=3, cblk_w_exp=5, cblk_h_exp=5, **kw)
+    img = synthetic_image(64, 96, 3, seed=5)
+    before = D3.t1_decode_lanes.launches
+    got = api.compress_device(img, PCP(**cp), device=card)
+    assert D3.t1_decode_lanes.launches > before      # the trial decodes
+    assert got == api.compress_device(img, PCP(**cp), device="cpu")
+    assert got == compress(img, CompressParams(**cp))
+    for k in range(1, cp.get("num_layers", 1) + 1):
+        dp = api.DecompressParams(max_layers=k)
+        out = api.decompress_device(got, dp, device=card)
+        want = api.decompress_device(got, dp, device="cpu")
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(out, want))
 
 
 def test_refined_serving_encode_and_general_decode_on_card(card):

@@ -153,10 +153,14 @@ def test_out_of_scope_streams_raise(rgb):
         api.decompress_device_batch([mq], device="cpu")
     _img, ht = rgb
     for dp, what in ((DecompressParams(window=(0, 0, 32, 32)), "windowed"),
-                     (DecompressParams(max_layers=1), "layer-capped"),
                      (DecompressParams(strict=True), "strict")):
         with pytest.raises(NotImplementedError, match=what):
             api.decompress_device(ht, dp, device="cpu")
+    # a layer cap on a single-layer stream is served: the whole stream
+    capped = api.decompress_device(ht, DecompressParams(max_layers=1),
+                                   device="cpu")
+    assert np.array_equal(_np(capped), _np(api.decompress_device(
+        ht, device="cpu")))
     # a refined stream decodes through the general route, as the JAX
     # package's decode does; a window on it still raises
     refined = compress(img, CompressParams(ht_planes=2, **CP))

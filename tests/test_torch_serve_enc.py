@@ -91,9 +91,14 @@ def test_lossy_ict_97_decodes_within_one_of_jax_device_encode(
 
 def test_out_of_scope_parameters_raise(rgb):
     poc = Poc(rs=0, cs=0, layer_end=1, re=3, ce=3, order=ProgOrder.LRCP)
+    # Part-1 targeted and layered encodes are served, as the host
+    # encoder codes them
+    for kw in (dict(ht=False, rates=[8.0]), dict(ht=False, num_layers=2)):
+        assert api.compress_device(rgb, PCP(**dict(CP, **kw)),
+                                   device="cpu") == \
+            compress(rgb, JCP(**dict(CP, **kw)))
     for kw, what in (
-            (dict(ht=False, rates=[8.0]), "rate-targeted"),
-            (dict(ht=False, num_layers=2), "multi-layer"),
+            (dict(ht_mixed=True, ht=False, num_layers=2), "multi-layer"),
             (dict(ht_mixed=True, ht=False, rates=[8.0]), "rate-targeted"),
             (dict(ht=False, cblk_style=0x01), "Part-1 mode switches"),
             (dict(pocs=[poc]), "POC"),

@@ -154,9 +154,17 @@ def test_decode_mixed_streams_with_ht_blocks(monkeypatch):
     (dict(ht_mixed=True, num_layers=2), "multi-layer"),
 ])
 def test_out_of_scope_encodes_raise(gray, kw, what):
+    """Mode switches and layered HT-mixed encodes raise; multi-layer and
+    rate-targeted Part-1 encodes are served (byte-identical to the host
+    encoder: tests/test_torch_serve_mq_rt.py covers them in full)."""
+    params = dict(CP, **kw)
+    if set(kw) <= {"num_layers", "rates"}:
+        got = api.compress_device(gray[0], PCP(**params), prec=3,
+                                  device="cpu")
+        assert got == compress(_img(gray[0], 3), JCP(**params))
+        return
     with pytest.raises(NotImplementedError, match=what):
-        api.compress_device(gray[0], PCP(**dict(CP, **kw)), prec=3,
-                            device="cpu")
+        api.compress_device(gray[0], PCP(**params), prec=3, device="cpu")
 
 
 @pytest.mark.parametrize("kw, what", [
