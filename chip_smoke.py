@@ -62,15 +62,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                magnitudes and signs must come back.
   7. K1      — the HT cleanup decoder on the decode path's staged lanes
                against its plain version: bit-exact; both timed.
-  8. K5      — the Part-1 encoder against its plain version on every lane
-               of (A1) and on the bottom-edge lanes of (B1) (h <= 8: the
+  8. K5      — the Part-1 encoder (one warp per code-block) against its
+               first design (t1_encode_lanes_v1, one thread per
+               code-block, the full-lane oracle) on every lane of (A1)
+               and (B1), and against its plain version on every lane of
+               (A1) and on the bottom-edge lanes of (B1) (h <= 8: the
                plain version steps all lanes in lockstep, so its time
                follows the lanes' size, not their count): identical
-               lengths, used bytes, watermark rows and sigtype; both
-               timed on the same lanes.
-  9. K3      — the Part-1 decoder against its plain version on the
-               decode path's staged lanes of the same blocks: bit-exact;
-               both timed.
+               lengths, used bytes, watermark rows and sigtype; the two
+               designs timed in turns (v1, v2, v2, v1) on all lanes and on
+               the compared lanes, the plain version on the compared
+               lanes; for (B1), the launch of the slowest lane alone
+               (largest nbps * w * h) against all lanes.
+  9. K3      — the Part-1 decoder against its first design on every staged
+               lane of the decode path's (A1) and (B1) blocks and against
+               its plain version on the same lanes as phase 8: bit-exact;
+               timed as phase 8 (the slowest lane by npass * w * h).
  10. K5->K3  — 64 synthetic lanes of 1x1 to 64x64 (h not a multiple of
                4, w = 1, all-zero lanes, up to 16 planes) encoded by K5
                and decoded by K3: the source must come back.
@@ -102,10 +109,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                bound times.
  16. K3 trial — K3 on the refinement's trial-decode lanes of (A1-t)'s
                first frame (32x32 blocks, so every lane whole) against its
-               plain version: bit-exact; both timed.
+               first design and its plain version: bit-exact; the two
+               designs timed in turns on all lanes and on the slowest lane
+               alone, the plain version once.
  17. tool    — the tool's serve_mq_enc_rt: the 512x512 Part-1 encode at
                4:1 and in 3 layers at 16:1, 4:1 and 1:1, every rep the
                same bytes, a 128x96 encode equal to the CPU encode.
+ 18. mq_dec, mq_enc — the tool's K3 and K5 checks on 128 dense 64x64
+               blocks: the source comes back, every lane equal to the
+               first design, the plain versions on edge lanes, the two
+               designs timed in turns.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -518,6 +531,7 @@ def main() -> int:
     # each kernel's launch count: hw_validate.COUNTERS
     counts_zero, counts = hw_validate.zero_counts, hw_validate.launch_counts
     kernel_ms = hw_validate.kernel_ms    # CUDA events, KERNEL_REPS launches
+    turns_ms = hw_validate.turns_ms      # (v1, v2) in turns: v1 v2 v2 v1
     paths = {"HT": ("A", "B"), "Part-1": ("A1", "B1"),
              "HT-mixed": ("A-mix", "A-mix forced"),
              "HT-refined": ("A-r", "B-r"),
@@ -529,9 +543,10 @@ def main() -> int:
                 "HT-refined": ["K4r"], "Part-1 targeted": ["K5", "K3"]}
     dec_need = {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
                 "HT-refined": ["K2"], "Part-1 targeted": ["K3"]}
-    absent = {p: ["K4r", "K2"] for p in paths}
-    absent["HT-refined"] = ["K4", "K5"]
-    absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r"]
+    # the first Part-1 designs (K3v1, K5v1) are the oracle only
+    absent = {p: ["K4r", "K2", "K3v1", "K5v1"] for p in paths}
+    absent["HT-refined"] = ["K4", "K5", "K3v1", "K5v1"]
+    absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r", "K3v1", "K5v1"]
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -897,14 +912,31 @@ def main() -> int:
     tables = t1_decode.lut_on(dev)
 
     # ---- 8. K5 vs its plain version ---------------------------------------
-    k5 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    k5 = {"ms": 0.0, "plain_ms": 0.0, "prev_ms": 0.0, "err": 0, "bytes": 0}
     for name in paths["Part-1"]:
         _comps, _hdr, _params, plan, lanes = enc_lanes(name)
         ins = serve_enc.mq_lane_inputs(plan, lanes)
         L, R = plan.mq_caps
-        full_ms = kernel_ms(dev, lambda: t1_encode.t1_encode_lanes(
-            *ins, L, R))
         nl_all = ins[0].shape[0]
+        if not hw_validate.encodes_equal(
+                t1_encode.t1_encode_lanes(*ins, L, R),
+                t1_encode.t1_encode_lanes_v1(*ins, L, R)):
+            _fail(f"K5 differs from its first design on {name}")
+        v1_ms, full_ms = turns_ms(
+            dev, lambda: t1_encode.t1_encode_lanes_v1(*ins, L, R),
+            lambda: t1_encode.t1_encode_lanes(*ins, L, R))
+        print(f"K5 {name}: all {nl_all} lanes equal to v1 bit for bit; "
+              f"v2 {full_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
+              f"({v1_ms / full_ms:.2f}x) [{card}]", flush=True)
+        if name == "B1":
+            est = ins[2].long() * ins[3] * ins[4]
+            one = _select(ins, torch.arange(nl_all, device=dev)
+                          == int(torch.argmax(est)))
+            one_ms = kernel_ms(dev, lambda: t1_encode.t1_encode_lanes(
+                *one, L, R))
+            print(f"K5 {name} diagnostic: the slowest lane alone (nbps*w*h "
+                  f"{int(est.max())}) {one_ms:.4f} ms, all {nl_all} lanes "
+                  f"{full_ms:.4f} ms [{card}]", flush=True)
         if name == "B1":
             # the bottom-edge blocks: h <= EDGE_H, w and h not multiples
             # of the block size, cut to EDGE_H rows
@@ -930,27 +962,46 @@ def main() -> int:
               f"plain version: max_abs_err {err}", flush=True)
         if err or (lens < 0).any():
             _fail(f"K5 disagrees with its plain version on {name}")
-        k_ms = kernel_ms(dev, lambda: t1_encode.t1_encode_lanes(
-            *ins, L, R))
+        prev_ms, k_ms = turns_ms(
+            dev, lambda: t1_encode.t1_encode_lanes_v1(*ins, L, R),
+            lambda: t1_encode.t1_encode_lanes(*ins, L, R))
         nbytes = _k5_bytes(ins, lens, tables)
         k5["ms"] += k_ms
+        k5["prev_ms"] += prev_ms
         k5["plain_ms"] += p_ms
         k5["bytes"] += nbytes
         print(f"K5 {name}: 1 launch per encode, kernel {full_ms:.4f} ms on "
               f"all {nl_all} lanes; on the {nl} compared lanes kernel "
-              f"{k_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
-              f"ms ({nbytes} bytes), plain version {p_ms:.1f} ms [{card}]",
-              flush=True)
+              f"{k_ms:.4f} ms (v1 {prev_ms:.4f} ms), bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
+              f"plain version {p_ms:.1f} ms [{card}]", flush=True)
 
     # ---- 9. K3 vs its plain version ---------------------------------------
-    k3 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "prev_ms": 0.0, "err": 0, "bytes": 0}
     for name in paths["Part-1"]:
         staged = api.stage_device_batch(streams[name], device=dev)
         lanes = staged.program.stage_mq(staged.body, staged.meta)
         W, H = staged.program.mq_dims
-        full_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
-            *lanes, W, H))
         nl_all = lanes[1].shape[0]
+        if not torch.equal(t1_decode.t1_decode_lanes(*lanes, W, H),
+                           t1_decode.t1_decode_lanes_v1(*lanes, W, H)):
+            _fail(f"K3 differs from its first design on {name}")
+        v1_ms, full_ms = turns_ms(
+            dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
+            lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
+        print(f"K3 {name}: all {nl_all} lanes equal to v1 bit for bit; "
+              f"v2 {full_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
+              f"({v1_ms / full_ms:.2f}x) [{card}]", flush=True)
+        if name == "B1":
+            est = lanes[2].long() * lanes[5] * lanes[6]
+            one = (lanes[0],) + _select(
+                lanes[1:], torch.arange(nl_all, device=dev)
+                == int(torch.argmax(est)))
+            one_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
+                *one, W, H))
+            print(f"K3 {name} diagnostic: the slowest lane alone (npass*w*h "
+                  f"{int(est.max())}) {one_ms:.4f} ms, all {nl_all} lanes "
+                  f"{full_ms:.4f} ms [{card}]", flush=True)
         if name == "B1":
             # the same bottom-edge blocks as phase 8
             lanes = (lanes[0],) + _select(lanes[1:], lanes[6] <= EDGE_H)
@@ -965,17 +1016,19 @@ def main() -> int:
               f"version: max_abs_err {err}", flush=True)
         if err:
             _fail(f"K3 disagrees with its plain version on {name}")
-        k_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
-            *lanes, W, H))
+        prev_ms, k_ms = turns_ms(
+            dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
+            lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
         nb = _k3_bytes(lanes, tables)
         k3["ms"] += k_ms
+        k3["prev_ms"] += prev_ms
         k3["plain_ms"] += p_ms
         k3["bytes"] += nb
         print(f"K3 {name}: 1 launch per decode, kernel {full_ms:.4f} ms on "
               f"all {nl_all} lanes; on the {nl} compared lanes kernel "
-              f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
-              f"({nb} bytes), plain version {p_ms:.1f} ms [{card}]",
-              flush=True)
+              f"{k_ms:.4f} ms (v1 {prev_ms:.4f} ms), bound "
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
+              f"version {p_ms:.1f} ms [{card}]", flush=True)
 
     # ---- 10. K5 -> K3 round trip ------------------------------------------
     _mq_roundtrip(torch, dev, t1_encode, t1_decode, hw_validate)
@@ -1128,6 +1181,8 @@ def main() -> int:
         tile._refine_truncations = refine
     cands, lanes, W, H = grabbed[0]
     got = t1_decode.t1_decode_lanes(*lanes, W, H)
+    if not torch.equal(got, t1_decode.t1_decode_lanes_v1(*lanes, W, H)):
+        _fail("K3 differs from its first design on the trial-decode lanes")
     ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
         *lanes, W, H))
     err = int((got.long() - ref.long()).abs().max())
@@ -1138,28 +1193,55 @@ def main() -> int:
           f"{err}", flush=True)
     if err:
         _fail("K3 disagrees with its plain version on the trial-decode lanes")
-    k_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
+    v1_ms, k_ms = turns_ms(
+        dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
+        lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
+    # the slowest lane alone, in both designs: v1 runs 32 lanes in one
+    # instruction stream, v2 one lane per warp
+    est = lanes[2].long() * lanes[5] * lanes[6]
+    one = (lanes[0],) + _select(lanes[1:], torch.arange(nl, device=dev)
+                                == int(torch.argmax(est)))
+    one_v1, one_v2 = turns_ms(
+        dev, lambda: t1_decode.t1_decode_lanes_v1(*one, W, H),
+        lambda: t1_decode.t1_decode_lanes(*one, W, H))
+    print(f"K3 trial decodes A1-t frame 0 diagnostic: the slowest lane alone "
+          f"(npass*w*h {int(est.max())}) v2 {one_v2:.4f} ms, v1 "
+          f"{one_v1:.4f} ms [{card}]", flush=True)
     nb = _k3_bytes(lanes, tables)
-    print(f"K3 trial decodes A1-t frame 0: 1 launch per frame, kernel "
-          f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} "
-          f"bytes), plain version {p_ms:.1f} ms [{card}]", flush=True)
+    print(f"K3 trial decodes A1-t frame 0: every lane equal to v1 bit for "
+          f"bit; 1 launch per frame, kernel {k_ms:.4f} ms, v1 {v1_ms:.4f} "
+          f"ms, in turns ({v1_ms / k_ms:.2f}x), bound "
+          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain version "
+          f"{p_ms:.1f} ms [{card}]", flush=True)
 
     # ---- 17. the tool's rate-targeted Part-1 serving check ----------------
     r = hw_validate.run_serve_mq_enc_rt(dev)
     if not r["ok"]:
         _fail("hw_validate serve_mq_enc_rt failed")
 
+    # ---- 18. the tool's K3 and K5 checks on 128 dense 64x64 blocks ---------
+    for check in ("mq_dec", "mq_enc"):
+        r = getattr(hw_validate, f"run_{check}")(dev)
+        if not r["ok"]:
+            _fail(f"hw_validate {check} failed")
+        print(f"{check}: v2 {r['ms']:.4f} ms, v1 {r['prev_ms']:.4f} ms "
+              f"({r['prev_ms'] / r['ms']:.2f}x) on the tool's "
+              f"{r['blocks']} blocks [{card}]", flush=True)
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
 
     def row(name, src, replaces, launches, k, library_ms=None):
-        return {"name": name, "route": "cuda",
-                "source": f"grok_tpu_torch/csrc/{src}", "replaces": replaces,
-                "launches": launches, "max_abs_err": k["err"],
-                "ms": k["ms"], "plain_ms": k["plain_ms"],
-                "bound_ms": k["bytes"] / HBM_BYTES_PER_S * 1e3,
-                "bound_by": "bytes", "library_ms": library_ms}
+        r = {"name": name, "route": "cuda",
+             "source": f"grok_tpu_torch/csrc/{src}", "replaces": replaces,
+             "launches": launches, "max_abs_err": k["err"],
+             "ms": k["ms"], "plain_ms": k["plain_ms"],
+             "bound_ms": k["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": library_ms}
+        if "prev_ms" in k:          # the first design's time, same lanes
+            r["prev_ms"] = k["prev_ms"]
+        return r
     print(json.dumps({"kernels": [
         row("ht_cleanup_decode", "ht_decode.cu",
             "grok_tpu/ops/pallas_ht.py:310", dec_counts["HT"]["K1"], k1),

@@ -13,24 +13,37 @@
 // below-stripe neighbours masked at stripe row 3) and SEGSYM (four UNI
 // decisions after each cleanup).  Reads past a segment's end see 0xFF
 // (MQ, C.3.4) or 0 bits (raw).  The plain PyTorch version is
-// grok_tpu_torch/ops/t1_decode.py `t1_decode_lanes_ref`; the two are
-// held identical on the card.
+// grok_tpu_torch/ops/t1_decode.py `t1_decode_lanes_ref`; the first
+// design, csrc/t1_decode_v1.cu, is kept as the full-lane oracle.  Both
+// are held identical to this kernel on the card.
 //
-// Design.  One thread decodes one code-block, pass by pass in the scalar
-// decoder's order, reading its bytes straight from the uploaded body at
-// the lane's start offset.  The MQ register state (A, C, CT, the byte
-// pointer, the segment end), the raw reader and the 19 context states
-// live in registers and local memory; the packed neighbour-flag words of
-// the lane (t1_common.cuh) are a scratch region in device memory,
-// lane-major, (h + 2) x (w + 2) words; the reconstruction accumulates in
-// the lane's output block and takes its signs at the end.  The context
-// LUT and the MQ table are copied into shared memory at block start.
-// None of the TPU kernel's staging (quad-packed byte windows, the mid
-// scratch, class-split context banks, sublane batching) is carried over.
+// Design (v2).  One warp decodes one code-block, with the lane's state
+// in the warp's slice of dynamic shared memory (csrc/t1_common.cuh): the
+// 16-bit flag words, the 19 context states and the reconstruction as
+// 16-bit words (a lane of more than 15 planes accumulates it in its
+// output block in device memory instead).  Lane 0 runs the serial chain,
+// the MQ decoder (A, C and CT in registers, renormalisation in one
+// __clz-sized shift per byte) over a register window of two 16-byte
+// __ldg chunks of the codeword, and walks the samples a pass codes; the
+// other lanes do the parallel work: they zero the state at lane start,
+// build each stripe's visit masks before the walk (one 64-bit column
+// mask per stripe row, eight ballots: csrc/t1_common.cuh
+// `t1_stripe_masks`), so a pass visits only the samples it may code,
+// clear F_VIS after each cleanup and write the signed output block,
+// coalesced, at the end (csrc/t1_warp.cuh holds the warp steps and their
+// host build).  The grid is persistent, sized from the occupancy of the
+// (W, H) workspace (twelve 64 x 64 lanes per SM): each warp takes lane
+// after lane from a device counter, in the order of a device argsort of
+// npass * w * h, longest first, so the launch ends near max(slowest
+// lane, total work / warps).
 //
-// Bound.  Serial decoding latency per block and occupancy, as for the
-// encoder (csrc/t1_encode.cu): a chain of dependent MQ decisions per
-// block and a few thousand lanes per batch.
+// Bound.  The serial MQ decision chain of each lane: a few dependent
+// shared-memory loads (flags, zero-coding context, context state) and
+// ALU steps per decision; the slowest lane of a 1920 x 1080 frame sets
+// most of the launch.  The bytes moved are about a thousand times below
+// the card's memory time.  v1's note named the same chain and occupancy
+// for its one thread per lane, whose flags and reconstruction lived in
+// device memory and whose passes scanned every sample.
 
 #include "t1_common.cuh"
 
@@ -40,15 +53,46 @@ struct MQDec {
     int rct, rbyte, rprev;    // the raw (BYPASS) reader
     const uint8_t* body;
     long long nb, start;
+    const uint8_t* wbase;     // the window: 16-byte aligned, 32 bytes
+    uint4 lo, hi;             //   [wbase, wbase + 16) and the next chunk
 };
 
-__device__ __forceinline__ int dec_byte(const MQDec& d, int i, int past)
+// The chunk after `p` into the window's prefetch slot, or zeros past the
+// body's last byte (never read: reads are clamped to the body).
+__device__ __forceinline__ uint4 win_next(const MQDec& d, const uint8_t* p)
+{
+    uint4 z = { 0u, 0u, 0u, 0u };
+    return p <= d.body + d.nb - 1 ? t1_ldg16(p) : z;
+}
+
+// Byte p of the body through the window: a read in the prefetched chunk
+// slides the window on by 16 bytes, one elsewhere re-seats it.
+__device__ __forceinline__ int win_byte(MQDec& d, const uint8_t* p)
+{
+    long long off = p - d.wbase;
+    if (off >= 16 && off < 32) {
+        d.lo = d.hi;
+        d.wbase += 16;
+        d.hi = win_next(d, d.wbase + 16);
+        off -= 16;
+    } else if (off < 0 || off >= 32) {
+        d.wbase = (const uint8_t*)((uintptr_t)p & ~(uintptr_t)15);
+        d.lo = t1_ldg16(d.wbase);
+        d.hi = win_next(d, d.wbase + 16);
+        off = p - d.wbase;
+    }
+    uint32_t wd = (off & 8) ? ((off & 4) ? d.lo.w : d.lo.z)
+                            : ((off & 4) ? d.lo.y : d.lo.x);
+    return (wd >> (8 * (off & 3))) & 0xFF;
+}
+
+__device__ __forceinline__ int dec_byte(MQDec& d, int i, int past)
 {
     if (i >= d.send)
         return past;
     long long k = d.start + i;
     k = k < 0 ? 0 : (k >= d.nb ? d.nb - 1 : k);
-    return d.body[k];
+    return win_byte(d, d.body + k);
 }
 
 // C.3.4 BYTEIN.
@@ -82,19 +126,20 @@ __device__ __forceinline__ void mq_initdec(MQDec& d)
     d.ct -= 7;
 }
 
-// C.3.2 DECODE in context cx, with C.3.3 RENORMD.
-__device__ __forceinline__ int mq_decode(MQDec& d, uint8_t* ctx,
+// C.3.2 DECODE in context cx, with C.3.3 RENORMD: the shifts that bring
+// A's bit 15 up, taken up to CT at a time with a BYTEIN wherever CT
+// reaches 0 before a shift, as the one-bit loop takes them.
+__device__ __forceinline__ int mq_decode(MQDec& d, uint32_t* ctx,
                                          const uint32_t* mqt, int cx)
 {
-    uint8_t s = ctx[cx];
-    uint32_t row = mqt[s >> 1];
-    uint32_t qe = row & 0xFFFF;
-    int mps = s & 1, bit;
+    uint32_t s = ctx[cx];
+    uint32_t qe = s & 0xFFFF;
+    int mps = s >> 31, bit;
     d.a -= qe;
     if ((d.c >> 16) < qe) {               // LPS exchange
         bool m = d.a < qe;
         bit = m ? mps : 1 - mps;
-        ctx[cx] = t1_next_state(row, s, m);
+        ctx[cx] = t1_next_state(mqt, s, m);
         d.a = qe;
     } else {
         d.c -= qe << 16;
@@ -102,15 +147,18 @@ __device__ __forceinline__ int mq_decode(MQDec& d, uint8_t* ctx,
             return mps;
         bool m = d.a >= qe;
         bit = m ? mps : 1 - mps;
-        ctx[cx] = t1_next_state(row, s, m);
+        ctx[cx] = t1_next_state(mqt, s, m);
     }
+    int n = t1_clz(d.a) - 16;
     do {
         if (d.ct == 0)
             mq_bytein(d);
-        d.a = (d.a << 1) & 0xFFFF;
-        d.c <<= 1;
-        d.ct -= 1;
-    } while (!(d.a & 0x8000));
+        int k = min(n, d.ct);
+        d.a <<= k;
+        d.c <<= k;
+        d.ct -= k;
+        n -= k;
+    } while (n > 0);
     return bit;
 }
 
@@ -128,28 +176,74 @@ __device__ __forceinline__ int raw_bit(MQDec& d)
     return (d.rbyte >> d.rct) & 1;
 }
 
-__device__ void decode_lane(const T1Tables& t, MQDec& d, int npass,
-                            int nbps, int orient, int w, int h, int style,
-                            const int* ptbl, int P, int* fl, int* out,
-                            int W, int H)
+// The reconstruction of a lane of up to T1_SHARED_PLANES planes: 16-bit
+// words in the warp's workspace, row stride w (mag2 < 2^16).
+struct RecShared {
+    uint16_t* r;
+    int w;
+    __device__ __forceinline__ int get(int y, int x) const
+    {
+        return r[y * w + x];
+    }
+    __device__ __forceinline__ void set(int y, int x, int v) const
+    {
+        r[y * w + x] = (uint16_t)v;
+    }
+    __device__ __forceinline__ void add(int y, int x, int v) const
+    {
+        r[y * w + x] = (uint16_t)(r[y * w + x] + v);
+    }
+};
+
+// The reconstruction of a lane of more planes: the lane's output block
+// in device memory, row stride W, signed in place at the end.
+struct RecGlobal {
+    int* o;
+    int W;
+    __device__ __forceinline__ int get(int y, int x) const
+    {
+        return o[y * W + x];
+    }
+    __device__ __forceinline__ void set(int y, int x, int v) const
+    {
+        o[y * W + x] = v;
+    }
+    __device__ __forceinline__ void add(int y, int x, int v) const
+    {
+        o[y * W + x] += v;
+    }
+};
+
+// One code-block, run by the whole warp; ws is the warp's workspace
+// (t1_lane_bytes(W, H, false)), rec the lane's reconstruction, out the
+// lane's H x W output block.
+template <class Rec>
+__device__ void decode_lane(const T1Tables& t, unsigned char* ws,
+                            MQDec& d, const Rec& rec, int npass, int nbps,
+                            int orient, int w, int h, int style,
+                            const int* ptbl, int P, int* out, int W, int H)
 {
-    const int s = w + 2;
+    uint32_t* ctx = reinterpret_cast<uint32_t*>(ws);
+    uint16_t* fl = reinterpret_cast<uint16_t*>(
+        ws + T1_CTX_BYTES + t1_samples_bytes(W, H));
+    const int s = w + 2, nfl = (h + 2) * s;
     const uint8_t* zc = t.lut + (orient << 8);
     const uint8_t* sc = t.lut + 1024;
     const bool vsc = style & 0x08, reset = style & 0x02,
                segsym = style & 0x20;
-    for (int i = 0; i < (h + 2) * s; i++)
-        fl[i] = 0;
-    for (int i = 0; i < H * W; i++)
-        out[i] = 0;
-    uint8_t ctx[T1_N_CTX];
-    t1_reset_ctx(ctx);
+    t1_lane_init(fl, nfl, ctx, t.mq);
+    warp_for(h * w, [&](int i) {
+        const int y = i / w;
+        rec.set(y, i - y * w, 0);
+    });
     d.a = 0x8000;
     d.c = 0;
     d.ct = 0;
     d.bp = 0;
     d.send = 0;
     d.rct = d.rbyte = d.rprev = 0;
+    d.wbase = d.body - 64;             // an empty window
+    warp_sync();
 
     // the flag word of (y, x), below-stripe bits masked under VSC
     auto flags = [&](int y, int x) {
@@ -165,8 +259,8 @@ __device__ void decode_lane(const T1Tables& t, MQDec& d, int npass,
             int v = sc[f & 0xFFF];
             neg = mq_decode(d, ctx, t.mq, v & 15) ^ (v >> 4);
         }
-        t1_mark_sig(fl, s, y, x, neg);
-        out[y * W + x] = 3 << bpl;
+        t1_mark_sig(fl, s, y, x, neg, F_SIG | (neg ? F_NEG : 0));
+        rec.set(y, x, 3 << bpl);
     };
 
     const int last = min(npass, 3 * nbps - 2);
@@ -175,11 +269,10 @@ __device__ void decode_lane(const T1Tables& t, MQDec& d, int npass,
         const int ptype = pno == 0 ? 2 : (pno + 2) % 3;   // 0 SPP 1 MRP 2 CLN
         const int bpl = nbps - 1 - k;
         // open the pass: the segment table's row, RESET
-        bool raw = false;
-        if (pno < P) {
-            const int* row = ptbl + 3 * pno;
-            raw = row[2] != 0;
-            if (row[0] >= 0) {
+        const int* row = ptbl + 3 * pno;
+        const bool raw = pno < P && row[2] != 0;
+        if (warp_leader()) {
+            if (pno < P && row[0] >= 0) {
                 d.send = row[1];
                 d.bp = row[0];
                 if (raw) {
@@ -189,90 +282,111 @@ __device__ void decode_lane(const T1Tables& t, MQDec& d, int npass,
                     mq_initdec(d);
                 }
             }
+            if (reset && !raw)
+                t1_reset_ctx(ctx, t.mq);
         }
-        if (reset && !raw)
-            t1_reset_ctx(ctx);
 
-        if (ptype == 0) {                                      // SPP
-            for (int y0 = 0; y0 < h; y0 += 4)
-                for (int x = 0; x < w; x++)
-                    for (int y = y0; y < min(y0 + 4, h); y++) {
-                        int f = flags(y, x);
-                        if ((f & (F_SIG | F_VIS)) || !(f & 0xFF))
-                            continue;
-                        int bit = raw ? raw_bit(d)
-                            : mq_decode(d, ctx, t.mq, zc[f & 0xFF]);
-                        if (bit)
-                            sign(y, x, f, raw, bpl);
-                        fl[(y + 1) * s + x + 1] |= F_VIS;
-                    }
-        } else if (ptype == 1) {                               // MRP
-            for (int y0 = 0; y0 < h; y0 += 4)
-                for (int x = 0; x < w; x++)
-                    for (int y = y0; y < min(y0 + 4, h); y++) {
-                        int f = flags(y, x);
-                        if (!(f & F_SIG) || (f & F_VIS))
-                            continue;
-                        int bit = raw ? raw_bit(d)
-                            : mq_decode(d, ctx, t.mq, t1_mr_ctx(f));
-                        out[y * W + x] += (bit << (bpl + 1))
-                            - (1 << (bpl + 1)) + (1 << bpl);
-                        fl[(y + 1) * s + x + 1] |= F_MU;
-                    }
-        } else {                                               // CLN
-            for (int y0 = 0; y0 < h; y0 += 4) {
-                for (int x = 0; x < w; x++) {
-                    int y = y0;
-                    if (y0 + 4 <= h
-                            && !((flags(y0, x) | flags(y0 + 1, x)
-                                  | flags(y0 + 2, x) | flags(y0 + 3, x))
-                                 & (0xFF | F_SIG | F_VIS))) {
-                        if (!mq_decode(d, ctx, t.mq, T1_CTX_RL))
-                            continue;
-                        int r = mq_decode(d, ctx, t.mq, T1_CTX_UNI) << 1;
-                        r |= mq_decode(d, ctx, t.mq, T1_CTX_UNI);
-                        sign(y0 + r, x, flags(y0 + r, x), false, bpl);
-                        y = y0 + r + 1;
-                    }
-                    for (; y < min(y0 + 4, h); y++) {
-                        int f = flags(y, x);
-                        if (f & (F_SIG | F_VIS))
-                            continue;
-                        if (mq_decode(d, ctx, t.mq, zc[f & 0xFF]))
-                            sign(y, x, f, false, bpl);
+        for (int y0 = 0; y0 < h; y0 += 4) {
+            const int y1 = min(y0 + 4, h), nr = y1 - y0;
+            const T1Nibbles m = ptype == 0
+                ? t1_stripe_masks<0>(fl, s, w, y0, y1)
+                : ptype == 1 ? t1_stripe_masks<1>(fl, s, w, y0, y1)
+                : t1_stripe_masks<2>(fl, s, w, y0, y1);
+            if (warp_leader()) {
+                uint64_t cols = t1_columns(m);
+                int carry = 0;          // SPP: rows added to the next column
+                while (cols) {
+                    const int x = t1_ffs64(cols) - 1;
+                    cols &= cols - 1;
+                    int nib = t1_nibble(m, x) | carry;
+                    carry = 0;
+                    if (ptype == 0) {                          // SPP
+                        for (int dy = 0; dy < nr; dy++) {
+                            if (!((nib >> dy) & 1))
+                                continue;
+                            const int y = y0 + dy;
+                            int f = flags(y, x);
+                            if ((f & (F_SIG | F_VIS)) || !(f & 0xFF))
+                                continue;
+                            int bit = raw ? raw_bit(d)
+                                : mq_decode(d, ctx, t.mq, zc[f & 0xFF]);
+                            if (bit) {
+                                sign(y, x, f, raw, bpl);
+                                nib |= 2 << dy;
+                                carry |= (7 << dy) >> 1;
+                            }
+                            fl[(y + 1) * s + x + 1] |= F_VIS;
+                        }
+                        carry &= (1 << nr) - 1;
+                        if (carry && x + 1 < w)
+                            cols |= (uint64_t)1 << (x + 1);
+                    } else if (ptype == 1) {                   // MRP
+                        for (int dy = 0; dy < nr; dy++) {
+                            if (!((nib >> dy) & 1))
+                                continue;
+                            const int y = y0 + dy;
+                            int bit = raw ? raw_bit(d)
+                                : mq_decode(d, ctx, t.mq,
+                                            t1_mr_ctx(flags(y, x)));
+                            rec.add(y, x, (bit << (bpl + 1))
+                                    - (1 << (bpl + 1)) + (1 << bpl));
+                            fl[(y + 1) * s + x + 1] |= F_MU;
+                        }
+                    } else {                                   // CLN
+                        int dy = 0;
+                        if (nib == 0xF
+                                && !((flags(y0, x) | flags(y0 + 1, x)
+                                      | flags(y0 + 2, x) | flags(y0 + 3, x))
+                                     & 0xFF)) {
+                            if (!mq_decode(d, ctx, t.mq, T1_CTX_RL))
+                                continue;
+                            int r = mq_decode(d, ctx, t.mq, T1_CTX_UNI) << 1;
+                            r |= mq_decode(d, ctx, t.mq, T1_CTX_UNI);
+                            sign(y0 + r, x, flags(y0 + r, x), false, bpl);
+                            dy = r + 1;
+                        }
+                        for (; dy < nr; dy++) {
+                            if (!((nib >> dy) & 1))
+                                continue;
+                            const int y = y0 + dy;
+                            int f = flags(y, x);
+                            if (mq_decode(d, ctx, t.mq, zc[f & 0xFF]))
+                                sign(y, x, f, false, bpl);
+                        }
                     }
                 }
             }
-            if (segsym)
+            warp_sync();
+        }
+        if (ptype == 2) {
+            if (segsym && warp_leader())
                 for (int i = 0; i < 4; i++)
                     mq_decode(d, ctx, t.mq, T1_CTX_UNI);
-            for (int y = 1; y <= h; y++)
-                for (int x = 1; x <= w; x++)
-                    fl[y * s + x] &= ~F_VIS;
+            t1_clear_vis(fl, nfl);
+            warp_sync();
         }
     }
-    for (int y = 0; y < h; y++)
-        for (int x = 0; x < w; x++)
+    warp_for(H * W, [&](int i) {
+        const int y = i / W, x = i - y * W;
+        int v = 0;
+        if (y < h && x < w) {
+            v = rec.get(y, x);
             if (fl[(y + 1) * s + x + 1] & F_NEG)
-                out[y * W + x] = -out[y * W + x];
+                v = -v;
+        }
+        out[i] = v;
+    });
+    warp_sync();
 }
 
-__global__ void __launch_bounds__(32)
-t1_decode_kernel(const uint8_t* __restrict__ body, long long nb,
-                 const int* __restrict__ start, const int* __restrict__ npv,
-                 const int* __restrict__ nbv, const int* __restrict__ ori,
-                 const int* __restrict__ wv, const int* __restrict__ hv,
-                 const int* __restrict__ stv, const int* __restrict__ ptbl,
-                 int P, const uint8_t* __restrict__ lut,
-                 const uint32_t* __restrict__ mqt, int* __restrict__ out,
-                 int* __restrict__ flags, int nl, int W, int H)
+// Lane `lane` of the batch through decode_lane: its parameters clamped
+// as the contract says, then the whole warp decodes it.
+__device__ __forceinline__ void decode_one(
+    const T1Tables& t, unsigned char* ws, int lane, const uint8_t* body,
+    long long nb, const int* start, const int* npv, const int* nbv,
+    const int* ori, const int* wv, const int* hv, const int* stv,
+    const int* ptbl, int P, int* out, int W, int H)
 {
-    __shared__ T1Tables t;
-    t1_load_tables(t, lut, mqt);
-    __syncthreads();
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= nl)
-        return;
     int nbps = nbv[lane];
     if (nbps < 0 || nbps > 30)
         nbps = 0;                     // outside the contract: zeros
@@ -280,11 +394,50 @@ t1_decode_kernel(const uint8_t* __restrict__ body, long long nb,
     d.body = body;
     d.nb = nb;
     d.start = start[lane];
-    decode_lane(t, d, npv[lane], nbps, ori[lane] & 3,
-                max(min(wv[lane], W), 1), max(min(hv[lane], H), 1),
-                stv[lane], ptbl + (size_t)lane * P * 3, P,
-                flags + (size_t)lane * (W + 2) * (H + 2),
-                out + (size_t)lane * W * H, W, H);
+    const int w = max(min(wv[lane], W), 1), h = max(min(hv[lane], H), 1);
+    int* o = out + (size_t)lane * W * H;
+    if (nbps <= T1_SHARED_PLANES)
+        decode_lane(t, ws, d, RecShared{ (uint16_t*)(ws + T1_CTX_BYTES), w },
+                    npv[lane], nbps, ori[lane] & 3, w, h, stv[lane],
+                    ptbl + (size_t)lane * P * 3, P, o, W, H);
+    else
+        decode_lane(t, ws, d, RecGlobal{ o, W }, npv[lane], nbps,
+                    ori[lane] & 3, w, h, stv[lane],
+                    ptbl + (size_t)lane * P * 3, P, o, W, H);
+}
+
+#ifdef __CUDACC__
+
+// The minimum of two blocks per SM (the workspace of 64 x 64 lanes fits
+// three) lets ptxas give the lane's serial chain the registers it needs:
+// without it the build capped the kernel at 64 registers and spilled.
+__global__ void __launch_bounds__(T1_WARPS * 32, 2)
+t1_decode_kernel(const uint8_t* __restrict__ body, long long nb,
+                 const int* __restrict__ start, const int* __restrict__ npv,
+                 const int* __restrict__ nbv, const int* __restrict__ ori,
+                 const int* __restrict__ wv, const int* __restrict__ hv,
+                 const int* __restrict__ stv, const int* __restrict__ ptbl,
+                 int P, const uint8_t* __restrict__ lut,
+                 const uint32_t* __restrict__ mqt, int* __restrict__ out,
+                 const int* __restrict__ order, int* __restrict__ counter,
+                 int nl, int W, int H)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    T1Tables& t = *reinterpret_cast<T1Tables*>(smem);
+    t1_load_tables(t, lut, mqt);
+    __syncthreads();
+    unsigned char* ws = smem + T1_TABLES_BYTES
+        + (threadIdx.x >> 5) * t1_lane_bytes(W, H, false);
+    for (;;) {
+        int q = 0;
+        if (warp_leader())
+            q = atomicAdd(counter, 1);
+        q = __shfl_sync(T1_FULL_MASK, q, 0);
+        if (q >= nl)
+            break;
+        decode_one(t, ws, order[q], body, nb, start, npv, nbv, ori, wv, hv,
+                   stv, ptbl, P, out, W, H);
+    }
 }
 
 extern "C" int grk_t1_decode(const void* body, long long nb,
@@ -293,17 +446,35 @@ extern "C" int grk_t1_decode(const void* body, long long nb,
                              const void* w, const void* h,
                              const void* style, const void* ptbl, int P,
                              const void* lut, const void* mqt, void* out,
-                             void* flags, int nl, int W, int H,
-                             void* stream)
+                             const void* order, void* counter, int nl,
+                             int W, int H, void* stream)
 {
     if (nl <= 0)
         return 0;
-    const int threads = 32;           // one warp a block: spread the lanes over the SMs
-    int blocks = (nl + threads - 1) / threads;
-    t1_decode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int threads = T1_WARPS * 32;
+    const int smem = (int)T1_TABLES_BYTES
+        + T1_WARPS * t1_lane_bytes(W, H, false);
+    cudaError_t err = cudaFuncSetAttribute(
+        t1_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess)
+        return (int)err;
+    int dev = 0, nsm = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, t1_decode_kernel, threads, smem);
+    if (err != cudaSuccess)
+        return (int)err;
+    if (per_sm < 1)
+        return (int)cudaErrorInvalidConfiguration;
+    const int blocks = min(nsm * per_sm, (nl + T1_WARPS - 1) / T1_WARPS);
+    t1_decode_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         (const uint8_t*)body, nb, (const int*)start, (const int*)npass,
         (const int*)nbps, (const int*)orient, (const int*)w, (const int*)h,
         (const int*)style, (const int*)ptbl, P, (const uint8_t*)lut,
-        (const uint32_t*)mqt, (int*)out, (int*)flags, nl, W, H);
+        (const uint32_t*)mqt, (int*)out, (const int*)order, (int*)counter,
+        nl, W, H);
     return (int)cudaGetLastError();
 }
+
+#endif

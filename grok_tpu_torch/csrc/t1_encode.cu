@@ -11,27 +11,36 @@
 // One extension: each lane codes exactly its w x h samples (the TPU
 // kernel takes exact-shape batches only), so edge blocks of any size
 // share the launch.  The plain PyTorch version is grok_tpu_torch/ops/
-// t1_encode.py `t1_encode_lanes_ref`; the two are held identical on the
-// card.
+// t1_encode.py `t1_encode_lanes_ref`; the first design, csrc/
+// t1_encode_v1.cu, is kept as the full-lane oracle.  Both are held
+// identical to this kernel on the card.
 //
-// Design.  One thread codes one code-block, pass by pass in the scalar
-// coder's order.  The MQ register state (A, C, CT, the byte pointer and
-// the byte B that a carry can still change) and the 19 context states
-// live in registers and local memory; B goes to the lane's output row
-// when the pointer moves on, so every byte is stored once.  The packed
-// neighbour-flag words of the lane (t1_common.cuh) are a scratch region
-// in device memory, lane-major, (h + 2) x (w + 2) words; the flag word
-// also carries the sample's significance type, stored once at the end.
-// The context LUT and the MQ table are copied into shared memory at
-// block start.  None of the TPU kernel's staging (the quad-packed 64-byte
-// window, the mid scratch, lockstep lanes and one-hot selects) is carried
-// over.
+// Design (v2).  One warp codes one code-block, with the lane's state in
+// the warp's slice of dynamic shared memory (csrc/t1_common.cuh): the
+// 16-bit flag words (bit 15, F_CLN, marks a sample that became
+// significant in a cleanup pass: the sigtype map), the 19 context
+// states, the lane's input samples as 16-bit words (a lane of more than
+// 15 planes reads them from device memory) and the watermark rows.
+// Lane 0 runs the serial chain, the MQ coder (A, C, CT and the byte B
+// that a carry can still change in registers, renormalisation in one
+// __clz-sized shift per byte out, each codeword byte stored once when
+// the pointer moves on), and walks the samples a pass codes; the other
+// lanes zero the state and load the samples at lane start, build each
+// stripe's visit masks before the walk (one 64-bit column mask per
+// stripe row, eight ballots: csrc/t1_common.cuh `t1_stripe_masks`),
+// clear F_VIS after each cleanup, and write the watermark rows and the
+// sigtype map, coalesced, at the end.  The grid is persistent, sized
+// from the occupancy of the (W, H) workspace (twelve 64 x 64 lanes per
+// SM): each warp takes lane after lane from a device counter, in the
+// order of a device argsort of nbps * w * h, longest first.
 //
-// Bound.  Serial coding latency per block and occupancy: the work is a
-// chain of a few decisions per sample and bitplane, each dependent on
-// the one before, and a batch has a few thousand lanes, so the card is
-// far from its memory rate.  Making it fast (a warp per code-block, flags in
-// shared memory) is later work.
+// Bound.  The serial MQ coding chain of each lane (a few decisions per
+// sample and bitplane, each dependent on the one before) and, for
+// many-lane launches, the spread of work over the resident warps; the
+// bytes moved are hundreds of times below the card's memory time.  v1's
+// note named the same chain and occupancy for its one thread per lane,
+// whose flags lived in device memory and whose passes scanned every
+// sample.
 
 #include "t1_common.cuh"
 
@@ -76,16 +85,17 @@ __device__ __forceinline__ void mq_byteout(MQEnc& e)
     }
 }
 
-// C.2.5 ENCODE of decision d in context cx, with C.2.8 RENORME.
-__device__ __forceinline__ void mq_encode(MQEnc& e, uint8_t* ctx,
+// C.2.5 ENCODE of decision d in context cx, with C.2.8 RENORME: the
+// shifts that bring A's bit 15 up, taken up to CT at a time with a
+// BYTEOUT wherever CT reaches 0, as the one-bit loop takes them.
+__device__ __forceinline__ void mq_encode(MQEnc& e, uint32_t* ctx,
                                           const uint32_t* mqt, int d,
                                           int cx)
 {
-    uint8_t s = ctx[cx];
-    uint32_t row = mqt[s >> 1];
-    uint32_t qe = row & 0xFFFF;
+    uint32_t s = ctx[cx];
+    uint32_t qe = s & 0xFFFF;
     e.a -= qe;
-    if (d == (s & 1)) {
+    if (d == (int)(s >> 31)) {
         if (e.a & 0x8000) {
             e.c += qe;
             return;
@@ -94,20 +104,24 @@ __device__ __forceinline__ void mq_encode(MQEnc& e, uint8_t* ctx,
             e.a = qe;
         else
             e.c += qe;
-        ctx[cx] = t1_next_state(row, s, true);
+        ctx[cx] = t1_next_state(mqt, s, true);
     } else {
         if (e.a < qe)
             e.c += qe;
         else
             e.a = qe;
-        ctx[cx] = t1_next_state(row, s, false);
+        ctx[cx] = t1_next_state(mqt, s, false);
     }
+    int n = t1_clz(e.a) - 16;
     do {
-        e.a = (e.a << 1) & 0xFFFF;
-        e.c = (e.c << 1) & 0xFFFFFFFu;
-        if (--e.ct == 0)
+        int k = min(n, e.ct);
+        e.a <<= k;
+        e.c = (e.c << k) & 0xFFFFFFFu;
+        e.ct -= k;
+        n -= k;
+        if (e.ct == 0)
             mq_byteout(e);
-    } while (!(e.a & 0x8000));
+    } while (n > 0);
 }
 
 // C.2.9 FLUSH; returns the codeword length (-1 past the capacity).
@@ -126,135 +140,234 @@ __device__ __forceinline__ int mq_flush(MQEnc& e)
     return e.ovf ? -1 : max(bp - 1, 0);
 }
 
-__device__ void encode_lane(const T1Tables& t, const int* blk, int W,
-                            int w, int h, int orient, int nbps, int* fl,
-                            uint8_t* out, int L, int* len_out, int* rates,
-                            int R, int8_t* sigtype, int H)
+// The input samples mneg of a lane of up to T1_SHARED_PLANES planes:
+// 16-bit words in the warp's workspace, row stride w, loaded by the warp
+// at lane start.
+struct MagShared {
+    uint16_t* m;
+    int w;
+    __device__ __forceinline__ uint32_t get(int y, int x) const
+    {
+        return m[y * w + x];
+    }
+};
+
+// The input samples of a lane of more planes, read where they lie in
+// device memory, row stride W.
+struct MagGlobal {
+    const int* blk;
+    int W;
+    __device__ __forceinline__ uint32_t get(int y, int x) const
+    {
+        return (uint32_t)blk[y * W + x];
+    }
+};
+
+// One code-block, run by the whole warp; ws is the warp's workspace
+// (t1_lane_bytes(W, H, true)), blk the lane's H x W input block, mag the
+// lane's samples (MagShared: loaded here from blk).
+template <class Mag>
+__device__ void encode_lane(const T1Tables& t, unsigned char* ws,
+                            const Mag& mag, const int* blk, int W, int w,
+                            int h, int orient, int nbps, uint8_t* out,
+                            int L, int* len_out, int* rates, int R,
+                            int8_t* sigtype, int H)
 {
-    const int s = w + 2;
+    uint32_t* ctx = reinterpret_cast<uint32_t*>(ws);
+    uint16_t* fl = reinterpret_cast<uint16_t*>(
+        ws + T1_CTX_BYTES + t1_samples_bytes(W, H));
+    int* wm = reinterpret_cast<int*>(
+        ws + t1_lane_bytes(W, H, false));        // the watermark rows
+    const int s = w + 2, nfl = (h + 2) * s;
     const uint8_t* zc = t.lut + (orient << 8);
     const uint8_t* sc = t.lut + 1024;
-    for (int i = 0; i < (h + 2) * s; i++)
-        fl[i] = 0;
-    uint8_t ctx[T1_N_CTX];
-    t1_reset_ctx(ctx);
+    t1_lane_init(fl, nfl, ctx, t.mq);
+    uint16_t* m16 = reinterpret_cast<uint16_t*>(ws + T1_CTX_BYTES);
+    if (nbps <= T1_SHARED_PLANES)
+        warp_for(h * w, [&](int i) {
+            const int y = i / w;
+            m16[i] = (uint16_t)blk[y * W + i - y * w];
+        });
+    warp_for(T1_RATE_ROWS, [&](int i) { wm[i] = 0; });
     MQEnc e = { 0x8000u, 0u, 12, 0, 0u, false, out, L };
+    warp_sync();
 
-    // sign coding and the significance of sample (y, x), flag word *f
-    auto code_sign = [&](int y, int x, int* f, int neg, int stype) {
-        int v = sc[*f & 0xFFF];
+    // sign coding and the significance of sample (y, x), flag word f
+    auto code_sign = [&](int y, int x, int f, uint32_t m, bool cln) {
+        int v = sc[f & 0xFFF];
+        int neg = m & 1;
         mq_encode(e, ctx, t.mq, neg ^ (v >> 4), v & 15);
-        t1_mark_sig(fl, s, y, x, neg);
-        *f |= stype << F_ST_SHIFT;
+        t1_mark_sig(fl, s, y, x, neg, F_SIG | (cln ? F_CLN : 0));
     };
     auto record = [&](int pno) {
-        if (pno >= 0 && pno < R)
-            rates[pno] = e.bp + 5;
+        if (warp_leader() && pno >= 0 && pno < R)
+            wm[pno] = e.bp + 5;
     };
 
     for (int k = 0; k < nbps; k++) {
         const int bpl = nbps - 1 - k;
-        if (k >= 1) {
-            for (int y0 = 0; y0 < h; y0 += 4)                  // SPP
-                for (int x = 0; x < w; x++)
-                    for (int y = y0; y < min(y0 + 4, h); y++) {
-                        int* f = fl + (y + 1) * s + x + 1;
-                        if ((*f & (F_SIG | F_VIS)) || !(*f & 0xFF))
-                            continue;
-                        int m = blk[y * W + x];
-                        int bit = (m >> (bpl + 1)) & 1;
-                        mq_encode(e, ctx, t.mq, bit, zc[*f & 0xFF]);
-                        if (bit)
-                            code_sign(y, x, f, m & 1, 1);
-                        *f |= F_VIS;
+        for (int ptype = k >= 1 ? 0 : 2; ptype < 3; ptype++) {
+            for (int y0 = 0; y0 < h; y0 += 4) {
+                const int y1 = min(y0 + 4, h), nr = y1 - y0;
+                const T1Nibbles m = ptype == 0
+                    ? t1_stripe_masks<0>(fl, s, w, y0, y1)
+                    : ptype == 1 ? t1_stripe_masks<1>(fl, s, w, y0, y1)
+                    : t1_stripe_masks<2>(fl, s, w, y0, y1);
+                if (warp_leader()) {
+                    uint64_t cols = t1_columns(m);
+                    int carry = 0;      // SPP: rows added to the next column
+                    while (cols) {
+                        const int x = t1_ffs64(cols) - 1;
+                        cols &= cols - 1;
+                        int nib = t1_nibble(m, x) | carry;
+                        carry = 0;
+                        if (ptype == 0) {                      // SPP
+                            for (int dy = 0; dy < nr; dy++) {
+                                if (!((nib >> dy) & 1))
+                                    continue;
+                                const int y = y0 + dy;
+                                uint16_t* f = fl + (y + 1) * s + x + 1;
+                                const int fv = *f;
+                                if ((fv & (F_SIG | F_VIS)) || !(fv & 0xFF))
+                                    continue;
+                                const uint32_t mm = mag.get(y, x);
+                                const int bit = (mm >> (bpl + 1)) & 1;
+                                mq_encode(e, ctx, t.mq, bit, zc[fv & 0xFF]);
+                                if (bit) {
+                                    code_sign(y, x, fv, mm, false);
+                                    nib |= 2 << dy;
+                                    carry |= (7 << dy) >> 1;
+                                }
+                                *f |= F_VIS;
+                            }
+                            carry &= (1 << nr) - 1;
+                            if (carry && x + 1 < w)
+                                cols |= (uint64_t)1 << (x + 1);
+                        } else if (ptype == 1) {               // MRP
+                            for (int dy = 0; dy < nr; dy++) {
+                                if (!((nib >> dy) & 1))
+                                    continue;
+                                const int y = y0 + dy;
+                                uint16_t* f = fl + (y + 1) * s + x + 1;
+                                const int bit = (mag.get(y, x) >> (bpl + 1))
+                                    & 1;
+                                mq_encode(e, ctx, t.mq, bit, t1_mr_ctx(*f));
+                                *f |= F_MU;
+                            }
+                        } else {                               // CLN
+                            int dy = 0;
+                            const uint16_t* f0 = fl + (y0 + 1) * s + x + 1;
+                            if (nib == 0xF && !((f0[0] | f0[s] | f0[2 * s]
+                                                 | f0[3 * s]) & 0xFF)) {
+                                int r = -1;
+                                for (int k4 = 3; k4 >= 0; k4--)
+                                    if ((mag.get(y0 + k4, x) >> (bpl + 1))
+                                            & 1)
+                                        r = k4;
+                                mq_encode(e, ctx, t.mq, r >= 0, T1_CTX_RL);
+                                if (r < 0)
+                                    continue;
+                                mq_encode(e, ctx, t.mq, r >> 1, T1_CTX_UNI);
+                                mq_encode(e, ctx, t.mq, r & 1, T1_CTX_UNI);
+                                code_sign(y0 + r, x, f0[r * s],
+                                          mag.get(y0 + r, x), true);
+                                dy = r + 1;
+                            }
+                            for (; dy < nr; dy++) {
+                                if (!((nib >> dy) & 1))
+                                    continue;
+                                const int y = y0 + dy;
+                                const int fv = fl[(y + 1) * s + x + 1];
+                                const uint32_t mm = mag.get(y, x);
+                                const int bit = (mm >> (bpl + 1)) & 1;
+                                mq_encode(e, ctx, t.mq, bit, zc[fv & 0xFF]);
+                                if (bit)
+                                    code_sign(y, x, fv, mm, true);
+                            }
+                        }
                     }
-            record(3 * k - 2);
-            for (int y0 = 0; y0 < h; y0 += 4)                  // MRP
-                for (int x = 0; x < w; x++)
-                    for (int y = y0; y < min(y0 + 4, h); y++) {
-                        int* f = fl + (y + 1) * s + x + 1;
-                        if (!(*f & F_SIG) || (*f & F_VIS))
-                            continue;
-                        int bit = (blk[y * W + x] >> (bpl + 1)) & 1;
-                        mq_encode(e, ctx, t.mq, bit, t1_mr_ctx(*f));
-                        *f |= F_MU;
-                    }
-            record(3 * k - 1);
-        }
-        for (int y0 = 0; y0 < h; y0 += 4) {                    // CLN
-            for (int x = 0; x < w; x++) {
-                int y = y0;
-                int* f0 = fl + (y0 + 1) * s + x + 1;
-                if (y0 + 4 <= h
-                        && !((f0[0] | f0[s] | f0[2 * s] | f0[3 * s])
-                             & (0xFF | F_SIG | F_VIS))) {
-                    int r = -1;
-                    for (int dy = 3; dy >= 0; dy--)
-                        if ((blk[(y0 + dy) * W + x] >> (bpl + 1)) & 1)
-                            r = dy;
-                    mq_encode(e, ctx, t.mq, r >= 0, T1_CTX_RL);
-                    if (r < 0)
-                        continue;
-                    mq_encode(e, ctx, t.mq, r >> 1, T1_CTX_UNI);
-                    mq_encode(e, ctx, t.mq, r & 1, T1_CTX_UNI);
-                    code_sign(y0 + r, x, f0 + r * s,
-                              blk[(y0 + r) * W + x] & 1, 2);
-                    y = y0 + r + 1;
                 }
-                for (; y < min(y0 + 4, h); y++) {
-                    int* f = fl + (y + 1) * s + x + 1;
-                    if (*f & (F_SIG | F_VIS))
-                        continue;
-                    int m = blk[y * W + x];
-                    int bit = (m >> (bpl + 1)) & 1;
-                    mq_encode(e, ctx, t.mq, bit, zc[*f & 0xFF]);
-                    if (bit)
-                        code_sign(y, x, f, m & 1, 2);
-                }
+                warp_sync();
             }
+            record(ptype == 2 ? 3 * k : 3 * k - 2 + ptype);
         }
-        record(3 * k);
-        for (int y = 1; y <= h; y++)
-            for (int x = 1; x <= w; x++)
-                fl[y * s + x] &= ~F_VIS;
+        t1_clear_vis(fl, nfl);
+        warp_sync();
     }
-    // rows a lane does not reach, the sigtype map and the flush
-    for (int r = nbps > 0 ? 3 * nbps - 2 : 0; r < R; r++)
-        rates[r] = 0;
-    for (int y = 0; y < H; y++)
-        for (int x = 0; x < W; x++)
-            sigtype[y * W + x] = (y < h && x < w)
-                ? (int8_t)(fl[(y + 1) * s + x + 1] >> F_ST_SHIFT) : 0;
-    if (nbps > 0) {
-        *len_out = mq_flush(e);
-    } else {
-        mq_put(e);                    // the sentinel alone
-        *len_out = e.ovf ? -1 : 0;
+    // the watermark rows (those a lane does not reach stay 0), the
+    // sigtype map and the flush
+    warp_sync();
+    warp_for(R, [&](int r) { rates[r] = r < T1_RATE_ROWS ? wm[r] : 0; });
+    warp_for(H * W, [&](int i) {
+        const int y = i / W, x = i - y * W;
+        int8_t v = 0;
+        const int f = y < h && x < w ? fl[(y + 1) * s + x + 1] : 0;
+        if (f & F_SIG)
+            v = (f & F_CLN) ? 2 : 1;
+        sigtype[i] = v;
+    });
+    if (warp_leader()) {
+        if (nbps > 0) {
+            *len_out = mq_flush(e);
+        } else {
+            mq_put(e);                // the sentinel alone
+            *len_out = e.ovf ? -1 : 0;
+        }
     }
+    warp_sync();
 }
 
-__global__ void __launch_bounds__(32)
+// Lane `lane` of the batch through encode_lane: its parameters clamped
+// as the contract says, then the whole warp codes it.
+__device__ __forceinline__ void encode_one(
+    const T1Tables& t, unsigned char* ws, int lane, const int* mneg,
+    const int* ori, const int* nbv, const int* wv, const int* hv,
+    uint8_t* out, int L, int* lengths, int* rates, int R, int8_t* sigtype,
+    int W, int H)
+{
+    int w = max(min(wv[lane], W), 1), h = max(min(hv[lane], H), 1);
+    int nb = min(max(nbv[lane], 0), 30);
+    const int* blk = mneg + (size_t)lane * W * H;
+    if (nb <= T1_SHARED_PLANES)
+        encode_lane(t, ws, MagShared{ (uint16_t*)(ws + T1_CTX_BYTES), w },
+                    blk, W, w, h, ori[lane] & 3, nb, out + (size_t)lane * L,
+                    L, lengths + lane, rates + (size_t)lane * R, R,
+                    sigtype + (size_t)lane * W * H, H);
+    else
+        encode_lane(t, ws, MagGlobal{ blk, W }, blk, W, w, h, ori[lane] & 3,
+                    nb, out + (size_t)lane * L, L, lengths + lane,
+                    rates + (size_t)lane * R, R,
+                    sigtype + (size_t)lane * W * H, H);
+}
+
+#ifdef __CUDACC__
+
+__global__ void __launch_bounds__(T1_WARPS * 32)
 t1_encode_kernel(const int* __restrict__ mneg, const int* __restrict__ ori,
                  const int* __restrict__ nbv, const int* __restrict__ wv,
                  const int* __restrict__ hv, const uint8_t* __restrict__ lut,
                  const uint32_t* __restrict__ mqt, uint8_t* __restrict__ out,
                  int L, int* __restrict__ lengths, int* __restrict__ rates,
-                 int R, int8_t* __restrict__ sigtype, int* __restrict__ flags,
+                 int R, int8_t* __restrict__ sigtype,
+                 const int* __restrict__ order, int* __restrict__ counter,
                  int nl, int W, int H)
 {
-    __shared__ T1Tables t;
+    extern __shared__ __align__(16) unsigned char smem[];
+    T1Tables& t = *reinterpret_cast<T1Tables*>(smem);
     t1_load_tables(t, lut, mqt);
     __syncthreads();
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= nl)
-        return;
-    int w = max(min(wv[lane], W), 1), h = max(min(hv[lane], H), 1);
-    int nb = min(max(nbv[lane], 0), 30);
-    encode_lane(t, mneg + (size_t)lane * W * H, W, w, h, ori[lane] & 3, nb,
-                flags + (size_t)lane * (W + 2) * (H + 2),
-                out + (size_t)lane * L, L, lengths + lane,
-                rates + (size_t)lane * R, R,
-                sigtype + (size_t)lane * W * H, H);
+    unsigned char* ws = smem + T1_TABLES_BYTES
+        + (threadIdx.x >> 5) * t1_lane_bytes(W, H, true);
+    for (;;) {
+        int q = 0;
+        if (warp_leader())
+            q = atomicAdd(counter, 1);
+        q = __shfl_sync(T1_FULL_MASK, q, 0);
+        if (q >= nl)
+            break;
+        encode_one(t, ws, order[q], mneg, ori, nbv, wv, hv, out, L, lengths,
+                   rates, R, sigtype, W, H);
+    }
 }
 
 extern "C" int grk_t1_encode(const void* mneg, const void* orient,
@@ -262,17 +375,35 @@ extern "C" int grk_t1_encode(const void* mneg, const void* orient,
                              const void* h, const void* lut,
                              const void* mqt, void* out, int L,
                              void* lengths, void* rates, int R,
-                             void* sigtype, void* flags, int nl, int W,
-                             int H, void* stream)
+                             void* sigtype, const void* order,
+                             void* counter, int nl, int W, int H,
+                             void* stream)
 {
     if (nl <= 0)
         return 0;
-    const int threads = 32;           // one warp a block: spread the lanes over the SMs
-    int blocks = (nl + threads - 1) / threads;
-    t1_encode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int threads = T1_WARPS * 32;
+    const int smem = (int)T1_TABLES_BYTES
+        + T1_WARPS * t1_lane_bytes(W, H, true);
+    cudaError_t err = cudaFuncSetAttribute(
+        t1_encode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess)
+        return (int)err;
+    int dev = 0, nsm = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, t1_encode_kernel, threads, smem);
+    if (err != cudaSuccess)
+        return (int)err;
+    if (per_sm < 1)
+        return (int)cudaErrorInvalidConfiguration;
+    const int blocks = min(nsm * per_sm, (nl + T1_WARPS - 1) / T1_WARPS);
+    t1_encode_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
         (const int*)mneg, (const int*)orient, (const int*)numbps,
         (const int*)w, (const int*)h, (const uint8_t*)lut,
         (const uint32_t*)mqt, (uint8_t*)out, L, (int*)lengths, (int*)rates,
-        R, (int8_t*)sigtype, (int*)flags, nl, W, H);
+        R, (int8_t*)sigtype, (const int*)order, (int*)counter, nl, W, H);
     return (int)cudaGetLastError();
 }
+
+#endif

@@ -12,9 +12,14 @@ switches: BYPASS raw segments, TERMALL and other multi-segment
 codewords, RESET, VSC and SEGSYM.
 
   - `t1_decode_lanes` is the wrapper: a CUDA tensor launches the
-    hand-written kernel in csrc/t1_decode.cu (one thread per lane), a CPU
-    tensor runs `t1_decode_lanes_ref`.  There is no fallback from one to
-    the other.
+    hand-written kernel in csrc/t1_decode.cu (one warp per lane, the
+    lane's state in shared memory, a persistent grid that takes the
+    lanes longest first), a CPU tensor runs `t1_decode_lanes_ref`.  There
+    is no fallback from one to the other.
+  - `t1_decode_lanes_v1` launches the first design, csrc/t1_decode_v1.cu
+    (one thread per lane), kept as the full-lane oracle and the speed
+    yardstick of the kernel on the card (chip_smoke.py and the
+    hardware-validation tool); no serving path reaches it.
   - `t1_decode_lanes_ref` is the plain PyTorch version: all lanes step in
     lockstep through the scan positions of every pass, each MQ decision
     a handful of tensor ops with masked lanes.
@@ -462,18 +467,9 @@ def _check(name, t, dtype, device, shape=None):
         raise ValueError(f"{name} is not contiguous")
 
 
-def t1_decode_lanes(body, start, npass, nbps, orient, w, h, style, ptbl,
-                    W: int, H: int):
-    """Decode NL Part-1 code-blocks -> signed mag2 (NL, H, W) int32.
-
-    body: (NB,) uint8, every lane's codeword bytes; start: (NL,) int32,
-    each lane's first byte in body; npass, nbps (<= 30), orient, w, h,
-    style: (NL,) int32 with 1 <= w <= W, 1 <= h <= H; ptbl: (NL, P, 3)
-    int32, the segment table (module docstring; offsets relative to
-    start, the segments inside body).  Lanes with nbps outside
-    [0, 30] decode to zeros.  CPU tensors run the plain version; CUDA
-    tensors launch the kernel, and anything the kernel does not take
-    raises."""
+def _checked(body, start, npass, nbps, orient, w, h, style, ptbl, W: int,
+             H: int) -> torch.device:
+    """The wrappers' checks; returns the lanes' device."""
     dev = body.device
     if not (1 <= W <= 64 and 1 <= H <= 64):
         raise ValueError(f"block dims {W}x{H} outside 1..64")
@@ -489,28 +485,51 @@ def t1_decode_lanes(body, start, npass, nbps, orient, w, h, style, ptbl,
             or ptbl.shape[1] < 1:
         raise ValueError(f"ptbl must be (NL, P, 3), got {tuple(ptbl.shape)}")
     _check("ptbl", ptbl, torch.int32, dev)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no Part-1 decode kernel for device {dev}")
+    return dev
+
+
+def _raise_on(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"Part-1 decode kernel launch failed: "
+                           f"cudaError {rc}")
+
+
+def t1_decode_lanes(body, start, npass, nbps, orient, w, h, style, ptbl,
+                    W: int, H: int):
+    """Decode NL Part-1 code-blocks -> signed mag2 (NL, H, W) int32.
+
+    body: (NB,) uint8, every lane's codeword bytes; start: (NL,) int32,
+    each lane's first byte in body; npass, nbps (<= 30), orient, w, h,
+    style: (NL,) int32 with 1 <= w <= W, 1 <= h <= H; ptbl: (NL, P, 3)
+    int32, the segment table (module docstring; offsets relative to
+    start, the segments inside body).  Lanes with nbps outside
+    [0, 30] decode to zeros.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel, and anything the kernel does not take
+    raises."""
+    dev = _checked(body, start, npass, nbps, orient, w, h, style, ptbl, W, H)
     if dev.type == "cpu":
         return t1_decode_lanes_ref(body, start, npass, nbps, orient, w, h,
                                    style, ptbl, W, H)
-    if dev.type != "cuda":
-        raise ValueError(f"no Part-1 decode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
     lib = load_library().t1_decode
+    NL = start.shape[0]
     out = torch.empty((NL, H, W), dtype=torch.int32, device=dev)
     if NL == 0:
         return out
     lut, mqt = lut_on(dev)
-    flags = torch.empty((NL, (H + 2) * (W + 2)), dtype=torch.int32,
-                        device=dev)
-    rc = lib.grk_t1_decode(
+    # the persistent grid's queue: longest lanes first, by npass * w * h
+    order = torch.argsort(npass.clamp(min=0).long() * w * h,
+                          descending=True).to(torch.int32)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    _raise_on(lib.grk_t1_decode(
         body.data_ptr(), body.numel(), start.data_ptr(), npass.data_ptr(),
         nbps.data_ptr(), orient.data_ptr(), w.data_ptr(), h.data_ptr(),
         style.data_ptr(), ptbl.data_ptr(), ptbl.shape[1], lut.data_ptr(),
-        mqt.data_ptr(), out.data_ptr(), flags.data_ptr(), NL, W, H,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"Part-1 decode kernel launch failed: "
-                           f"cudaError {rc}")
+        mqt.data_ptr(), out.data_ptr(), order.data_ptr(),
+        counter.data_ptr(), NL, W, H,
+        torch.cuda.current_stream(dev).cuda_stream))
     t1_decode_lanes.launches += 1
     return out
 
@@ -518,10 +537,50 @@ def t1_decode_lanes(body, start, npass, nbps, orient, w, h, style, ptbl,
 t1_decode_lanes.launches = 0
 
 
+def t1_decode_lanes_v1(body, start, npass, nbps, orient, w, h, style, ptbl,
+                       W: int, H: int):
+    """t1_decode_lanes through the first kernel design (csrc/
+    t1_decode_v1.cu, one thread per lane, its flags in a device-memory
+    scratch): the same arguments, checks and result."""
+    dev = _checked(body, start, npass, nbps, orient, w, h, style, ptbl, W, H)
+    if dev.type == "cpu":
+        return t1_decode_lanes_ref(body, start, npass, nbps, orient, w, h,
+                                   style, ptbl, W, H)
+    from grok_tpu_torch._build import load_library
+    lib = load_library().t1_decode_v1
+    NL = start.shape[0]
+    out = torch.empty((NL, H, W), dtype=torch.int32, device=dev)
+    if NL == 0:
+        return out
+    lut, mqt = lut_on(dev)
+    flags = torch.empty((NL, (H + 2) * (W + 2)), dtype=torch.int32,
+                        device=dev)
+    _raise_on(lib.grk_t1_decode_v1(
+        body.data_ptr(), body.numel(), start.data_ptr(), npass.data_ptr(),
+        nbps.data_ptr(), orient.data_ptr(), w.data_ptr(), h.data_ptr(),
+        style.data_ptr(), ptbl.data_ptr(), ptbl.shape[1], lut.data_ptr(),
+        mqt.data_ptr(), out.data_ptr(), flags.data_ptr(), NL, W, H,
+        torch.cuda.current_stream(dev).cuda_stream))
+    t1_decode_lanes_v1.launches += 1
+    return out
+
+
+t1_decode_lanes_v1.launches = 0
+
+
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C entry point's signature on the loaded library."""
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.grk_t1_decode
+    fn.argtypes = [vp, cl, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp,
+                   vp, vp, ci, ci, ci, vp]
+    fn.restype = ci
+
+
+def bind_v1(lib: ctypes.CDLL) -> None:
+    """Declare the first design's C entry point on its library."""
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn = lib.grk_t1_decode_v1
     fn.argtypes = [vp, cl, vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, vp,
                    vp, ci, ci, ci, vp]
     fn.restype = ci

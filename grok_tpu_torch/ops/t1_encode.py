@@ -12,9 +12,14 @@ contract of the TPU kernel grok_tpu/ops/pallas_t1_enc.py
 codes exact-shape batches only).
 
   - `t1_encode_lanes` is the wrapper: a CUDA tensor launches the
-    hand-written kernel in csrc/t1_encode.cu (one thread per lane), a CPU
-    tensor runs `t1_encode_lanes_ref`.  There is no fallback from one to
-    the other.
+    hand-written kernel in csrc/t1_encode.cu (one warp per lane, the
+    lane's state in shared memory, a persistent grid that takes the
+    lanes longest first), a CPU tensor runs `t1_encode_lanes_ref`.  There
+    is no fallback from one to the other.
+  - `t1_encode_lanes_v1` launches the first design, csrc/t1_encode_v1.cu
+    (one thread per lane), kept as the full-lane oracle and the speed
+    yardstick of the kernel on the card (chip_smoke.py and the
+    hardware-validation tool); no serving path reaches it.
   - `t1_encode_lanes_ref` is the plain PyTorch version: all lanes step in
     lockstep through the scan positions of every pass, each MQ decision
     a handful of tensor ops with masked lanes.
@@ -247,18 +252,8 @@ def rates_from_watermarks(row, numbps: int, total: int) -> list[int]:
     return out
 
 
-def t1_encode_lanes(mneg, orient, numbps, w, h, L: int, R: int):
-    """Encode NL Part-1 code-blocks -> (out (NL, L) uint8, lengths (NL,)
-    int32, rates (NL, R) int32, sigtype (NL, H, W) int8); see the module
-    docstring for the layout.
-
-    mneg: (NL, H, W) int32 with 1 <= W, H <= 64; orient, numbps (<= 30),
-    w, h: (NL,) int32, every lane with 1 <= w <= W and 1 <= h <= H (a
-    lane with numbps 0 codes nothing).  L: per-lane byte capacity, a
-    multiple of 4 and at least 4; R: watermark rows (3 * planes - 2
-    covers a lane of that many planes).  CPU tensors run the plain
-    version; CUDA tensors launch the kernel, and anything the kernel
-    does not take raises."""
+def _checked(mneg, orient, numbps, w, h, L: int, R: int) -> torch.device:
+    """The wrappers' checks; returns the lanes' device."""
     dev = mneg.device
     if mneg.dim() != 3:
         raise ValueError(f"mneg must be (NL, H, W), got {tuple(mneg.shape)}")
@@ -273,41 +268,107 @@ def t1_encode_lanes(mneg, orient, numbps, w, h, L: int, R: int):
         raise ValueError(f"L = {L} is not a positive multiple of 4")
     if R < 1:
         raise ValueError(f"R = {R} watermark rows")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no Part-1 encode kernel for device {dev}")
+    return dev
+
+
+def _outputs(mneg, L: int, R: int) -> tuple:
+    NL, H, W = mneg.shape
+    dev = mneg.device
+    return (torch.empty((NL, L), dtype=torch.uint8, device=dev),
+            torch.empty(NL, dtype=torch.int32, device=dev),
+            torch.empty((NL, R), dtype=torch.int32, device=dev),
+            torch.empty((NL, H, W), dtype=torch.int8, device=dev))
+
+
+def _raise_on(rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"Part-1 encode kernel launch failed: "
+                           f"cudaError {rc}")
+
+
+def t1_encode_lanes(mneg, orient, numbps, w, h, L: int, R: int):
+    """Encode NL Part-1 code-blocks -> (out (NL, L) uint8, lengths (NL,)
+    int32, rates (NL, R) int32, sigtype (NL, H, W) int8); see the module
+    docstring for the layout.
+
+    mneg: (NL, H, W) int32 with 1 <= W, H <= 64; orient, numbps (<= 30),
+    w, h: (NL,) int32, every lane with 1 <= w <= W and 1 <= h <= H (a
+    lane with numbps 0 codes nothing).  L: per-lane byte capacity, a
+    multiple of 4 and at least 4; R: watermark rows (3 * planes - 2
+    covers a lane of that many planes).  CPU tensors run the plain
+    version; CUDA tensors launch the kernel, and anything the kernel
+    does not take raises."""
+    dev = _checked(mneg, orient, numbps, w, h, L, R)
     if dev.type == "cpu":
         return t1_encode_lanes_ref(mneg, orient, numbps, w, h, L, R)
-    if dev.type != "cuda":
-        raise ValueError(f"no Part-1 encode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
     lib = load_library().t1_encode
-    out = torch.empty((NL, L), dtype=torch.uint8, device=dev)
-    lengths = torch.empty(NL, dtype=torch.int32, device=dev)
-    rates = torch.empty((NL, R), dtype=torch.int32, device=dev)
-    sigtype = torch.empty((NL, H, W), dtype=torch.int8, device=dev)
+    out, lengths, rates, sigtype = res = _outputs(mneg, L, R)
+    NL, H, W = mneg.shape
     if NL == 0:
-        return out, lengths, rates, sigtype
+        return res
+    lut, mqt = lut_on(dev)
+    # the persistent grid's queue: longest lanes first, by nbps * w * h
+    order = torch.argsort(numbps.clamp(min=0).long() * w * h,
+                          descending=True).to(torch.int32)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    _raise_on(lib.grk_t1_encode(
+        mneg.data_ptr(), orient.data_ptr(), numbps.data_ptr(), w.data_ptr(),
+        h.data_ptr(), lut.data_ptr(), mqt.data_ptr(), out.data_ptr(), L,
+        lengths.data_ptr(), rates.data_ptr(), R, sigtype.data_ptr(),
+        order.data_ptr(), counter.data_ptr(), NL, W, H,
+        torch.cuda.current_stream(dev).cuda_stream))
+    t1_encode_lanes.launches += 1
+    return res
+
+
+t1_encode_lanes.launches = 0
+
+
+def t1_encode_lanes_v1(mneg, orient, numbps, w, h, L: int, R: int):
+    """t1_encode_lanes through the first kernel design (csrc/
+    t1_encode_v1.cu, one thread per lane, its flags in a device-memory
+    scratch): the same arguments, checks and result."""
+    dev = _checked(mneg, orient, numbps, w, h, L, R)
+    if dev.type == "cpu":
+        return t1_encode_lanes_ref(mneg, orient, numbps, w, h, L, R)
+    from grok_tpu_torch._build import load_library
+    lib = load_library().t1_encode_v1
+    out, lengths, rates, sigtype = res = _outputs(mneg, L, R)
+    NL, H, W = mneg.shape
+    if NL == 0:
+        return res
     lut, mqt = lut_on(dev)
     flags = torch.empty((NL, (H + 2) * (W + 2)), dtype=torch.int32,
                         device=dev)
-    rc = lib.grk_t1_encode(
+    _raise_on(lib.grk_t1_encode_v1(
         mneg.data_ptr(), orient.data_ptr(), numbps.data_ptr(), w.data_ptr(),
         h.data_ptr(), lut.data_ptr(), mqt.data_ptr(), out.data_ptr(), L,
         lengths.data_ptr(), rates.data_ptr(), R, sigtype.data_ptr(),
         flags.data_ptr(), NL, W, H,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"Part-1 encode kernel launch failed: "
-                           f"cudaError {rc}")
-    t1_encode_lanes.launches += 1
-    return out, lengths, rates, sigtype
+        torch.cuda.current_stream(dev).cuda_stream))
+    t1_encode_lanes_v1.launches += 1
+    return res
 
 
-t1_encode_lanes.launches = 0
+t1_encode_lanes_v1.launches = 0
 
 
 def bind(lib: ctypes.CDLL) -> None:
     """Declare the C entry point's signature on the loaded library."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     fn = lib.grk_t1_encode
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp,
+                   vp, ci, ci, ci, vp]
+    fn.restype = ci
+
+
+def bind_v1(lib: ctypes.CDLL) -> None:
+    """Declare the first design's C entry point on its library."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn = lib.grk_t1_encode_v1
     fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, vp, vp, ci, vp, vp,
                    ci, ci, ci, vp]
     fn.restype = ci

@@ -18,9 +18,8 @@ Scope: single-tile streams of HT cleanup-only, Part-1 default-style
 code-blocks, all streams of a batch under one main header, decoded whole
 or under a layer cap (dp.max_layers: each stream's chunks of later
 layers dropped).  HT streams with refinement passes (several codeword
-segments per block), or layered HT streams decoded under a layer cap,
-raise GeneralRoute, which the entry points answer with the general
-device route (pipeline/tile.py decode_tile, kernels K1 and K2), as the
+segments per block) raise GeneralRoute, which the entry points answer
+with the general device route (pipeline/tile.py decode_tile, kernels K1 and K2), as the
 JAX package's serving decode declines them to its decode_tile.  Anything
 else — Part-1 mode switches, layered HT-mixed streams, windowed, strict,
 PPM/PPT, per-component overrides — raises NotImplementedError naming the
@@ -51,9 +50,8 @@ def _unsupported(route: str, why: str) -> NotImplementedError:
 class GeneralRoute(NotImplementedError):
     """The serving decode declines an HT stream that the general device
     route (pipeline/tile.py decode_tile) decodes: refinement passes,
-    several codeword segments per block, or a layer cap on a stream of
-    several layers.  The entry points catch this class only; every other
-    decline stays a NotImplementedError."""
+    several codeword segments per block.  The entry points catch this
+    class only; every other decline stays a NotImplementedError."""
 
     def __init__(self, why: str):
         super().__init__(f"the HT serving decode declines {why}: the "
@@ -217,8 +215,6 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
     if plan is None:
         raise _unsupported("Part-1/MQ mode switches or general path",
                            "the stream has no serving plan")
-    if dp.max_layers and plan.coder == "ht" and plan.geo.cod.num_layers > 1:
-        raise GeneralRoute("a layer cap on a layered HT stream")
     ths_l = list(ths) if ths is not None else [th] * len(bodies)
     if plan.coder != "mixed" and any(
             q is not None and q.ht_mixed_bitmap() is not None

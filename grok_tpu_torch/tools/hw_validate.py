@@ -14,10 +14,12 @@ nine run:
                    C scan -> K1 gives back the source; both kernels
                    against their plain versions on every lane;
   mq_dec, mq_enc   K3 and K5 on 128 blocks of 64x64: K5 -> K3 gives back
-                   the source; both kernels against their plain versions
-                   on a subset of the lanes cut to EDGE_H rows (the plain
-                   versions step every lane in lockstep: a full 64x64
-                   lane costs tens of seconds);
+                   the source; both kernels against their first designs
+                   (t1_*_lanes_v1, one thread per lane) on every lane, bit
+                   for bit, and both designs timed in turns; against their
+                   plain versions on a subset of the lanes cut to EDGE_H
+                   rows (the plain versions step every lane in lockstep: a
+                   full 64x64 lane costs tens of seconds);
   serve_mq_enc, serve_mq_enc_rt, serve_mixed_enc
                    the Part-1, the rate-targeted and 3-layer Part-1 and
                    the HT-mixed serving encodes (api.compress_device) of a
@@ -84,7 +86,10 @@ COUNTERS = {"K1": (ht_decode.ht_decode_lanes, "launches"),
             "K4": (ht_encode.ht_encode_lanes, "launches"),
             "K4r": (ht_encode.ht_encode_lanes, "refine_launches"),
             "K5": (t1_encode.t1_encode_lanes, "launches"),
-            "P1": (lane_gather.lane_gather, "launches")}
+            "P1": (lane_gather.lane_gather, "launches"),
+            # the first Part-1 designs: the oracle, on no serving path
+            "K3v1": (t1_decode.t1_decode_lanes_v1, "launches"),
+            "K5v1": (t1_encode.t1_encode_lanes_v1, "launches")}
 
 
 def card() -> str:
@@ -129,6 +134,28 @@ def kernel_ms(device: torch.device, fn, reps: int = KERNEL_REPS) -> float:
     ev1.record()
     torch.cuda.synchronize(device)
     return ev0.elapsed_time(ev1) / reps
+
+
+def turns_ms(device: torch.device, old, new) -> tuple:
+    """(old's, new's) kernel_ms, each the mean of two windows taken in
+    turns: old, new, new, old (elsewhere than on a card, one call each)."""
+    if device.type != "cuda":
+        return kernel_ms(device, old), kernel_ms(device, new)
+    a, b = kernel_ms(device, old), kernel_ms(device, new)
+    b, a = (b + kernel_ms(device, new)) / 2, (a + kernel_ms(device, old)) / 2
+    return a, b
+
+
+def encodes_equal(got, ref) -> bool:
+    """Two t1_encode_lanes results agree: lengths, the used bytes (the
+    sentinel and the codeword), the watermark rows and the sigtype map."""
+    out, lens = got[0], got[1]
+    used = torch.arange(out.shape[1], device=out.device)[None] \
+        <= lens.long()[:, None]
+    return (torch.equal(lens, ref[1])
+            and torch.equal(torch.where(used, out, 0),
+                            torch.where(used, ref[0], 0))
+            and torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3]))
 
 
 def _call_ms(device: torch.device, fn):
@@ -380,7 +407,8 @@ def run_mq_dec(device, w: int = 64, h: int = 64, nblocks: int = 128) -> dict:
     ins, (L, R) = mq_encode_inputs(mneg, orient, device)
     out, lens, _rates, _st = t1_encode.t1_encode_lanes(*ins, L, R)
     lanes = mq_decode_inputs(ins, out, lens)
-    got = t1_decode.t1_decode_lanes(*lanes, w, h).cpu().numpy()
+    dec = t1_decode.t1_decode_lanes(*lanes, w, h)
+    got = dec.cpu().numpy()
     mag, neg = mneg >> 1, (mneg & 1).astype(bool)
     exact = int(((np.abs(got) >> 1 == mag) & ((got < 0) == (neg & (mag > 0))))
                 .all((1, 2)).sum())
@@ -391,17 +419,21 @@ def run_mq_dec(device, w: int = 64, h: int = 64, nblocks: int = 128) -> dict:
     err = int((t1_decode.t1_decode_lanes(*e_lanes, w, eh).long()
                - t1_decode.t1_decode_lanes_ref(*e_lanes, w, eh).long())
               .abs().max())
+    v1 = torch.equal(t1_decode.t1_decode_lanes_v1(*lanes, w, h), dec)
+    prev_ms, ms = turns_ms(
+        device, lambda: t1_decode.t1_decode_lanes_v1(*lanes, w, h),
+        lambda: t1_decode.t1_decode_lanes(*lanes, w, h))
     res = dict(check="mq_dec", device=str(device), blocks=nblocks,
-               ok=err == 0 and exact == nblocks, max_abs_err=err,
-               edge_lanes=e_lanes[1].shape[0],
-               ms=kernel_ms(device, lambda: t1_decode.t1_decode_lanes(
-                   *lanes, w, h)))
+               ok=err == 0 and exact == nblocks and v1, max_abs_err=err,
+               equal_to_v1=v1, edge_lanes=e_lanes[1].shape[0], ms=ms,
+               prev_ms=prev_ms)
     res["mp_s"] = nblocks * w * h / 1e3 / res["ms"]
     return _report(res, f"{w}x{h}x{nblocks}: {exact}/{nblocks} lanes give "
-                   f"back the source, max_abs_err {err} against the plain "
-                   f"version on {res['edge_lanes']} lanes of {w}x{eh}; "
-                   f"kernel {res['ms']:.4f} ms/launch, {res['mp_s']:.1f} "
-                   f"MP/s")
+                   f"back the source, every lane equal to v1={v1}, "
+                   f"max_abs_err {err} against the plain version on "
+                   f"{res['edge_lanes']} lanes of {w}x{eh}; kernel "
+                   f"{ms:.4f} ms/launch ({res['mp_s']:.1f} MP/s), v1 "
+                   f"{prev_ms:.4f} ms/launch, in turns")
 
 
 def run_mq_enc(device, w: int = 64, h: int = 64, nblocks: int = 128) -> dict:
@@ -426,17 +458,22 @@ def run_mq_enc(device, w: int = 64, h: int = 64, nblocks: int = 128) -> dict:
                    - torch.where(used, ref[0].int(), 0)).abs().max()),
               int((got[2] - ref[2]).abs().max()),
               int((got[3].int() - ref[3].int()).abs().max()))
+    v1 = encodes_equal((out, lens, _rates, _st),
+                       t1_encode.t1_encode_lanes_v1(*ins, L, R))
+    prev_ms, ms = turns_ms(
+        device, lambda: t1_encode.t1_encode_lanes_v1(*ins, L, R),
+        lambda: t1_encode.t1_encode_lanes(*ins, L, R))
     res = dict(check="mq_enc", device=str(device), blocks=nblocks,
-               ok=err == 0 and exact == nblocks, max_abs_err=err,
-               edge_lanes=e_ins[0].shape[0],
-               ms=kernel_ms(device, lambda: t1_encode.t1_encode_lanes(
-                   *ins, L, R)))
+               ok=err == 0 and exact == nblocks and v1, max_abs_err=err,
+               equal_to_v1=v1, edge_lanes=e_ins[0].shape[0], ms=ms,
+               prev_ms=prev_ms)
     res["mp_s"] = nblocks * w * h / 1e3 / res["ms"]
     return _report(res, f"{w}x{h}x{nblocks}: {exact}/{nblocks} codewords "
-                   f"decode back to the source, max_abs_err {err} against "
-                   f"the plain version on {res['edge_lanes']} lanes of "
-                   f"{w}x{e_ins[0].shape[1]}; kernel {res['ms']:.4f} "
-                   f"ms/launch, {res['mp_s']:.1f} MP/s")
+                   f"decode back to the source, every lane equal to "
+                   f"v1={v1}, max_abs_err {err} against the plain version "
+                   f"on {res['edge_lanes']} lanes of {w}x{e_ins[0].shape[1]}"
+                   f"; kernel {ms:.4f} ms/launch ({res['mp_s']:.1f} MP/s), "
+                   f"v1 {prev_ms:.4f} ms/launch, in turns")
 
 
 # ---------------------------------------------------------------------------

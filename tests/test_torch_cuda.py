@@ -369,3 +369,55 @@ def test_refined_serving_encode_and_general_decode_on_card(card):
         assert all(c.device.type == "cuda" for c in out)
         want = api.decompress_device(got, dp, device="cpu")
         assert all(torch.equal(a.cpu(), b) for a, b in zip(out, want))
+
+
+def test_capped_layered_ht_batch_served_on_card(card):
+    """A layer cap on a layered, cleanup-only HT batch stays on the
+    serving decode: one K1 launch per bucket that holds an HT lane (one
+    in all at max_layers=1), no K2."""
+    cp = CompressParams(ht=True, num_resolutions=3, cblk_w_exp=5,
+                        cblk_h_exp=5, ht_planes=0, num_layers=2,
+                        rates=[8.0, 2.0])
+    streams = [compress(synthetic_image(80, 96, 1, seed=40 + i), cp)
+               for i in range(2)]
+    for k in (1, 2):
+        dp = api.DecompressParams(max_layers=k)
+        staged = api.stage_device_batch(streams, dp, device="cpu")
+        buckets = sum(bool(d[3]) for d in staged.dims)     # any HT lane
+        assert k > 1 or buckets == 1
+        k1, k2 = H.ht_decode_lanes.launches, H.ht_decode_lanes.refine_launches
+        out = api.decompress_device_batch(streams, dp, device=card)
+        torch.cuda.synchronize()
+        assert H.ht_decode_lanes.launches == k1 + buckets
+        assert H.ht_decode_lanes.refine_launches == k2
+        want = api.decompress_device_batch(streams, dp, device="cpu")
+        for a, b in zip(out, want):
+            assert torch.equal(a[0].cpu(), b[0])
+
+
+def test_part1_kernels_match_first_design(card):
+    """K5 and K3 (one warp per lane) against their first designs (one
+    thread per lane, the full-lane oracle) on every lane, bit for bit."""
+    ins = [t.to(card) for t in _mq_lanes(12, 96, 64, 14)]
+    L, R = 64 * 64 * 4 + 64, 3 * 14 - 2
+    got = E5.t1_encode_lanes(*ins, L, R)
+    ref = E5.t1_encode_lanes_v1(*ins, L, R)
+    lens = got[1]
+    assert torch.equal(lens, ref[1]) and (lens >= 0).all()
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3])
+    used = torch.arange(L, device=card)[None] <= lens.long()[:, None]
+    assert torch.equal(torch.where(used, got[0], 0),
+                       torch.where(used, ref[0], 0))
+    lens = lens.cpu()
+    body = torch.cat([got[0][j, 1:1 + int(lens[j])].cpu()
+                      for j in range(lens.shape[0])]
+                     + [torch.zeros(1, dtype=torch.uint8)])
+    start = (torch.cumsum(lens, 0) - lens).int()
+    zero = torch.zeros_like(lens)
+    ptbl = torch.stack([zero, lens, zero], 1)[:, None].contiguous()
+    nb = ins[2].cpu()
+    args = [a.to(card) for a in (body, start, (3 * nb - 2).clamp(min=0).int(),
+                                 nb, ins[1].cpu(), ins[3].cpu(), ins[4].cpu(),
+                                 zero, ptbl)]
+    assert torch.equal(D3.t1_decode_lanes(*args, 64, 64),
+                       D3.t1_decode_lanes_v1(*args, 64, 64))
