@@ -53,9 +53,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                not lossless); (B-r) and (B1-t) decoded at 1, 2 and 3
                layers must rise in PSNR with every layer, 3 layers equal
                to the full decode.
-  5. K4      — the HT cleanup encoder on every lane of (A) and (B)
-               against its plain version: byte-identical used stream
-               bytes and bit counts; both timed on the same lanes.
+  5. K4      — the HT cleanup encoder (one warp per code-block) against
+               its first design (ht_encode_lanes_v1, one thread per
+               code-block, the full-lane oracle) and against its plain
+               version on every lane of (A) and (B): byte-identical used
+               stream bytes and bit counts; the two designs timed in
+               turns (v1, v2, v2, v1), the plain version once; for (B),
+               the launch of the slowest lane alone (largest w * h, then
+               most stream bits) against all lanes.
   6. K4->K1  — 64 synthetic lanes of 1x1 to 64x64 encoded by K4,
                assembled and scanned by the port's C runtime, staged and
                un-stuffed as the decode does, decoded by K1: the source
@@ -73,11 +78,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                designs timed in turns (v1, v2, v2, v1) on all lanes and on
                the compared lanes, the plain version on the compared
                lanes; for (B1), the launch of the slowest lane alone
-               (largest nbps * w * h) against all lanes.
+               (largest nbps * w * h) against all lanes, and the bound
+               of all lanes.
   9. K3      — the Part-1 decoder against its first design on every staged
                lane of the decode path's (A1) and (B1) blocks and against
                its plain version on the same lanes as phase 8: bit-exact;
-               timed as phase 8 (the slowest lane by npass * w * h).
+               timed as phase 8 (the slowest lane by npass * w * h),
+               with the bound of all (B1) lanes.
  10. K5->K3  — 64 synthetic lanes of 1x1 to 64x64 (h not a multiple of
                4, w = 1, all-zero lanes, up to 16 planes) encoded by K5
                and decoded by K3: the source must come back.
@@ -85,11 +92,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                (grok_tpu_torch/t1/mq_vectors.npz: BYPASS, RESET,
                TERMALL, VSC, PTERM, SEGSYM) against the scalar decodes
                stored with them and against its plain version.
- 12. K4r     — the refined HT encoder against its plain version on every
-               lane of (A-r) and on the bottom-edge lanes of (B-r) (cut to
-               EDGE_H rows as in phase 8): byte-identical used bytes of
-               all five streams, bit counts and SigProp significance
-               maps; both timed.
+ 12. K4r     — the refined HT encoder against its first design on every
+               lane of (A-r) and (B-r), timed in turns, with the all-lane
+               bound, and against its plain version on every lane of
+               (A-r) and on the bottom-edge lanes of (B-r) (cut to EDGE_H
+               rows as in phase 8): byte-identical used bytes of all five
+               streams, bit counts and SigProp significance maps; the two
+               designs timed in turns on the compared lanes, the plain
+               version once.
  13. K2      — the refined HT decoder against its plain version on the
                general route's staged lanes: every refined lane of (A-r)'s
                first frame and of the full-layer (B-r) decode, and every
@@ -543,10 +553,11 @@ def main() -> int:
                 "HT-refined": ["K4r"], "Part-1 targeted": ["K5", "K3"]}
     dec_need = {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
                 "HT-refined": ["K2"], "Part-1 targeted": ["K3"]}
-    # the first Part-1 designs (K3v1, K5v1) are the oracle only
-    absent = {p: ["K4r", "K2", "K3v1", "K5v1"] for p in paths}
-    absent["HT-refined"] = ["K4", "K5", "K3v1", "K5v1"]
-    absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r", "K3v1", "K5v1"]
+    # the first designs (K3v1, K4v1, K4rv1, K5v1) are the oracle only
+    v1s = ["K3v1", "K4v1", "K4rv1", "K5v1"]
+    absent = {p: ["K4r", "K2"] + v1s for p in paths}
+    absent["HT-refined"] = ["K4", "K5"] + v1s
+    absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r"] + v1s
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -824,33 +835,50 @@ def main() -> int:
     for name in (n for n in work if n != "A-mix forced"):
         comps, hdr, params, plan, _lanes = enc_lanes(name)
 
-        def device_part():
+        def device_part(ht_enc):
             lanes = serve_enc.stage_encode_lanes(comps, hdr, params)[1]
             if plan.coder == "ht":
-                ht_encode.ht_encode_lanes(*lanes, *plan.caps,
-                                          refine=bool(params.ht_planes))
+                ht_enc(*lanes, *plan.caps, refine=bool(params.ht_planes))
             if plan.coder == "mq" or params.ht_mixed:
                 t1_encode.t1_encode_lanes(
                     *serve_enc.mq_lane_inputs(plan, lanes), *plan.mq_caps)
-        _, dev_s = timed(device_part)
+        # best and median of REPS synced calls after a warm-up; on HT
+        # cells also with the first HT encoder design, in turns
+        designs = {"v2": ht_encode.ht_encode_lanes}
+        if plan.coder == "ht":
+            designs["v1"] = ht_encode.ht_encode_lanes_v1
+        dev_s = {k: [] for k in designs}
+        for k in designs:
+            device_part(designs[k])
+        for _ in range(REPS):
+            for k in ("v1", "v2", "v2", "v1") if len(designs) == 2 \
+                    else ("v2",):
+                dev_s[k].append(timed(lambda: device_part(designs[k]))[1])
+        part = ", ".join(
+            f"{k} best {min(t) * 1e3:.3f} ms (median "
+            f"{float(np.median(t)) * 1e3:.3f})" for k, t in dev_s.items())
+        print(f"split encode {name}: device staging + block coders: {part} "
+              f"[{card}]", flush=True)
         host = _host_split(serve_enc, tile, lambda: timed(
             lambda: api.compress_device_batch(frames[name], params,
                                               device=dev))[1])
-        print(f"split encode {name}: device staging + block coders "
-              f"{dev_s * 1e3:.3f} ms, C wire assembly "
+        print(f"split encode {name}: C wire assembly "
               f"{host['assemble'] * 1e3:.3f} ms, Tier-2 finish "
               f"{host['finish'] * 1e3:.3f} ms (of which the truncation "
               f"refinement and its trial decodes "
               f"{host['refine'] * 1e3:.3f} ms), whole call "
               f"{host['call'] * 1e3:.3f} ms [{card}]", flush=True)
 
-    # ---- 5. K4 vs its plain version ---------------------------------------
-    k4 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    # ---- 5. K4 vs its first design and its plain version -----------------
+    k4 = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
     for name in paths["HT"]:
         _comps, _hdr, _params, plan, lanes = enc_lanes(name)
         caps = plan.caps
         nl = lanes[0].shape[0]
         got = ht_encode.ht_encode_lanes(*lanes, *caps)
+        if not hw_validate.ht_encodes_equal(
+                got, ht_encode.ht_encode_lanes_v1(*lanes, *caps), caps[:2]):
+            _fail(f"K4 differs from its first design on {name}")
         ref, p_ms = _plain_ms(torch, lambda: ht_encode.ht_encode_lanes_ref(
             *lanes, *caps))
         # only each stream's first ceil(bits / 8) bytes are defined
@@ -858,20 +886,37 @@ def main() -> int:
         err = max(int((used.int() - ref[0].int()).abs().max()),
                   int((got[1] - ref[1]).abs().max()))
         k4["err"] = max(k4["err"], err)
-        print(f"K4 {name}: {nl} lanes ({plan.W}x{plan.H}) vs the plain "
-              f"version: max_abs_err {err}", flush=True)
+        print(f"K4 {name}: {nl} lanes ({plan.W}x{plan.H}) equal to v1 bit for "
+              f"bit; vs the plain version: max_abs_err {err}", flush=True)
         if err:
             _fail(f"K4 disagrees with its plain version on {name}")
-        k_ms = kernel_ms(dev, lambda: ht_encode.ht_encode_lanes(
-            *lanes, *caps))
+        v1_ms, k_ms = turns_ms(
+            dev, lambda: ht_encode.ht_encode_lanes_v1(*lanes, *caps),
+            lambda: ht_encode.ht_encode_lanes(*lanes, *caps))
         nbytes = _k4_bytes(lanes, got[1], ht_encode._lut_on(dev))
         k4["ms"] += k_ms
+        k4["prev_ms"] += v1_ms
         k4["plain_ms"] += p_ms
         k4["bytes"] += nbytes
         print(f"K4 {name}: 1 launch per encode, {nl} lanes, kernel "
-              f"{k_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
-              f"ms ({nbytes} bytes), plain version {p_ms:.1f} ms on the "
-              f"same lanes [{card}]", flush=True)
+              f"{k_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
+              f"({v1_ms / k_ms:.2f}x), bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
+              f"plain version {p_ms:.1f} ms on the same lanes [{card}]",
+              flush=True)
+        if name == "B":
+            nbits = got[1].long().clamp(min=0).sum(0)
+            est = lanes[2].long() * lanes[3] * (1 << 24) + nbits
+            j = int(torch.argmax(est))
+            one = _select(lanes, torch.arange(nl, device=dev) == j)
+            one_v1, one_ms = turns_ms(
+                dev, lambda: ht_encode.ht_encode_lanes_v1(*one, *caps),
+                lambda: ht_encode.ht_encode_lanes(*one, *caps))
+            print(f"K4 {name} diagnostic: the slowest lane alone "
+                  f"({int(lanes[2][j])}x{int(lanes[3][j])}, "
+                  f"{int(nbits[j])} stream bits) v2 {one_ms:.4f} ms, v1 "
+                  f"{one_v1:.4f} ms; all {nl} lanes v2 {k_ms:.4f} ms "
+                  f"[{card}]", flush=True)
 
     # ---- 6. K4 -> K1 round trip -------------------------------------------
     _synthetic_roundtrip(torch, dev, ht_decode, hw_validate)
@@ -918,9 +963,9 @@ def main() -> int:
         ins = serve_enc.mq_lane_inputs(plan, lanes)
         L, R = plan.mq_caps
         nl_all = ins[0].shape[0]
+        full = t1_encode.t1_encode_lanes(*ins, L, R)
         if not hw_validate.encodes_equal(
-                t1_encode.t1_encode_lanes(*ins, L, R),
-                t1_encode.t1_encode_lanes_v1(*ins, L, R)):
+                full, t1_encode.t1_encode_lanes_v1(*ins, L, R)):
             _fail(f"K5 differs from its first design on {name}")
         v1_ms, full_ms = turns_ms(
             dev, lambda: t1_encode.t1_encode_lanes_v1(*ins, L, R),
@@ -934,9 +979,12 @@ def main() -> int:
                           == int(torch.argmax(est)))
             one_ms = kernel_ms(dev, lambda: t1_encode.t1_encode_lanes(
                 *one, L, R))
+            nb_all = _k5_bytes(ins, full[1], tables)
             print(f"K5 {name} diagnostic: the slowest lane alone (nbps*w*h "
                   f"{int(est.max())}) {one_ms:.4f} ms, all {nl_all} lanes "
-                  f"{full_ms:.4f} ms [{card}]", flush=True)
+                  f"{full_ms:.4f} ms, all-lane bound "
+                  f"{nb_all / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb_all} bytes) "
+                  f"[{card}]", flush=True)
         if name == "B1":
             # the bottom-edge blocks: h <= EDGE_H, w and h not multiples
             # of the block size, cut to EDGE_H rows
@@ -999,9 +1047,12 @@ def main() -> int:
                 == int(torch.argmax(est)))
             one_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
                 *one, W, H))
+            nb_all = _k3_bytes(lanes, tables)
             print(f"K3 {name} diagnostic: the slowest lane alone (npass*w*h "
                   f"{int(est.max())}) {one_ms:.4f} ms, all {nl_all} lanes "
-                  f"{full_ms:.4f} ms [{card}]", flush=True)
+                  f"{full_ms:.4f} ms, all-lane bound "
+                  f"{nb_all / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb_all} bytes) "
+                  f"[{card}]", flush=True)
         if name == "B1":
             # the same bottom-edge blocks as phase 8
             lanes = (lanes[0],) + _select(lanes[1:], lanes[6] <= EDGE_H)
@@ -1048,14 +1099,30 @@ def main() -> int:
           f"{sorted({hex(s) for s in v['style'].tolist()})}, equal to the "
           f"scalar decodes and the plain version", flush=True)
 
-    # ---- 12. K4r vs its plain version --------------------------------------
-    k4r = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    # ---- 12. K4r vs its first design and its plain version ---------------
+    k4r = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
     for name in refined:
         _comps, _hdr, _params, plan, lanes = enc_lanes(name)
         caps = plan.caps
-        full_ms = kernel_ms(dev, lambda: ht_encode.ht_encode_lanes(
-            *lanes, *caps, refine=True))
         nl_all = lanes[0].shape[0]
+        allcaps = caps + ht_encode.refine_caps(plan.W, plan.H)
+        got = ht_encode.ht_encode_lanes(*lanes, *caps, refine=True)
+        if not hw_validate.ht_encodes_equal(
+                got, ht_encode.ht_encode_lanes_v1(*lanes, *caps, refine=True),
+                allcaps[:-1]):
+            _fail(f"K4r differs from its first design on {name}")
+        if (got[1] < 0).any():
+            _fail(f"K4r: a stream of {name} exceeded its capacity")
+        v1_all, full_ms = turns_ms(
+            dev, lambda: ht_encode.ht_encode_lanes_v1(*lanes, *caps,
+                                                      refine=True),
+            lambda: ht_encode.ht_encode_lanes(*lanes, *caps, refine=True))
+        nb_all = _k4r_bytes(lanes, got[1], ht_encode._lut_on(dev))
+        print(f"K4r {name}: all {nl_all} lanes ({plan.W}x{plan.H}) equal to "
+              f"v1 bit for bit; v2 {full_ms:.4f} ms, v1 {v1_all:.4f} ms, in "
+              f"turns ({v1_all / full_ms:.2f}x), all-lane bound "
+              f"{nb_all / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb_all} bytes) "
+              f"[{card}]", flush=True)
         if name == "B-r":
             # the bottom-edge blocks, cut to EDGE_H rows (phase 8)
             lanes = _select(lanes, lanes[3] <= EDGE_H)
@@ -1082,17 +1149,20 @@ def main() -> int:
               f"{err}", flush=True)
         if err or (got[1] < 0).any():
             _fail(f"K4r disagrees with its plain version on {name}")
-        k_ms = kernel_ms(dev, lambda: ht_encode.ht_encode_lanes(
-            *lanes, *caps, refine=True))
+        v1_ms, k_ms = turns_ms(
+            dev, lambda: ht_encode.ht_encode_lanes_v1(*lanes, *caps,
+                                                      refine=True),
+            lambda: ht_encode.ht_encode_lanes(*lanes, *caps, refine=True))
         nbytes = _k4r_bytes(lanes, got[1], ht_encode._lut_on(dev))
         k4r["ms"] += k_ms
+        k4r["prev_ms"] += v1_ms
         k4r["plain_ms"] += p_ms
         k4r["bytes"] += nbytes
         print(f"K4r {name}: 1 launch per encode, kernel {full_ms:.4f} ms on "
               f"all {nl_all} lanes; on the {nl} compared lanes kernel "
-              f"{k_ms:.4f} ms, bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
-              f"ms ({nbytes} bytes), plain version {p_ms:.1f} ms [{card}]",
-              flush=True)
+              f"{k_ms:.4f} ms (v1 {v1_ms:.4f} ms), bound "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
+              f"plain version {p_ms:.1f} ms [{card}]", flush=True)
 
     # ---- 13. K2 vs its plain version ---------------------------------------
     k2 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}

@@ -1,7 +1,8 @@
-// The warp-level steps of the Part-1 block coders (csrc/t1_decode.cu, K3,
-// and csrc/t1_encode.cu, K5), one code-block per warp: the lane bodies
-// are written against these few calls, so the same source compiles for
-// the card with nvcc and for the host with a plain C++ compiler.
+// The warp-level steps of the block coders that run one code-block per
+// warp (csrc/t1_decode.cu, K3, csrc/t1_encode.cu, K5, and csrc/
+// ht_encode.cu, K4 and K4r): the lane bodies are written against these
+// few calls, so the same source compiles for the card with nvcc and for
+// the host with a plain C++ compiler.
 //
 //   warp_leader()       true on the thread that runs the lane's serial
 //                       chain (lane 0 of the warp);
@@ -14,12 +15,30 @@
 //   block_thread(), block_threads()   the thread's index in its CUDA
 //                       block and the block's size (shared table loads).
 //
+// One value per thread, for the steps whose data stays in registers:
+//
+//   WarpReg<T> r        r[t] is thread t's value (on the card each thread
+//                       holds only its own, and r[t] ignores t);
+//   warp_each(fn)       fn(t) once on each thread t of the warp;
+//   warp_ballot(r)      the 32-bit mask of the threads whose r[t] != 0;
+//   warp_shfl(r, s)     thread s's r[s] (called by every thread, and
+//                       never on a register written in the same step);
+//   warp_scan_incl(r, op)  r[t] = op(r[t], r[t - 1]) for t = 1 .. 31 in
+//                       turn, the inclusive prefix of an associative op
+//                       (log2 32 shuffle steps on the card);
+//   warp_scan(r)        the exclusive prefix sum of r in place; returns
+//                       the total;
+//   warp_or(p, v)       *p |= v on a shared word that other threads of the
+//                       warp may OR into at the same step (atomicOr);
+//   t1_prmt(a, b, sel)  __byte_perm.
+//
 // On the host (no __CUDACC__) one thread plays the warp: warp_leader() is
-// always true, warp_sync() does nothing, warp_for and warp_nibbles loop
-// over the 32 lane ids in turn, and the CUDA qualifiers and intrinsics
-// the lane bodies use are defined for a C++ compiler.  That build is how
-// tests/test_torch_t1_lane_body.py holds the lane bodies against the
-// plain versions without a card.
+// always true, warp_sync() does nothing, warp_for, warp_each and
+// warp_nibbles loop over the 32 lane ids in turn, a WarpReg holds 32
+// values, and the CUDA qualifiers and intrinsics the lane bodies use are
+// defined for a C++ compiler.  That build is how tests/
+// test_torch_t1_lane_body.py and tests/test_torch_ht_lane_body.py hold the
+// lane bodies against the plain versions without a card.
 
 #pragma once
 
@@ -90,6 +109,64 @@ __device__ __forceinline__ int t1_ffs64(uint64_t x)
 __device__ __forceinline__ uint4 t1_ldg16(const uint8_t* p)
 {
     return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// byte n of the result: byte (sel >> 4 n) & 7 of the 8 bytes of (a, b)
+__device__ __forceinline__ uint32_t t1_prmt(uint32_t a, uint32_t b,
+                                            uint32_t sel)
+{
+    return __byte_perm(a, b, sel);
+}
+
+template <class T>
+struct WarpReg {
+    T v;
+    __device__ __forceinline__ T& operator[](int) { return v; }
+    __device__ __forceinline__ const T& operator[](int) const { return v; }
+};
+
+template <class F>
+__device__ __forceinline__ void warp_each(F fn)
+{
+    fn((int)(threadIdx.x & 31));
+}
+
+template <class T>
+__device__ __forceinline__ uint32_t warp_ballot(const WarpReg<T>& r)
+{
+    return __ballot_sync(T1_FULL_MASK, r.v != 0);
+}
+
+template <class T>
+__device__ __forceinline__ T warp_shfl(const WarpReg<T>& r, int src)
+{
+    return __shfl_sync(T1_FULL_MASK, r.v, src & 31);
+}
+
+template <class T, class Op>
+__device__ __forceinline__ void warp_scan_incl(WarpReg<T>& r, Op op)
+{
+    const int t = threadIdx.x & 31;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const T y = __shfl_up_sync(T1_FULL_MASK, r.v, d);
+        if (t >= d)
+            r.v = op(r.v, y);
+    }
+}
+
+__device__ __forceinline__ int warp_scan(WarpReg<int>& r)
+{
+    const int own = r.v;
+    warp_scan_incl(r, [](int a, int b) { return a + b; });
+    const int total = __shfl_sync(T1_FULL_MASK, r.v, 31);
+    r.v -= own;
+    return total;
+}
+
+__device__ __forceinline__ void warp_or(uint32_t* p, uint32_t v)
+{
+    atomicOr(p, v);
 }
 
 #else   // the host build of the lane bodies
@@ -167,6 +244,68 @@ inline uint4 t1_ldg16(const uint8_t* p)
     uint4 v;
     memcpy(&v, p, sizeof v);
     return v;
+}
+
+inline uint32_t t1_prmt(uint32_t a, uint32_t b, uint32_t sel)
+{
+    const uint64_t ab = (uint64_t)a | ((uint64_t)b << 32);
+    uint32_t r = 0;
+    for (int n = 0; n < 4; n++)
+        r |= (uint32_t)((ab >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF)
+            << (8 * n);
+    return r;
+}
+
+template <class T>
+struct WarpReg {
+    T v[32];
+    T& operator[](int t) { return v[t & 31]; }
+    const T& operator[](int t) const { return v[t & 31]; }
+};
+
+template <class F>
+inline void warp_each(F fn)
+{
+    for (int t = 0; t < 32; t++)
+        fn(t);
+}
+
+template <class T>
+inline uint32_t warp_ballot(const WarpReg<T>& r)
+{
+    uint32_t m = 0;
+    for (int t = 0; t < 32; t++)
+        m |= (uint32_t)(r.v[t] != 0) << t;
+    return m;
+}
+
+template <class T>
+inline T warp_shfl(const WarpReg<T>& r, int src)
+{
+    return r.v[src & 31];
+}
+
+template <class T, class Op>
+inline void warp_scan_incl(WarpReg<T>& r, Op op)
+{
+    for (int t = 1; t < 32; t++)
+        r.v[t] = op(r.v[t], r.v[t - 1]);
+}
+
+inline int warp_scan(WarpReg<int>& r)
+{
+    int acc = 0;
+    for (int t = 0; t < 32; t++) {
+        const int own = r.v[t];
+        r.v[t] = acc;
+        acc += own;
+    }
+    return acc;
+}
+
+inline void warp_or(uint32_t* p, uint32_t v)
+{
+    *p |= v;
 }
 
 #endif

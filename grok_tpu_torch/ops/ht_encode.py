@@ -12,9 +12,13 @@ batch).  This is the contract of the TPU kernel grok_tpu/ops/
 pallas_ht_enc.py `_ht_encode_jit` with refine=False.
 
   - `ht_encode_lanes` is the wrapper: a CUDA tensor launches the
-    hand-written kernel in csrc/ht_encode.cu (one thread per lane), a
-    CPU tensor runs `ht_encode_lanes_ref`.  There is no fallback from
-    one to the other.
+    hand-written kernel in csrc/ht_encode.cu (one warp per lane), a CPU
+    tensor runs `ht_encode_lanes_ref`.  There is no fallback from one to
+    the other.
+  - `ht_encode_lanes_v1` launches the first design, csrc/
+    ht_encode_v1.cu (one thread per lane): the full-lane oracle and
+    timing yardstick of chip_smoke.py and tools/hw_validate.py, on no
+    serving path.
   - `ht_encode_lanes_ref` is the plain PyTorch version, vectorised over
     lanes: every quantity that depends only on the samples (significance
     patterns, contexts, exponent bounds, CxtVLC codewords, MagSgn
@@ -369,24 +373,10 @@ def _check(name, t, dtype, shape0, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int,
-                    refine: bool = False):
-    """Cleanup-encode NL lanes -> (streams (NL, LMS+LMEL+LVLC) uint8,
-    bits (3, NL) int32); see the module docstring for the layout.
-
-    mneg: (NL, H, W) int32 with 1 <= W, H <= 64; p, w, h, valid: (NL,)
-    int32, every lane with w <= W and h <= H.  LMS, LMEL, LVLC: per-lane
-    stream capacities in bytes, multiples of 4.  CPU tensors run the
-    plain version; CUDA tensors launch the kernel, and anything the
-    kernel does not take raises.
-
-    refine=True is kernel K4r: the lanes with p > 0 also code HT SigProp
-    and HT MagRef at plane p - 1, in the same launch.  It returns
-    (streams (NL, LMS+LMEL+LVLC+LSP+LMR) uint8, bits (5, NL) int32, ns
-    (NL, H, W) uint8), the two clean refinement streams after the
-    cleanup's three (LSP, LMR = refine_caps(W, H)) and ns = 1 where
-    SigProp made a sample significant; lanes with p = 0 code the cleanup
-    only (0 refinement bits)."""
+def _encode(v1: bool, counter, mneg, p, w, h, valid, LMS: int, LMEL: int,
+            LVLC: int, refine: bool):
+    """ht_encode_lanes through the kernel design v1 or v2, the launch
+    counted on `counter` (the wrapper function)."""
     dev = mneg.device
     if mneg.dim() != 3:
         raise ValueError(f"mneg must be (NL, H, W), got {tuple(mneg.shape)}")
@@ -414,16 +404,19 @@ def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int,
     if dev.type != "cuda":
         raise ValueError(f"no HT encode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
-    lib = load_library().ht_encode
+    libs = load_library()
+    lib = libs.ht_encode_v1 if v1 else libs.ht_encode
+    sfx = "_v1" if v1 else ""
     _, symb, nfam, pxor = vlc_enc_lut()
     lut = _lut_on(dev)
     row = LMS + LMEL + LVLC + (LSP + LMR if refine else 0)
-    # the kernel writes every bit count and each stream's used words
+    # the kernel writes every bit count and each stream's used words; v2
+    # writes ns whole, v1 only its 1s
     streams = torch.empty((NL, row), dtype=torch.uint8, device=dev)
     bits = torch.empty((5 if refine else 3, NL), dtype=torch.int32,
                        device=dev)
-    ns = torch.zeros((NL, H, W), dtype=torch.uint8, device=dev) \
-        if refine else None
+    ns = ((torch.zeros if v1 else torch.empty)(
+        (NL, H, W), dtype=torch.uint8, device=dev) if refine else None)
     if NL == 0:
         return (streams, bits, ns) if refine else (streams, bits)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -431,23 +424,59 @@ def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int,
             valid.data_ptr(), lut.data_ptr(), lut.numel(), symb, nfam, pxor,
             streams.data_ptr(), row, LMS, LMEL, LVLC)
     if refine:
-        rc = lib.grk_ht_encode_refine(*args, LSP, LMR, bits.data_ptr(),
-                                      ns.data_ptr(), NL, W, H, stream)
+        rc = getattr(lib, f"grk_ht_encode_refine{sfx}")(
+            *args, LSP, LMR, bits.data_ptr(), ns.data_ptr(), NL, W, H,
+            stream)
     else:
-        rc = lib.grk_ht_encode_cleanup(*args, bits.data_ptr(), NL, W, H,
-                                       stream)
+        rc = getattr(lib, f"grk_ht_encode_cleanup{sfx}")(
+            *args, bits.data_ptr(), NL, W, H, stream)
     if rc != 0:
         raise RuntimeError(f"HT {'refine' if refine else 'cleanup'} encode "
                            f"kernel launch failed: cudaError {rc}")
     if refine:
-        ht_encode_lanes.refine_launches += 1
+        counter.refine_launches += 1
         return streams, bits, ns
-    ht_encode_lanes.launches += 1
+    counter.launches += 1
     return streams, bits
+
+
+def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int,
+                    refine: bool = False):
+    """Cleanup-encode NL lanes -> (streams (NL, LMS+LMEL+LVLC) uint8,
+    bits (3, NL) int32); see the module docstring for the layout.
+
+    mneg: (NL, H, W) int32 with 1 <= W, H <= 64; p, w, h, valid: (NL,)
+    int32, every lane with w <= W and h <= H.  LMS, LMEL, LVLC: per-lane
+    stream capacities in bytes, multiples of 4.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel, and anything the
+    kernel does not take raises.
+
+    refine=True is kernel K4r: the lanes with p > 0 also code HT SigProp
+    and HT MagRef at plane p - 1, in the same launch.  It returns
+    (streams (NL, LMS+LMEL+LVLC+LSP+LMR) uint8, bits (5, NL) int32, ns
+    (NL, H, W) uint8), the two clean refinement streams after the
+    cleanup's three (LSP, LMR = refine_caps(W, H)) and ns = 1 where
+    SigProp made a sample significant; lanes with p = 0 code the cleanup
+    only (0 refinement bits)."""
+    return _encode(False, ht_encode_lanes, mneg, p, w, h, valid, LMS, LMEL,
+                   LVLC, refine)
 
 
 ht_encode_lanes.launches = 0            # K4 launches
 ht_encode_lanes.refine_launches = 0     # K4r launches
+
+
+def ht_encode_lanes_v1(mneg, p, w, h, valid, LMS: int, LMEL: int,
+                       LVLC: int, refine: bool = False):
+    """ht_encode_lanes through the first kernel design (csrc/
+    ht_encode_v1.cu, one thread per lane): the same arguments, checks and
+    result."""
+    return _encode(True, ht_encode_lanes_v1, mneg, p, w, h, valid, LMS,
+                   LMEL, LVLC, refine)
+
+
+ht_encode_lanes_v1.launches = 0         # K4 v1 launches
+ht_encode_lanes_v1.refine_launches = 0  # K4r v1 launches
 
 
 def clear_unused(streams, bits, *caps: int):
@@ -466,13 +495,19 @@ def clear_unused(streams, bits, *caps: int):
     return torch.where(keep, streams, 0)
 
 
-def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C entry points' signatures on the loaded library."""
+def bind(lib: ctypes.CDLL, sfx: str = "") -> None:
+    """Declare the C entry points' signatures on the loaded library (sfx
+    "_v1": the first design's, on its own library)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     head = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp, ci, ci, ci, ci]
-    fn = lib.grk_ht_encode_cleanup
+    fn = getattr(lib, f"grk_ht_encode_cleanup{sfx}")
     fn.argtypes = head + [vp, ci, ci, ci, vp]
     fn.restype = ci
-    fn = lib.grk_ht_encode_refine
+    fn = getattr(lib, f"grk_ht_encode_refine{sfx}")
     fn.argtypes = head + [ci, ci, vp, vp, ci, ci, ci, vp]
     fn.restype = ci
+
+
+def bind_v1(lib: ctypes.CDLL) -> None:
+    """Declare the first design's C entry points on its library."""
+    bind(lib, "_v1")

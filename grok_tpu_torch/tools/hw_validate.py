@@ -12,7 +12,9 @@ nine run:
                    torch.take_along_dim and numpy's take_along_axis;
   ht_dec, ht_enc   K1 and K4 on 1024 blocks of 32x32: K4 -> C assembly ->
                    C scan -> K1 gives back the source; both kernels
-                   against their plain versions on every lane;
+                   against their plain versions on every lane; K4 also
+                   against its first design (ht_encode_lanes_v1, one
+                   thread per lane) on every lane, both timed in turns;
   mq_dec, mq_enc   K3 and K5 on 128 blocks of 64x64: K5 -> K3 gives back
                    the source; both kernels against their first designs
                    (t1_*_lanes_v1, one thread per lane) on every lane, bit
@@ -87,8 +89,11 @@ COUNTERS = {"K1": (ht_decode.ht_decode_lanes, "launches"),
             "K4r": (ht_encode.ht_encode_lanes, "refine_launches"),
             "K5": (t1_encode.t1_encode_lanes, "launches"),
             "P1": (lane_gather.lane_gather, "launches"),
-            # the first Part-1 designs: the oracle, on no serving path
+            # the first designs of K3, K4, K4r and K5: the oracle, on no
+            # serving path
             "K3v1": (t1_decode.t1_decode_lanes_v1, "launches"),
+            "K4v1": (ht_encode.ht_encode_lanes_v1, "launches"),
+            "K4rv1": (ht_encode.ht_encode_lanes_v1, "refine_launches"),
             "K5v1": (t1_encode.t1_encode_lanes_v1, "launches")}
 
 
@@ -320,9 +325,20 @@ def run_ht_dec(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
                    f"{res['mp_s']:.1f} MP/s")
 
 
+def ht_encodes_equal(got, ref, caps) -> bool:
+    """Two ht_encode_lanes results agree: bit counts, the used bytes of
+    every stream (caps: the capacities of all streams but the last) and,
+    for K4r, ns."""
+    return (torch.equal(got[1], ref[1])
+            and torch.equal(ht_encode.clear_unused(got[0], got[1], *caps),
+                            ht_encode.clear_unused(ref[0], ref[1], *caps))
+            and all(torch.equal(a, b) for a, b in zip(got[2:], ref[2:])))
+
+
 def run_ht_enc(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
-    """K4 against its plain version on every lane (used stream bytes and
-    bit counts); timed."""
+    """K4 against its plain version and its first design on every lane
+    (used stream bytes and bit counts); the two designs timed in
+    turns."""
     device = torch.device(device)
     mneg, mag, _neg = _ht_source(1, w, h, nblocks)
     caps = ht_caps(w, h, int(mag.max()).bit_length())
@@ -335,14 +351,19 @@ def run_ht_enc(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
     used = ht_encode.clear_unused(*got, *caps[:2])
     err = max(int((used.int() - ref[0].int()).abs().max()),
               int((got[1] - ref[1]).abs().max()))
+    v1 = ht_encodes_equal(got, ht_encode.ht_encode_lanes_v1(*lanes, *caps),
+                          caps[:2])
+    prev_ms, ms = turns_ms(
+        device, lambda: ht_encode.ht_encode_lanes_v1(*lanes, *caps),
+        lambda: ht_encode.ht_encode_lanes(*lanes, *caps))
     res = dict(check="ht_enc", device=str(device), blocks=n,
-               ok=err == 0 and bool((got[1] >= 0).all()), max_abs_err=err,
-               ms=kernel_ms(device, lambda: ht_encode.ht_encode_lanes(
-                   *lanes, *caps)))
+               ok=err == 0 and v1 and bool((got[1] >= 0).all()),
+               max_abs_err=err, equal_to_v1=v1, ms=ms, prev_ms=prev_ms)
     res["mp_s"] = n * w * h / 1e3 / res["ms"]
     return _report(res, f"{w}x{h}x{n}: max_abs_err {err} against the plain "
-                   f"version (used bytes, bit counts); kernel "
-                   f"{res['ms']:.4f} ms/launch, {res['mp_s']:.1f} MP/s")
+                   f"version (used bytes, bit counts), every lane equal to "
+                   f"v1={v1}; kernel {ms:.4f} ms/launch ({res['mp_s']:.1f} "
+                   f"MP/s), v1 {prev_ms:.4f} ms/launch, in turns")
 
 
 # ---------------------------------------------------------------------------

@@ -173,6 +173,16 @@ def _check_encoder(card, seed):
     assert torch.equal(got[1].cpu(), ref[1])
     # the kernel leaves the bytes past each stream's bits unwritten
     assert torch.equal(E.clear_unused(*got, *caps[:2]).cpu(), ref[0])
+    _assert_encodes_equal(got, E.ht_encode_lanes_v1(*dev, *caps), caps[:2])
+
+
+def _assert_encodes_equal(got, ref, caps):
+    """Two ht_encode_lanes results equal: bit counts, used bytes, ns."""
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(E.clear_unused(got[0], got[1], *caps),
+                       E.clear_unused(ref[0], ref[1], *caps))
+    for a, b in zip(got[2:], ref[2:]):
+        assert torch.equal(a, b)
 
 
 def test_encoder_matches_plain_version(card):
@@ -193,6 +203,7 @@ def test_encoder_reports_overflow(card):
     _streams, bits = E.ht_encode_lanes(*dev, 8, 8, 8)
     ref = E.ht_encode_lanes_ref(*lanes, 8, 8, 8)[1]
     assert torch.equal(bits.cpu(), ref) and (ref < 0).any()
+    assert torch.equal(E.ht_encode_lanes_v1(*dev, 8, 8, 8)[1], bits)
 
 
 def test_serving_encode_on_card(card):
@@ -393,6 +404,36 @@ def test_capped_layered_ht_batch_served_on_card(card):
         want = api.decompress_device_batch(streams, dp, device="cpu")
         for a, b in zip(out, want):
             assert torch.equal(a[0].cpu(), b[0])
+
+
+@pytest.mark.parametrize("tables", ["default", "dropin"])
+@pytest.mark.parametrize("refine", [False, True])
+def test_ht_encoders_match_first_design(card, tables, refine):
+    """K4 and K4r (one warp per lane) against their first designs (one
+    thread per lane, the full-lane oracle) and their plain versions on
+    every lane, at cleanup planes 0..3, under both table families, with
+    room and with capacities that some lanes overflow."""
+    lanes = _enc_lanes(13, 96, 64)
+    lanes = (lanes[0], torch.tensor([i % 4 for i in range(96)],
+                                    dtype=torch.int32)) + lanes[2:]
+    dev = [t.to(card) for t in lanes]
+    if tables == "dropin":
+        _install_dropin()
+    try:
+        for caps in ((64 * 64 * 28 // 8 + 64, 1024, 2048), (256, 8, 32)):
+            allcaps = caps + E.refine_caps(64, 64) if refine else caps
+            got = E.ht_encode_lanes(*dev, *caps, refine=refine)
+            _assert_encodes_equal(
+                got, E.ht_encode_lanes_v1(*dev, *caps, refine=refine),
+                allcaps[:-1])
+            _assert_encodes_equal(
+                [t.cpu() for t in got],
+                E.ht_encode_lanes(*lanes, *caps, refine=refine),
+                allcaps[:-1])
+        assert (got[1] < 0).any() and (got[1] >= 0).any()
+    finally:
+        if tables == "dropin":
+            _reset_tables()
 
 
 def test_part1_kernels_match_first_design(card):
