@@ -52,7 +52,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                significant neighbour, so (A-r) is within 1 of the source,
                not lossless); (B-r) and (B1-t) decoded at 1, 2 and 3
                layers must rise in PSNR with every layer, 3 layers equal
-               to the full decode.
+               to the full decode.  Then each cell's host staging and its
+               synced device part (the served device program, or the
+               general route's block decodes and synthesis), on the HT
+               cells with the HT decoders' first designs in turns (v1,
+               v2, v2, v1; best and median of 5).
   5. K4      — the HT cleanup encoder (one warp per code-block) against
                its first design (ht_encode_lanes_v1, one thread per
                code-block, the full-lane oracle) and against its plain
@@ -65,8 +69,14 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                assembled and scanned by the port's C runtime, staged and
                un-stuffed as the decode does, decoded by K1: the source
                magnitudes and signs must come back.
-  7. K1      — the HT cleanup decoder on the decode path's staged lanes
-               against its plain version: bit-exact; both timed.
+  7. K1      — the HT cleanup decoder (one warp per code-block) on every
+               staged lane of the decode path's (A) and (B) buckets
+               against its first design (ht_decode_lanes_v1, one thread
+               per code-block, the full-lane oracle) and its plain
+               version: bit-exact; the two designs timed in turns per
+               bucket (its lane count printed), the plain version once;
+               for (B), the slowest lane alone (largest w * h, then most
+               MagSgn bytes) against its bucket's launch.
   8. K5      — the Part-1 encoder (one warp per code-block) against its
                first design (t1_encode_lanes_v1, one thread per
                code-block, the full-lane oracle) on every lane of (A1)
@@ -100,11 +110,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                streams, bit counts and SigProp significance maps; the two
                designs timed in turns on the compared lanes, the plain
                version once.
- 13. K2      — the refined HT decoder against its plain version on the
-               general route's staged lanes: every refined lane of (A-r)'s
-               first frame and of the full-layer (B-r) decode, and every
-               lane (K1 and K2) of (B-r)'s bottom-edge buckets (H <=
-               EDGE_H); bit-exact; both timed.
+ 13. K2      — the refined HT decoder against its first design and its
+               plain version on the general route's staged lanes: every
+               refined lane of (A-r)'s first frame and of the full-layer
+               (B-r) decode, and every lane (K1 and K2) of (B-r)'s
+               bottom-edge buckets (H <= EDGE_H); bit-exact; the two
+               designs timed in turns on each refined launch (its lane
+               count printed), the plain version once.
  14. K4r->K2 — 64 synthetic lanes of 1x1 to 64x64 (w = 1, h not a
                multiple of 4, all-zero lanes) at cleanup planes 1..3
                encoded by K4r, wire-assembled, raw-stuffed, scanned and
@@ -489,6 +501,7 @@ def main() -> int:
     from grok_tpu_torch.codestream import j2k
     from grok_tpu_torch.core.params import CompressParams
     from grok_tpu_torch.ops import ht_decode, ht_encode, t1_decode, t1_encode
+    from grok_tpu_torch.pipeline import device as pdevice
     from grok_tpu_torch.pipeline import serve_enc, tile
     from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
     from grok_tpu_torch.pipeline.serve import stage_dims
@@ -553,8 +566,9 @@ def main() -> int:
                 "HT-refined": ["K4r"], "Part-1 targeted": ["K5", "K3"]}
     dec_need = {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
                 "HT-refined": ["K2"], "Part-1 targeted": ["K3"]}
-    # the first designs (K3v1, K4v1, K4rv1, K5v1) are the oracle only
-    v1s = ["K3v1", "K4v1", "K4rv1", "K5v1"]
+    # the first designs (K1v1, K2v1, K3v1, K4v1, K4rv1, K5v1) are the
+    # oracle only
+    v1s = ["K1v1", "K2v1", "K3v1", "K4v1", "K4rv1", "K5v1"]
     absent = {p: ["K4r", "K2"] + v1s for p in paths}
     absent["HT-refined"] = ["K4", "K5"] + v1s
     absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r"] + v1s
@@ -796,32 +810,45 @@ def main() -> int:
         need(f"{path} decode", dec_counts[path], dec_need[path],
              absent[path] + (["K5"] if path == "Part-1 targeted" else []))
 
-    for name in refined:
-        host, dev_t = [], []
-        for _ in range(REPS):
-            staged, dt0 = timed(lambda: api.stage_general_device(
-                streams[name][0], device=dev))
-            _, dt1 = timed(staged.run)
-            host.append(dt0)
-            dev_t.append(dt1)
-        print(f"split decode {name} (general route, first frame): host "
-              f"parse+stage+upload {min(host) * 1e3:.3f} ms, device blocks"
-              f"+synthesis {min(dev_t) * 1e3:.3f} ms (best of {REPS}) "
-              f"[{card}]", flush=True)
+    @contextlib.contextmanager
+    def ht_decoder(fn):
+        """The decode paths' HT decode kernels swapped for fn's design (the
+        first design, for a timing in turns)."""
+        saved = ht_decode.ht_decode_lanes, pdevice.ht_decode_lanes
+        ht_decode.ht_decode_lanes = pdevice.ht_decode_lanes = fn
+        try:
+            yield
+        finally:
+            ht_decode.ht_decode_lanes, pdevice.ht_decode_lanes = saved
 
-    for name in (n for n in work if n != "A-mix forced"
-                 and n not in refined):
-        host, dev_t = [], []
-        for _ in range(REPS):
-            staged, dt0 = timed(lambda: api.stage_device_batch(
+    ht_designs = {"v2": ht_decode.ht_decode_lanes,
+                  "v1": ht_decode.ht_decode_lanes_v1}
+    ht_cells = paths["HT"] + paths["HT-mixed"] + refined
+    for name in work:
+        stage = (lambda: api.stage_general_device(streams[name][0],
+                                                  device=dev)) \
+            if name in refined else (lambda: api.stage_device_batch(
                 streams[name], device=dev))
-            _, dt1 = timed(staged.run)
+        order = ("v1", "v2", "v2", "v1") if name in ht_cells else ("v2",)
+        host, dev_t = [], {k: [] for k in order}
+        for k in order[:2]:                            # warm-up
+            with ht_decoder(ht_designs[k]):
+                stage().run()
+        for _ in range(REPS):
+            staged, dt0 = timed(stage)
             host.append(dt0)
-            dev_t.append(dt1)
-        print(f"split decode {name}: host parse+stage+upload "
-              f"{min(host) * 1e3:.3f} ms, device program "
-              f"{min(dev_t) * 1e3:.3f} ms (best of {REPS}) [{card}]",
-              flush=True)
+            for k in order:
+                with ht_decoder(ht_designs[k]):
+                    dev_t[k].append(timed(staged.run)[1])
+        part = ", ".join(
+            f"{k} best {min(t) * 1e3:.3f} ms (median "
+            f"{float(np.median(t)) * 1e3:.3f})" for k, t in dev_t.items())
+        what = "general route, first frame: host parse+stage+upload" \
+            if name in refined else "host parse+stage+upload"
+        dpart = "device blocks+synthesis" if name in refined \
+            else "device program"
+        print(f"split decode {name} ({what} {min(host) * 1e3:.3f} ms, best "
+              f"of {REPS}): {dpart} {part} [{card}]", flush=True)
 
     def enc_lanes(name):
         imgs, params = work[name]
@@ -921,38 +948,72 @@ def main() -> int:
     # ---- 6. K4 -> K1 round trip -------------------------------------------
     _synthetic_roundtrip(torch, dev, ht_decode, hw_validate)
 
-    # ---- 7. K1 vs its plain version ---------------------------------------
-    k1 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    # ---- 7. K1 vs its first design and its plain version -----------------
+    k1 = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
     for name in paths["HT"]:
         staged = api.stage_device_batch(streams[name], device=dev)
         prog = staged.program
-        k_ms = p_ms = 0.0
+        k_ms = v1_ms = p_ms = 0.0
         nb0 = k1["bytes"]
+        slow = None              # (w * h << 24 | MagSgn bytes, lanes, ...)
         for bi, b in enumerate(prog.buckets):
             lanes = prog.stage(staged.body, staged.meta, bi,
                                *staged.dims[bi][:3])
+            nl = lanes[0].shape[0]
             got = ht_decode.ht_decode_lanes(*lanes, b.W, b.H)
+            if not torch.equal(got, ht_decode.ht_decode_lanes_v1(
+                    *lanes, b.W, b.H)):
+                _fail(f"K1 differs from its first design ({name} "
+                      f"{b.W}x{b.H})")
             ref, dt = _plain_ms(torch, lambda: ht_decode.ht_decode_lanes_ref(
                 *lanes, b.W, b.H))
             p_ms += dt
             err = int((got.long() - ref.long()).abs().max())
             k1["err"] = max(k1["err"], err)
-            print(f"K1 {name} bucket {b.W}x{b.H} lanes {lanes[0].shape[0]}:"
-                  f" max_abs_err {err}", flush=True)
             if err:
                 _fail(f"K1 disagrees with its plain version ({name} "
                       f"{b.W}x{b.H}: max abs err {err})")
-            k_ms += kernel_ms(dev, lambda: ht_decode.ht_decode_lanes(
-                *lanes, b.W, b.H))
-            k1["bytes"] += _k1_bytes(prog.lane_meta(staged.meta, bi), lanes,
-                                     ht_decode._lut_on(dev))
+            a_ms, b_ms = turns_ms(
+                dev, lambda: ht_decode.ht_decode_lanes_v1(*lanes, b.W, b.H),
+                lambda: ht_decode.ht_decode_lanes(*lanes, b.W, b.H))
+            k_ms += b_ms
+            v1_ms += a_ms
+            meta = prog.lane_meta(staged.meta, bi)
+            nb = _k1_bytes(meta, lanes, ht_decode._lut_on(dev))
+            k1["bytes"] += nb
+            print(f"K1 {name} bucket {b.W}x{b.H}: {nl} lanes equal to v1 bit "
+                  f"for bit, max_abs_err {err} against the plain version; v2 "
+                  f"{b_ms:.4f} ms, v1 {a_ms:.4f} ms, in turns "
+                  f"({a_ms / b_ms:.2f}x), bound "
+                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
+                  f"version {dt:.1f} ms [{card}]", flush=True)
+            if name == "B":
+                est = torch.where(lanes[6] == 1, lanes[4].long() * lanes[5]
+                                  * (1 << 24) + meta[:, 1].long(), -1)
+                j = int(torch.argmax(est))
+                if slow is None or int(est[j]) > slow[0]:
+                    slow = (int(est[j]), lanes, j, b, b_ms)
         k1["ms"] += k_ms
+        k1["prev_ms"] += v1_ms
         k1["plain_ms"] += p_ms
         nb = k1["bytes"] - nb0
-        print(f"K1 {name}: {len(prog.buckets)} launches per decode, kernel "
-              f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
-              f"({nb} bytes), plain version {p_ms:.1f} ms [{card}]",
-              flush=True)
+        print(f"K1 {name}: {len(prog.buckets)} launches per decode, v2 "
+              f"{k_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
+              f"({v1_ms / k_ms:.2f}x), bound "
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
+              f"version {p_ms:.1f} ms [{card}]", flush=True)
+        if slow is not None:
+            est, lanes, j, b, b_ms = slow
+            nl = lanes[0].shape[0]
+            one = _select(lanes, torch.arange(nl, device=dev) == j)
+            one_v1, one_ms = turns_ms(
+                dev, lambda: ht_decode.ht_decode_lanes_v1(*one, b.W, b.H),
+                lambda: ht_decode.ht_decode_lanes(*one, b.W, b.H))
+            print(f"K1 {name} diagnostic: the slowest lane alone "
+                  f"({int(one[4][0])}x{int(one[5][0])}, {est & 0xFFFFFF} "
+                  f"MagSgn bytes) v2 {one_ms:.4f} ms, v1 {one_v1:.4f} ms; "
+                  f"its bucket's {nl} lanes ({b.W}x{b.H}) v2 {b_ms:.4f} ms "
+                  f"[{card}]", flush=True)
 
     tables = t1_decode.lut_on(dev)
 
@@ -1164,11 +1225,11 @@ def main() -> int:
               f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
               f"plain version {p_ms:.1f} ms [{card}]", flush=True)
 
-    # ---- 13. K2 vs its plain version ---------------------------------------
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
+    # ---- 13. K2 vs its first design and its plain version ----------------
+    k2 = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
     for name in refined:
         staged = api.stage_general_device(streams[name][0], device=dev)
-        k_ms = p_ms = 0.0
+        k_ms = v1_ms = p_ms = 0.0
         nb0, nk2 = k2["bytes"], 0
         for bi, b in enumerate(staged.program.buckets):
             la = staged.lanes[bi]
@@ -1184,32 +1245,50 @@ def main() -> int:
                 args = (*t[:3], *t[5:9], b.W, b.H, t[3], t[4], t[9])
                 if what == "refined":
                     got = ht_decode.ht_decode_lanes(*args)
+                    old = ht_decode.ht_decode_lanes_v1(*args)
                 else:
                     got = ht_decode.decode_ht_blocks(*t, la[10][mask], b.W,
                                                      b.H)
+                    with ht_decoder(ht_decode.ht_decode_lanes_v1):
+                        old = ht_decode.decode_ht_blocks(*t, la[10][mask],
+                                                         b.W, b.H)
+                if not torch.equal(got, old):
+                    _fail(f"K2 differs from its first design ({name} "
+                          f"{b.W}x{b.H} {what})")
                 ref, dt = _plain_ms(torch, lambda: ht_decode
                                     .ht_decode_lanes_ref(*args))
                 err = int((got.long() - ref.long()).abs().max())
                 k2["err"] = max(k2["err"], err)
                 print(f"K2 {name} bucket {b.W}x{b.H} {what} lanes "
-                      f"{idx.numel()}: max_abs_err {err}", flush=True)
+                      f"{idx.numel()}: equal to v1 bit for bit, max_abs_err "
+                      f"{err} against the plain version", flush=True)
                 if err:
                     _fail(f"K2 disagrees with its plain version ({name} "
                           f"{b.W}x{b.H} {what})")
                 if what == "refined":
                     p_ms += dt
                     nk2 += 1
-                    k_ms += kernel_ms(dev, lambda: ht_decode
-                                       .ht_decode_lanes(*args))
-                    k2["bytes"] += _k2_bytes(meta[mask], t,
-                                             ht_decode._lut_on(dev))
+                    a_ms, b_ms = turns_ms(
+                        dev, lambda: ht_decode.ht_decode_lanes_v1(*args),
+                        lambda: ht_decode.ht_decode_lanes(*args))
+                    k_ms += b_ms
+                    v1_ms += a_ms
+                    nb = _k2_bytes(meta[mask], t, ht_decode._lut_on(dev))
+                    k2["bytes"] += nb
+                    print(f"K2 {name} bucket {b.W}x{b.H}: {idx.numel()} "
+                          f"refined lanes, v2 {b_ms:.4f} ms, v1 {a_ms:.4f} "
+                          f"ms, in turns ({a_ms / b_ms:.2f}x), bound "
+                          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), "
+                          f"plain version {dt:.1f} ms [{card}]", flush=True)
         k2["ms"] += k_ms
+        k2["prev_ms"] += v1_ms
         k2["plain_ms"] += p_ms
         nb = k2["bytes"] - nb0
-        print(f"K2 {name}: {nk2} launches per decode (first frame), kernel "
-              f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
-              f"({nb} bytes), plain version {p_ms:.1f} ms [{card}]",
-              flush=True)
+        print(f"K2 {name}: {nk2} launches per decode (first frame), v2 "
+              f"{k_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
+              f"({v1_ms / k_ms:.2f}x), bound "
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
+              f"version {p_ms:.1f} ms [{card}]", flush=True)
 
     # ---- 14. K4r -> K2 round trip ------------------------------------------
     _refine_roundtrip(torch, dev, (ht_encode, ht_decode, native,

@@ -1,8 +1,8 @@
 // The warp-level steps of the block coders that run one code-block per
-// warp (csrc/t1_decode.cu, K3, csrc/t1_encode.cu, K5, and csrc/
-// ht_encode.cu, K4 and K4r): the lane bodies are written against these
-// few calls, so the same source compiles for the card with nvcc and for
-// the host with a plain C++ compiler.
+// warp (csrc/t1_decode.cu, K3, csrc/t1_encode.cu, K5, csrc/ht_encode.cu,
+// K4 and K4r, and csrc/ht_decode.cu, K1 and K2): the lane bodies are
+// written against these few calls, so the same source compiles for the
+// card with nvcc and for the host with a plain C++ compiler.
 //
 //   warp_leader()       true on the thread that runs the lane's serial
 //                       chain (lane 0 of the warp);
@@ -31,6 +31,28 @@
 //   warp_or(p, v)       *p |= v on a shared word that other threads of the
 //                       warp may OR into at the same step (atomicOr);
 //   t1_prmt(a, b, sel)  __byte_perm.
+//
+// Loads and bit counts of the HT decoders:
+//
+//   t1_ldg32(p)         the 4-byte-aligned word at p, read-only (__ldg);
+//   t1_prefetch(p)      a hint to bring p's line into L1 (nothing on the
+//                       host);
+//   t1_popc64(x)        __popcll;
+//   t1_fshr(lo, hi, s)  __funnelshift_r: bits s & 31 .. of hi:lo;
+//   t1_saddr, t1_smem(p), t1_lds32(a), t1_lds8(a)
+//                       a shared-memory address converted once (a 32-bit
+//                       shared-window offset on the card, a pointer on the
+//                       host) and 4- and 1-byte loads through it, so that a
+//                       serial chain of table loads does not rebuild the
+//                       shared base for each load;
+//   t1_publish(p, v), t1_wait_ge(p, v)
+//                       one warp's progress counter in shared memory for
+//                       another warp of its CTA: store v after the warp's
+//                       earlier shared stores, and wait (a bounded spin,
+//                       which only guards against a hang) until it is at
+//                       least v, the reads after it ordered behind it.  On
+//                       the host the two warps run one after the other, so
+//                       the wait has nothing to wait for.
 //
 // On the host (no __CUDACC__) one thread plays the warp: warp_leader() is
 // always true, warp_sync() does nothing, warp_for, warp_each and
@@ -116,6 +138,64 @@ __device__ __forceinline__ uint32_t t1_prmt(uint32_t a, uint32_t b,
                                             uint32_t sel)
 {
     return __byte_perm(a, b, sel);
+}
+
+__device__ __forceinline__ uint32_t t1_ldg32(const uint8_t* p)
+{
+    return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ void t1_prefetch(const void* p)
+{
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(p));
+}
+
+__device__ __forceinline__ int t1_popc64(uint64_t x)
+{
+    return __popcll((unsigned long long)x);
+}
+
+__device__ __forceinline__ uint32_t t1_fshr(uint32_t lo, uint32_t hi, int s)
+{
+    return __funnelshift_r(lo, hi, s);
+}
+
+typedef uint32_t t1_saddr;
+
+// volatile: an opaque register, not rebuilt from the CTA id at each use
+__device__ __forceinline__ t1_saddr t1_smem(const void* p)
+{
+    uint64_t a;
+    asm volatile("cvta.to.shared.u64 %0, %1;" : "=l"(a) : "l"(p));
+    return (uint32_t)a;
+}
+
+__device__ __forceinline__ int t1_lds32(t1_saddr a)
+{
+    int v;
+    asm volatile("ld.shared.b32 %0, [%1];" : "=r"(v) : "r"(a));
+    return v;
+}
+
+__device__ __forceinline__ int t1_lds8(t1_saddr a)
+{
+    unsigned short v;
+    asm volatile("ld.shared.u8 %0, [%1];" : "=h"(v) : "r"(a));
+    return v;
+}
+
+__device__ __forceinline__ void t1_publish(int* p, int v)
+{
+    __threadfence_block();
+    *reinterpret_cast<volatile int*>(p) = v;
+}
+
+__device__ __forceinline__ void t1_wait_ge(const int* p, int v)
+{
+    for (int i = 0; i < (1 << 26)
+         && *reinterpret_cast<const volatile int*>(p) < v; i++)
+        __nanosleep(64);
+    __threadfence_block();
 }
 
 template <class T>
@@ -254,6 +334,58 @@ inline uint32_t t1_prmt(uint32_t a, uint32_t b, uint32_t sel)
         r |= (uint32_t)((ab >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF)
             << (8 * n);
     return r;
+}
+
+// as strict as the card: a word load must be 4-byte aligned
+inline uint32_t t1_ldg32(const uint8_t* p)
+{
+    if ((uintptr_t)p & 3u)
+        __builtin_trap();
+    uint32_t v;
+    memcpy(&v, p, sizeof v);
+    return v;
+}
+
+inline void t1_prefetch(const void*)
+{
+}
+
+inline int t1_popc64(uint64_t x)
+{
+    return __builtin_popcountll(x);
+}
+
+inline uint32_t t1_fshr(uint32_t lo, uint32_t hi, int s)
+{
+    return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31));
+}
+
+typedef const unsigned char* t1_saddr;
+
+inline t1_saddr t1_smem(const void* p)
+{
+    return (const unsigned char*)p;
+}
+
+inline int t1_lds32(t1_saddr a)
+{
+    int v;
+    memcpy(&v, a, sizeof v);
+    return v;
+}
+
+inline int t1_lds8(t1_saddr a)
+{
+    return *a;
+}
+
+inline void t1_publish(int* p, int v)
+{
+    *p = v;
+}
+
+inline void t1_wait_ge(const int*, int)
+{
 }
 
 template <class T>

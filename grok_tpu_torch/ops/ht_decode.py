@@ -9,17 +9,29 @@ below plane p, the contract of t1ht.scalar.ht_decode_block for
 single-segment cleanup-only blocks.
 
   - `ht_decode_lanes` is the wrapper: a CUDA tensor launches the
-    hand-written kernel in csrc/ht_decode.cu (one thread per lane), a
-    CPU tensor runs `ht_decode_lanes_ref`.  There is no fallback from
-    one to the other.
+    hand-written kernel in csrc/ht_decode.cu, a CPU tensor runs
+    `ht_decode_lanes_ref`.  There is no fallback from one to the other.
+    The kernel decodes each code-block with two warps: one runs the
+    serial MEL / CxtVLC / UVLC chain, table-driven, into a quad map in
+    shared memory, quad row by quad row; the other follows it and places
+    the MagSgn bits one quad row per step, one thread per quad, by a warp
+    scan of the quads' bit counts, and writes every output element.
+  - `ht_decode_lanes_v1` launches the first design, csrc/
+    ht_decode_v1.cu (one thread per code-block): the full-lane oracle
+    and timing yardstick of chip_smoke.py and tools/hw_validate.py, on
+    no decode path.
   - `ht_decode_lanes_ref` is the plain PyTorch version: vectorised over
     lanes, a Python loop over quad pairs in the order of the Pallas
     kernel's pair body (grok_tpu/ops/pallas_ht.py `_ht_decode_jit`).
   - `ht_decode_lanes(..., sp, mr, npass)` is K2, the refine=True variant
     of the same TPU kernel (`pallas_ht_decode_refine`): after the
     cleanup, the lanes with p > 0 and 2 or 3 passes run SigProp and
-    MagRef at plane p - 1 from two more clean streams.  Its plain
-    version is `ht_decode_lanes_ref` with the same arguments.
+    MagRef at plane p - 1 from two more clean streams.  In the kernel,
+    the second warp walks SigProp stripe by stripe behind the chain,
+    over the columns that can hold a candidate, two rows at a time by a
+    table, and the MagSgn step writes each sample refined, its MagRef bit
+    placed by popcounts of the cleanup significance rows.
+    Its plain version is `ht_decode_lanes_ref` with the same arguments.
   - `decode_ht_blocks` decodes one bucket of blocks of a refined stream
     (the general decode route): K1 on its cleanup-only blocks, K2 on
     the others.
@@ -419,20 +431,10 @@ def _check(name, t, dtype, shape0, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
-                    sp=None, mr=None, npass=None) -> torch.Tensor:
-    """Cleanup-decode NL lanes -> signed mag2 (NL, H, W) int32.
-
-    ms/mel/vlc: (NL, L+1) uint8 clean LSB-first streams, zero-padded
-    (each stream may have its own L); p, w, h, valid: (NL,) int32.
-    W, H: the bucket's block dims (4..64); every lane has w <= W and
-    h <= H.  CPU tensors run the plain version; CUDA tensors launch the
-    kernel, and anything the kernel does not take raises.
-
-    With sp, mr ((NL, L+1) uint8 clean HT SigProp and HT MagRef streams)
-    and npass ((NL,) int32, 1..3 passes) this is kernel K2: each lane's
-    cleanup, then SigProp (npass >= 2) and MagRef (npass >= 3) at plane
-    p - 1 for the lanes with p > 0, in one launch."""
+def _decode(v1: bool, counter, ms, mel, vlc, p, w, h, valid, W: int,
+            H: int, sp, mr, npass) -> torch.Tensor:
+    """ht_decode_lanes through the kernel design v1 or v2, the launch
+    counted on `counter`."""
     dev = ms.device
     NL = ms.shape[0]
     refine = sp is not None
@@ -459,10 +461,14 @@ def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
     if dev.type != "cuda":
         raise ValueError(f"no HT decode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
-    lib = load_library().ht_decode
+    libs = load_library()
+    lib = libs.ht_decode_v1 if v1 else libs.ht_decode
+    sfx = "_v1" if v1 else ""
     _, symb, nfam, pxor = vlc_dec_lut()
     lut = _lut_on(dev)
-    out = torch.zeros((NL, H, W), dtype=torch.int32, device=dev)
+    # v2 writes every element, v1 only the significant samples
+    out = (torch.zeros if v1 else torch.empty)(
+        (NL, H, W), dtype=torch.int32, device=dev)
     if NL == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -471,23 +477,54 @@ def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
             h.data_ptr(), valid.data_ptr(), lut.data_ptr(), lut.numel(),
             symb, nfam, pxor, out.data_ptr(), NL, W, H)
     if refine:
-        rc = lib.grk_ht_decode_refine(*args, sp.data_ptr(), sp.shape[1],
-                                      mr.data_ptr(), mr.shape[1],
-                                      npass.data_ptr(), stream)
+        rc = getattr(lib, f"grk_ht_decode_refine{sfx}")(
+            *args, sp.data_ptr(), sp.shape[1], mr.data_ptr(), mr.shape[1],
+            npass.data_ptr(), stream)
     else:
-        rc = lib.grk_ht_decode_cleanup(*args, stream)
+        rc = getattr(lib, f"grk_ht_decode_cleanup{sfx}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"HT {'refine' if refine else 'cleanup'} decode "
                            f"kernel launch failed: cudaError {rc}")
     if refine:
-        ht_decode_lanes.refine_launches += 1
+        counter.refine_launches += 1
     else:
-        ht_decode_lanes.launches += 1
+        counter.launches += 1
     return out
+
+
+def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
+                    sp=None, mr=None, npass=None) -> torch.Tensor:
+    """Cleanup-decode NL lanes -> signed mag2 (NL, H, W) int32.
+
+    ms/mel/vlc: (NL, L+1) uint8 clean LSB-first streams, zero-padded
+    (each stream may have its own L); p, w, h, valid: (NL,) int32.
+    W, H: the bucket's block dims (1..64); every lane has w <= W and
+    h <= H.  CPU tensors run the plain version; CUDA tensors launch the
+    kernel, and anything the kernel does not take raises.
+
+    With sp, mr ((NL, L+1) uint8 clean HT SigProp and HT MagRef streams)
+    and npass ((NL,) int32, 1..3 passes) this is kernel K2: each lane's
+    cleanup, then SigProp (npass >= 2) and MagRef (npass >= 3) at plane
+    p - 1 for the lanes with p > 0, in one launch."""
+    return _decode(False, ht_decode_lanes, ms, mel, vlc, p, w, h, valid, W,
+                   H, sp, mr, npass)
 
 
 ht_decode_lanes.launches = 0            # K1 launches
 ht_decode_lanes.refine_launches = 0     # K2 launches
+
+
+def ht_decode_lanes_v1(ms, mel, vlc, p, w, h, valid, W: int, H: int,
+                       sp=None, mr=None, npass=None) -> torch.Tensor:
+    """ht_decode_lanes through the first kernel design (csrc/
+    ht_decode_v1.cu, one thread per lane): the same arguments, checks and
+    result."""
+    return _decode(True, ht_decode_lanes_v1, ms, mel, vlc, p, w, h, valid,
+                   W, H, sp, mr, npass)
+
+
+ht_decode_lanes_v1.launches = 0         # K1 v1 launches
+ht_decode_lanes_v1.refine_launches = 0  # K2 v1 launches
 
 
 def decode_ht_blocks(ms, mel, vlc, sp, mr, p, w, h, valid, npass,
@@ -519,14 +556,20 @@ def decode_ht_blocks(ms, mel, vlc, sp, mr, p, w, h, valid, npass,
     return out
 
 
-def bind(lib: ctypes.CDLL) -> None:
-    """Declare the C entry points' signatures on the loaded library."""
+def bind(lib: ctypes.CDLL, sfx: str = "") -> None:
+    """Declare the C entry points' signatures on the loaded library (sfx
+    "_v1": the first design's, on its own library)."""
     vp, ci = ctypes.c_void_p, ctypes.c_int
     head = [vp, ci, vp, ci, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp,
             ci, ci, ci]
-    fn = lib.grk_ht_decode_cleanup
+    fn = getattr(lib, f"grk_ht_decode_cleanup{sfx}")
     fn.argtypes = head + [vp]
     fn.restype = ci
-    fn = lib.grk_ht_decode_refine
+    fn = getattr(lib, f"grk_ht_decode_refine{sfx}")
     fn.argtypes = head + [vp, ci, vp, ci, vp, vp]
     fn.restype = ci
+
+
+def bind_v1(lib: ctypes.CDLL) -> None:
+    """Declare the first design's C entry points on its library."""
+    bind(lib, "_v1")

@@ -12,9 +12,9 @@ nine run:
                    torch.take_along_dim and numpy's take_along_axis;
   ht_dec, ht_enc   K1 and K4 on 1024 blocks of 32x32: K4 -> C assembly ->
                    C scan -> K1 gives back the source; both kernels
-                   against their plain versions on every lane; K4 also
-                   against its first design (ht_encode_lanes_v1, one
-                   thread per lane) on every lane, both timed in turns;
+                   against their plain versions and their first designs
+                   (ht_decode_lanes_v1, ht_encode_lanes_v1, one thread per
+                   lane) on every lane, the two designs timed in turns;
   mq_dec, mq_enc   K3 and K5 on 128 blocks of 64x64: K5 -> K3 gives back
                    the source; both kernels against their first designs
                    (t1_*_lanes_v1, one thread per lane) on every lane, bit
@@ -89,8 +89,10 @@ COUNTERS = {"K1": (ht_decode.ht_decode_lanes, "launches"),
             "K4r": (ht_encode.ht_encode_lanes, "refine_launches"),
             "K5": (t1_encode.t1_encode_lanes, "launches"),
             "P1": (lane_gather.lane_gather, "launches"),
-            # the first designs of K3, K4, K4r and K5: the oracle, on no
-            # serving path
+            # the first designs of K1, K2, K3, K4, K4r and K5: the oracle,
+            # on no serving path
+            "K1v1": (ht_decode.ht_decode_lanes_v1, "launches"),
+            "K2v1": (ht_decode.ht_decode_lanes_v1, "refine_launches"),
             "K3v1": (t1_decode.t1_decode_lanes_v1, "launches"),
             "K4v1": (ht_encode.ht_encode_lanes_v1, "launches"),
             "K4rv1": (ht_encode.ht_encode_lanes_v1, "refine_launches"),
@@ -301,7 +303,8 @@ def ht_decode_inputs(mneg: torch.Tensor, wv: torch.Tensor, hv: torch.Tensor,
 
 def run_ht_dec(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
     """K1 on blocks coded by the port's HT encoder: bit-exact to the
-    source and to its plain version on every lane; timed."""
+    source, to its plain version and to its first design on every lane;
+    the two designs timed in turns."""
     device = torch.device(device)
     mneg, mag, neg = _ht_source(0, w, h, nblocks)
     wv, hv = _col([w] * nblocks, device), _col([h] * nblocks, device)
@@ -311,18 +314,22 @@ def run_ht_dec(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
     got = ht_decode.ht_decode_lanes(*lanes, w, h)
     ref = ht_decode.ht_decode_lanes_ref(*lanes, w, h)
     err = int((got.long() - ref.long()).abs().max())
+    v1 = torch.equal(got, ht_decode.ht_decode_lanes_v1(*lanes, w, h))
     g = got.cpu().numpy()
     exact = int(((np.abs(g) == 2 * mag) & ((g < 0) == neg)).all((1, 2))
                 .sum())
+    prev_ms, ms = turns_ms(
+        device, lambda: ht_decode.ht_decode_lanes_v1(*lanes, w, h),
+        lambda: ht_decode.ht_decode_lanes(*lanes, w, h))
     res = dict(check="ht_dec", device=str(device), blocks=nblocks,
-               ok=err == 0 and exact == nblocks, max_abs_err=err,
-               ms=kernel_ms(device, lambda: ht_decode.ht_decode_lanes(
-                   *lanes, w, h)))
+               ok=err == 0 and exact == nblocks and v1, max_abs_err=err,
+               equal_to_v1=v1, ms=ms, prev_ms=prev_ms)
     res["mp_s"] = nblocks * w * h / 1e3 / res["ms"]
     return _report(res, f"{w}x{h}x{nblocks}: {exact}/{nblocks} bit-exact "
                    f"to the source, max_abs_err {err} against the plain "
-                   f"version; kernel {res['ms']:.4f} ms/launch, "
-                   f"{res['mp_s']:.1f} MP/s")
+                   f"version, every lane equal to v1={v1}; kernel "
+                   f"{ms:.4f} ms/launch ({res['mp_s']:.1f} MP/s), v1 "
+                   f"{prev_ms:.4f} ms/launch, in turns")
 
 
 def ht_encodes_equal(got, ref, caps) -> bool:

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the HT, Part-1 and per-lane gather CUDA
 kernels (a kernel has no CPU mode) against their plain PyTorch versions,
-the scalar HT coder, the committed Part-1 mode-switch vectors and
-torch.take_along_dim, and the serving decode and encode (targeted and
+the redesigned coders' first designs, the scalar HT coder, the committed
+Part-1 mode-switch vectors and torch.take_along_dim, on seeded and (HT
+decoders) corrupt lanes, and the serving decode and encode (targeted and
 layered Part-1 too) on the card against the source pixels, the host
 encoder and the port's CPU encode.
 
@@ -462,3 +463,70 @@ def test_part1_kernels_match_first_design(card):
                                  zero, ptbl)]
     assert torch.equal(D3.t1_decode_lanes(*args, 64, 64),
                        D3.t1_decode_lanes_v1(*args, 64, 64))
+
+
+def _ht_dec_lanes(seed, n, side):
+    """K2's lanes (on the CPU): n lanes of up to side x side at cleanup
+    planes 0..3 (one invalid) coded by the plain K4r, their clean streams
+    cut into rows, at 3, 2 and 1 passes in turn."""
+    lanes = _enc_lanes(seed, n, side)
+    lanes = (lanes[0], torch.tensor([i % 4 for i in range(n)],
+                                    dtype=torch.int32)) + lanes[2:]
+    caps = (side * side * 28 // 8 + 64, 1024, 2048)
+    streams, bits, _ns = E.ht_encode_lanes(*lanes, *caps, refine=True)
+    allcaps = caps + E.refine_caps(side, side)
+    used = E.clear_unused(streams, bits, *allcaps[:-1])
+    starts = np.cumsum((0,) + allcaps)
+    cut = [torch.nn.functional.pad(used[:, a:b], (0, 1)).contiguous()
+           for a, b in zip(starts[:-1], starts[1:])]
+    npass = torch.tensor([3 - i % 3 for i in range(n)], dtype=torch.int32)
+    return (*cut[:3], *lanes[1:], cut[3], cut[4], npass)
+
+
+def _corrupted(lanes, seed):
+    """The lanes with every stream cut short on even lanes (zero from a
+    random byte on) and replaced by random bytes on odd ones."""
+    rng = np.random.default_rng(seed)
+    out = list(lanes)
+    for s in (0, 1, 2, 7, 8):
+        t = out[s].clone()
+        for j in range(t.shape[0]):
+            if j % 2 == 0:
+                t[j, int(rng.integers(0, t.shape[1])):] = 0
+            else:
+                t[j] = torch.from_numpy(rng.integers(0, 256, t.shape[1],
+                                                     dtype=np.uint8))
+        out[s] = t
+    return tuple(out)
+
+
+@pytest.mark.parametrize("tables", ["default", "dropin"])
+def test_ht_decoders_match_first_design(card, tables):
+    """K1 and K2 (one warp per lane) against their first designs (one
+    thread per lane, the full-lane oracle) and their plain versions on
+    every lane of 96 seeded lanes of up to 64x64 (an invalid lane, cleanup
+    planes 0..3, 1..3 passes) and of the same lanes corrupted, under both
+    table families; one launch each."""
+    if tables == "dropin":
+        _install_dropin()
+    try:
+        clean = _ht_dec_lanes(14, 96, 64)
+        for lanes in (clean, _corrupted(clean, 15)):
+            dev = [t.to(card) for t in lanes]
+            for k2 in (False, True):
+                more = dev[7:] if k2 else []
+                before = (H.ht_decode_lanes.launches,
+                          H.ht_decode_lanes.refine_launches)
+                got = H.ht_decode_lanes(*dev[:7], 64, 64, *more)
+                torch.cuda.synchronize()
+                assert (H.ht_decode_lanes.launches,
+                        H.ht_decode_lanes.refine_launches) == (
+                    before[0] + (not k2), before[1] + k2)
+                assert torch.equal(got, H.ht_decode_lanes_v1(
+                    *dev[:7], 64, 64, *more))
+                assert torch.equal(got.cpu(), H.ht_decode_lanes_ref(
+                    *lanes[:7], 64, 64, *(lanes[7:] if k2 else [])))
+        assert got.abs().max() > 0
+    finally:
+        if tables == "dropin":
+            _reset_tables()
