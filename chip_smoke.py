@@ -142,6 +142,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                first design, the plain versions on edge lanes, the two
                designs timed in turns.
 
+ 19. tiled   — (C) one 3840x2160 8-bit RGB frame, HT lossless RCT + 5/3,
+               6 resolutions, 64x64 code-blocks, in 1024x1024 tiles (12
+               tiles, the edge tiles 768 wide and 112 tall), and (C1) the
+               same in Part-1 default style: encoded on the card (one K4
+               or K5 launch per tile, counted per tile) and decoded back
+               bit-exact to the source (K1 per tile and bucket, or one
+               K3 launch per tile); every rep the same bytes; a 200x136
+               RGB encode in 64-px tiles equal to the CPU encode; best and
+               median of 5 calls, the host and synced-device split.
+ 20. windows — (C-win) a 1024x1024 window at (1000, 700) on (C), which
+               meets tiles 0, 1, 4 and 5 only (the others launch
+               nothing); (B-win) and (B-r-win) a 512x512 window at (333,
+               211) on (B) (served) and (B-r) (general route): equal to
+               the source, or to (B-r)'s full decode, inside the window;
+               the live lane count beside the whole decode's.
+ 21. M       — the committed general-route codestreams (grok_tpu_torch/
+               util/stream_vectors.npz: 1080p Part-1 0x3F and BYPASS in 2
+               layers, a 512x512 layered HT-mixed set) decoded on the card
+               at each layer cap to their committed plane hashes, with
+               their K3 (and K1) launches; K3 on every general-route lane
+               against its first design, timed in turns, and on the
+               bottom-edge lanes against its plain version.
+
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
 nothing of the JAX package is imported: a finder installed first refuses
@@ -157,6 +180,7 @@ import os
 import subprocess
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 
@@ -235,12 +259,13 @@ def _k5_bytes(ins, lens, tables) -> int:
 
 
 def _k3_bytes(lanes, tables) -> int:
-    """Bytes the Part-1 decode must move: each lane's used codeword bytes,
-    its seven int32 parameters and its segment table read, the tables
-    read once, and each lane's w*h int32 samples written."""
+    """Bytes the Part-1 decode must move: each lane's used codeword bytes
+    (up to the end of its last segment), its seven int32 parameters and
+    its segment table read, the tables read once, and each lane's w*h
+    int32 samples written."""
     _body, _start, npass, _nb, _o, w, h, _st, ptbl = lanes
     live = (npass > 0).long()
-    used = int((ptbl[:, 0, 1].long() * live).sum())
+    used = int((ptbl[:, :, 1].amax(1).long() * live).sum())
     nl = w.shape[0]
     return used + 28 * nl + _nbytes(ptbl) + _nbytes(*tables) \
         + 4 * int((w.long() * h.long()).sum())
@@ -499,6 +524,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from grok_tpu_torch import _build, api, native
     from grok_tpu_torch.codestream import j2k
+    from grok_tpu_torch.core.geometry import Rect
     from grok_tpu_torch.core.params import CompressParams
     from grok_tpu_torch.ops import ht_decode, ht_encode, t1_decode, t1_encode
     from grok_tpu_torch.pipeline import device as pdevice
@@ -1376,6 +1402,271 @@ def main() -> int:
         print(f"{check}: v2 {r['ms']:.4f} ms, v1 {r['prev_ms']:.4f} ms "
               f"({r['prev_ms'] / r['ms']:.2f}x) on the tool's "
               f"{r['blocks']} blocks [{card}]", flush=True)
+
+    # ---- 19. tiled HT (C) and tiled Part-1 (C1) --------------------------
+    from grok_tpu_torch.pipeline import serve
+    from grok_tpu_torch.util import stream_vectors
+    DP = api.DecompressParams
+    t0 = time.perf_counter()
+    uhd = synthetic_image(2160, 3840, 3, seed=9)
+    frames_c = [[torch.from_numpy(np.ascontiguousarray(uhd[..., c])).to(dev)
+                 .to(torch.int32) for c in range(3)]]
+    torch.cuda.synchronize()
+    print(f"setup: the 3840x2160 source made and uploaded in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    pt = dict(num_resolutions=6, tile_w=1024, tile_h=1024)
+    tiled = {"C": (CompressParams(ht=True, **pt), "K4", "K1"),
+             "C1": (CompressParams(**pt), "K5", "K3")}
+    c_hdr = api._build_main_header(2160, 3840, 3, 8, False, tiled["C"][0])
+    ntiles = c_hdr.siz.num_tiles
+    edge = c_hdr.siz.tile_rect(ntiles - 1)
+    print(f"tiled cells: {ntiles} tiles of 1024x1024, the last "
+          f"{edge.w}x{edge.h}", flush=True)
+
+    @contextlib.contextmanager
+    def per_tile(fn_name, owner, kernel):
+        """owner.fn_name wrapped to record `kernel`'s launches per tile
+        (the tile index is its third argument or keyword t)."""
+        got = {}
+        real = getattr(owner, fn_name)
+
+        def spy(*a, **k):
+            t = k.get("t", a[3] if len(a) > 3 else 0) \
+                if fn_name == "try_encode_serving_batch" else a[2]
+            n0 = counts()[kernel]
+            try:
+                return real(*a, **k)
+            finally:
+                got[t] = counts()[kernel] - n0
+        setattr(owner, fn_name, spy)
+        try:
+            yield got
+        finally:
+            setattr(owner, fn_name, real)
+
+    def stage_tiles(stream, dp):
+        """Each decoded tile's staged work (served, or on the general
+        route), as decompress_device stages it."""
+        dp = api._params(dp)
+        cs, hdr, by_tile = api._tiles(stream, dp)
+        out = []
+        for t in sorted(by_tile):
+            rect = hdr.siz.tile_rect(t)
+            if dp.window is not None and \
+                    rect.intersect(Rect(*dp.window)).empty:
+                continue
+            th, body = api._tile_body(cs, hdr, by_tile[t])
+            try:
+                out.append(serve.stage_serving_batch(cs, hdr, t, th, [body],
+                                                     dp, device=dev))
+            except serve.GeneralRoute:
+                out.append(tile.stage_general(cs, hdr, t, th, body, dp,
+                                              device=dev))
+        return out
+
+    def live_lanes(staged) -> int:
+        n = 0
+        for s in staged:
+            if isinstance(s, serve.StagedBatch):
+                m = s.meta.cpu().numpy()
+                n += int(((m[:, 5] != 0) | (m[:, 8] > 0)).sum())
+            else:
+                n += sum(int((m[:, 9] > 0).sum()) for m in s.meta)
+                n += 0 if s.mq is None else s.mq[1].shape[0]
+        return n
+
+    def split_decode(name, stream, dp):
+        """Best and median of REPS host stagings and synced device runs
+        of every tile after a warm-up."""
+        [s.run() for s in stage_tiles(stream, dp)]
+        host, devt = [], []
+        for _ in range(REPS):
+            staged, dt = timed(lambda: stage_tiles(stream, dp))
+            host.append(dt)
+            devt.append(timed(lambda: [s.run() for s in staged])[1])
+        print(f"split decode {name}: host parse+stage+upload best "
+              f"{min(host) * 1e3:.3f} ms (median "
+              f"{float(np.median(host)) * 1e3:.3f}), device blocks+"
+              f"synthesis best {min(devt) * 1e3:.3f} ms (median "
+              f"{float(np.median(devt)) * 1e3:.3f}), {len(staged)} tiles "
+              f"[{card}]", flush=True)
+        return staged
+
+    t_new = time.perf_counter()
+    tiled_streams = {}
+    for name, (params, kenc, kdec) in tiled.items():
+        counts_zero()
+        times = []
+        with per_tile("try_encode_serving_batch", api, kenc) as enc_tile:
+            for _ in range(REPS + 1):
+                out, dt = timed(lambda: api.compress_device_batch(
+                    frames_c, params, device=dev))
+                times.append(dt)
+                if name in tiled_streams and out != tiled_streams[name]:
+                    _fail(f"encode {name}: reps gave different bytes")
+                tiled_streams[name] = out
+        got = counts()
+        report("encode", name, times, 1, 3840 * 2160)
+        need(f"{name} encode", got, [kenc],
+             ["K2", "K4r"] + v1s + (["K5"] if kenc == "K4" else ["K4"]))
+        print(f"encode {name}: {len(tiled_streams[name][0])} bytes; {kenc} "
+              f"launches per tile {[enc_tile[t] for t in range(ntiles)]}",
+              flush=True)
+        if got[kenc] != ntiles * (REPS + 1) or set(enc_tile.values()) \
+                != {1}:
+            _fail(f"encode {name}: not one {kenc} launch per tile")
+        comps = [torch.stack([f[ci] for f in frames_c]) for ci in range(3)]
+        host = _host_split(serve_enc, tile, lambda: timed(
+            lambda: api.compress_device_batch(frames_c, params,
+                                              device=dev))[1])
+
+        def device_part():
+            for t in range(ntiles):
+                r = c_hdr.siz.tile_rect(t)
+                tc = [c[:, r.y0:r.y1, r.x0:r.x1].contiguous() for c in comps]
+                plan, lanes = serve_enc.stage_encode_lanes(tc, c_hdr, params,
+                                                           t)
+                if plan.coder == "ht":
+                    ht_encode.ht_encode_lanes(*lanes, *plan.caps)
+                else:
+                    t1_encode.t1_encode_lanes(
+                        *serve_enc.mq_lane_inputs(plan, lanes),
+                        *plan.mq_caps)
+        device_part()
+        dev_s = [timed(device_part)[1] for _ in range(REPS)]
+        print(f"split encode {name}: device staging + block coders of all "
+              f"tiles best {min(dev_s) * 1e3:.3f} ms (median "
+              f"{float(np.median(dev_s)) * 1e3:.3f}); C wire assembly "
+              f"{host['assemble'] * 1e3:.3f} ms, Tier-2 finish "
+              f"{host['finish'] * 1e3:.3f} ms, whole call "
+              f"{host['call'] * 1e3:.3f} ms [{card}]", flush=True)
+
+        counts_zero()
+        times = []
+        with per_tile("_decode_tile_on", api, kdec) as dec_tile:
+            for _ in range(REPS + 1):
+                out, dt = timed(lambda: api.decompress_device_batch(
+                    tiled_streams[name], device=dev))
+                times.append(dt)
+                if not np.array_equal(pixels(out[0]), uhd):
+                    _fail(f"decode {name}: pixels differ from the source")
+        got = counts()
+        report("decode", name, times, 1, 3840 * 2160)
+        need(f"{name} decode", got, [kdec], ["K2"] + v1s)
+        print(f"decode {name}: bit-exact to the source; {kdec} launches per "
+              f"tile {[dec_tile[t] for t in range(ntiles)]}", flush=True)
+        if kdec == "K3" and set(dec_tile.values()) != {1}:
+            _fail(f"decode {name}: not one K3 launch per tile")
+        split_decode(name, tiled_streams[name][0], DP())
+    small_t = synthetic_image(136, 200, 3, seed=21)
+    for name, (params, _ke, _kd) in tiled.items():
+        sp = replace(params, tile_w=64, tile_h=64)
+        if api.compress_device(small_t, sp, device=dev) != \
+                api.compress_device(small_t, sp, device="cpu"):
+            _fail(f"tiled {name} encode on the card differs from the plain "
+                  f"versions on the CPU")
+        print(f"encode reference {name}: 200x136 RGB in 64-px tiles "
+              f"byte-identical to the CPU encode through the plain "
+              f"versions", flush=True)
+
+    # ---- 20. windows: (C-win) on (C), (B-win) on (B) and (B-r) -----------
+    wins = {"C-win": ("C", tiled_streams["C"][0], (1000, 700, 2024, 1724),
+                      uhd),
+            "B-win": ("B", streams["B"][0], (333, 211, 845, 723), rgb[0]),
+            "B-r-win": ("B-r", streams["B-r"][0], (333, 211, 845, 723),
+                        None)}
+    for name, (base, stream, window, src) in wins.items():
+        dp = DP(window=window)
+        x0, y0, x1, y1 = window
+        counts_zero()
+        times = []
+        with per_tile("_decode_tile_on", api, "K1") as dec_tile:
+            for _ in range(REPS + 1):
+                out, dt = timed(lambda: api.decompress_device(stream, dp,
+                                                              device=dev))
+                times.append(dt)
+        got = counts()
+        report("decode", name, times, 1, (x1 - x0) * (y1 - y0))
+        inside = pixels(out)[y0:y1, x0:x1]
+        if src is None:      # (B-r): its full decode inside the window
+            src = pixels(api.decompress_device(stream, device=dev))
+        if not np.array_equal(inside, src[y0:y1, x0:x1]):
+            _fail(f"decode {name}: pixels inside the window differ")
+        need(f"{name} decode", got, ["K2"] if base == "B-r" else ["K1"],
+             v1s)
+        n_win = live_lanes(stage_tiles(stream, dp))
+        n_full = live_lanes(stage_tiles(stream, DP()))
+        tiles_hit = sorted(dec_tile) if dec_tile else [0]
+        print(f"decode {name}: {x1 - x0}x{y1 - y0} window at ({x0}, {y0}) "
+              f"equal to the {'full decode' if base == 'B-r' else 'source'} "
+              f"inside; {n_win} live lanes against {n_full} for the whole "
+              f"{base}; tiles decoded {tiles_hit}", flush=True)
+        if not 0 < n_win < n_full:
+            _fail(f"decode {name}: the window did not cut the lanes")
+        if base == "C" and tiles_hit != [0, 1, 4, 5]:
+            _fail(f"decode {name}: decoded tiles {tiles_hit}, not the "
+                  f"four the window meets")
+        split_decode(name, stream, dp)
+
+    # ---- 21. the general route on the committed streams (M) --------------
+    gen_k3 = {}
+    for name, (data, hashes) in stream_vectors.load().items():
+        for k in stream_vectors.LAYER_CAPS:
+            counts_zero()
+            times = []
+            for _ in range(REPS + 1):
+                out, dt = timed(lambda: api.decompress_device(
+                    data, DP(max_layers=k), device=dev))
+                times.append(dt)
+                if stream_vectors.plane_hash(out) != hashes[k]:
+                    _fail(f"decode M {name} at max_layers={k}: planes "
+                          f"differ from the committed hash")
+            got = counts()
+            gen_k3[(name, k)] = got["K3"] // (REPS + 1)
+            npx = out[0].shape[0] * out[0].shape[1]
+            report("decode", f"M {name} max_layers={k}", times, 1, npx)
+            need(f"M {name} decode", got, ["K3"], ["K2"] + v1s)
+            print(f"decode M {name} max_layers={k}: equal to the committed "
+                  f"hash; launches per decode K3 {gen_k3[(name, k)]}, K1 "
+                  f"{got['K1'] // (REPS + 1)}", flush=True)
+        staged = split_decode(f"M {name}", data, DP())[0]
+        lanes = staged.mq
+        W, H = staged.program.mq_dims
+        nl_all = lanes[1].shape[0]
+        if not torch.equal(t1_decode.t1_decode_lanes(*lanes, W, H),
+                           t1_decode.t1_decode_lanes_v1(*lanes, W, H)):
+            _fail(f"K3 differs from its first design on M {name}")
+        v1_ms, k_ms = turns_ms(
+            dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
+            lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
+        nb = _k3_bytes(lanes, tables)
+        styles = sorted({hex(s) for s in lanes[7].tolist()})
+        print(f"K3 M {name} (general route, styles {styles}): all {nl_all} "
+              f"lanes equal to v1 bit for bit; v2 {k_ms:.4f} ms, v1 "
+              f"{v1_ms:.4f} ms, in turns ({v1_ms / k_ms:.2f}x), bound "
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) [{card}]",
+              flush=True)
+        # the bottom-edge lanes (h <= EDGE_H, or the flattest lanes where
+        # no block is that flat), as phase 9 takes them
+        He = max(EDGE_H, int(lanes[6].min()))
+        edge = (lanes[0],) + _select(lanes[1:], lanes[6] <= He)
+        We, nle = int(edge[5].max()), edge[1].shape[0]
+        got = t1_decode.t1_decode_lanes(*edge, We, He)
+        ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
+            *edge, We, He))
+        err = int((got.long() - ref.long()).abs().max())
+        k3["err"] = max(k3["err"], err)
+        e_v1, e_ms = turns_ms(
+            dev, lambda: t1_decode.t1_decode_lanes_v1(*edge, We, He),
+            lambda: t1_decode.t1_decode_lanes(*edge, We, He))
+        print(f"K3 M {name}: {nle} bottom-edge lanes ({We}x{He}) vs the "
+              f"plain version: max_abs_err {err}; v2 {e_ms:.4f} ms, v1 "
+              f"{e_v1:.4f} ms in turns, plain version {p_ms:.1f} ms "
+              f"[{card}]", flush=True)
+        if err:
+            _fail(f"K3 disagrees with its plain version on M {name}")
+    print(f"tiled, window and general-route phases: "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)

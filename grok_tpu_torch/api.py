@@ -1,9 +1,11 @@
 """Public device surface of the PyTorch port: serving decode and encode.
 
 Mirrors grok_tpu/api.py `decompress_device[_batch]` and
-`compress_device[_batch]` for the served shapes.  The entry points run
-on the CUDA card unless the caller asks for another device (`device=`,
-"cuda" by default; a missing card raises, there is no CPU fallback).
+`compress_device[_batch]` for the served shapes, single-tile and tiled
+(one tile-part per tile), decodes whole or in a window.  The entry
+points run on the CUDA card unless the caller asks for another device
+(`device=`, "cuda" by default; a missing card raises, there is no CPU
+fallback).
 Decoded int32 component planes stay resident on the device; encodes take
 device tensors (kept where they are) or numpy arrays (uploaded) and
 return codestream bytes.  Streams or parameters outside the served scope
@@ -22,7 +24,7 @@ from grok_tpu_torch.codestream import j2k, jp2
 from grok_tpu_torch.codestream.j2k import (CodingStyle, CodingStyleComp,
                                            CompInfo, MainHeader, QuantStyle,
                                            TileHeader)
-from grok_tpu_torch.core.geometry import SizGrid
+from grok_tpu_torch.core.geometry import Rect, SizGrid
 from grok_tpu_torch.core.image import ColorSpace
 from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
                                         DecompressParams, MCTMode)
@@ -61,8 +63,11 @@ def _tile_body(cs, hdr, parts):
 def stage_device_batch(streams: list[bytes],
                        dparams: DecompressParams | None = None, *,
                        device="cuda") -> StagedBatch:
-    """Parse N same-geometry codestreams on the host and upload their
-    staged batch to `device`; .run() on the result decodes it."""
+    """Parse N same-geometry single-tile codestreams on the host and
+    upload their staged batch to `device`; .run() on the result decodes
+    it.  Raises GeneralRoute for what the batch entry takes stream by
+    stream: several tiles, different main headers, tile-part COD/QCD,
+    and every stream the serving decode declines to the general route."""
     dev = _device(device)
     dp = _params(dparams)
     if not streams:
@@ -74,16 +79,14 @@ def stage_device_batch(streams: list[bytes],
     for s in streams:
         cs = jp2.locate_codestream(s, permissive=not dp.strict)
         if bytes(cs[:hdr.main_header_end]) != mh:
-            raise NotImplementedError("batch decode of streams with "
-                                      "different main headers is not "
-                                      "ported")
+            raise GeneralRoute("a batch of streams with different main "
+                               "headers")
         parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
         if hdr.siz.num_tiles != 1 or {p.tile_index for p in parts} != {0}:
-            raise NotImplementedError("multi-tile decode is not ported")
+            raise GeneralRoute("a batch of multi-tile streams")
         th, body = _tile_body(cs, hdr, parts)
         if th.cod is not None or th.qcd is not None:
-            raise NotImplementedError("batch decode of streams with "
-                                      "tile-part COD/QCD is not ported")
+            raise GeneralRoute("a batch of streams with tile-part COD/QCD")
         bodies.append(body)
         ths.append(th)
     return stage_serving_batch(mh, hdr, 0, ths[0], bodies, dp, device=dev,
@@ -98,9 +101,11 @@ def decompress_device_batch(streams: list[bytes],
     All N streams' code-blocks share kernel launches, the N bodies go up
     as one digest, and every stream's inverse DWT/MCT runs on stacked
     tensors.  Returns N lists of per-component int32 tensors on
-    `device`.  HT streams with refinement passes, which the serving
-    decode declines, decode stream by stream through decompress_device,
-    as the JAX package's batch decode does."""
+    `device`.  What the served batch declines (GeneralRoute: multi-tile
+    streams, different main headers, tile-part COD/QCD, refined HT
+    blocks, Part-1 mode switches, layered HT-mixed streams) decodes
+    stream by stream through decompress_device, as the JAX package's
+    batch decode does."""
     if not streams:
         return []
     try:
@@ -111,48 +116,93 @@ def decompress_device_batch(streams: list[bytes],
     return staged.run()
 
 
+def _decode_tile_on(cs, hdr, t: int, parts: list, dp,
+                    dev: torch.device) -> tuple:
+    """(tile header, per-component tensors) of one tile: served, or on
+    GeneralRoute decoded by the general device route."""
+    th, body = _tile_body(cs, hdr, parts)
+    try:
+        return th, try_decode_serving_batch(cs, hdr, t, th, [body], dp,
+                                            device=dev)[0]
+    except GeneralRoute:
+        return th, decode_tile(cs, hdr, t, th, body, dp, device=dev)
+
+
 def decompress_device(data: bytes, dparams: DecompressParams | None = None,
                       *, device="cuda") -> list:
     """Decode one codestream to per-component int32 tensors resident on
-    `device` (single-tile served streams; tile-part COD/QCD overrides
-    are served through the plan key, as in the JAX package).  An HT
-    stream the serving decode declines (refinement passes) decodes
-    through the general device route, pipeline/tile.py decode_tile, on
-    the same device."""
+    `device`, as grok_tpu/api.py `decompress_device` does.
+
+    Each tile is served (tile-part COD/QCD overrides through the plan
+    key), or where the serving decode declines it (GeneralRoute: refined
+    HT blocks, Part-1 mode switches, layered HT-mixed streams) decoded by
+    the general device route, pipeline/tile.py decode_tile, on the same
+    device.  A stream with one tile returns that tile's planes; with
+    several, full-image canvases at dp.reduce, each tile pasted at its
+    place.  With dp.window, a tile that misses the window is not decoded
+    (its region stays 0), and every sample inside the window equals the
+    whole decode's."""
     dev = _device(device)
     dp = _params(dparams)
-    cs, hdr, t, th, body = _one_tile(data, dp)
-    try:
-        return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
-                                        device=dev)[0]
-    except GeneralRoute:
-        return decode_tile(cs, hdr, t, th, body, dp, device=dev)
+    cs, hdr, by_tile = _tiles(data, dp)
+    tiles = sorted(by_tile)
+    if len(tiles) == 1:
+        return _decode_tile_on(cs, hdr, tiles[0], by_tile[tiles[0]], dp,
+                               dev)[1]
+    g = hdr.siz.normalized()
+    scale = 1 << dp.reduce if dp.reduce else 1
+    origins, out = [], []
+    for ci in hdr.comps:
+        x0, y0 = -(-g.xosiz // ci.dx), -(-g.yosiz // ci.dy)
+        x1, y1 = -(-g.xsiz // ci.dx), -(-g.ysiz // ci.dy)
+        rx0, ry0 = -(-x0 // scale), -(-y0 // scale)
+        rx1, ry1 = -(-x1 // scale), -(-y1 // scale)
+        origins.append((rx0, ry0))
+        out.append(torch.zeros((ry1 - ry0, rx1 - rx0), dtype=torch.int32,
+                               device=dev))
+    for t in tiles:
+        rect = hdr.siz.tile_rect(t)
+        if dp.window is not None and rect.intersect(Rect(*dp.window)).empty:
+            continue
+        th, comps = _decode_tile_on(cs, hdr, t, by_tile[t], dp, dev)
+        for c, ci in enumerate(hdr.comps):
+            nl = hdr.style_for(c, th.coc, th.cod).num_resolutions - 1
+            s = 1 << (min(dp.reduce, nl) if dp.reduce else 0)
+            r = rect.ceil_scale(ci.dx, ci.dy).ceil_scale(s, s)
+            ox, oy = origins[c]
+            out[c][r.y0 - oy:r.y1 - oy, r.x0 - ox:r.x1 - ox] = \
+                comps[c][:r.h, :r.w]
+    return out
 
 
-def _one_tile(data: bytes, dp: DecompressParams) -> tuple:
-    """(codestream, main header, tile index, tile header, tile body) of a
-    single-tile stream."""
+def _tiles(data: bytes, dp: DecompressParams) -> tuple:
+    """(codestream, main header, {tile index: its tile-parts})."""
     cs = jp2.locate_codestream(data, permissive=not dp.strict)
     hdr = j2k.read_main_header(cs)
-    parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
-    tiles = {p.tile_index for p in parts}
-    if len(tiles) != 1:
-        raise NotImplementedError("multi-tile decode is not ported")
-    t = tiles.pop()
-    th, body = _tile_body(cs, hdr, parts)
-    return cs, hdr, t, th, body
+    by_tile: dict = {}
+    for p in j2k.read_tile_parts(cs, hdr, strict=dp.strict):
+        by_tile.setdefault(p.tile_index, []).append(p)
+    if not by_tile:
+        raise ValueError("the codestream has no tile-parts")
+    return cs, hdr, by_tile
 
 
 def stage_general_device(data: bytes,
                          dparams: DecompressParams | None = None, *,
                          device="cuda"):
-    """Stage one single-tile HT stream for the general decode route on
+    """Stage one single-tile stream for the general decode route on
     `device` (pipeline/tile.py stage_general); .run() on the result
     decodes it, as decompress_device does for a stream the serving
     decode declines."""
     dev = _device(device)
     dp = _params(dparams)
-    cs, hdr, t, th, body = _one_tile(data, dp)
+    cs, hdr, by_tile = _tiles(data, dp)
+    if len(by_tile) != 1:
+        raise NotImplementedError("stage_general_device stages single-tile "
+                                  "streams; decompress_device decodes "
+                                  "tiled ones")
+    (t, parts), = by_tile.items()
+    th, body = _tile_body(cs, hdr, parts)
     return stage_general(cs, hdr, t, th, body, dp, device=dev)
 
 
@@ -161,9 +211,11 @@ def stage_general_device(data: bytes,
 # ---------------------------------------------------------------------------
 
 def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
-                       params: CompressParams) -> MainHeader:
-    """grok_tpu/api.py `_build_main_header` for an image at the canvas
-    origin whose components share one precision, without subsampling."""
+                       params: CompressParams,
+                       origin: tuple[int, int] = (0, 0)) -> MainHeader:
+    """grok_tpu/api.py `_build_main_header` for an image at `origin` (x0,
+    y0) on the canvas whose components share one precision, without
+    subsampling."""
     params.validate()
     if prec > 27:
         # int32 coefficient pipeline: RCT (+1 bit), DWT band gain (+2
@@ -179,7 +231,9 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
                                   f"ported")
     if params.roi_shift > 0:
         raise NotImplementedError("ROI encode is not ported")
-    siz = SizGrid(xsiz=w, ysiz=h, xtsiz=params.tile_w, ytsiz=params.tile_h,
+    x0, y0 = origin
+    siz = SizGrid(xsiz=x0 + w, ysiz=y0 + h, xosiz=x0, yosiz=y0,
+                  xtsiz=params.tile_w, ytsiz=params.tile_h,
                   xtosiz=params.tile_off_x, ytosiz=params.tile_off_y)
     comps = [CompInfo(prec=prec, sgnd=sgnd, dx=1, dy=1)
              for _ in range(ncomps)]
@@ -253,16 +307,22 @@ def _on_device(a, dev: torch.device) -> torch.Tensor:
 
 def compress_device_batch(arrays_list, params: CompressParams | None = None,
                           prec: int = 8, sgnd: bool = False, *,
-                          device="cuda") -> list[bytes]:
+                          device="cuda",
+                          origin: tuple[int, int] = (0, 0)) -> list[bytes]:
     """Encode N same-geometry frames to N codestreams in one batched
     device encode — the encode mirror of decompress_device_batch.
 
     arrays_list: one entry per frame, each a list of (h, w) component
     arrays, or a single (h, w) / (h, w, c) array.  Torch tensors stay on
     their device, which must be `device` (else ValueError); numpy arrays
-    are uploaded to `device`.  All frames' code-blocks share one launch
-    of each block coder the stream uses (K4 for HT, K5 for Part-1, both
-    for HT-mixed)."""
+    are uploaded to `device`.  origin: the image's (x0, y0) on the
+    canvas, as grok_tpu's Image x0 and y0.  Tile by tile
+    (params.tile_w/tile_h and the tile offsets), every frame's tile is
+    sliced on the device and all frames' code-blocks of the tile share
+    one launch of each block coder the stream uses (K4 for HT, K4r for
+    refined HT, K5 for Part-1, both for HT-mixed), with the tile's own
+    layer budgets; each stream carries one tile-part per tile, in tile
+    order, as grok_tpu.compress writes it."""
     params = params or CompressParams(ht=True)
     if not arrays_list:
         return []
@@ -287,9 +347,8 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
         raise NotImplementedError("encode of subsampled components is not "
                                   "ported")
     h, w = comp_shapes[0]
-    hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params)
-    if hdr.siz.num_tiles != 1:
-        raise NotImplementedError("multi-tile encode is not ported")
+    hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params,
+                             origin)
     if params.max_tile_parts != 1:
         raise NotImplementedError("encode into several tile-parts is not "
                                   "ported")
@@ -297,18 +356,32 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
         raise NotImplementedError("PLM encode is not ported")
     comps = [torch.stack([f[ci] for f in frames])
              for ci in range(len(comp_shapes))]
-    results = try_encode_serving_batch(comps, hdr, params)
+    x0, y0 = origin
+    per_tile = []
+    for t in range(hdr.siz.num_tiles):
+        r = hdr.siz.tile_rect(t)
+        if hdr.siz.num_tiles == 1:
+            tc = comps
+        else:
+            tc = [c[:, r.y0 - y0:r.y1 - y0, r.x0 - x0:r.x1 - x0].contiguous()
+                  for c in comps]
+        per_tile.append(try_encode_serving_batch(tc, hdr, params, t))
     out = []
-    for res in results:
-        plt_seg = j2k.write_plt(res.packet_lens) if params.write_plt \
-            else b""
-        plt_seg = res.com + plt_seg      # the HT-mixed bitmap COM first
-        psot = 12 + len(plt_seg) + 2 + len(res.body)
-        tp = j2k.write_sot(0, psot, 0, 1) + plt_seg + \
-            struct.pack(">H", j2k.SOD) + res.body
-        mh = _main_header_bytes(
-            hdr, params, [(0, len(tp))] if params.write_tlm else None)
-        stream = mh + tp + struct.pack(">H", j2k.EOC)
+    for fi in range(len(frames)):
+        tps, tlm = [], []
+        for t, results in enumerate(per_tile):
+            res = results[fi]
+            plt_seg = j2k.write_plt(res.packet_lens) if params.write_plt \
+                else b""
+            plt_seg = res.com + plt_seg      # the HT-mixed bitmap COM first
+            psot = 12 + len(plt_seg) + 2 + len(res.body)
+            tp = j2k.write_sot(t, psot, 0, 1) + plt_seg + \
+                struct.pack(">H", j2k.SOD) + res.body
+            tps.append(tp)
+            tlm.append((t, len(tp)))
+        mh = _main_header_bytes(hdr, params,
+                                tlm if params.write_tlm else None)
+        stream = mh + b"".join(tps) + struct.pack(">H", j2k.EOC)
         if params.jp2:
             stream = jp2.wrap_jp2(
                 stream, width=w, height=h, numcomps=len(comp_shapes),
@@ -321,8 +394,8 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
 
 def compress_device(arrays, params: CompressParams | None = None,
                     prec: int = 8, sgnd: bool = False, *,
-                    device="cuda") -> bytes:
+                    device="cuda", origin: tuple[int, int] = (0, 0)) -> bytes:
     """Encode one frame (a list of (h, w) component arrays, or one
     (h, w) / (h, w, c) array) to a codestream on the device."""
     return compress_device_batch([arrays], params, prec, sgnd,
-                                 device=device)[0]
+                                 device=device, origin=origin)[0]

@@ -27,7 +27,9 @@ then for the whole batch:
 A DecodeProgram is built once per signature (plan geometry, batch size,
 bucket layout, table version) and cached by the caller.  The general
 decode route (pipeline/tile.py decode_tile) runs its own block decodes
-and hands their outputs to steps 3-5 (`synthesize`).
+(K1/K2 per bucket from its own staging, K3 from `stage_mq_lanes`: its
+Part-1 lanes with their own segment tables) and hands their outputs to
+steps 3-5 (`synthesize`).
 """
 
 from __future__ import annotations
@@ -244,6 +246,21 @@ class DecodeProgram:
         ptbl = torch.stack([zero, dlen, zero], 1)[:, None].contiguous()
         ori, w, h = self.mq_lanes
         return (body, start, npass, nbps, ori, w, h, zero, ptbl)
+
+    def stage_mq_lanes(self, body: torch.Tensor, rows: torch.Tensor,
+                       ptbl: torch.Tensor, pos: torch.Tensor) -> tuple:
+        """K3's inputs for the general route's Part-1 lanes, in any mode
+        switches: (body, start, npass, nbps, orient, w, h, style, ptbl).
+        rows: (n, 4) int32 on the device, each lane's (start in body,
+        npass, nbps, style); ptbl: (n, P, 3) int32, the lanes' segment
+        tables (ops/t1_decode.py segment_table), uploaded with the body;
+        pos: (n,) int64, each lane's index in meta order, which selects
+        its orient and size."""
+        ori, w, h = self.mq_lanes
+        start, npass, nbps, style = (rows[:, k].contiguous()
+                                     for k in range(4))
+        return (body, start, npass, nbps, ori[pos], w[pos], h[pos], style,
+                ptbl)
 
     def run(self, body: torch.Tensor, meta: torch.Tensor,
             dims: list) -> list:

@@ -2,11 +2,13 @@
 
 The port's copy of the plan half of grok_tpu/pipeline/serve.py
 (`ServePlan`, `_build_plan`, `_plan_for`, `_th_ovr_key`), with the fields
-the port's serving decode reads: the geometry, the C Tier-2 parser's
+the port's device decodes read: the geometry, the C Tier-2 parser's
 descriptor arrays, and per-block metadata in the parser's global block
-order.  Plans are cached per (main header, tile, reduce, mixed, tile
-overrides).  A plan holds no table state; the decode programs kept on it
-(pipeline/serve.py) are keyed on t1ht.tables.VERSION.
+order, with each block's code-block style and its rect in band
+coordinates for the window mask (`window_mask`).  Plans are cached per
+(main header, tile, reduce, mixed, tile overrides).  A plan holds no
+table state; the decode programs kept on it (pipeline/serve.py) are
+keyed on t1ht.tables.VERSION.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from grok_tpu_torch import native
-from grok_tpu_torch.core.geometry import BAND_LL
+from grok_tpu_torch.core.geometry import BAND_LL, Rect
 from grok_tpu_torch.core.params import CBLK_HT
-from grok_tpu_torch.pipeline.tile import TileGeometry, canon_block_indices
+from grok_tpu_torch.pipeline.tile import (TileGeometry, band_window,
+                                          canon_block_indices)
 from grok_tpu_torch.t2.progression import iter_packets
 
 _PLANS: dict = {}
@@ -42,6 +45,10 @@ class ServePlan:
     rok: np.ndarray                   # block contributes at this reduce
     comps_sig: tuple
     mct_mode: int
+    style: np.ndarray                 # code-block style per block (COD)
+    blk_rect: np.ndarray              # (n, 4) absolute band-coord rects
+    blk_band: np.ndarray              # (n,) index into band_info
+    band_info: list                   # (c, r, orient, nl) per band
     ht_p_ext: int = 0                 # ht_planes COM extension (derive_p)
     canon_idx: np.ndarray | None = None   # mixed: each block's index in
     #                                       the HT-mixed bitmap
@@ -67,7 +74,10 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         coder = "mixed"
     elif all(cs.cblk_style == CBLK_HT for cs in geo.styles):
         coder = "ht"
-    elif all(cs.cblk_style == 0 for cs in geo.styles):
+    elif not any(cs.cblk_style & CBLK_HT for cs in geo.styles):
+        # Part-1 blocks of any mode switches: the T2 contexts segment
+        # each block by its style; the serving decode takes style 0
+        # only, the general route every style (K3's segment table)
         coder = "mq"
     else:
         return None
@@ -94,6 +104,9 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
     # per-block metadata in the C parser's global block order:
     # ctx (c, r, p) -> band -> cblk
     mb_l, bucket_l, tails, rok_l, canon_l = [], [], [], [], []
+    style_l, blk_rect_l, blk_band_l = [], [], []
+    band_info: list = []
+    band_ids: dict = {}
     bucket_ids: dict = {}
     bucket_dims: list = []
     canon = canon_block_indices(geo) if coder == "mixed" else None
@@ -104,6 +117,10 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         numres_c = geo.styles[c].num_resolutions
         r_lim_c = max(numres_c - reduce, 1) if reduce else numres_c
         for band_i, bg in enumerate(rg.bands):
+            bkey = (c, r, bg.orient, numres_c - 1)
+            bid_w = band_ids.setdefault(bkey, len(band_ids))
+            if bid_w == len(band_info):
+                band_info.append(bkey)
             mb = quant.mb(r, bg.orient)
             delta = float(quant.delta(r, bg.orient))
             for cblk_i, cb in enumerate(bg.precincts[p].cblks):
@@ -111,6 +128,10 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
                     canon_l.append(canon[(c, r, band_i, p, cblk_i)])
                 mb_l.append(mb)
                 rok_l.append(r < r_lim_c)
+                style_l.append(geo.styles[c].cblk_style)
+                blk_rect_l.append((cb.rect.x0, cb.rect.y0, cb.rect.x1,
+                                   cb.rect.y1))
+                blk_band_l.append(bid_w)
                 if cb.rect.w > 64 or cb.rect.h > 64:
                     return None   # beyond the device kernels' bucket cap
                 key = (_pow2_at_least(cb.rect.w), _pow2_at_least(cb.rect.h))
@@ -162,6 +183,9 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         bucket=np.asarray(bucket_l, np.int32), bucket_dims=bucket_dims,
         sig_tail=tails, coder=coder, rok=np.asarray(rok_l, bool),
         comps_sig=tuple(comps_sig), mct_mode=mct_mode,
+        style=np.asarray(style_l, np.int32),
+        blk_rect=np.asarray(blk_rect_l, np.int64).reshape(-1, 4),
+        blk_band=np.asarray(blk_band_l, np.int64), band_info=band_info,
         ht_p_ext=hdr.ht_planes_ext(),
         canon_idx=np.asarray(canon_l, np.int64) if canon is not None
         else None)
@@ -193,3 +217,27 @@ def _plan_for(cs: bytes, hdr, t: int, th,
             _PLANS.pop(next(iter(_PLANS)))   # evict the oldest entry
         _PLANS[key] = plan             # None cached too: don't re-derive
     return plan
+
+
+def window_mask(plan: ServePlan, window) -> np.ndarray:
+    """Per block: whether its rect meets the synthesis-dilated decode
+    window in its band (pipeline/tile.py band_window), as
+    grok_tpu/pipeline/serve.py masks a served window and
+    grok_tpu/pipeline/tile.py selects the general route's blocks (the
+    same blocks: a block's rect lies inside its band).  Blocks outside
+    decode as zeros, which leaves every pixel inside the window
+    exact."""
+    geo = plan.geo
+    wins = np.empty((len(plan.band_info), 4), np.int64)
+    subs = {}
+    for bi, (c, r, orient, nl) in enumerate(plan.band_info):
+        if c not in subs:
+            dx, dy = geo.subsampling[c]
+            subs[c] = Rect(*window).intersect(geo.rect).ceil_scale(dx, dy)
+        w = band_window(subs[c], nl, r, orient)
+        wins[bi] = (w.x0, w.y0, w.x1, w.y1)
+    wb = wins[plan.blk_band]
+    br = plan.blk_rect
+    return ((np.maximum(br[:, 0], wb[:, 0]) < np.minimum(br[:, 2], wb[:, 2]))
+            & (np.maximum(br[:, 1], wb[:, 1])
+               < np.minimum(br[:, 3], wb[:, 3])))

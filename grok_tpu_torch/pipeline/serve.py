@@ -13,16 +13,18 @@ meta array are uploaded from pinned host memory, and a DecodeProgram
 (pipeline/device.py), cached on the plan per table version, does the
 rest on the device.
 
-Scope: single-tile streams of HT cleanup-only, Part-1 default-style
-(one codeword segment per block, any number of layers) or HT-mixed
+Scope: one tile of HT cleanup-only, Part-1 default-style (one codeword
+segment per block, any number of layers) or single-layer HT-mixed
 code-blocks, all streams of a batch under one main header, decoded whole
 or under a layer cap (dp.max_layers: each stream's chunks of later
-layers dropped).  HT streams with refinement passes (several codeword
-segments per block) raise GeneralRoute, which the entry points answer
-with the general device route (pipeline/tile.py decode_tile, kernels K1 and K2), as the
-JAX package's serving decode declines them to its decode_tile.  Anything
-else — Part-1 mode switches, layered HT-mixed streams, windowed, strict,
-PPM/PPT, per-component overrides — raises NotImplementedError naming the
+layers dropped), whole or in a window (dp.window: the blocks that miss
+the synthesis-dilated window decode as zeros, plan.py window_mask).
+Refined HT blocks, Part-1 mode switches and multi-segment blocks, and
+layered HT-mixed streams raise GeneralRoute, which the entry points
+answer with the general device route (pipeline/tile.py decode_tile,
+kernels K1, K2 and K3), as the JAX package's serving decode declines
+them to its decode_tile.  Anything else — strict, PPM/PPT,
+per-component overrides, ROI — raises NotImplementedError naming the
 route: a quiet host decode would hide the device.
 """
 
@@ -35,27 +37,32 @@ import torch
 
 from grok_tpu_torch import native
 from grok_tpu_torch.ops.ht_decode import MAX_STREAM, _quant_len
-from grok_tpu_torch.pipeline.plan import _plan_for, _th_ovr_key
+from grok_tpu_torch.pipeline.plan import (_plan_for, _th_ovr_key,
+                                          window_mask)
 from grok_tpu_torch.t1ht import tables
 from grok_tpu_torch.pipeline.device import META_COLS, Bucket, DecodeProgram
 
 
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{route} is not ported ({why}); the PyTorch port serves "
-        f"single-tile HT cleanup, Part-1 default-style and HT-mixed "
-        f"streams only")
+        f"{route} is not ported ({why}); the PyTorch port's serving "
+        f"decode takes HT cleanup, Part-1 default-style and HT-mixed "
+        f"tiles, its general route refined HT and Part-1 mode switches")
 
 
 class GeneralRoute(NotImplementedError):
-    """The serving decode declines an HT stream that the general device
-    route (pipeline/tile.py decode_tile) decodes: refinement passes,
-    several codeword segments per block.  The entry points catch this
-    class only; every other decline stays a NotImplementedError."""
+    """The serving decode declines a stream that the general device route
+    (pipeline/tile.py decode_tile) decodes: HT refinement passes, Part-1
+    mode switches, several codeword segments per block, layered HT-mixed
+    streams; or a batch that the batch entry takes stream by stream
+    (several tiles, different main headers, tile-part COD/QCD).  The
+    entry points catch this class only; every other decline stays a
+    NotImplementedError."""
 
     def __init__(self, why: str):
-        super().__init__(f"the HT serving decode declines {why}: the "
-                         f"general device route decodes such streams")
+        super().__init__(f"the serving decode declines {why}: the entry "
+                         f"points decode such streams one by one, on the "
+                         f"general device route where needed")
 
 
 @dataclass
@@ -106,7 +113,9 @@ def _full_index(plan):
 
 def _upload(plan, arrays: list, device: torch.device) -> list:
     """Host numpy arrays -> device tensors, through one pinned staging
-    buffer kept on the plan (reused once its previous copies are done)."""
+    buffer kept on the plan (reused once its previous copy is done): one
+    host-to-device copy, each array a view of it at a 16-byte-aligned
+    offset."""
     if device.type != "cuda":
         return [torch.from_numpy(a).to(device) for a in arrays]
     offs, total = [], 0
@@ -123,11 +132,11 @@ def _upload(plan, arrays: list, device: torch.device) -> list:
     if done is not None:
         done.synchronize()
     host = buf.numpy()
-    out = []
     for a, o in zip(arrays, offs):
         host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-        t = buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-        out.append(t.reshape(a.shape).to(device, non_blocking=True))
+    dbuf = buf[:max(total, 16)].to(device, non_blocking=True)
+    out = [dbuf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+           .reshape(a.shape) for a, o in zip(arrays, offs)]
     slot[1] = torch.cuda.Event()
     slot[1].record()
     return out
@@ -207,14 +216,17 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                                for q in ths):
         raise _unsupported("general path",
                            "batch streams with different tile overrides")
-    if dp.window is not None:
-        raise _unsupported("windowed serving", "a window was given")
     if dp.strict:
         raise _unsupported("strict decode", "strict=True")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
-        raise _unsupported("Part-1/MQ mode switches or general path",
-                           "the stream has no serving plan")
+        raise _unsupported("general path", "ROI, a custom MCT, HT "
+                           "code-blocks with mode switches or code-blocks "
+                           "over 64x64")
+    if plan.coder == "mq" and plan.style.any():
+        raise GeneralRoute("Part-1 mode switches")
+    wmask = window_mask(plan, dp.window) if dp.window is not None \
+        else None
     ths_l = list(ths) if ths is not None else [th] * len(bodies)
     if plan.coder != "mixed" and any(
             q is not None and q.ht_mixed_bitmap() is not None
@@ -250,25 +262,26 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
             incl = np.zeros_like(incl)
             incl[chunks[:, 0]] = True
         if (chunks[:, 2] != 0).any():
-            if plan.coder == "ht":
-                raise GeneralRoute("multi-segment code-blocks (HT "
-                                   "refinement passes)")
-            raise _unsupported("general path",
-                               "multi-segment code-blocks")
+            raise GeneralRoute("multi-segment code-blocks")
         if len(chunks) != int(np.count_nonzero(incl)):
             if plan.coder != "mq":
-                raise _unsupported("layered HT serving",
-                                   "more than one layer")
+                raise GeneralRoute("blocks spread over several layers (a "
+                                   "layered HT-mixed stream)")
             body, offs, lens = _concat_layers(body, chunks, plan.n_blks)
         else:
             offs = np.zeros(plan.n_blks, np.int64)
             lens = np.zeros(plan.n_blks, np.int32)
             offs[chunks[:, 0]] = chunks[:, 4]
             lens[chunks[:, 0]] = chunks[:, 5]
-        idx = np.nonzero(incl & plan.rok)[0]
+        keep = incl & plan.rok
+        if wmask is not None:
+            keep &= wmask
+        idx = np.nonzero(keep)[0]
         if idx.size == 0:
-            raise _unsupported("general path", f"stream {si}: no coded "
-                               f"code-blocks")
+            # nothing to decode in this stream (a tile that got no bytes,
+            # a window on none of its blocks): the general route gives
+            # the tile of zero coefficients, as the JAX package does
+            raise GeneralRoute(f"stream {si} without coded code-blocks")
         numbps = plan.mb[idx] - zb[idx]
         npz = npass[idx]
         pos = np.searchsorted(fidx, idx)
@@ -360,8 +373,9 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
 def try_decode_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp,
                              *, device, ths=None) -> list:
     """Decode N same-geometry tile bodies on `device` -> N lists of
-    per-component int32 tensors.  Raises NotImplementedError outside the
-    served scope (the JAX counterpart returns None there and the caller
-    falls back to its general path, which the port does not have)."""
+    per-component int32 tensors.  Raises GeneralRoute where the general
+    device route takes the stream, NotImplementedError outside both
+    routes' scope (the JAX counterpart returns None there and the caller
+    falls back to its general path)."""
     return stage_serving_batch(cs, hdr, t, th, bodies, dp, device=device,
                                ths=ths).run()

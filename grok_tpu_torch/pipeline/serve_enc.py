@@ -40,7 +40,8 @@ decodes on the device (K3), and emits the packets.
 Scope: HT code-blocks (cleanup-only or refined, any number of layers,
 byte-rate targets), Part-1 default-style code-blocks (any number of
 layers, byte-rate targets) or HT-mixed sets of the two (one quality
-layer with no target), one tile, one tile-part,
+layer with no target), one tile per call (the entry point loops over a
+stream's tiles, api.py compress_device_batch), one tile-part,
 default precincts, no ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything
 else raises NotImplementedError naming the route: the port has no host
 encoder to fall back to.  Reversible streams are byte-identical to the
@@ -77,7 +78,7 @@ _EPLANS_MAX = 16
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{route} is not ported ({why}); the PyTorch port encodes "
-        f"single-tile HT and Part-1 default-style streams (layered and "
+        f"HT and Part-1 default-style streams (tiled, layered and "
         f"rate-targeted too, HT refined too) and single-layer HT-mixed "
         f"streams only")
 
@@ -288,9 +289,10 @@ def targeted(params) -> bool:
         params.rates and any(r > 1 for r in params.rates))
 
 
-def stage_encode_lanes(comps: list, hdr, params):
-    """Steps 1-2 for N frames of one tile (comps[ci]: (N, h, w) integer
-    tensors on the device): the cached plan and K4's (or K4r's) inputs
+def stage_encode_lanes(comps: list, hdr, params, t: int = 0):
+    """Steps 1-2 for N frames of tile t (comps[ci]: (N, h, w) integer
+    tensors on the device, the tile's samples): the cached plan and K4's
+    (or K4r's) inputs
     (mneg, p, w, h, valid), one lane per code-block of every frame; p is
     each lane's cleanup plane, min(ht_planes, numbps - 1), computed on
     the device.  Raises NotImplementedError outside the served scope."""
@@ -305,7 +307,7 @@ def stage_encode_lanes(comps: list, hdr, params):
     if params.fixed_quality:
         raise _unsupported("fixed-quality encode (PCRD)", "fixed_quality: "
                            "quality targets")
-    plan = _plan_for(hdr, 0)
+    plan = _plan_for(hdr, t)
     if plan.coder != "ht" or params.ht_mixed:
         if params.ht_planes:
             raise _unsupported("HT refinement encode of Part-1 or HT-mixed "
@@ -595,11 +597,12 @@ def _layer_targets(hdr, geo, params) -> list:
                                   geo.rect, params)
 
 
-def try_encode_serving_batch(comps: list, hdr, params) -> list:
-    """Encode N frames of one tile: comps[ci] is an (N, h, w) integer
-    tensor on the device.  Returns N TileEncodeResults; raises
-    NotImplementedError outside the served scope."""
-    plan, lanes = stage_encode_lanes(comps, hdr, params)
+def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
+    """Encode N frames of tile t: comps[ci] is an (N, h, w) integer
+    tensor on the device, the tile's samples.  Returns N
+    TileEncodeResults; raises NotImplementedError outside the served
+    scope."""
+    plan, lanes = stage_encode_lanes(comps, hdr, params, t)
     B = len(plan.blocks)
     N = lanes[0].shape[0] // B
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
@@ -639,7 +642,8 @@ def try_encode_serving_batch(comps: list, hdr, params) -> list:
             else:
                 frame[bi] = mq_e
         res = finish_tile_encode(plan.geo, jobs, frame, targets,
-                                 seg_style_mask=~CBLK_HT)
+                                 seg_style_mask=~CBLK_HT,
+                                 device=lanes[0].device)
         res.com = j2k.write_com(b"GRKTPU_HTMIX=" + bytes(bitmap),
                                 binary=True)
         results.append(res)

@@ -3,12 +3,14 @@
 The port's copy of grok_tpu/pipeline/tile.py, for what the port serves:
 `TileGeometry` (geometry + coding state shared by the decode and encode
 plans), `canon_block_indices` (the HT-mixed bitmap's block order),
+`band_window` (a decode window in band coordinates),
 `TileEncodeResult`, `finish_tile_encode` (the PCRD rate allocation over
 several layers or byte targets, t2/rate.py, the Part-1 minimal-flush
 truncation refinement by trial decodes with kernel K3, and the packet
 emission by the C Tier-2 coder, native.t2_emit), and `decode_tile`, the
-general device decode route for HT streams the serving decode declines
-(refined blocks), with kernels K1 and K2.
+general device decode route for the streams the serving decode declines
+(refined HT blocks, Part-1 mode switches, layered HT-mixed streams), with
+kernels K1, K2 and K3, whole or in a window.
 
 Reference parity: [grok: src/lib/core/tile/TileProcessor.cpp ::
 compressTile] — behavior normative per ISO 15444-1.
@@ -23,8 +25,9 @@ import numpy as np
 from grok_tpu_torch import native
 from grok_tpu_torch.codestream.j2k import (CodingStyle, CodingStyleComp,
                                            MainHeader, QuantStyle, TileHeader)
-from grok_tpu_torch.core.geometry import (Rect, TileCompGeom,
-                                          build_tilecomp_geometry)
+from grok_tpu_torch.core.geometry import (BAND_LL, Rect, TileCompGeom,
+                                          build_tilecomp_geometry,
+                                          map_interval_to_band)
 from grok_tpu_torch.core.quant import Quantizer
 from grok_tpu_torch.ops.ht_decode import _quant_len
 from grok_tpu_torch.t2.packet import PrecinctCtx
@@ -111,6 +114,23 @@ def canon_block_indices(geo: TileGeometry) -> dict[tuple, int]:
                         idx[(c, rg.r, band_i, p, cblk_i)] = n
                         n += 1
     return idx
+
+
+def band_window(sub: Rect, nl: int, r: int, orient: int,
+                dilate: int = 4) -> Rect:
+    """Map a tile-component-coordinate rect into band coordinates, dilated
+    by the synthesis filter support (region-decode block selection; a
+    conservative (larger) window is always safe)."""
+    s = 1 << (nl - r)
+    rr = Rect(sub.x0 // s - dilate, sub.y0 // s - dilate,
+              -(-sub.x1 // s) + dilate, -(-sub.y1 // s) + dilate)
+    if r == 0 or orient == BAND_LL:
+        return rr
+    xob = 1 if orient in (1, 3) else 0
+    yob = 1 if orient in (2, 3) else 0
+    x0, x1 = map_interval_to_band(rr.x0, rr.x1, xob)
+    y0, y1 = map_interval_to_band(rr.y0, rr.y1, yob)
+    return Rect(x0, y0, x1, y1)
 
 
 @dataclass
@@ -216,8 +236,8 @@ def _refine_truncations(ejobs: list[dict], encs: list, layer_cum: list,
 
 def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
                        layer_targets: list | None = None,
-                       seg_style_mask: int = -1,
-                       device="cpu") -> TileEncodeResult:
+                       seg_style_mask: int = -1, *,
+                       device) -> TileEncodeResult:
     """Rate allocation + Tier-2 emission over already-coded blocks.
 
     ejobs need key (c, r, p, band_i, cblk_i), mb and, for the PCRD
@@ -230,8 +250,10 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
     the C emitter, and the Part-1 minimal-flush refinement shrinks the
     final truncation of blocks whose jobs carry style, orient, w and h
     (_refine_truncations: trial decodes on `device`, the serving
-    encode's), as grok_tpu/pipeline/tile.py `finish_tile_encode` does
-    for byte targets (its quality targets are not ported).
+    encode's; a required keyword, so that no caller's refinement runs on
+    another device than its encode), as grok_tpu/pipeline/tile.py
+    `finish_tile_encode` does for byte targets (its quality targets are
+    not ported).
     seg_style_mask: AND-mask on the Tier-2 segmentation style (HT-mixed
     sets emit with ~CBLK_HT); the emitter chunks each block's codeword by
     its passes' termination flags."""
@@ -338,8 +360,8 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
 def _general_unsupported(what: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported ({why}); the PyTorch port's general decode "
-        f"route decodes single-tile HT streams (cleanup and refinement "
-        f"passes) only")
+        f"route decodes HT (cleanup and refinement passes), Part-1 (every "
+        f"mode switch) and HT-mixed code-blocks up to 64x64")
 
 
 @dataclass
@@ -348,16 +370,42 @@ class GeneralStaged:
     program: object           # pipeline/device.py DecodeProgram (N = 1)
     lanes: list               # per bucket: decode_ht_blocks' arguments
     #                           (ms, mel, vlc, sp, mr, p, w, h, valid, npass,
-    #                           refine host mask)
+    #                           refine host mask), None without HT blocks
     meta: list                # per bucket: (lanes, 10) int64 host rows: ms,
     #                           suffix, SigProp, MagRef (start, length) in
     #                           the digest, p, npass
+    mq: tuple | None = None   # K3's arguments (t1_decode_lanes, before
+    #                           the program's mq_dims) over the tile's
+    #                           Part-1 lanes
+    mq_pos: object = None     # (n,) int64: each Part-1 lane's index in
+    #                           meta order
 
     def run(self) -> list:
+        import torch
+
         from grok_tpu_torch.ops.ht_decode import decode_ht_blocks
-        outs = [decode_ht_blocks(*la, b.W, b.H)
-                for la, b in zip(self.lanes, self.program.buckets)]
-        return self.program.synthesize(outs)[0]
+        from grok_tpu_torch.ops.t1_decode import t1_decode_lanes
+        prog = self.program
+        full = None
+        if self.mq is not None:
+            mq = t1_decode_lanes(*self.mq, *prog.mq_dims)
+            full = mq.new_zeros((sum(m.shape[0] for m in self.meta),)
+                                + mq.shape[1:])
+            full[self.mq_pos] = mq
+        outs = []
+        for bi, b in enumerate(prog.buckets):
+            n = self.meta[bi].shape[0]
+            la = self.lanes[bi]
+            if la is not None:
+                out = decode_ht_blocks(*la, b.W, b.H)
+            else:
+                out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
+                                  device=prog.device)
+            if full is not None:
+                lo = prog.lane_base[bi]
+                out = out + full[lo:lo + n, :b.H, :b.W]
+            outs.append(out)
+        return prog.synthesize(outs)[0]
 
 
 def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
@@ -366,24 +414,32 @@ def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     per-component int32 tensors, resident there (stage_general, then
     GeneralStaged.run).
 
-    The HT device branch of grok_tpu/pipeline/tile.py `decode_tile`, the
+    The device branch of grok_tpu/pipeline/tile.py `decode_tile`, the
     route by which the JAX package decodes what its serving decode
-    declines (refined streams): the C Tier-2 parse of the whole packet
-    sequence; each block's codeword segments assembled up to
-    dp.max_layers (t2/packet.py BlockDecState) and its cleanup plane
-    (t1ht/scalar.py derive_p); the cleanup segments split by the C scan
+    declines: the C Tier-2 parse of the whole packet sequence; each kept
+    block's codeword segments assembled up to dp.max_layers (t2/packet.py
+    BlockDecState) and routed by its code-block style, or for HT-mixed
+    streams by the tile-part bitmap; HT blocks with their cleanup plane
+    (t1ht/scalar.py derive_p), the cleanup segments split by the C scan
     and the refinement segments un-stuffed by C on the host, uploaded as
-    one digest; then on the device, per bucket of same-sized blocks, the
-    sub-streams staged and the blocks decoded by ops/ht_decode.py
-    `decode_ht_blocks` (K1 on cleanup-only blocks, K2 on refined ones),
-    and the serving decode's dequantization, placement, inverse DWT and
-    MCT, DC shift and clip (pipeline/device.py DecodeProgram.synthesize),
-    at dp.reduce.
+    one digest, then per bucket of same-sized blocks the sub-streams
+    staged and the blocks decoded by ops/ht_decode.py `decode_ht_blocks`
+    (K1 on cleanup-only blocks, K2 on refined ones); Part-1 blocks with
+    their segment tables (ops/t1_decode.py segment_table: BYPASS, RESET,
+    TERMALL, VSC, PTERM, SEGSYM), their raw codewords in the same upload,
+    decoded by one K3 launch over the Part-1 lanes of every bucket; a
+    block sees zeros from the coder it does not use.  Then the serving
+    decode's dequantization, placement, inverse DWT and MCT, DC shift and
+    clip (pipeline/device.py DecodeProgram.synthesize), at dp.reduce.
+    With dp.window, only the blocks that meet the synthesis-dilated
+    window (band_window) are decoded: every pixel inside the window is
+    exact, the rest is not meaningful.
 
-    Raises NotImplementedError naming the route for Part-1 or HT-mixed
-    blocks (the general route's K3 is not ported), windows, ROI, PPM/PPT,
-    strict decodes, code-blocks over 64 x 64 and blocks the device
-    kernels do not take (grok_tpu/ops/pallas_ht.py ht_block_eligible)."""
+    Raises NotImplementedError naming the route for ROI, PPM/PPT,
+    per-component overrides or a tile POC, strict decodes, code-blocks
+    over 64 x 64, Part-1 blocks outside 1..109 passes or 0..30 magnitude
+    planes, and HT blocks the device kernels do not take
+    (grok_tpu/ops/pallas_ht.py ht_block_eligible)."""
     return stage_general(cs, hdr, t, th, body, dp, device=device).run()
 
 
@@ -393,9 +449,11 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     staged on `device`, ready for the block decodes."""
     import torch
 
+    from grok_tpu_torch.core.params import CBLK_HT
     from grok_tpu_torch.ops.ht_decode import MAX_STREAM
+    from grok_tpu_torch.ops.t1_decode import MAX_NUMBPS, segment_table
     from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
-    from grok_tpu_torch.pipeline.plan import _plan_for
+    from grok_tpu_torch.pipeline.plan import _plan_for, window_mask
     from grok_tpu_torch.pipeline.serve import (_full_index, _program,
                                                _upload, stage_dims)
     from grok_tpu_torch.t1ht.scalar import derive_p
@@ -406,23 +464,21 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     route = "general decode route"
     if dp.strict:
         raise _general_unsupported("strict decode", "strict=True")
-    if dp.window is not None:
-        raise _general_unsupported("windowed decode", "a window was given")
     if hdr.ppm is not None or th.ppt is not None:
         raise _general_unsupported(route, "PPM/PPT packed packet headers")
     if th.coc or th.qcc or th.rgn or th.pocs:
         raise _general_unsupported(route, "per-component overrides, ROI or "
                                    "a tile POC")
-    if th.ht_mixed_bitmap() is not None:
-        raise _general_unsupported("HT-mixed blocks on the " + route,
-                                   "their Part-1 blocks need K3 there")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
-        raise _general_unsupported(route, "ROI, a custom MCT, Part-1 mode "
-                                   "switches or code-blocks over 64x64")
-    if plan.coder != "ht":
-        raise _general_unsupported("Part-1 blocks on the " + route,
-                                   "the general route's K3 is not ported")
+        raise _general_unsupported(route, "ROI, a custom MCT, HT code-blocks "
+                                   "with mode switches or code-blocks over "
+                                   "64x64")
+    bitmap = None
+    if plan.coder == "mixed":
+        # the stream's bitmap routes each block (a block past its end is
+        # a Part-1 block, as in the JAX package)
+        bitmap = np.frombuffer(th.ht_mixed_bitmap(), np.uint8)
 
     # -- T2: the C parse, then each kept block's segments up to the cap ----
     parsed = native.t2_parse_prepared(body, plan.prep, plan.sop, plan.eph)
@@ -430,89 +486,131 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         raise _general_unsupported(route, "the C Tier-2 parse failed "
                                    "(truncated or corrupt packets)")
     incl, zb, _npass, chunks, _end = parsed
+    keep = np.asarray(incl, bool) & plan.rok
+    if dp.window is not None:
+        keep &= window_mask(plan, dp.window)
     states = {}
     for b, lay, segno, npk, off, ln in chunks.tolist():
-        if incl[b] and plan.rok[b]:
+        if keep[b]:
             st = states.setdefault(b, BlockDecState(included=True,
                                                     zb=int(zb[b])))
             st.chunks.append(Chunk(layer=lay, segno=segno, numpasses=npk,
                                    offset=off, length=ln))
-    blks, datas, segs, npass, nbps, pv = [], [], [], [], [], []
+    ht, mq = [], []          # per block: (b, data, seg_lens, n, numbps, x)
     for b in sorted(states):
         data, seg_lens, n = states[b].assemble(body, dp.max_layers)
         if n <= 0:
             continue
         numbps = int(plan.mb[b]) - states[b].zb
-        p = derive_p(n, numbps, plan.ht_p_ext)
-        # the device kernels' scope (ht_block_eligible)
-        if n > 3 or len(seg_lens) != n or (n > 1 and p == 0) \
-                or numbps - p > 24:
-            raise _general_unsupported(
-                route, f"a block of {n} passes in {len(seg_lens)} segments "
-                f"with {numbps} planes and cleanup plane {p}")
-        blks.append(b)
-        datas.append(data)
-        segs.append(seg_lens + [0] * (3 - n))
-        npass.append(n)
-        nbps.append(numbps)
-        pv.append(p)
-    if not blks:
-        raise _general_unsupported(route, "no coded code-blocks")
-    nb = len(blks)
-    seg = np.asarray(segs, np.int64)                   # (nb, 3) lengths
-    doff = np.cumsum([0] + [len(d) for d in datas])[:-1]
-    cat = b"".join(datas)
+        if bitmap is not None:
+            ci = int(plan.canon_idx[b])
+            is_ht = ci >> 3 < bitmap.size and bool(
+                (bitmap[ci >> 3] >> (ci & 7)) & 1)
+        else:
+            is_ht = plan.coder == "ht"
+        if is_ht:
+            p = derive_p(n, numbps, plan.ht_p_ext)
+            # the device kernels' scope (ht_block_eligible)
+            if n > 3 or len(seg_lens) != n or (n > 1 and p == 0) \
+                    or numbps - p > 24:
+                raise _general_unsupported(
+                    route, f"an HT block of {n} passes in {len(seg_lens)} "
+                    f"segments with {numbps} planes and cleanup plane {p}")
+            ht.append((b, data, seg_lens, n, numbps, p))
+        else:
+            if n > 109 or not 0 <= numbps <= MAX_NUMBPS:
+                raise _general_unsupported(
+                    route, f"a Part-1 block of {n} passes and {numbps} "
+                    f"magnitude planes (outside 1..109 and 0..30)")
+            # the Part-1 style: the block's COD style, or 0 for the
+            # Part-1 blocks of an HT-mixed set
+            style = int(plan.style[b]) & ~CBLK_HT
+            mq.append((b, data, seg_lens, n, numbps, style))
 
-    # -- host staging: C split of the cleanup segments, C un-stuffing of
-    # the refinement segments, one digest ---------------------------------
-    res = native.ht_scan2(cat, doff, seg[:, 0])
-    if res is None:
-        raise _general_unsupported(route, "HT wire scan overflow")
-    scan, dig = res
-    if (scan[:, 0] < 0).any():
-        raise _general_unsupported(route, "invalid HT cleanup framing")
-    sp_c, sp_len = native.ht_unstuff_batch(cat, doff + seg[:, 0], seg[:, 1])
-    mr_c, mr_len = native.ht_unstuff_batch(cat, doff + seg[:, 0] + seg[:, 1],
-                                           seg[:, 2])
-    longest = max(int(scan[:, 2].max()), int(scan[:, 4].max()),
-                  int(sp_len.max()), int(mr_len.max()))
-    if longest > MAX_STREAM:
-        raise _general_unsupported(route, f"a sub-stream longer than "
-                                   f"{MAX_STREAM} bytes")
-    sp_base = -(-len(dig) // 16) * 16
-    mr_base = sp_base + -(-len(sp_c) // 16) * 16
-    flat = np.zeros(max(16, mr_base + len(mr_c)), np.uint8)
-    flat[:len(dig)] = dig
-    flat[sp_base:sp_base + len(sp_c)] = sp_c
-    flat[mr_base:mr_base + len(mr_c)] = mr_c
-    # per-block meta: ms, suffix, SigProp, MagRef (start, length), p, npass
-    meta_b = np.stack([scan[:, 1], scan[:, 2], scan[:, 3], scan[:, 4],
-                       sp_base + np.cumsum(sp_len) - sp_len, sp_len,
-                       mr_base + np.cumsum(mr_len) - mr_len, mr_len,
-                       pv, npass], 1).astype(np.int64)
-
-    # -- full staging over the plan's kept blocks, bucket by bucket --------
     prog = _program(plan, 1, device)
     fidx, bsel = _full_index(plan)
-    row_of = np.full(plan.n_blks, -1, np.int64)
-    row_of[blks] = np.arange(nb)
-    metas, dims = [], []
-    for sel in bsel:
-        if sel.size == 0:
-            continue
-        r = row_of[fidx[sel]]
-        m = np.where((r >= 0)[:, None], meta_b[np.maximum(r, 0)], 0)
-        metas.append(m)
-        live = m[:, 9] > 0
-        sc = np.zeros((m.shape[0], 7), np.int64)
-        sc[:, 2], sc[:, 4] = m[:, 1], m[:, 3]
-        sc[live, 5:7] = scan[r[live], 5:7]
-        dims.append(stage_dims(sc))
-    body_d, meta_d = _upload(plan, [flat, np.concatenate(metas)
-                                    .astype(np.int32)], device)
+    lane_of = np.full(plan.n_blks, -1, np.int64)   # block -> meta order
+    lane_of[fidx[np.concatenate(bsel)]] = np.arange(fidx.size)
+    pieces = []                                    # uploaded byte areas
+
+    def area(buf) -> int:
+        base = sum(-(-len(x) // 16) * 16 for x in pieces)
+        pieces.append(np.frombuffer(buf, np.uint8)
+                      if not isinstance(buf, np.ndarray) else buf)
+        return base
+
+    # -- HT: C split of the cleanup segments, C un-stuffing of the
+    # refinement segments, one digest; per lane in meta order: ms,
+    # suffix, SigProp, MagRef (start, length), p, npass, and the C scan's
+    # stuffing counts -----------------------------------------------------
+    meta = np.zeros((fidx.size, 10), np.int64)
+    sc = np.zeros((fidx.size, 7), np.int64)
+    if ht:
+        seg = np.asarray([s + [0] * (3 - n) for _b, _d, s, n, _nb, _p in ht],
+                         np.int64)
+        datas = [d for _b, d, *_ in ht]
+        doff = np.cumsum([0] + [len(d) for d in datas])[:-1]
+        cat = b"".join(datas)
+        res = native.ht_scan2(cat, doff, seg[:, 0])
+        if res is None:
+            raise _general_unsupported(route, "HT wire scan overflow")
+        scan, dig = res
+        if (scan[:, 0] < 0).any():
+            raise _general_unsupported(route, "invalid HT cleanup framing")
+        sp_c, sp_len = native.ht_unstuff_batch(cat, doff + seg[:, 0],
+                                               seg[:, 1])
+        mr_c, mr_len = native.ht_unstuff_batch(
+            cat, doff + seg[:, 0] + seg[:, 1], seg[:, 2])
+        longest = max(int(scan[:, 2].max()), int(scan[:, 4].max()),
+                      int(sp_len.max()), int(mr_len.max()))
+        if longest > MAX_STREAM:
+            raise _general_unsupported(route, f"a sub-stream longer than "
+                                       f"{MAX_STREAM} bytes")
+        dig_base = area(dig)
+        sp_base = area(sp_c)
+        mr_base = area(mr_c)
+        rows = lane_of[[x[0] for x in ht]]
+        meta[rows] = np.stack([dig_base + scan[:, 1], scan[:, 2],
+                               dig_base + scan[:, 3], scan[:, 4],
+                               sp_base + np.cumsum(sp_len) - sp_len, sp_len,
+                               mr_base + np.cumsum(mr_len) - mr_len, mr_len,
+                               [x[5] for x in ht], [x[3] for x in ht]], 1)
+        sc[rows, 5:7] = scan[:, 5:7]
+    sc[:, 2], sc[:, 4] = meta[:, 1], meta[:, 3]
+    ends = prog.lane_base[1:] + [fidx.size]
+    metas = [meta[lo:hi] for lo, hi in zip(prog.lane_base, ends)]
+    dims = [stage_dims(sc[lo:hi]) for lo, hi in zip(prog.lane_base, ends)]
+
+    # -- Part-1: the raw codewords and their segment tables ----------------
+    if mq:
+        npass_e, ptbl = segment_table([x[3] for x in mq], [x[4] for x in mq],
+                                      [x[5] for x in mq],
+                                      [x[2] for x in mq])
+        datas = [x[1] for x in mq]
+        raw_base = area(b"".join(datas) + b"\0")
+        mq_rows = np.stack([raw_base + np.cumsum([0] + [len(d) for d in
+                                                        datas])[:-1],
+                            npass_e, [x[4] for x in mq], [x[5] for x in mq]],
+                           1).astype(np.int32)
+        mq_pos = lane_of[[x[0] for x in mq]]
+
+    top = sum(-(-len(x) // 16) * 16 for x in pieces)
+    flat = np.zeros(max(16, top), np.uint8)
+    pos = 0
+    for x in pieces:
+        flat[pos:pos + len(x)] = x
+        pos += -(-len(x) // 16) * 16
+    arrays = [flat, meta.astype(np.int32)]
+    if mq:
+        arrays += [mq_rows, ptbl]
+    up = _upload(plan, arrays, device)
+    body_d, meta_d = up[0], up[1]
     lanes, lo = [], 0
     for (Lms, Lsuf, Dm), m in zip(dims, metas):
         n = m.shape[0]
+        if not ht:
+            lanes.append(None)
+            continue
         mt = meta_d[lo:lo + n].to(torch.int64)
         lo += n
         u8 = torch.uint8
@@ -529,4 +627,9 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
                       mr.to(u8), mt[:, 8].to(i32), w, h,
                       (mt[:, 9] > 0).to(i32), mt[:, 9].to(i32),
                       m[:, 9] >= 2))
-    return GeneralStaged(prog, lanes, metas)
+    staged = GeneralStaged(prog, lanes, metas)
+    if mq:
+        staged.mq_pos = torch.from_numpy(mq_pos).to(device)
+        staged.mq = prog.stage_mq_lanes(body_d, up[2], up[3],
+                                        staged.mq_pos)
+    return staged

@@ -530,3 +530,57 @@ def test_ht_decoders_match_first_design(card, tables):
     finally:
         if tables == "dropin":
             _reset_tables()
+
+
+@pytest.mark.parametrize("kw", [dict(ht=True), dict()], ids=["HT", "Part-1"])
+def test_tiled_encode_and_decode_on_card(card, kw):
+    """A 136 x 200 RGB frame in 64-px tiles (3 x 4 tiles, the edge tiles
+    8 tall and 8 wide, not a multiple of 2^4): one block-coder launch (K4
+    or K5) per tile for the encode, equal to the CPU encode; one K3 launch
+    per tile, or K1 launches per tile and bucket, for the decode,
+    bit-exact to the source; a window across four tiles launches for
+    those tiles only."""
+    cp = PCP(num_resolutions=5, cblk_w_exp=5, cblk_h_exp=5, tile_w=64,
+             tile_h=64, write_tlm=True, **kw)
+    img = synthetic_image(136, 200, 3, seed=12)
+    ntiles = 3 * 4
+    enc = E.ht_encode_lanes if kw else E5.t1_encode_lanes
+    n0 = enc.launches
+    got = api.compress_device(img, cp, device=card)
+    assert enc.launches == n0 + ntiles
+    assert got == api.compress_device(img, cp, device="cpu")
+    dec = H.ht_decode_lanes if kw else D3.t1_decode_lanes
+    n0 = dec.launches
+    out = api.decompress_device(got, device=card)
+    torch.cuda.synchronize()
+    full = dec.launches - n0
+    if kw:
+        assert full >= ntiles                   # K1: per tile and bucket
+    else:
+        assert full == ntiles                   # K3: one per tile
+    assert np.array_equal(torch.stack(out, -1).cpu().numpy(), img)
+    n0 = dec.launches
+    win = api.DecompressParams(window=(60, 60, 70, 70))    # 4 tiles
+    out = api.decompress_device(got, win, device=card)
+    torch.cuda.synchronize()
+    if kw:
+        assert 4 <= dec.launches - n0 < full
+    else:
+        assert dec.launches - n0 == 4
+    assert np.array_equal(torch.stack(out, -1)[60:70, 60:70].cpu().numpy(),
+                          img[60:70, 60:70])
+
+
+def test_general_route_on_committed_streams_on_card(card):
+    """The committed Part-1 0x3F, BYPASS and layered HT-mixed streams
+    decode on the general route on the card to their committed plane
+    hashes at every layer cap, with one K3 launch per decode."""
+    from grok_tpu_torch.util import stream_vectors as SV
+    for name, (data, hashes) in SV.load().items():
+        for k in SV.LAYER_CAPS:
+            n0 = D3.t1_decode_lanes.launches
+            out = api.decompress_device(
+                data, api.DecompressParams(max_layers=k), device=card)
+            torch.cuda.synchronize()
+            assert D3.t1_decode_lanes.launches == n0 + 1, name
+            assert SV.plane_hash(out) == hashes[k], (name, k)

@@ -283,7 +283,7 @@ def test_finish_tile_encode_emits_the_same_bytes():
                                 seg_lens=list(enc.seg_lens),
                                 seg_passes=list(enc.seg_passes)))
         want = jtile.finish_tile_encode(jgeo, jobs, jencs, [None])
-        got = ptile.finish_tile_encode(pgeo, jobs, pencs)
+        got = ptile.finish_tile_encode(pgeo, jobs, pencs, device="cpu")
         assert got.packets == want.packets and got.body == want.body
         assert got.packet_lens == want.packet_lens
 
@@ -397,7 +397,7 @@ def test_finish_tile_encode_mixed_blocks_emits_the_same_bytes():
     want = jtile.finish_tile_encode(jgeo, jobs, jencs, [None],
                                     seg_style_mask=~CBLK_HT)
     got = ptile.finish_tile_encode(pgeo, jobs, pencs,
-                                   seg_style_mask=~CBLK_HT)
+                                   seg_style_mask=~CBLK_HT, device="cpu")
     assert got.packets == want.packets and got.body == want.body
     assert got.com == b""
 
@@ -577,7 +577,8 @@ def test_finish_tile_encode_layers_emits_the_same_bytes():
                             seg_passes=list(enc.seg_passes)))
     targets = [600.0, 1800.0, None]
     want = jtile.finish_tile_encode(jgeo, jobs, jencs, targets)
-    got = ptile.finish_tile_encode(pgeo, jobs, pencs, targets)
+    got = ptile.finish_tile_encode(pgeo, jobs, pencs, targets,
+                                   device="cpu")
     assert got.packets == want.packets and got.body == want.body
     assert len(got.packets) > 3 and len(got.body) > 600
 

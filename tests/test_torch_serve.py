@@ -147,30 +147,38 @@ def test_stager_and_unstuff_match_jax_random_bytes(Dm):
 
 
 def test_out_of_scope_streams_raise(rgb):
+    """What the port takes now decodes as the JAX package does: a BYPASS
+    Part-1 stream (on the general route) and windows (served, and on the
+    general route for a refined stream), equal inside the window.  A
+    strict decode still raises."""
     img = synthetic_image(64, 64, 1, seed=6)
     mq = compress(img, CompressParams(num_resolutions=3, cblk_style=0x01))
-    with pytest.raises(NotImplementedError, match="MQ mode switches"):
-        api.decompress_device_batch([mq], device="cpu")
+    got = api.decompress_device_batch([mq], device="cpu")[0]
+    assert np.array_equal(_np(got), img)
+    assert np.array_equal(_np(got), decompress(
+        mq, DecompressParams(strict=False)).to_array())
     _img, ht = rgb
-    for dp, what in ((DecompressParams(window=(0, 0, 32, 32)), "windowed"),
-                     (DecompressParams(strict=True), "strict")):
-        with pytest.raises(NotImplementedError, match=what):
-            api.decompress_device(ht, dp, device="cpu")
+    win = DecompressParams(window=(0, 0, 32, 32))
+    got = _np(api.decompress_device(ht, win, device="cpu"))
+    assert np.array_equal(got[:32, :32], decompress(ht, win).to_array())
+    with pytest.raises(NotImplementedError, match="strict"):
+        api.decompress_device(ht, DecompressParams(strict=True),
+                              device="cpu")
     # a layer cap on a single-layer stream is served: the whole stream
     capped = api.decompress_device(ht, DecompressParams(max_layers=1),
                                    device="cpu")
     assert np.array_equal(_np(capped), _np(api.decompress_device(
         ht, device="cpu")))
     # a refined stream decodes through the general route, as the JAX
-    # package's decode does; a window on it still raises
+    # package's decode does, whole and in a window
     refined = compress(img, CompressParams(ht_planes=2, **CP))
     got = api.decompress_device(refined, device="cpu")
     want = decompress(refined, DecompressParams(strict=False)).to_array()
     assert np.array_equal(_np(got), want)
-    with pytest.raises(NotImplementedError, match="windowed"):
-        api.decompress_device(refined, DecompressParams(window=(0, 0, 32,
-                                                                32)),
-                              device="cpu")
+    got = _np(api.decompress_device(refined, win, device="cpu"))
+    want = decompress(refined, DecompressParams(
+        strict=False, window=(0, 0, 32, 32))).to_array()
+    assert np.array_equal(got[:32, :32], want)
 
 
 def test_no_cpu_fallback_for_a_cuda_device(gray):

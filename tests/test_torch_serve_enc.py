@@ -92,8 +92,9 @@ def test_lossy_ict_97_decodes_within_one_of_jax_device_encode(
 def test_out_of_scope_parameters_raise(rgb):
     poc = Poc(rs=0, cs=0, layer_end=1, re=3, ce=3, order=ProgOrder.LRCP)
     # Part-1 targeted and layered encodes are served, as the host
-    # encoder codes them
-    for kw in (dict(ht=False, rates=[8.0]), dict(ht=False, num_layers=2)):
+    # encoder codes them, and tiled encodes too
+    for kw in (dict(ht=False, rates=[8.0]), dict(ht=False, num_layers=2),
+               dict(tile_w=32, tile_h=32)):
         assert api.compress_device(rgb, PCP(**dict(CP, **kw)),
                                    device="cpu") == \
             compress(rgb, JCP(**dict(CP, **kw)))
@@ -106,7 +107,6 @@ def test_out_of_scope_parameters_raise(rgb):
             (dict(write_plm=True), "PLM"),
             (dict(mct=MCTMode.AUTO_RD), "AUTO_RD"),
             (dict(roi_comp=0, roi_shift=4), "ROI"),
-            (dict(tile_w=32, tile_h=32), "multi-tile"),
             (dict(max_tile_parts=2), "tile-parts"),
             (dict(prec_w_exps=[4, 5, 5], prec_h_exps=[4, 5, 5]),
              "precincts")):
