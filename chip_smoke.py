@@ -164,6 +164,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                their K3 (and K1) launches; K3 on every general-route lane
                against its first design, timed in turns, and on the
                bottom-edge lanes against its plain version.
+ 22. T, P, R — the committed damaged, packed-header and ROI streams
+               (grok_tpu_torch/util/damaged_vectors.npz and the (M)
+               streams, edited by util/stream_edit.py) decoded through
+               decompress_device on the card to their committed plane
+               hashes: (T-m1) m1 cut at 50% and 80%, whole and at
+               max_layers=1, (T-m2) m2 cut at 50%, (T-mix) mmix cut at
+               80%, (T-h) a 1080p HT frame cut at 50% and 80%, (P) a
+               1080p Part-1 frame with PPM, its PPT twin, and an SOP + EPH
+               twin with a mid-stream SOP marker inverted, (R) a 1080p HT
+               frame in 1024x1024 tiles with a Maxshift ROI and tile
+               COC/QCC/POC, whole and in the ROI's 512x512 window; each
+               with its K3/K1 launches per decode, the call time and the
+               host split with the Python Tier-2 parse apart; K3 on each
+               stream's bottom-edge lanes and K1 on its flattest bucket
+               against their plain versions, and every HT lane zeroed for
+               a cut cleanup segment all zero from K1.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -185,6 +201,7 @@ from dataclasses import replace
 import numpy as np
 
 REPS = 5                 # end-to-end reps after a warm-up; best reported
+REPS_DMG = 3             # the same for phase 22's 13 decodes
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 EDGE_H = 8               # (B1), (B-r) lanes held against the plain versions
 _BLOCKED = ("jax", "jaxlib", "grok_tpu")
@@ -1448,14 +1465,14 @@ def main() -> int:
         """Each decoded tile's staged work (served, or on the general
         route), as decompress_device stages it."""
         dp = api._params(dp)
-        cs, hdr, by_tile = api._tiles(stream, dp)
+        cs, hdr, by_tile, tile_body = api._tiles(stream, dp)
         out = []
         for t in sorted(by_tile):
             rect = hdr.siz.tile_rect(t)
             if dp.window is not None and \
                     rect.intersect(Rect(*dp.window)).empty:
                 continue
-            th, body = api._tile_body(cs, hdr, by_tile[t])
+            th, body = tile_body(t)
             try:
                 out.append(serve.stage_serving_batch(cs, hdr, t, th, [body],
                                                      dp, device=dev))
@@ -1667,6 +1684,163 @@ def main() -> int:
             _fail(f"K3 disagrees with its plain version on M {name}")
     print(f"tiled, window and general-route phases: "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
+
+    # ---- 22. damaged, packed-header and ROI streams (T, P, R) ------------
+    from grok_tpu_torch.t2 import parse as t2parse
+    from grok_tpu_torch.util import damaged_vectors
+    t_dmg = time.perf_counter()
+    dstreams, dhashes = damaged_vectors.all_streams()
+    # row: (cases, kernels per decode: {kernel: launches, or None for at
+    # least one})
+    drows = {
+        "T-m1": (["m1_cut50", "m1_cut50_L1", "m1_cut80", "m1_cut80_L1"],
+                 {"K3": 1}),
+        "T-m2": (["m2_cut50"], {"K3": 1}),
+        "T-mix": (["mmix_cut80"], {"K1": None, "K3": 1}),
+        "T-h": (["h_cut50", "h_cut80"], {"K1": None}),
+        "P": (["ppm", "ppt", "sop_flip"], {"K3": 1}),
+        "R": (["roi", "roi_win"], {"K1": None}),
+    }
+    parse_s = [0.0]
+    parse_real = t2parse.parse_packets
+
+    def parse_timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return parse_real(*a, **k)
+        finally:
+            parse_s[0] += time.perf_counter() - t
+
+    def dmg_planes(case, out):
+        win = damaged_vectors.CASES[case][2].get("window")
+        return damaged_vectors.window_planes(out, win) if win else out
+
+    zero_seen = 0
+    for row_name, (cases, kneed) in drows.items():
+        staged_row = []
+        for case in cases:
+            data = damaged_vectors.stream(case, dstreams)
+            dp = DP(**damaged_vectors.CASES[case][2])
+            counts_zero()
+            times = []
+            for _ in range(REPS_DMG + 1):
+                out, dt = timed(lambda: api.decompress_device(data, dp,
+                                                              device=dev))
+                times.append(dt)
+                if stream_vectors.plane_hash(dmg_planes(case, out)) != \
+                        dhashes[case]:
+                    _fail(f"decode {row_name} {case}: planes differ from "
+                          f"the committed hash")
+            got = counts()
+            per = {k: got[k] / (REPS_DMG + 1) for k in ("K1", "K2", "K3")}
+            need(f"{row_name} {case} decode", got, list(kneed),
+                 ["K2", "K4", "K4r", "K5"] + v1s
+                 + [k for k in ("K1", "K3") if k not in kneed])
+            for k, n in kneed.items():
+                if n is not None and per[k] != n:
+                    _fail(f"decode {row_name} {case}: {per[k]} {k} "
+                          f"launches per decode, not {n}")
+            best, med = min(times[1:]), float(np.median(times[1:]))
+            print(f"decode {row_name} {case}: equal to the committed hash; "
+                  f"best of {REPS_DMG}: {best * 1e3:.3f} ms/call (median "
+                  f"{med * 1e3:.3f}); launches per decode K1 {per['K1']:g}, "
+                  f"K3 {per['K3']:g} [{card}]", flush=True)
+            # the host split, with the Python Tier-2 parse apart
+            [s.run() for s in stage_tiles(data, dp)]
+            host, devt, pms = [], [], []
+            t2parse.parse_packets = parse_timed
+            try:
+                for _ in range(REPS_DMG):
+                    parse_s[0] = 0.0
+                    staged, dt = timed(lambda: stage_tiles(data, dp))
+                    host.append(dt)
+                    pms.append(parse_s[0])
+                    devt.append(timed(lambda: [s.run() for s in staged])[1])
+            finally:
+                t2parse.parse_packets = parse_real
+            print(f"split decode {row_name} {case}: host parse+stage+upload "
+                  f"best {min(host) * 1e3:.3f} ms (median "
+                  f"{float(np.median(host)) * 1e3:.3f}), of which the Python "
+                  f"Tier-2 parse {min(pms) * 1e3:.3f} ms (median "
+                  f"{float(np.median(pms)) * 1e3:.3f}); device blocks+"
+                  f"synthesis best {min(devt) * 1e3:.3f} ms (median "
+                  f"{float(np.median(devt)) * 1e3:.3f}), {len(staged)} "
+                  f"tiles [{card}]", flush=True)
+            staged_row += staged
+        # K3 and K1 against their plain versions on the row's lanes
+        for s in staged_row:
+            prog = s.program
+            # (bucket index, K1's arguments) of the buckets with HT lanes
+            if isinstance(s, serve.StagedBatch):
+                ht_lanes = [(bi, prog.stage(s.body, s.meta, bi,
+                                            *s.dims[bi][:3]))
+                            for bi in range(len(prog.buckets))
+                            if s.dims[bi][3]]
+                mq_lanes, zero = None, None
+            else:
+                ht_lanes = [(bi, la[:3] + la[5:9])
+                            for bi, la in enumerate(s.lanes)
+                            if la is not None]
+                mq_lanes, zero = s.mq, s.zero_lanes
+            if mq_lanes is not None:
+                W, H = prog.mq_dims
+                He = max(EDGE_H, int(mq_lanes[6].min()))
+                edge = (mq_lanes[0],) + _select(mq_lanes[1:],
+                                                mq_lanes[6] <= He)
+                We = int(edge[5].max())
+                got = t1_decode.t1_decode_lanes(*edge, We, He)
+                ref, p_ms = _plain_ms(torch, lambda: t1_decode
+                                      .t1_decode_lanes_ref(*edge, We, He))
+                err = int((got.long() - ref.long()).abs().max())
+                k3["err"] = max(k3["err"], err)
+                print(f"K3 {row_name}: {edge[1].shape[0]} of "
+                      f"{mq_lanes[1].shape[0]} lanes ({We}x{He}) vs the "
+                      f"plain version: max_abs_err {err}, plain version "
+                      f"{p_ms:.1f} ms [{card}]", flush=True)
+                if err:
+                    _fail(f"K3 disagrees with its plain version on "
+                          f"{row_name}")
+            # K1: the flattest bucket in full (every lane of it), and the
+            # zero lanes' buckets
+            zero_b = set()
+            if zero is not None and zero.size:
+                zero_b = {bi for bi, lo in enumerate(prog.lane_base)
+                          for z in zero.tolist()
+                          if lo <= z < lo + s.meta[bi].shape[0]}
+            flat = min((bi for bi, _la in ht_lanes), default=None,
+                       key=lambda bi: (prog.buckets[bi].H,
+                                       prog.buckets[bi].W))
+            for bi, la in ht_lanes:
+                b = prog.buckets[bi]
+                if bi != flat and bi not in zero_b:
+                    continue
+                got = ht_decode.ht_decode_lanes(*la, b.W, b.H)
+                ref, p_ms = _plain_ms(torch, lambda: ht_decode
+                                      .ht_decode_lanes_ref(*la, b.W, b.H))
+                err = int((got.long() - ref.long()).abs().max())
+                k1["err"] = max(k1["err"], err)
+                msg = ""
+                if bi in zero_b:
+                    lo = prog.lane_base[bi]
+                    zs = [z - lo for z in zero.tolist()
+                          if lo <= z < lo + got.shape[0]]
+                    if bool((got[zs] != 0).any()) or \
+                            bool((la[6][zs] != 0).any()):
+                        _fail(f"K1 gave a zeroed lane of {row_name} a "
+                              f"non-zero sample")
+                    zero_seen += len(zs)
+                    msg = f"; {len(zs)} zeroed lanes (valid 0) all zero"
+                print(f"K1 {row_name} bucket {b.W}x{b.H}: {got.shape[0]} "
+                      f"lanes vs the plain version: max_abs_err {err}, "
+                      f"plain version {p_ms:.1f} ms{msg} [{card}]",
+                      flush=True)
+                if err:
+                    _fail(f"K1 disagrees with its plain version on "
+                          f"{row_name}")
+    if not zero_seen:
+        _fail("no cut HT block reached K1 as a zeroed lane (T-h)")
+    print(f"damaged, packed-header and ROI phase: "
+          f"{time.perf_counter() - t_dmg:.1f} s", flush=True)
 
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)

@@ -2,7 +2,9 @@
 
 Mirrors grok_tpu/api.py `decompress_device[_batch]` and
 `compress_device[_batch]` for the served shapes, single-tile and tiled
-(one tile-part per tile), decodes whole or in a window.  The entry
+(one tile-part per tile), decodes whole or in a window, of intact, cut
+or corrupt streams, with packed headers, ROI, tile overrides or a
+custom MCT.  The entry
 points run on the CUDA card unless the caller asks for another device
 (`device=`, "cuda" by default; a missing card raises, there is no CPU
 fallback).
@@ -24,11 +26,13 @@ from grok_tpu_torch.codestream import j2k, jp2
 from grok_tpu_torch.codestream.j2k import (CodingStyle, CodingStyleComp,
                                            CompInfo, MainHeader, QuantStyle,
                                            TileHeader)
+from grok_tpu_torch.codestream.profiles import validate_profile
 from grok_tpu_torch.core.geometry import Rect, SizGrid
 from grok_tpu_torch.core.image import ColorSpace
 from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
                                         DecompressParams, MCTMode)
 from grok_tpu_torch.core.quant import make_quantizer
+from grok_tpu_torch.pipeline.plan import _th_ovr_key
 from grok_tpu_torch.pipeline.serve import (GeneralRoute, StagedBatch,
                                            stage_serving_batch,
                                            try_decode_serving_batch)
@@ -51,12 +55,45 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _tile_body(cs, hdr, parts):
+def _main_header_packets(hdr, parts: list) -> tuple:
+    """The main header's per-tile-part packet data, keyed on each
+    tile-part's header offset, as grok_tpu/api.py `decompress` reads
+    them: PPM (A.7.4), one Nppm-prefixed blob of packed packet headers
+    per tile-part in stream order; PLM (A.4.6), one list of packet
+    lengths per tile-part in stream order (kept where the counts
+    agree)."""
+    order = sorted(parts, key=lambda p: p.header_start)
+    ppm: dict = {}
+    if hdr.ppm is not None:
+        r = j2k.Reader(hdr.ppm)
+        for p in order:
+            if r.remaining < 4:
+                break
+            n = r.u32()
+            ppm[p.header_start] = r.take(min(n, r.remaining))
+    plm: dict = {}
+    if hdr.plm and len(hdr.plm) == len(order):
+        plm = {p.header_start: lens for p, lens in zip(order, hdr.plm)}
+    return ppm, plm
+
+
+def _tile_body(cs, hdr, parts, ppm: dict | None = None,
+               plm: dict | None = None):
+    """(tile header, body) of one tile from its tile-parts: the PPM blobs
+    of its tile-parts become its packed headers (th.ppt) and their PLM
+    lists its packet lengths (th.plt, where no PLT was given)."""
     th = TileHeader()
-    chunks = []
+    chunks, packed, lens = [], [], []
     for p in sorted(parts, key=lambda p: p.part_index):
         j2k.read_tile_part_header(cs, p, hdr, th)
         chunks.append(cs[p.data_start:p.data_end])
+        lens += (plm or {}).get(p.header_start, [])
+        if ppm and p.header_start in ppm:
+            packed.append(ppm[p.header_start])
+    if not th.plt and lens:
+        th.plt = lens
+    if packed:
+        th.ppt = b"".join(packed)
     return th, b"".join(chunks)
 
 
@@ -67,7 +104,8 @@ def stage_device_batch(streams: list[bytes],
     upload their staged batch to `device`; .run() on the result decodes
     it.  Raises GeneralRoute for what the batch entry takes stream by
     stream: several tiles, different main headers, tile-part COD/QCD,
-    and every stream the serving decode declines to the general route."""
+    tile-part overrides and packed headers, and every stream the
+    serving decode declines to the general route."""
     dev = _device(device)
     dp = _params(dparams)
     if not streams:
@@ -85,8 +123,9 @@ def stage_device_batch(streams: list[bytes],
         if hdr.siz.num_tiles != 1 or {p.tile_index for p in parts} != {0}:
             raise GeneralRoute("a batch of multi-tile streams")
         th, body = _tile_body(cs, hdr, parts)
-        if th.cod is not None or th.qcd is not None:
-            raise GeneralRoute("a batch of streams with tile-part COD/QCD")
+        if any(_th_ovr_key(th)):
+            raise GeneralRoute("a batch of streams with tile-part "
+                               "overrides")
         bodies.append(body)
         ths.append(th)
     return stage_serving_batch(mh, hdr, 0, ths[0], bodies, dp, device=dev,
@@ -116,16 +155,15 @@ def decompress_device_batch(streams: list[bytes],
     return staged.run()
 
 
-def _decode_tile_on(cs, hdr, t: int, parts: list, dp,
-                    dev: torch.device) -> tuple:
-    """(tile header, per-component tensors) of one tile: served, or on
-    GeneralRoute decoded by the general device route."""
-    th, body = _tile_body(cs, hdr, parts)
+def _decode_tile_on(cs, hdr, t: int, th, body: bytes, dp,
+                    dev: torch.device) -> list:
+    """Per-component tensors of one tile: served, or on GeneralRoute
+    decoded by the general device route."""
     try:
-        return th, try_decode_serving_batch(cs, hdr, t, th, [body], dp,
-                                            device=dev)[0]
+        return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
+                                        device=dev)[0]
     except GeneralRoute:
-        return th, decode_tile(cs, hdr, t, th, body, dp, device=dev)
+        return decode_tile(cs, hdr, t, th, body, dp, device=dev)
 
 
 def decompress_device(data: bytes, dparams: DecompressParams | None = None,
@@ -133,22 +171,25 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
     """Decode one codestream to per-component int32 tensors resident on
     `device`, as grok_tpu/api.py `decompress_device` does.
 
-    Each tile is served (tile-part COD/QCD overrides through the plan
-    key), or where the serving decode declines it (GeneralRoute: refined
-    HT blocks, Part-1 mode switches, layered HT-mixed streams) decoded by
-    the general device route, pipeline/tile.py decode_tile, on the same
-    device.  A stream with one tile returns that tile's planes; with
+    Each tile is served (tile-part COD, COC, QCD, QCC, RGN and POC
+    overrides through the plan key; ROI undone on the device), or where
+    the serving decode declines it (GeneralRoute: refined HT blocks,
+    Part-1 mode switches, layered HT-mixed streams, PPM/PPT packed
+    headers, a custom MCT, packets cut short or corrupt) decoded by the
+    general device route, pipeline/tile.py decode_tile, on the same
+    device: a cut or corrupt stream decodes what is present, with a
+    warning, as grok_tpu.decompress(strict=False) does.  A stream with one tile returns that tile's planes; with
     several, full-image canvases at dp.reduce, each tile pasted at its
     place.  With dp.window, a tile that misses the window is not decoded
     (its region stays 0), and every sample inside the window equals the
     whole decode's."""
     dev = _device(device)
     dp = _params(dparams)
-    cs, hdr, by_tile = _tiles(data, dp)
+    cs, hdr, by_tile, tile_body = _tiles(data, dp)
     tiles = sorted(by_tile)
     if len(tiles) == 1:
-        return _decode_tile_on(cs, hdr, tiles[0], by_tile[tiles[0]], dp,
-                               dev)[1]
+        return _decode_tile_on(cs, hdr, tiles[0], *tile_body(tiles[0]), dp,
+                               dev)
     g = hdr.siz.normalized()
     scale = 1 << dp.reduce if dp.reduce else 1
     origins, out = [], []
@@ -164,7 +205,8 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
         rect = hdr.siz.tile_rect(t)
         if dp.window is not None and rect.intersect(Rect(*dp.window)).empty:
             continue
-        th, comps = _decode_tile_on(cs, hdr, t, by_tile[t], dp, dev)
+        th, body = tile_body(t)
+        comps = _decode_tile_on(cs, hdr, t, th, body, dp, dev)
         for c, ci in enumerate(hdr.comps):
             nl = hdr.style_for(c, th.coc, th.cod).num_resolutions - 1
             s = 1 << (min(dp.reduce, nl) if dp.reduce else 0)
@@ -176,15 +218,20 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
 
 
 def _tiles(data: bytes, dp: DecompressParams) -> tuple:
-    """(codestream, main header, {tile index: its tile-parts})."""
+    """(codestream, main header, {tile index: its tile-parts}, body): the
+    tile's (tile header, body) by body(t), with the main header's PPM and
+    PLM merged into the tile header."""
     cs = jp2.locate_codestream(data, permissive=not dp.strict)
     hdr = j2k.read_main_header(cs)
+    parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
     by_tile: dict = {}
-    for p in j2k.read_tile_parts(cs, hdr, strict=dp.strict):
+    for p in parts:
         by_tile.setdefault(p.tile_index, []).append(p)
     if not by_tile:
         raise ValueError("the codestream has no tile-parts")
-    return cs, hdr, by_tile
+    ppm, plm = _main_header_packets(hdr, parts)
+    return cs, hdr, by_tile, \
+        lambda t: _tile_body(cs, hdr, by_tile[t], ppm, plm)
 
 
 def stage_general_device(data: bytes,
@@ -196,14 +243,13 @@ def stage_general_device(data: bytes,
     decode declines."""
     dev = _device(device)
     dp = _params(dparams)
-    cs, hdr, by_tile = _tiles(data, dp)
+    cs, hdr, by_tile, tile_body = _tiles(data, dp)
     if len(by_tile) != 1:
         raise NotImplementedError("stage_general_device stages single-tile "
                                   "streams; decompress_device decodes "
                                   "tiled ones")
-    (t, parts), = by_tile.items()
-    th, body = _tile_body(cs, hdr, parts)
-    return stage_general(cs, hdr, t, th, body, dp, device=dev)
+    t, = by_tile
+    return stage_general(cs, hdr, t, *tile_body(t), dp, device=dev)
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +269,14 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
         raise ValueError(
             f"component precision {prec} exceeds the supported "
             "27-bit bound for the int32 coefficient pipeline")
+    # the Rsiz profile's constraints, checked where grok_tpu.compress
+    # checks them: before any route of the encode is chosen
+    errs = validate_profile(params, w, h, ncomps,
+                            frame_rate=params.frame_rate,
+                            mainlevel=params.mainlevel,
+                            sublevel=params.sublevel)
+    if errs:
+        raise ValueError("profile violations: " + "; ".join(errs))
     mct_mode = params.mct
     if mct_mode is None:
         mct_mode = MCTMode.RCT_OR_ICT if ncomps >= 3 else MCTMode.NONE
@@ -343,12 +397,12 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
         raise ValueError("compress_device_batch: frames must share their "
                          "component shapes and device")
     comp_shapes = shapes.pop()
+    h, w = comp_shapes[0][:2]
+    hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params,
+                             origin)
     if len(set(comp_shapes)) != 1 or len(comp_shapes[0]) != 2:
         raise NotImplementedError("encode of subsampled components is not "
                                   "ported")
-    h, w = comp_shapes[0]
-    hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params,
-                             origin)
     if params.max_tile_parts != 1:
         raise NotImplementedError("encode into several tile-parts is not "
                                   "ported")

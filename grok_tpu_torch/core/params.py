@@ -95,6 +95,9 @@ class CompressParams:
     write_ppm: bool = False
     comment: str | None = None
     rsiz: RsizProfile = RsizProfile.NONE
+    frame_rate: float | None = None  # profile validation (Cinema/BC/IMF)
+    mainlevel: int = 0               # Broadcast/IMF mainlevel
+    sublevel: int = 0                # Broadcast sublevel (tiling rules)
     max_tile_parts: int = 1
     # HTJ2K
     ht: bool = False

@@ -1,7 +1,9 @@
 """Device MCT + DC level shift in PyTorch, batched over leading axes.
 
 Port of grok_tpu/ops/mct.py: RCT and the DC shift are exact int32
-arithmetic; ICT is f32.
+arithmetic; ICT is f32; the inverse of a custom (Part-2) MCT is float64,
+as the JAX package's host decode computes it
+(transform/mct_np.py custom_mct_inv).
 
 Reference parity: [grok: src/lib/core/transform/mct.cpp] — ISO 15444-1
 G.2/G.3.
@@ -44,6 +46,17 @@ def ict_fwd(r, g, b):
 
 def ict_inv(y, cb, cr):
     return _mat3(ICT_INV, y, cb, cr)
+
+
+def custom_inv(comps: list, inv: torch.Tensor) -> list:
+    """The inverse of a custom MCT: component i becomes sum_k inv[i, k] *
+    comps[k], in float64 (inv: the (C, C) float64 inverse matrix, on the
+    components' device; comps: C same-shaped tensors).  A matrix product
+    over the component axis, as the JAX package's np.tensordot: on the
+    CPU the same BLAS order, so that a sum on an exact .5 rounds alike."""
+    x = torch.stack([c.to(torch.float64) for c in comps])
+    out = torch.tensordot(inv, x, dims=([1], [0]))
+    return list(out.unbind(0))
 
 
 def dc_shift_fwd(x, prec: int, sgnd: bool):

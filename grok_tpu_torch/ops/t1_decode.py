@@ -415,13 +415,15 @@ def _cleanup(F, T, st, out, act, ori, xin, yin, hl, H, W, half, flags, RL,
                 out[:, y, x] = torch.where(code_sc, half, out[:, y, x])
 
 
-def segment_table(npass, nbps, styles, seg_lens) -> tuple:
+def segment_table(npass, nbps, styles, seg_lens, dlens=None) -> tuple:
     """(npass, ptbl) for NL blocks from their pass counts, bitplane
     counts, code-block styles and codeword segment lengths (lists; an
     empty list = one segment over all of the block's bytes, of length
     seg_lens given as a single int).  npass is clamped to the passes the
     segments cover, as the scalar decoder stops where they end; ptbl is
-    (NL, P, 3) int32 (see the module docstring)."""
+    (NL, P, 3) int32 (see the module docstring).  dlens: each block's
+    bytes present, where a stream was cut short: segment starts and ends
+    are clamped to it, as the C block decoder clamps them."""
     NL = len(npass)
     rows = []
     out_np = np.zeros(NL, np.int32)
@@ -433,6 +435,8 @@ def segment_table(npass, nbps, styles, seg_lens) -> tuple:
             counts = counts[:len(lens)]
         sched = pass_schedule(nb_j)[:n_j]
         starts = np.concatenate([[0], np.cumsum(lens)]).astype(int)
+        if dlens is not None:
+            starts = np.minimum(starts, int(dlens[j]))
         seg_of = [si for si, cnt in enumerate(counts) for _ in range(cnt)]
         n_eff = min(n_j, len(seg_of), len(sched))
         tbl = []

@@ -19,10 +19,13 @@ codewords.  In between, per bucket of same-sized code-blocks:
 
 then for the whole batch:
 
-  3. dequantize and place every block into its band (one gather and one
-     scatter over index tensors built once per program);
+  3. undo the ROI Maxshift of the components that carry one (RGN:
+     magnitudes at or above 2^s are shifted down by s), dequantize and
+     place every block into its band (one gather and one scatter over
+     index tensors built once per program);
   4. inverse DWT per component, on (N, H, W) stacks of all N streams;
-  5. inverse RCT/ICT and the DC shift with clipping.
+  5. inverse RCT/ICT, or a custom MCT's inverse in float64, and the DC
+     shift with clipping.
 
 A DecodeProgram is built once per signature (plan geometry, batch size,
 bucket layout, table version) and cached by the caller.  The general
@@ -144,7 +147,11 @@ class DecodeProgram:
     sizes per bucket and the band placement index tensors, on device."""
 
     def __init__(self, comps_sig: tuple, mct_mode: int, N: int,
-                 buckets: tuple, device: torch.device):
+                 buckets: tuple, device: torch.device, roi: tuple = (),
+                 custom_inv: np.ndarray | None = None):
+        """roi: per component, its ROI Maxshift (0 for none);
+        custom_inv: the (C, C) float64 inverse of a custom MCT's matrix
+        (mct_mode 3), else None."""
         self.comps_sig = comps_sig
         self.mct_mode = mct_mode
         self.N = N
@@ -167,7 +174,7 @@ class DecodeProgram:
                 pos += N * bh * bw
         self.total = pos
 
-        srcs, tgts, scales, whs, oris = [], [], [], [], []
+        srcs, tgts, scales, whs, oris, shifts = [], [], [], [], [], []
         self.lane_base = []       # first lane of each bucket in the meta
         lanes = 0
         src_base = 0              # offset of the bucket in the cat output
@@ -196,6 +203,9 @@ class DecodeProgram:
                                       np.float32)
                 scales.append(np.broadcast_to(half_delta[j],
                                               inside.shape)[inside])
+            if any(roi):
+                sh = np.array([roi[t[0]] for t in b.blocks], np.int64)
+                shifts.append(np.broadcast_to(sh[j], inside.shape)[inside])
             whs.append(np.tile(np.stack([bw, bh], 1), (N, 1)))
             oris.append(np.tile([t[2] for t in b.blocks], N))
             lanes += N * nb
@@ -209,6 +219,12 @@ class DecodeProgram:
         self.tgt = dev_t(np.concatenate(tgts), torch.int64)
         self.scale = (dev_t(np.concatenate(scales), torch.float32)
                       if self.irrev else None)
+        # per placed sample, its component's ROI shift (None: no ROI);
+        # shifts past 62 leave every int32 magnitude as it is
+        self.roi = (dev_t(np.minimum(np.concatenate(shifts), 62),
+                          torch.int64) if shifts else None)
+        self.custom_inv = (dev_t(custom_inv, torch.float64)
+                           if custom_inv is not None else None)
         self.wh = [(dev_t(a[:, 0], torch.int32), dev_t(a[:, 1], torch.int32))
                    for a in whs]
         # K3 decodes the lanes of every bucket in one launch, in the
@@ -288,14 +304,22 @@ class DecodeProgram:
             ms2.append(out)
         return self.synthesize(ms2)
 
-    def synthesize(self, outs: list) -> list:
+    def synthesize(self, outs: list, mct_round: bool = False) -> list:
         """Steps 3-5 from the block decodes: outs[bi] is bucket bi's
         (N * blocks, H, W) int32 signed mag2 with the half-bit, in lane
-        order.  Returns N lists of per-component int32 planes."""
+        order.  mct_round: under a custom MCT, round the reversible
+        components to the nearest integer instead of truncating them
+        toward zero (the JAX package rounds them where its C block
+        decoder takes the tile, a tile without HT blocks).  Returns N
+        lists of per-component int32 planes."""
         m = torch.cat([o.reshape(-1) for o in outs])[self.src]
 
-        # 3. dequantize + place (signed mag2 carries the half-bit)
+        # 3. ROI Maxshift, dequantize + place (signed mag2 carries the
+        # half-bit, as the threshold of the Maxshift expects)
         m2 = m.abs()
+        if self.roi is not None:
+            big = m2.to(torch.int64) >= (1 << self.roi)
+            m2 = torch.where(big, m2 >> self.roi.to(torch.int32), m2)
         if self.irrev:
             sign = torch.where(m < 0, -1.0, 1.0)
             vals = sign * m2.to(torch.float32) * self.scale
@@ -328,15 +352,20 @@ class DecodeProgram:
             outs.append(cur)
 
         # 5. inverse MCT + DC unshift/clip
-        if self.mct_mode and len(outs) >= 3:
+        if self.custom_inv is not None:
+            outs = mct.custom_inv(outs, self.custom_inv)
+        elif self.mct_mode and len(outs) >= 3:
             inv = mct.ict_inv if self.mct_mode == 2 else mct.rct_inv
             outs[0], outs[1], outs[2] = inv(outs[0], outs[1], outs[2])
         final = []
         for ci, cs in enumerate(self.comps_sig):
             (_rect, _numres, _r_lim, prec, sgnd, irrev, _bands) = cs
             arr = outs[ci]
-            if irrev or (self.mct_mode == 2 and ci < 3):
+            if irrev or (self.mct_mode == 2 and ci < 3) or (
+                    self.custom_inv is not None and mct_round):
                 arr = torch.round(arr)
+            elif self.custom_inv is not None:
+                arr = torch.trunc(arr)
             final.append(mct.dc_shift_inv(arr.to(torch.int32), prec, sgnd))
         return [[final[ci][si] for ci in range(len(final))]
                 for si in range(N)]

@@ -3,12 +3,15 @@
 The port's copy of the plan half of grok_tpu/pipeline/serve.py
 (`ServePlan`, `_build_plan`, `_plan_for`, `_th_ovr_key`), with the fields
 the port's device decodes read: the geometry, the C Tier-2 parser's
-descriptor arrays, and per-block metadata in the parser's global block
-order, with each block's code-block style and its rect in band
-coordinates for the window mask (`window_mask`).  Plans are cached per
-(main header, tile, reduce, mixed, tile overrides).  A plan holds no
-table state; the decode programs kept on it (pipeline/serve.py) are
-keyed on t1ht.tables.VERSION.
+descriptor arrays (and the contexts and packet order the Python parse,
+t2/parse.py, walks: the tile's POC, else the main header's), per-block
+metadata in the parser's global block order, with each block's
+code-block style and its rect in band coordinates for the window mask
+(`window_mask`), and per component the ROI Maxshift (RGN, main and tile)
+and a custom MCT's inverse.  Plans are cached per (main header, tile,
+reduce, mixed, tile overrides: COD, COC, QCD, QCC, RGN, POC).  A plan
+holds no table state; the decode programs kept on it
+(pipeline/serve.py) are keyed on t1ht.tables.VERSION.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from grok_tpu_torch.core.params import CBLK_HT
 from grok_tpu_torch.pipeline.tile import (TileGeometry, band_window,
                                           canon_block_indices)
 from grok_tpu_torch.t2.progression import iter_packets
+from grok_tpu_torch.transform.mct_np import custom_mct_inverse
 
 _PLANS: dict = {}
 _PLANS_MAX = 16
@@ -52,6 +56,11 @@ class ServePlan:
     ht_p_ext: int = 0                 # ht_planes COM extension (derive_p)
     canon_idx: np.ndarray | None = None   # mixed: each block's index in
     #                                       the HT-mixed bitmap
+    ctx_keys: list = field(default_factory=list)   # (c, r, p) per context,
+    #                                       in the parser's order
+    seg_mask: int = -1                # T2 segmentation style mask
+    roi: tuple = ()                   # per component: the ROI Maxshift
+    custom_inv: np.ndarray | None = None   # inverse of a custom MCT
     fast: dict = field(default_factory=dict)   # device programs, staging
 
 
@@ -64,8 +73,6 @@ def _pow2_at_least(v: int, lo: int = 4, hi: int = 64) -> int:
 
 def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
     geo = TileGeometry.build(hdr, t, th)
-    if geo.rgn or geo.custom_mct is not None:
-        return None
     if th is not None and th.ht_mixed_bitmap() is not None:
         # HT MIXED sets: per-block HT/MQ routing by the per-stream COM
         # bitmap; T2 parses with the default single-segment rule
@@ -82,7 +89,8 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
     else:
         return None
 
-    ctxs = geo.make_contexts(~CBLK_HT if coder == "mixed" else -1)
+    seg_mask = ~CBLK_HT if coder == "mixed" else -1
+    ctxs = geo.make_contexts(seg_mask)
     ctx_keys = list(ctxs.keys())
     ctx_idx = {k: i for i, k in enumerate(ctx_keys)}
     ctxs_flat = []
@@ -96,7 +104,8 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
     packet_list = list(iter_packets(geo.tcgs, geo.subsampling,
                                     geo.cod.num_layers, geo.cod.prog_order,
                                     geo.rect.x0, geo.rect.y0,
-                                    hdr.pocs or None))
+                                    (th.pocs if th is not None else None)
+                                    or hdr.pocs or None))
     packets = [(ctx_idx[(pc.comp, pc.res, pc.prec)], pc.layer)
                for pc in packet_list]
     prep = native.t2_prepare(ctxs_flat, packets)
@@ -173,8 +182,13 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
              rect.x1 - txc, rect.y1 - tyc), numres, r_lim,
             hdr.comps[c].prec, hdr.comps[c].sgnd,
             bool(cs.irreversible), tuple(bands)))
-    mct_mode = 0
-    if geo.cod.mct and len(comps_sig) >= 3:
+    # 1 RCT, 2 ICT, 3 a custom matrix (which takes precedence, as in
+    # the JAX package's decode)
+    mct_mode, custom_inv = 0, None
+    if geo.custom_mct is not None:
+        mct_mode = 3
+        custom_inv = custom_mct_inverse(geo.custom_mct)
+    elif geo.cod.mct and len(comps_sig) >= 3:
         mct_mode = 2 if geo.styles[0].irreversible else 1
 
     return ServePlan(
@@ -188,18 +202,21 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         blk_band=np.asarray(blk_band_l, np.int64), band_info=band_info,
         ht_p_ext=hdr.ht_planes_ext(),
         canon_idx=np.asarray(canon_l, np.int64) if canon is not None
-        else None)
+        else None, ctx_keys=ctx_keys, seg_mask=seg_mask,
+        roi=tuple(int(geo.rgn.get(c, 0)) for c in range(len(geo.tcgs))),
+        custom_inv=custom_inv)
 
 
 def _th_ovr_key(th) -> tuple:
-    """Canonical key for the tile-part COD/QCD overrides a plan was
-    built from (dataclass reprs are deterministic): the overrides change
-    geometry/quant, so they join the plan cache key and must match
-    across a batch."""
+    """Canonical key for the tile-part overrides a plan was built from
+    (COD, COC, QCD, QCC, RGN, POC; dataclass reprs are deterministic):
+    the overrides change geometry, quantization, the ROI shifts or the
+    packet order, so they join the plan cache key and must match across
+    a batch."""
     if th is None:
-        return (None, None)
-    return (repr(th.cod) if th.cod is not None else None,
-            repr(th.qcd) if th.qcd is not None else None)
+        return (None,) * 6
+    return tuple(repr(v) if v else None
+                 for v in (th.cod, th.coc, th.qcd, th.qcc, th.rgn, th.pocs))
 
 
 def _plan_for(cs: bytes, hdr, t: int, th,

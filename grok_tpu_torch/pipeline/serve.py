@@ -15,17 +15,21 @@ rest on the device.
 
 Scope: one tile of HT cleanup-only, Part-1 default-style (one codeword
 segment per block, any number of layers) or single-layer HT-mixed
-code-blocks, all streams of a batch under one main header, decoded whole
-or under a layer cap (dp.max_layers: each stream's chunks of later
-layers dropped), whole or in a window (dp.window: the blocks that miss
-the synthesis-dilated window decode as zeros, plan.py window_mask).
-Refined HT blocks, Part-1 mode switches and multi-segment blocks, and
-layered HT-mixed streams raise GeneralRoute, which the entry points
-answer with the general device route (pipeline/tile.py decode_tile,
-kernels K1, K2 and K3), as the JAX package's serving decode declines
-them to its decode_tile.  Anything else — strict, PPM/PPT,
-per-component overrides, ROI — raises NotImplementedError naming the
-route: a quiet host decode would hide the device.
+code-blocks, all streams of a batch under one main header and the same
+tile overrides (COC, QCC, RGN, POC), decoded whole or under a layer cap
+(dp.max_layers: each stream's chunks of later layers dropped), whole or
+in a window (dp.window: the blocks that miss the synthesis-dilated
+window decode as zeros, plan.py window_mask), with the ROI Maxshift
+undone on the device.  Refined HT blocks, Part-1 mode switches and
+multi-segment blocks, layered HT-mixed streams, packed packet headers
+(PPM/PPT), a custom MCT, and streams the C Tier-2 parse declines (cut
+short, or corrupt) raise GeneralRoute, which the entry points answer
+with the general device route (pipeline/tile.py decode_tile, kernels
+K1, K2 and K3, with the Python Tier-2 parse where the C one declines),
+as the JAX package's serving decode declines them to its decode_tile.
+Anything else (strict decodes, HT code-blocks with mode switches,
+code-blocks over 64) raises NotImplementedError naming the route: a
+quiet host decode would hide the device.
 """
 
 from __future__ import annotations
@@ -54,10 +58,11 @@ class GeneralRoute(NotImplementedError):
     """The serving decode declines a stream that the general device route
     (pipeline/tile.py decode_tile) decodes: HT refinement passes, Part-1
     mode switches, several codeword segments per block, layered HT-mixed
-    streams; or a batch that the batch entry takes stream by stream
-    (several tiles, different main headers, tile-part COD/QCD).  The
-    entry points catch this class only; every other decline stays a
-    NotImplementedError."""
+    streams, packed packet headers, a custom MCT, packets the C Tier-2
+    parse declines; or a batch that the batch entry takes stream by
+    stream (several tiles, different main headers, tile-part
+    overrides).  The entry points catch this class only; every other
+    decline stays a NotImplementedError."""
 
     def __init__(self, why: str):
         super().__init__(f"the serving decode declines {why}: the entry "
@@ -94,7 +99,7 @@ def _program(plan, N: int, device: torch.device) -> DecodeProgram:
             Bucket(W, H, tuple(plan.sig_tail[gi] for gi in fidx[sel]))
             for (W, H), sel in zip(plan.bucket_dims, bsel) if sel.size)
         prog = DecodeProgram(plan.comps_sig, plan.mct_mode, N, buckets,
-                             device)
+                             device, plan.roi, plan.custom_inv)
         plan.fast[key] = prog
     return prog
 
@@ -207,11 +212,9 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                         device, ths=None) -> StagedBatch:
     """Host staging of N same-geometry tile bodies and their upload."""
     device = torch.device(device)
-    if hdr.ppm is not None:
-        raise _unsupported("general path", "PPM packed packet headers")
-    if th.coc or th.qcc or th.rgn or th.pocs or th.ppt is not None:
-        raise _unsupported("general path",
-                           "per-component overrides, ROI, tile POC or PPT")
+    if hdr.ppm is not None or any(
+            q is not None and q.ppt is not None for q in (ths or [th])):
+        raise GeneralRoute("PPM/PPT packed packet headers")
     if ths is not None and any(_th_ovr_key(q) != _th_ovr_key(th)
                                for q in ths):
         raise _unsupported("general path",
@@ -220,11 +223,12 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         raise _unsupported("strict decode", "strict=True")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
-        raise _unsupported("general path", "ROI, a custom MCT, HT "
-                           "code-blocks with mode switches or code-blocks "
-                           "over 64x64")
+        raise _unsupported("general path", "HT code-blocks with mode "
+                           "switches or code-blocks over 64x64")
     if plan.coder == "mq" and plan.style.any():
         raise GeneralRoute("Part-1 mode switches")
+    if plan.custom_inv is not None:
+        raise GeneralRoute("a custom MCT")
     wmask = window_mask(plan, dp.window) if dp.window is not None \
         else None
     ths_l = list(ths) if ths is not None else [th] * len(bodies)
@@ -247,8 +251,8 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
                                           plan.eph)
         if parsed is None:
-            raise _unsupported("general path", f"stream {si}: T2 parse "
-                               f"failed")
+            raise GeneralRoute(f"stream {si}, whose packets the C Tier-2 "
+                               f"parse declines (cut short or corrupt)")
         incl, zb, npass, chunks, _end = parsed
         incl = np.asarray(incl, bool)
         if dp.max_layers:

@@ -9,7 +9,8 @@ several layers or byte targets, t2/rate.py, the Part-1 minimal-flush
 truncation refinement by trial decodes with kernel K3, and the packet
 emission by the C Tier-2 coder, native.t2_emit), and `decode_tile`, the
 general device decode route for the streams the serving decode declines
-(refined HT blocks, Part-1 mode switches, layered HT-mixed streams), with
+(refined HT blocks, Part-1 mode switches, layered HT-mixed streams,
+packed packet headers, a custom MCT, packets cut short or corrupt), with
 kernels K1, K2 and K3, whole or in a window.
 
 Reference parity: [grok: src/lib/core/tile/TileProcessor.cpp ::
@@ -379,6 +380,10 @@ class GeneralStaged:
     #                           Part-1 lanes
     mq_pos: object = None     # (n,) int64: each Part-1 lane's index in
     #                           meta order
+    mct_round: bool = False   # synthesize's rounding under a custom MCT
+    zero_lanes: object = None  # (z,) int64 host: the HT lanes (meta
+    #                           order) decoded as zeros (valid = 0): a
+    #                           cleanup segment cut short or badly framed
 
     def run(self) -> list:
         import torch
@@ -405,7 +410,7 @@ class GeneralStaged:
                 lo = prog.lane_base[bi]
                 out = out + full[lo:lo + n, :b.H, :b.W]
             outs.append(out)
-        return prog.synthesize(outs)[0]
+        return prog.synthesize(outs, self.mct_round)[0]
 
 
 def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
@@ -416,30 +421,35 @@ def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
 
     The device branch of grok_tpu/pipeline/tile.py `decode_tile`, the
     route by which the JAX package decodes what its serving decode
-    declines: the C Tier-2 parse of the whole packet sequence; each kept
-    block's codeword segments assembled up to dp.max_layers (t2/packet.py
-    BlockDecState) and routed by its code-block style, or for HT-mixed
-    streams by the tile-part bitmap; HT blocks with their cleanup plane
-    (t1ht/scalar.py derive_p), the cleanup segments split by the C scan
-    and the refinement segments un-stuffed by C on the host, uploaded as
-    one digest, then per bucket of same-sized blocks the sub-streams
-    staged and the blocks decoded by ops/ht_decode.py `decode_ht_blocks`
-    (K1 on cleanup-only blocks, K2 on refined ones); Part-1 blocks with
-    their segment tables (ops/t1_decode.py segment_table: BYPASS, RESET,
-    TERMALL, VSC, PTERM, SEGSYM), their raw codewords in the same upload,
-    decoded by one K3 launch over the Part-1 lanes of every bucket; a
-    block sees zeros from the coder it does not use.  Then the serving
-    decode's dequantization, placement, inverse DWT and MCT, DC shift and
+    declines: the C Tier-2 parse of the whole packet sequence, or where
+    it declines (packed headers, packets cut short or corrupt) the Python
+    one (t2/parse.py: SOP resync, a permissive stop with a warning); each
+    kept block's codeword segments assembled up to dp.max_layers
+    (t2/packet.py BlockDecState) and routed by its code-block style, or
+    for HT-mixed streams by the tile-part bitmap; HT blocks with their
+    cleanup plane (t1ht/scalar.py derive_p), the cleanup segments split
+    by the C scan and the refinement segments un-stuffed by C on the
+    host, uploaded as one digest, then per bucket of same-sized blocks the
+    sub-streams staged and the blocks decoded by ops/ht_decode.py
+    `decode_ht_blocks` (K1 on cleanup-only blocks, K2 on refined ones; a
+    block whose cleanup segment was cut short or is badly framed is a
+    zero lane, valid = 0, as the JAX package decodes it as zeros); Part-1
+    blocks with their segment tables (ops/t1_decode.py segment_table:
+    BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM; a block cut short reads
+    past its bytes as past a segment's end), their raw codewords in the
+    same upload, decoded by one K3 launch over the Part-1 lanes of every
+    bucket; a block sees zeros from the coder it does not use.  Then the serving
+    decode's ROI shift, dequantization, placement, inverse DWT and MCT
+    (a custom one rounded as the JAX package rounds it), DC shift and
     clip (pipeline/device.py DecodeProgram.synthesize), at dp.reduce.
     With dp.window, only the blocks that meet the synthesis-dilated
     window (band_window) are decoded: every pixel inside the window is
     exact, the rest is not meaningful.
 
-    Raises NotImplementedError naming the route for ROI, PPM/PPT,
-    per-component overrides or a tile POC, strict decodes, code-blocks
-    over 64 x 64, Part-1 blocks outside 1..109 passes or 0..30 magnitude
-    planes, and HT blocks the device kernels do not take
-    (grok_tpu/ops/pallas_ht.py ht_block_eligible)."""
+    Raises NotImplementedError naming the route for strict decodes,
+    code-blocks over 64 x 64, HT code-blocks with mode switches, Part-1
+    blocks outside 1..109 passes or 0..30 magnitude planes, and HT blocks
+    of more than 24 planes below the cleanup plane."""
     return stage_general(cs, hdr, t, th, body, dp, device=device).run()
 
 
@@ -458,33 +468,32 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
                                                _upload, stage_dims)
     from grok_tpu_torch.t1ht.scalar import derive_p
     from grok_tpu_torch.t2.packet import BlockDecState, Chunk
+    from grok_tpu_torch.t2.parse import parse_packets
 
     device = torch.device(device)
     th = th or TileHeader()
     route = "general decode route"
     if dp.strict:
         raise _general_unsupported("strict decode", "strict=True")
-    if hdr.ppm is not None or th.ppt is not None:
-        raise _general_unsupported(route, "PPM/PPT packed packet headers")
-    if th.coc or th.qcc or th.rgn or th.pocs:
-        raise _general_unsupported(route, "per-component overrides, ROI or "
-                                   "a tile POC")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
-        raise _general_unsupported(route, "ROI, a custom MCT, HT code-blocks "
-                                   "with mode switches or code-blocks over "
-                                   "64x64")
+        raise _general_unsupported(route, "HT code-blocks with mode "
+                                   "switches or code-blocks over 64x64")
     bitmap = None
     if plan.coder == "mixed":
         # the stream's bitmap routes each block (a block past its end is
         # a Part-1 block, as in the JAX package)
         bitmap = np.frombuffer(th.ht_mixed_bitmap(), np.uint8)
 
-    # -- T2: the C parse, then each kept block's segments up to the cap ----
-    parsed = native.t2_parse_prepared(body, plan.prep, plan.sop, plan.eph)
+    # -- T2: the C parse, or the Python one where it declines (packed
+    # headers, packets cut short or corrupt), then each kept block's
+    # segments up to the cap --------------------------------------------
+    parsed = None
+    if th.ppt is None:
+        parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
+                                          plan.eph)
     if parsed is None:
-        raise _general_unsupported(route, "the C Tier-2 parse failed "
-                                   "(truncated or corrupt packets)")
+        parsed = parse_packets(body, plan, hdr_buf=th.ppt, strict=False)
     incl, zb, _npass, chunks, _end = parsed
     keep = np.asarray(incl, bool) & plan.rok
     if dp.window is not None:
@@ -497,6 +506,9 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
             st.chunks.append(Chunk(layer=lay, segno=segno, numpasses=npk,
                                    offset=off, length=ln))
     ht, mq = [], []          # per block: (b, data, seg_lens, n, numbps, x)
+    n_ht = 0                 # HT blocks, their lanes zeroed included
+    zero = []                # blocks whose cleanup segment was cut short
+    #                          or badly framed: zero lanes (valid = 0)
     for b in sorted(states):
         data, seg_lens, n = states[b].assemble(body, dp.max_layers)
         if n <= 0:
@@ -509,14 +521,27 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         else:
             is_ht = plan.coder == "ht"
         if is_ht:
+            n_ht += 1
+            if numbps <= 0 or seg_lens[0] > len(data):
+                # nothing to decode, or the cleanup segment's suffix (at
+                # its end) is gone: the JAX package decodes such a block
+                # as zeros
+                zero.append(b)
+                continue
             p = derive_p(n, numbps, plan.ht_p_ext)
-            # the device kernels' scope (ht_block_eligible)
-            if n > 3 or len(seg_lens) != n or (n > 1 and p == 0) \
-                    or numbps - p > 24:
+            # K1's UVLC has no 13-bit escape (ht_block_eligible)
+            if numbps - p > 24:
                 raise _general_unsupported(
-                    route, f"an HT block of {n} passes in {len(seg_lens)} "
-                    f"segments with {numbps} planes and cleanup plane {p}")
-            ht.append((b, data, seg_lens, n, numbps, p))
+                    route, f"an HT block of {numbps} planes and cleanup "
+                    f"plane {p}")
+            # the passes decoded, as the JAX package's scalar decoder
+            # takes them: SigProp, then MagRef, each where its segment
+            # was signalled, none below a cleanup plane of 0
+            n = min(n, len(seg_lens), 3) if p > 0 else 1
+            # a refinement segment cut short reads 0xFF past its data,
+            # as the scalar decoder reads it
+            data += b"\xff" * (sum(seg_lens[:n]) - len(data))
+            ht.append((b, data, seg_lens[:n], n, numbps, p))
         else:
             if n > 109 or not 0 <= numbps <= MAX_NUMBPS:
                 raise _general_unsupported(
@@ -526,6 +551,10 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
             # Part-1 blocks of an HT-mixed set
             style = int(plan.style[b]) & ~CBLK_HT
             mq.append((b, data, seg_lens, n, numbps, style))
+    # a custom MCT rounds reversible components where the JAX package's
+    # C block decoder takes the tile: some block to decode, none of them
+    # HT
+    mct_round = bool(mq) and not n_ht
 
     prog = _program(plan, 1, device)
     fidx, bsel = _full_index(plan)
@@ -555,8 +584,10 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         if res is None:
             raise _general_unsupported(route, "HT wire scan overflow")
         scan, dig = res
-        if (scan[:, 0] < 0).any():
-            raise _general_unsupported(route, "invalid HT cleanup framing")
+        # a badly framed cleanup segment: a zero lane, as the JAX
+        # package decodes it
+        ok = scan[:, 0] >= 0
+        zero += [x[0] for x, good in zip(ht, ok) if not good]
         sp_c, sp_len = native.ht_unstuff_batch(cat, doff + seg[:, 0],
                                                seg[:, 1])
         mr_c, mr_len = native.ht_unstuff_batch(
@@ -570,12 +601,13 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         sp_base = area(sp_c)
         mr_base = area(mr_c)
         rows = lane_of[[x[0] for x in ht]]
-        meta[rows] = np.stack([dig_base + scan[:, 1], scan[:, 2],
-                               dig_base + scan[:, 3], scan[:, 4],
-                               sp_base + np.cumsum(sp_len) - sp_len, sp_len,
-                               mr_base + np.cumsum(mr_len) - mr_len, mr_len,
-                               [x[5] for x in ht], [x[3] for x in ht]], 1)
-        sc[rows, 5:7] = scan[:, 5:7]
+        vals = np.stack([dig_base + scan[:, 1], scan[:, 2],
+                         dig_base + scan[:, 3], scan[:, 4],
+                         sp_base + np.cumsum(sp_len) - sp_len, sp_len,
+                         mr_base + np.cumsum(mr_len) - mr_len, mr_len,
+                         [x[5] for x in ht], [x[3] for x in ht]], 1)
+        meta[rows[ok]] = vals[ok]
+        sc[rows[ok], 5:7] = scan[ok, 5:7]
     sc[:, 2], sc[:, 4] = meta[:, 1], meta[:, 3]
     ends = prog.lane_base[1:] + [fidx.size]
     metas = [meta[lo:hi] for lo, hi in zip(prog.lane_base, ends)]
@@ -583,9 +615,13 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
 
     # -- Part-1: the raw codewords and their segment tables ----------------
     if mq:
+        # segments clamped to each block's data: a block cut short reads
+        # past its data as past a segment's end (0xFF, or 0 raw bits), as
+        # the JAX package's C block decoder does
         npass_e, ptbl = segment_table([x[3] for x in mq], [x[4] for x in mq],
                                       [x[5] for x in mq],
-                                      [x[2] for x in mq])
+                                      [x[2] for x in mq],
+                                      [len(x[1]) for x in mq])
         datas = [x[1] for x in mq]
         raw_base = area(b"".join(datas) + b"\0")
         mq_rows = np.stack([raw_base + np.cumsum([0] + [len(d) for d in
@@ -627,7 +663,9 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
                       mr.to(u8), mt[:, 8].to(i32), w, h,
                       (mt[:, 9] > 0).to(i32), mt[:, 9].to(i32),
                       m[:, 9] >= 2))
-    staged = GeneralStaged(prog, lanes, metas)
+    staged = GeneralStaged(prog, lanes, metas, mct_round=mct_round,
+                           zero_lanes=lane_of[zero] if zero else
+                           np.zeros(0, np.int64))
     if mq:
         staged.mq_pos = torch.from_numpy(mq_pos).to(device)
         staged.mq = prog.stage_mq_lanes(body_d, up[2], up[3],

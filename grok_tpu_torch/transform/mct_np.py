@@ -1,8 +1,12 @@
-"""The per-component PCRD distortion weights of the colour transforms.
+"""The per-component PCRD distortion weights of the colour transforms,
+and the custom MCT's inverse.
 
 The port's copy of `mct_component_norms` from grok_tpu/transform/
-mct_np.py, for the RCT and the ICT (the port encodes no custom MCT);
-the transforms themselves run on the device (ops/mct.py).
+mct_np.py, for the RCT and the ICT (the port encodes no custom MCT), and
+of `custom_mct_inv`, the NumPy model of the custom MCT's inverse that
+the device decode computes (ops/mct.py custom_inv: the same float64
+inverse matrix and products); the transforms themselves run on the
+device (ops/mct.py).
 """
 
 from __future__ import annotations
@@ -31,3 +35,16 @@ def mct_component_norms(irreversible: bool) -> np.ndarray:
             [1.0, 0.75, -0.25],
         ])
     return np.sqrt((inv ** 2).sum(axis=0))
+
+
+def custom_mct_inverse(matrix) -> np.ndarray:
+    """The float64 inverse of a custom MCT's forward matrix."""
+    return np.linalg.inv(np.asarray(matrix, dtype=np.float64))
+
+
+def custom_mct_inv(comps: list[np.ndarray], matrix) -> list[np.ndarray]:
+    """Undo a custom MCT: the inverse matrix applied across components,
+    in float64."""
+    stacked = np.stack(comps, axis=0).astype(np.float64)
+    out = np.tensordot(custom_mct_inverse(matrix), stacked, axes=(1, 0))
+    return [out[i] for i in range(out.shape[0])]

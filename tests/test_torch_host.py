@@ -544,6 +544,69 @@ def test_block_dec_state_assembles_the_same_segments():
         assert ps.assemble(body, cap) == js.assemble(body, cap)
 
 
+def test_bit_reader_and_tag_trees_decode_the_same_bits():
+    """The packet-header bit reader (0xFF stuffing) and the tag trees of
+    the port's Python Tier-2 parse against the JAX package's, on random
+    bytes with runs of 0xFF."""
+    from grok_tpu.codestream.bitio import BitReader as JReader
+    from grok_tpu.t2.tagtree import TagTree as JTree
+    from grok_tpu_torch.codestream.bitio import BitReader as PReader
+    from grok_tpu_torch.t2.tagtree import TagTree as PTree
+    rng = np.random.default_rng(9)
+    for trial in range(20):
+        data = rng.integers(0, 256, 64, dtype=np.uint8)
+        data[rng.random(64) < 0.2] = 0xFF
+        data = data.tobytes()
+        jr, pr = JReader(data, 3), PReader(data, 3)
+        w, h = 1 + trial % 5, 1 + trial % 3
+        jt, pt = JTree(w, h), PTree(w, h)
+        got, want = [], []
+        for k in range(40):
+            x, y = k % w, (k // w) % h
+            n = 1 + k % 7
+            for rd, tree, out in ((jr, jt, want), (pr, pt, got)):
+                try:
+                    out.append((tree.decode(rd, x, y, 1 + k % 4),
+                                tree.leaf_value(x, y), rd.read_bits(n),
+                                rd.pos))
+                    if k % 9 == 8:
+                        rd.align()
+                except EOFError:
+                    out.append("eof")
+        assert got == want
+
+
+def test_profile_checks_equal():
+    """The port's Rsiz profile check against the JAX package's, over
+    profiles, sizes, tiling, progressions and rates."""
+    from grok_tpu.codestream.profiles import validate_profile as jcheck
+    from grok_tpu.core.params import CompressParams as JCP
+    from grok_tpu.core.params import ProgOrder as JOrder
+    from grok_tpu.core.params import RsizProfile as JRsiz
+    from grok_tpu_torch.codestream.profiles import validate_profile as pcheck
+    from grok_tpu_torch.core.params import CompressParams as PCP
+    from grok_tpu_torch.core.params import ProgOrder as POrder
+    from grok_tpu_torch.core.params import RsizProfile as PRsiz
+    for rsiz in ("NONE", "CINEMA_2K", "CINEMA_4K", "BROADCAST", "IMF"):
+        for kw in (dict(), dict(irreversible=True, prog_order="CPRL",
+                                cblk_w_exp=5, cblk_h_exp=5),
+                   dict(tile_w=1024, tile_h=1024, num_layers=2,
+                        rates=[40.0, 8.0]),
+                   dict(num_resolutions=8, prec_w_exps=[9] * 8,
+                        prec_h_exps=[9] * 8)):
+            for (w, h, nc, fr, ml, sl) in ((64, 48, 1, None, 0, 0),
+                                           (2048, 1080, 3, 48, 3, 1),
+                                           (4096, 2160, 3, 24.0, 11, 0)):
+                def args(cp, order, prof):
+                    k = dict(kw, rsiz=getattr(prof, rsiz))
+                    if "prog_order" in k:
+                        k["prog_order"] = getattr(order, k["prog_order"])
+                    return (cp(**k), w, h, nc)
+                extra = dict(frame_rate=fr, mainlevel=ml, sublevel=sl)
+                assert pcheck(*args(PCP, POrder, PRsiz), **extra) == \
+                    jcheck(*args(JCP, JOrder, JRsiz), **extra)
+
+
 def test_finish_tile_encode_layers_emits_the_same_bytes():
     """The PCRD branch: refined HT blocks (three terminated passes each)
     allocated into three layers, two of them byte-targeted."""

@@ -21,6 +21,7 @@ from grok_tpu_torch import api  # noqa: E402
 from grok_tpu_torch.core.params import CBLK_BYPASS, CBLK_VSC  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams as PCP  # noqa: E402
 from grok_tpu_torch.ops import ht_decode, t1_decode, t1_encode  # noqa: E402
+from grok_tpu_torch.pipeline.serve import GeneralRoute  # noqa: E402
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C toolchain")
@@ -173,15 +174,16 @@ def test_out_of_scope_encodes_raise(gray, kw, what):
     (dict(write_ppm=True), "PPM"),
 ])
 def test_out_of_scope_streams_raise(gray, kw, what):
-    """Mode-switch streams decode on the general route, bit-exact to the
-    JAX package's decode; packed packet headers still raise."""
+    """Mode-switch streams and packed packet headers (PPM) decode on the
+    general route, bit-exact to the JAX package's decode
+    (grok_tpu.decompress: its device decode is wrong on PPM)."""
     data = compress(_img(gray[0], 3), JCP(**CP, **kw))
-    if what is None:
-        from grok_tpu import DecompressParams, decompress
-        got = _np(api.decompress_device(data, device="cpu"))
-        assert np.array_equal(got, decompress(
-            data, DecompressParams(strict=False)).to_array())
-        assert np.array_equal(got, gray[0])
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        api.decompress_device(data, device="cpu")
+    from grok_tpu import DecompressParams, decompress
+    got = _np(api.decompress_device(data, device="cpu"))
+    assert np.array_equal(got, decompress(
+        data, DecompressParams(strict=False)).to_array())
+    assert np.array_equal(got, gray[0])
+    if what == "PPM":
+        assert j2k.read_main_header(data).ppm is not None
+        with pytest.raises(GeneralRoute, match="PPM"):
+            api.stage_device_batch([data], device="cpu")

@@ -165,11 +165,12 @@ def test_out_of_scope_on_refined_streams_still_raises(streams):
     assert np.array_equal(got[:32, :32], want)
     with pytest.raises(NotImplementedError, match="strict"):
         api.decompress_device(data, PDP(strict=True), device="cpu")
-    # packed packet headers (PPM) on a refined stream
+    # packed packet headers (PPM) on a refined stream: the general route
+    # with the Python Tier-2 parse, bit-exact to grok_tpu.decompress
     img = synthetic_image(64, 64, 1, seed=6)
     ppm = compress(img, JCP(write_ppm=True, ht_planes=2, **CP))
-    with pytest.raises(NotImplementedError, match="PPM"):
-        api.decompress_device(ppm, device="cpu")
+    assert np.array_equal(_np(api.decompress_device(ppm, device="cpu")),
+                          decompress(ppm, JDP(strict=False)).to_array())
 
 
 def test_targeted_encode_scope(images):
