@@ -180,6 +180,32 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                stream's bottom-edge lanes and K1 on its flattest bucket
                against their plain versions, and every HT lane zeroed for
                a cut cleanup segment all zero from K1.
+ 23. W, S    — code-blocks over 64 on a side and strict decodes: the
+               committed 1080p streams of grok_tpu_torch/util/
+               wide_vectors.npz decoded through decompress_device to their
+               committed plane hashes, 3 calls after a warm-up: (W-h) HT
+               in 1024x4 blocks at 24:1 and the lossless 32-line slice in
+               the same blocks (served, K1; every 1024x4 block coded),
+               (W-r) HT ht_planes=2 in 256x16 blocks, 2 layers, at
+               max_layers 1 and 2 (the general route, K2), (W-1) Part-1
+               in 128x32 blocks (served, K3), (W-1s) Part-1 style 0x3F in
+               16x256 blocks, 2 layers, at max_layers 1 and 2 (general,
+               K3), (W-win) a 512x512 window at (333, 211) on (W-h) and
+               (W-1), and (S) the (T-h) HT frame with a byte of 24 blocks'
+               codewords zeroed (hbad; with random bytes, hbad_rand, held
+               to the port's committed hash: it also meets the open fault
+               of magnitudes of 2^31 or more).  The warm-up decode's own
+               K1, K2 and K3 launches are recorded: their error codes zero
+               on every lane of an intact stream, flagged lanes all zero
+               and held against the plain version, and on each wide shape
+               the largest lane and up to 15 of the smallest held against
+               the plain version in the bucket's dims, padding and error
+               codes included; the wide launches are then timed over the
+               bucket.  Then (S) the strict decodes: m1 and (W-h) give
+               their committed planes, hbad and each damaged (T) and (P)
+               stream raise the exception the JAX package's strict device
+               decode raised (type and message, committed with the
+               hashes).
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -364,7 +390,7 @@ def _synthetic_roundtrip(torch, dev, ht_decode, hw_validate):
     lanes = hw_validate.ht_decode_inputs(
         torch.from_numpy(mneg).to(dev), col([d[0] for d in dims]),
         col([d[1] for d in dims]), (side * side * 28 // 8 + 64, 1024, 2048))
-    got = ht_decode.ht_decode_lanes(*lanes, side, side).cpu().numpy()
+    got = ht_decode.ht_decode_lanes(*lanes, side, side)[0].cpu().numpy()
     for j, ((w, h), mag, neg) in enumerate(zip(dims, mags, negs)):
         v = got[j, :h, :w]
         if not (np.array_equal(np.abs(v), 2 * mag)
@@ -467,13 +493,13 @@ def _refine_roundtrip(torch, dev, K):
     if scan is None or (scan[0][:, 0] < 0).any():
         _fail("K4r round trip: the C scan refused the assembled segments")
     sc = np.zeros((n, 7), np.int64)
-    sc[coded], digest = scan
+    sc[coded], digest, _bits = scan
     parts, starts, lens = [digest], [], []
     top = len(digest)
     for s, cap_off in ((3, sum(caps)), (4, sum(caps) + lsp)):
         rw, rl = native.ht_raw_batch(buf, base + cap_off, bits[s])
-        cl, cll = native.ht_unstuff_batch(rw[:int(rl.sum())].tobytes(),
-                                          np.cumsum(rl) - rl, rl)
+        cl, cll, _nb = native.ht_unstuff_batch(
+            rw[:int(rl.sum())].tobytes(), np.cumsum(rl) - rl, rl)
         parts.append(cl[:int(cll.sum())])
         starts.append(top + np.cumsum(cll) - cll)
         lens.append(cll)
@@ -494,8 +520,9 @@ def _refine_roundtrip(torch, dev, K):
     args = (ms.to(u8), mel.to(u8), vlc.to(u8), col(pv), w, h,
             col(coded.astype(np.int32).tolist()), side, side, sp.to(u8),
             mr.to(u8), col([3] * n))
-    got = ht_decode.ht_decode_lanes(*args)
-    if not torch.equal(got, ht_decode.ht_decode_lanes_ref(*args)):
+    got, codes = ht_decode.ht_decode_lanes(*args)
+    ref, rcodes = ht_decode.ht_decode_lanes_ref(*args)
+    if not (torch.equal(got, ref) and torch.equal(codes, rcodes)):
         _fail("K4r -> K2 round trip: K2 differs from its plain version")
     got = got.cpu().numpy()
     for j, ((wj, hj), mag, neg) in enumerate(zip(dims, mags, negs)):
@@ -864,8 +891,14 @@ def main() -> int:
         finally:
             ht_decode.ht_decode_lanes, pdevice.ht_decode_lanes = saved
 
-    ht_designs = {"v2": ht_decode.ht_decode_lanes,
-                  "v1": ht_decode.ht_decode_lanes_v1}
+    def v1_lanes(*a):
+        """The first design behind ht_decode_lanes' contract: its planes
+        and zero error codes (it flags nothing; the lanes it is given here
+        are intact)."""
+        out = ht_decode.ht_decode_lanes_v1(*a)
+        return out, out.new_zeros(out.shape[0])
+
+    ht_designs = {"v2": ht_decode.ht_decode_lanes, "v1": v1_lanes}
     ht_cells = paths["HT"] + paths["HT-mixed"] + refined
     for name in work:
         stage = (lambda: api.stage_general_device(streams[name][0],
@@ -1003,13 +1036,16 @@ def main() -> int:
             lanes = prog.stage(staged.body, staged.meta, bi,
                                *staged.dims[bi][:3])
             nl = lanes[0].shape[0]
-            got = ht_decode.ht_decode_lanes(*lanes, b.W, b.H)
+            got, codes = ht_decode.ht_decode_lanes(*lanes, b.W, b.H)
             if not torch.equal(got, ht_decode.ht_decode_lanes_v1(
                     *lanes, b.W, b.H)):
                 _fail(f"K1 differs from its first design ({name} "
                       f"{b.W}x{b.H})")
-            ref, dt = _plain_ms(torch, lambda: ht_decode.ht_decode_lanes_ref(
-                *lanes, b.W, b.H))
+            if bool(codes.any()):
+                _fail(f"K1 flagged a lane of the intact {name}")
+            (ref, _c), dt = _plain_ms(
+                torch, lambda: ht_decode.ht_decode_lanes_ref(*lanes, b.W,
+                                                             b.H))
             p_ms += dt
             err = int((got.long() - ref.long()).abs().max())
             k1["err"] = max(k1["err"], err)
@@ -1133,7 +1169,7 @@ def main() -> int:
     for name in paths["Part-1"]:
         staged = api.stage_device_batch(streams[name], device=dev)
         lanes = staged.program.stage_mq(staged.body, staged.meta)
-        W, H = staged.program.mq_dims
+        (W, H, _b), = staged.program.mq_groups
         nl_all = lanes[1].shape[0]
         if not torch.equal(t1_decode.t1_decode_lanes(*lanes, W, H),
                            t1_decode.t1_decode_lanes_v1(*lanes, W, H)):
@@ -1287,19 +1323,21 @@ def main() -> int:
                 t = [x.index_select(0, idx) for x in la[:10]]
                 args = (*t[:3], *t[5:9], b.W, b.H, t[3], t[4], t[9])
                 if what == "refined":
-                    got = ht_decode.ht_decode_lanes(*args)
+                    got, codes = ht_decode.ht_decode_lanes(*args)
                     old = ht_decode.ht_decode_lanes_v1(*args)
                 else:
-                    got = ht_decode.decode_ht_blocks(*t, la[10][mask], b.W,
-                                                     b.H)
-                    with ht_decoder(ht_decode.ht_decode_lanes_v1):
-                        old = ht_decode.decode_ht_blocks(*t, la[10][mask],
-                                                         b.W, b.H)
+                    got, codes = ht_decode.decode_ht_blocks(
+                        *t, la[10][mask], b.W, b.H)
+                    with ht_decoder(v1_lanes):
+                        old, _c = ht_decode.decode_ht_blocks(
+                            *t, la[10][mask], b.W, b.H)
                 if not torch.equal(got, old):
                     _fail(f"K2 differs from its first design ({name} "
                           f"{b.W}x{b.H} {what})")
-                ref, dt = _plain_ms(torch, lambda: ht_decode
-                                    .ht_decode_lanes_ref(*args))
+                if bool(codes.any()):
+                    _fail(f"K2 flagged a lane of the intact {name}")
+                (ref, _c), dt = _plain_ms(torch, lambda: ht_decode
+                                          .ht_decode_lanes_ref(*args))
                 err = int((got.long() - ref.long()).abs().max())
                 k2["err"] = max(k2["err"], err)
                 print(f"K2 {name} bucket {b.W}x{b.H} {what} lanes "
@@ -1648,7 +1686,7 @@ def main() -> int:
                   f"{got['K1'] // (REPS + 1)}", flush=True)
         staged = split_decode(f"M {name}", data, DP())[0]
         lanes = staged.mq
-        W, H = staged.program.mq_dims
+        (W, H, _b), = staged.program.mq_groups
         nl_all = lanes[1].shape[0]
         if not torch.equal(t1_decode.t1_decode_lanes(*lanes, W, H),
                            t1_decode.t1_decode_lanes_v1(*lanes, W, H)):
@@ -1783,7 +1821,6 @@ def main() -> int:
                             if la is not None]
                 mq_lanes, zero = s.mq, s.zero_lanes
             if mq_lanes is not None:
-                W, H = prog.mq_dims
                 He = max(EDGE_H, int(mq_lanes[6].min()))
                 edge = (mq_lanes[0],) + _select(mq_lanes[1:],
                                                 mq_lanes[6] <= He)
@@ -1814,9 +1851,10 @@ def main() -> int:
                 b = prog.buckets[bi]
                 if bi != flat and bi not in zero_b:
                     continue
-                got = ht_decode.ht_decode_lanes(*la, b.W, b.H)
-                ref, p_ms = _plain_ms(torch, lambda: ht_decode
-                                      .ht_decode_lanes_ref(*la, b.W, b.H))
+                got, _codes = ht_decode.ht_decode_lanes(*la, b.W, b.H)
+                (ref, _c), p_ms = _plain_ms(
+                    torch, lambda: ht_decode.ht_decode_lanes_ref(*la, b.W,
+                                                                 b.H))
                 err = int((got.long() - ref.long()).abs().max())
                 k1["err"] = max(k1["err"], err)
                 msg = ""
@@ -1842,6 +1880,292 @@ def main() -> int:
     print(f"damaged, packed-header and ROI phase: "
           f"{time.perf_counter() - t_dmg:.1f} s", flush=True)
 
+    # ---- 23. wide code-blocks (W) and strict decodes (S) ------------------
+    from grok_tpu_torch.util import wide_vectors
+    t_wide = time.perf_counter()
+    wstreams, whashes, wedits, wstrict = wide_vectors.load()
+    for n in wide_vectors.EDITED:
+        wstreams[n] = wide_vectors.apply_edits(dstreams["h"], wedits[n])
+    # case: (row, the kernels each decode launches: {kernel: launches per
+    # decode, or None for at least one})
+    wcases = {"wh": ("W-h", {"K1": None}), "whl": ("W-h", {"K1": None}),
+              "wr_L1": ("W-r", {}), "wr_L2": ("W-r", {"K2": None}),
+              "w1": ("W-1", {"K3": 1}), "w1s_L1": ("W-1s", {"K3": 1}),
+              "w1s_L2": ("W-1s", {"K3": 1}),
+              "wh_win": ("W-win", {"K1": None}),
+              "w1_win": ("W-win", {"K3": 1}), "hbad": ("S", {"K1": None}),
+              "hbad_rand": ("S", {"K1": None})}
+    # the port's hash where it is not the JAX package's (the open fault
+    # of magnitudes of 2^31 or more, ROADMAP section 3)
+    port_hash = {"hbad_rand": wide_vectors.HBAD_RAND_PORT_SHA}
+    wide = {}            # (kernel, shape): ms, plain_ms, bytes, launches
+    plain_done = set()   # (kernel, W, H) held against the plain version
+    flagged = 0
+
+    def wide_rec(kernel, W, H):
+        return wide.setdefault((kernel, f"{W}x{H}"), {
+            "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "launches": 0,
+            "lanes": 0, "plain_lanes": 0})
+
+    @contextlib.contextmanager
+    def recorded():
+        """Every K1/K2 and K3 launch of the decode paths recorded, with
+        its arguments and result, as (kernel, arguments, result); the
+        launch counts stay on the wrappers."""
+        calls = []
+        spots = ((ht_decode, pdevice, "ht_decode_lanes"),
+                 (t1_decode, pdevice, "t1_decode_lanes"))
+        saved = []
+        for mod, alias, name in spots:
+            real = getattr(mod, name)
+
+            def spy(*a, _real=real, _name=name):
+                out = _real(*a)
+                kern = "K3" if _name == "t1_decode_lanes" else (
+                    "K2" if len(a) > 9 else "K1")
+                calls.append((kern, a, out))
+                return out
+            # the wrappers count their launches on the name they are
+            # called by: the spy's counts go back to them below
+            spy.launches = spy.refine_launches = 0
+            saved.append((mod, alias, name, real, spy))
+            setattr(mod, name, spy)
+            setattr(alias, name, spy)
+        try:
+            yield calls
+        finally:
+            for mod, alias, name, real, spy in saved:
+                setattr(mod, name, real)
+                setattr(alias, name, real)
+                real.launches += spy.launches
+                if hasattr(real, "refine_launches"):
+                    real.refine_launches += spy.refine_launches
+
+    def held_lanes(keep, w, h, more_key):
+        """The lanes of a main-path launch held against the plain
+        version: the largest of `keep` (its block's full size, the most
+        `more_key` among those) and up to 15 of the smallest."""
+        area = w.long() * h.long()
+        big = torch.where(keep, area * (1 << 20) + more_key.long(), -1)
+        j = int(torch.argmax(big))
+        small = torch.nonzero(keep)[:, 0]
+        small = small[torch.argsort(area[small], stable=True)]
+        small = small[small != j][:15]
+        return torch.cat([small, torch.tensor([j], device=dev)])
+
+    for case, (row_name, kneed) in wcases.items():
+        name, kw = wide_vectors.CASES[case]
+        data = wstreams[name]
+        dp = DP(**kw)
+        win = kw.get("window")
+        counts_zero()
+        times = []
+        for rep in range(REPS_DMG + 1):
+            # the warm-up decode's launches are recorded and held below
+            with (recorded() if rep == 0 else
+                  contextlib.nullcontext()) as rec:
+                out, dt = timed(lambda: api.decompress_device(data, dp,
+                                                              device=dev))
+            if rep == 0:
+                calls = rec
+            times.append(dt)
+            planes = damaged_vectors.window_planes(out, win) if win else out
+            want = port_hash.get(case, whashes[case])
+            if stream_vectors.plane_hash(planes) != want:
+                _fail(f"decode {row_name} {case}: planes differ from the "
+                      f"committed {'port ' if case in port_hash else ''}"
+                      f"hash")
+        got = counts()
+        per = {k: got[k] / (REPS_DMG + 1) for k in ("K1", "K2", "K3")}
+        need(f"{row_name} {case} decode", got, list(kneed),
+             ["K4", "K4r", "K5"] + v1s)
+        for k, n in kneed.items():
+            if n is not None and per[k] != n:
+                _fail(f"decode {row_name} {case}: {per[k]} {k} launches per "
+                      f"decode, not {n}")
+        rec_n = {k: sum(c[0] == k for c in calls) for k in ("K1", "K2", "K3")}
+        if any(rec_n[k] != per[k] for k in rec_n):
+            _fail(f"decode {row_name} {case}: {rec_n} launches recorded, "
+                  f"{per} counted per decode")
+        best, med = min(times[1:]), float(np.median(times[1:]))
+        which = (f"port hash (the JAX package's: {whashes[case][:12]}...)"
+                 if case in port_hash else "hash")
+        print(f"decode {row_name} {case}: equal to the committed {which}"
+              f"; best of {REPS_DMG}: {best * 1e3:.3f} ms/call (median "
+              f"{med * 1e3:.3f}); launches per decode K1 {per['K1']:g}, K2 "
+              f"{per['K2']:g}, K3 {per['K3']:g} [{card}]", flush=True)
+        # the main path's own launches against the plain versions
+        for kern, a, res in calls:
+            if kern == "K3":
+                W, H = a[9], a[10]
+                if max(W, H) <= 64 or ("K3", W, H) in plain_done:
+                    continue
+                plain_done.add(("K3", W, H))
+                lanes = a[:9]
+                sel = held_lanes(lanes[2] > 0, lanes[5], lanes[6], lanes[2])
+                sub = (lanes[0],) + tuple(t.index_select(0, sel)
+                                          for t in lanes[1:])
+                ref, p_ms = _plain_ms(torch, lambda: t1_decode
+                                      .t1_decode_lanes_ref(*sub, W, H))
+                e = int((res[sel].long() - ref.long()).abs().max())
+                k3["err"] = max(k3["err"], e)
+                if e:
+                    _fail(f"K3 disagrees with its plain version on the "
+                          f"wide lanes of {case} ({W}x{H})")
+                r = wide_rec("K3", W, H)
+                r["plain_ms"] += p_ms
+                r["plain_lanes"] += int(sel.numel())
+                print(f"K3 {case} ({W}x{H} lanes): {sel.numel()} of the "
+                      f"main path's {lanes[1].shape[0]} lanes (the largest "
+                      f"{int(sub[5][-1])}x{int(sub[6][-1])}, "
+                      f"{int(sub[2][-1])} passes) equal to the plain "
+                      f"version, plain version {p_ms:.1f} ms [{card}]",
+                      flush=True)
+                continue
+            W, H = a[7], a[8]
+            lanes, more = a[:7], a[9:]
+            got_k, err = res
+            kd = k1 if kern == "K1" else k2
+            bad = err != 0
+            nerr = int(bad.sum())
+            if case not in wide_vectors.EDITED and nerr:
+                _fail(f"{kern} flagged {nerr} lanes of the intact {case}")
+            if nerr and bool(got_k[bad].any()):
+                _fail(f"{kern} gave a flagged lane a non-zero sample")
+            flagged += nerr
+            checks = []
+            if nerr:
+                checks.append(("flagged", torch.nonzero(bad)[:16, 0]))
+            if max(W, H) > 64 and (kern, W, H) not in plain_done:
+                plain_done.add((kern, W, H))
+                checks.append(("wide", held_lanes(lanes[6] == 1, lanes[4],
+                                                  lanes[5], -lanes[3])))
+            for what, sel in checks:
+                sub = tuple(t.index_select(0, sel) for t in lanes + more)
+                (ref, rerr), p_ms = _plain_ms(torch, lambda: ht_decode
+                                              .ht_decode_lanes_ref(
+                                                  *sub[:7], W, H, *sub[7:]))
+                e = int((got_k[sel].long() - ref.long()).abs().max())
+                kd["err"] = max(kd["err"], e)
+                if e or not torch.equal(err[sel], rerr):
+                    _fail(f"{kern} disagrees with its plain version on the "
+                          f"{what} lanes of {case} ({W}x{H})")
+                if what == "wide":
+                    r = wide_rec(kern, W, H)
+                    r["plain_ms"] += p_ms
+                    r["plain_lanes"] += int(sel.numel())
+                    print(f"{kern} {case} wide bucket {W}x{H}: {sel.numel()}"
+                          f" of the main path's {lanes[0].shape[0]} lanes "
+                          f"(the largest {int(sub[4][-1])}x{int(sub[5][-1])}"
+                          f") equal to the plain version, error codes "
+                          f"included, plain version {p_ms:.1f} ms [{card}]",
+                          flush=True)
+                else:
+                    print(f"{kern} {case} bucket {W}x{H}: {nerr} lanes "
+                          f"flagged (codes {sorted(set(err[bad].tolist()))})"
+                          f", all zero; {sel.numel()} equal to the plain "
+                          f"version, error codes included [{card}]",
+                          flush=True)
+        # the wide launches timed (after the counted run; each bound from
+        # the staged meta of its bucket)
+        for s in stage_tiles(data, dp):
+            prog = s.program
+            # (bucket, kernel, its lanes' K1 arguments, K2's three more,
+            # their meta rows), the lanes each launch of the path takes
+            if isinstance(s, serve.StagedBatch):
+                hts = [(bi, "K1", prog.stage(s.body, s.meta, bi,
+                                             *s.dims[bi][:3]), (),
+                        prog.lane_meta(s.meta, bi))
+                       for bi in range(len(prog.buckets)) if s.dims[bi][3]]
+                mq = prog.stage_mq(s.body, s.meta) \
+                    if any(d[4] for d in s.dims) else None
+            else:
+                hts = []
+                for bi, la in enumerate(s.lanes):
+                    if la is None:
+                        continue
+                    # decode_ht_blocks: K1 on the cleanup-only lanes, K2
+                    # on the refined ones
+                    for kern, mask in (("K1", ~la[10]), ("K2", la[10])):
+                        if not mask.any():
+                            continue
+                        idx = torch.from_numpy(np.nonzero(mask)[0]).to(dev)
+                        hts.append((bi, kern, tuple(
+                            t.index_select(0, idx) for t in la[:3] + la[5:9]),
+                            tuple(t.index_select(0, idx) for t in
+                                  la[3:5] + la[9:10]) if kern == "K2"
+                            else (), torch.from_numpy(s.meta[bi]).to(dev)
+                            .index_select(0, idx)))
+                mq = s.mq
+            lut = ht_decode._lut_on(dev)
+            for bi, kern, base, more, meta in hts:
+                b = prog.buckets[bi]
+                if max(b.W, b.H) <= 64:
+                    continue
+                k_ms = kernel_ms(dev, lambda: ht_decode.ht_decode_lanes(
+                    *base, b.W, b.H, *more))
+                nb = _k1_bytes(meta, base, lut) if kern == "K1" else \
+                    _k2_bytes(meta, base[:3] + more[:2] + base[3:]
+                              + more[2:], lut)
+                r = wide_rec(kern, b.W, b.H)
+                r["ms"] += k_ms
+                r["bytes"] += nb
+                r["launches"] += 1
+                r["lanes"] += int(base[0].shape[0])
+                print(f"{kern} {case} wide bucket {b.W}x{b.H}: "
+                      f"{base[0].shape[0]} lanes v2 {k_ms:.4f} ms, bound "
+                      f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
+                      f"[{card}]", flush=True)
+            if mq is not None:
+                for W, H, bis in prog.mq_groups:
+                    if max(W, H) <= 64:
+                        continue
+                    if len(prog.mq_groups) > 1:
+                        _fail(f"K3 {case}: a tile of several K3 groups")
+                    k_ms = kernel_ms(dev, lambda: t1_decode.t1_decode_lanes(
+                        *mq, W, H))
+                    nb = _k3_bytes(mq, tables)
+                    r = wide_rec("K3", W, H)
+                    r["ms"] += k_ms
+                    r["bytes"] += nb
+                    r["launches"] += 1
+                    r["lanes"] += int(mq[1].shape[0])
+                    print(f"K3 {case} ({W}x{H} lanes): {mq[1].shape[0]} "
+                          f"lanes v2 {k_ms:.4f} ms, bound "
+                          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes)"
+                          f" [{card}]", flush=True)
+    if not flagged:
+        _fail("no lane of the broken HT stream was flagged")
+    for kern, W, H in (("K1", 1024, 4), ("K2", 0, 0), ("K3", 0, 0)):
+        if not any(k == kern and (W == 0 or (w, h) == (W, H))
+                   for k, w, h in plain_done):
+            _fail(f"no wide {kern} launch {'' if not W else f'at {W}x{H} '}"
+                  f"of the main path was held against its plain version")
+
+    # strict decodes: the committed outcomes of the JAX package's
+    def strict_outcome(data):
+        try:
+            out = api.decompress_device(data, DP(strict=True), device=dev)
+        except Exception as e:            # noqa: BLE001: compared below
+            return (type(e).__name__, str(e))
+        return ("planes", stream_vectors.plane_hash(out))
+    sstreams = dict(wstreams)
+    sstreams["m1"] = dstreams["m1"]
+    for key, want in wstrict.items():
+        data = sstreams[key] if key in sstreams else \
+            damaged_vectors.stream(key, dstreams)
+        t0 = time.perf_counter()
+        got = strict_outcome(data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if got != want:
+            _fail(f"strict decode of {key}: {got}, not {want}")
+        print(f"strict decode S {key}: {got[0]}"
+              f"{'' if got[0] == 'planes' else ': ' + got[1]} as committed "
+              f"({dt * 1e3:.1f} ms) [{card}]", flush=True)
+    print(f"wide code-block and strict phase: "
+          f"{time.perf_counter() - t_wide:.1f} s", flush=True)
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -1855,6 +2179,14 @@ def main() -> int:
              "bound_by": "bytes", "library_ms": library_ms}
         if "prev_ms" in k:          # the first design's time, same lanes
             r["prev_ms"] = k["prev_ms"]
+        kern = {"ht_cleanup_decode": "K1", "ht_refine_decode": "K2",
+                "mq_decode": "K3"}.get(name)
+        shapes = {sh: {"ms": v["ms"], "plain_ms": v["plain_ms"],
+                       "bound_ms": v["bytes"] / HBM_BYTES_PER_S * 1e3,
+                       "launches": v["launches"], "lanes": v["lanes"]}
+                  for (k2_, sh), v in wide.items() if k2_ == kern}
+        if shapes:                  # phase 23's lanes over 64 on a side
+            r["wide"] = shapes
         return r
     print(json.dumps({"kernels": [
         row("ht_cleanup_decode", "ht_decode.cu",

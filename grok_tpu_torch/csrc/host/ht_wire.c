@@ -4,16 +4,19 @@
  * oracle in grok_tpu/t1ht/scalar.py (assemble_cleanup, _finish_raw and
  * the wire readers) for the device paths:
  *
- *   - grk_ht_scan2: batch wire -> clean split (the serving decode's
- *     staging step: parse framing, un-stuff all three sub-streams into
- *     a digest buffer the device gathers from).
+ *   - grk_ht_scan2_bits: batch wire -> clean split (the serving
+ *     decode's staging step: parse framing, un-stuff all three
+ *     sub-streams into a digest buffer the device gathers from), with
+ *     each sub-stream's clean bits (the port's addition to the JAX
+ *     package's grk_ht_scan2).
  *   - grk_ht_assemble_batch: batch clean -> wire assembly (the serving
  *     encode's final step over the downloaded device streams).
  *   - grk_ht_raw_batch: batch clean -> wire stuffing of the HT SigProp
  *     and HT MagRef segments (the refined encode).
- *   - grk_ht_unstuff_batch: batch wire -> clean un-stuffing of those
- *     segments (the general decode route's staging; the port's own
- *     addition, byte-identical to grok_tpu/t1ht/wire.py _unstuff_lsb).
+ *   - grk_ht_unstuff_batch_bits: batch wire -> clean un-stuffing of
+ *     those segments (the general decode route's staging; the port's
+ *     own addition, byte-identical to grok_tpu/t1ht/wire.py
+ *     _unstuff_lsb).
  *
  * Byte-identity with the JAX package's copy is held by
  * tests/test_torch_host.py; see grok_tpu/t1ht/scalar.py for the wire
@@ -259,12 +262,15 @@ int grk_ht_raw_batch(const uint8_t *buf, const long long *off,
 /* Un-stuff n raw forward LSB-first segments (HT SigProp / HT MagRef) at
  * body[off[i] .. off[i]+len[i]): a byte following 0xFF carries 7 payload
  * bits.  The clean bytes go back-to-back into out, the last byte of each
- * zero-padded; olens[i] = clean length.  Byte-identical to
- * t1ht/wire.py _unstuff_lsb.  Returns 0, or 1 if a segment lies outside
- * the body or out would overflow (ocap >= sum(len) suffices). */
-int grk_ht_unstuff_batch(const uint8_t *body, long long blen,
-                         const long long *off, const int *len, int n,
-                         uint8_t *out, long long ocap, long long *olens)
+ * zero-padded; olens[i] = clean length, and obits[i] = its clean bits,
+ * where a reader's 1-bits past the segment begin.
+ * Byte-identical to t1ht/wire.py _unstuff_lsb.  Returns 0, or 1 if a
+ * segment lies outside the body or out would overflow (ocap >= sum(len)
+ * suffices). */
+int grk_ht_unstuff_batch_bits(const uint8_t *body, long long blen,
+                              const long long *off, const int *len, int n,
+                              uint8_t *out, long long ocap, long long *olens,
+                              long long *obits)
 {
     long long d = 0;
     for (int i = 0; i < n; i++) {
@@ -274,15 +280,18 @@ int grk_ht_unstuff_batch(const uint8_t *body, long long blen,
             return 1;
         sink_t s = { out + d, 0, 0, 0 };
         int prev_ff = 0;
+        long long nbits = 0;
         for (long long j = 0; j < L; j++) {
             int b = body[o + j];
             if (prev_ff)
                 sink_bits(&s, (uint32_t)(b & 0x7F), 7);
             else
                 sink_bits(&s, (uint32_t)b, 8);
+            nbits += prev_ff ? 7 : 8;
             prev_ff = (b == 0xFF);
         }
         olens[i] = sink_flush(&s);
+        obits[i] = nbits;
         d += olens[i];
     }
     return 0;
@@ -294,13 +303,17 @@ int grk_ht_unstuff_batch(const uint8_t *body, long long blen,
  * suffix is un-stuffed ON DEVICE (pipeline/device.py) so its bytes
  * cross the host link exactly once.  out7[i*7 + 0..6] =
  * (ok, ms_off, ms_len, suf_off, suf_len, n_ff, n_7f); ok = 0 for a
- * valid framing, -1 otherwise.  Returns 0, or 1 if digest capacity
- * dcap would overflow (caller sizes dcap >= sum(2*len + 24)).  *dused
- * gets the digest bytes written. */
-int grk_ht_scan2(const uint8_t *body, long long blen,
-                 const long long *off, const int *len, int n,
-                 int *out7, uint8_t *digest, long long dcap,
-                 long long *dused)
+ * valid framing, -1 otherwise.  bits3[i*3 + 0..2] =
+ * the clean bits of the MagSgn, MEL and VLC streams as the scalar
+ * readers of t1ht/scalar.py take them (MEL forward up to byte L - 2,
+ * VLC backward from the high nibble of byte L - 2 down to the suffix's
+ * first byte), past which they read 1-bits.  Returns 0, or 1 if digest
+ * capacity dcap would overflow (caller sizes dcap >= sum(2*len + 24)).
+ * *dused gets the digest bytes written. */
+int grk_ht_scan2_bits(const uint8_t *body, long long blen,
+                      const long long *off, const int *len, int n,
+                      int *out7, uint8_t *digest, long long dcap,
+                      long long *dused, int *bits3)
 {
     long long d = 0;
     for (int i = 0; i < n; i++) {
@@ -309,6 +322,8 @@ int grk_ht_scan2(const uint8_t *body, long long blen,
         int *r = out7 + 7 * (long long)i;
         r[0] = -1;
         r[1] = r[2] = r[3] = r[4] = r[5] = r[6] = 0;
+        bits3[3 * (long long)i] = bits3[3 * (long long)i + 1]
+            = bits3[3 * (long long)i + 2] = 0;
         if (o < 0 || L < 2 || o + L > blen)
             continue;
         const uint8_t *seg = body + o;
@@ -322,12 +337,14 @@ int grk_ht_scan2(const uint8_t *body, long long blen,
         /* MagSgn: forward LSB-first, 7 payload bits after 0xFF */
         sink_t s = { digest + d, 0, 0, 0 };
         int prev_ff = 0;
+        long long ms_bits = 0;
         for (long long j = 0; j < suf; j++) {
             int b = seg[j];
             if (prev_ff)
                 sink_bits(&s, (uint32_t)(b & 0x7F), 7);
             else
                 sink_bits(&s, (uint32_t)b, 8);
+            ms_bits += prev_ff ? 7 : 8;
             prev_ff = (b == 0xFF);
         }
         r[1] = (int)d;
@@ -349,6 +366,20 @@ int grk_ht_scan2(const uint8_t *body, long long blen,
         r[6] = n7f;
         d += scup;
         r[0] = 0;
+        long long mel_bits = 0, vlc_bits = 4;
+        int pf = 0;
+        for (long long j = suf; j < L - 2; j++) {
+            mel_bits += pf ? 7 : 8;
+            pf = seg[j] == 0xFF;
+        }
+        int prev = seg[L - 2];
+        for (long long j = L - 3; j >= suf; j--) {
+            vlc_bits += (prev > 0x8F && seg[j] == 0x7F) ? 7 : 8;
+            prev = seg[j];
+        }
+        bits3[3 * (long long)i] = (int)ms_bits;
+        bits3[3 * (long long)i + 1] = (int)mel_bits;
+        bits3[3 * (long long)i + 2] = (int)vlc_bits;
     }
     *dused = d;
     return 0;

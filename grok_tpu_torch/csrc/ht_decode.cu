@@ -8,19 +8,26 @@
 // the refine=True variant at :722-818, through `pallas_ht_decode_refine`),
 // with the same contract: per lane, clean LSB-first MagSgn, MEL and VLC
 // streams (and for K2 the SigProp and MagRef streams and the pass count)
-// as zero-padded uint8 rows, each stream with its own row length, the
-// cleanup plane p, the block size and a valid flag in; signed mag2
-// (negative = sign bit) with the Part-1 half-bit below plane p out, as
-// (NL, H, W) int32 in lane-major layout, bit-exact to grok_tpu/t1ht/
-// scalar.py `ht_decode_block`.  Reads past a lane's row give 0, U is
-// capped at 25 and the UVLC has no 13-bit escape.  The kernel writes every
-// element: zeros outside each lane's w x h and on invalid lanes.  The
-// plain PyTorch version is grok_tpu_torch/ops/ht_decode.py
+// as uint8 rows filled with 1-bits past their clean bits, each stream with
+// its own row length, the cleanup plane p, the block size and a valid flag
+// in; signed mag2 (negative = sign bit) with the Part-1 half-bit below
+// plane p out, as (NL, H, W) int32 in lane-major layout, and each lane's
+// error code, bit-exact to grok_tpu/t1ht/scalar.py `ht_decode_block`
+// (its int64 magnitudes modulo 2^32).  Reads past a lane's row give
+// 1-bits, as the scalar readers read past a segment's end; the UVLC takes
+// the 5-bit escape (u = 36 + e) and U runs up to 40.  The error code is
+// the scalar's first reason to give up on a block: 1 an invalid CxtVLC
+// codeword (a window the table marks), 2 an exponent bound U > 40; such a
+// lane is all zeros, its refinement passes not applied.  The kernel
+// writes every element: zeros outside each lane's w x h and on invalid
+// lanes.  The plain PyTorch version is grok_tpu_torch/ops/ht_decode.py
 // `ht_decode_lanes_ref`; the first design, csrc/ht_decode_v1.cu (one
-// thread per code-block), is kept as the full-lane oracle.  All three are
-// held identical on the card.
+// thread per code-block, no error codes), is kept as the full-lane oracle
+// on valid lanes of up to 64 x 64.  The three are held identical on the
+// card.
 //
-// Design (v2).  Each code-block is decoded by two warps of a CTA (4
+// Design (v2, lanes of up to 64 x 64).  Each code-block is decoded by two
+// warps of a CTA (4
 // code-blocks, 8 warps).  The only serial chain of the cleanup is the MEL
 // / CxtVLC / UVLC decode, and it needs no MagSgn result: a quad's context
 // comes from rho of its left and upper neighbours.  So the chain warp runs
@@ -32,18 +39,24 @@
 // in place, the above-row context of a whole row is built in a register
 // before the row, and a second table decodes a quad pair's UVLC prefixes
 // and suffix lengths in one load (the initial-row rules as a mode of its
-// index).  Its MEL and VLC reads come from 32-bit word pairs refilled by
+// index; a suffix that opens the escape is read behind a rare branch).
+// Its MEL and VLC reads come from 32-bit word pairs refilled by
 // whole aligned words, each loaded a refill ahead: the rows are L + 1
 // bytes, so a lane's row is not word-aligned, and a reader loads the
-// aligned words that cover it and starts at the row's byte offset.
+// aligned words that cover it and starts at the row's byte offset.  An
+// invalid codeword stops the chain: it zeroes the rest of the quad row
+// from the failing pair on, notes the row and releases the second warp.
 //
 // The second warp follows the chain stripe by stripe (two quad rows),
 // waiting on its count.  For each quad row it places the MagSgn bits, one
 // thread per quad: kappa from the ebot its own thread found in the row
-// above, U and the quad's bit count, a warp scan for the quad's offset,
+// above, U and the quad's bit count (a U over 40 fails the lane, found by
+// the warp scan of the counts), a warp scan for the quad's offset,
 // the samples drawn from five aligned words loaded at once straight from
-// device memory (the MagSgn row is prefetched to L1 at lane start), and
-// the quad's 2 x 2 outputs stored by the thread, zeros included.
+// device memory (the MagSgn row is prefetched to L1 at lane start; a U
+// over 25 reads each sample by itself, a rare branch), and
+// the quad's 2 x 2 outputs stored by the thread, zeros included.  It
+// stops at the chain's failing row, and a failed lane is zeroed whole.
 //
 // K2: SigProp needs no magnitude either, so the second warp runs it on each
 // stripe before the stripe's MagSgn steps.  It builds the stripe's cleanup
@@ -62,17 +75,34 @@
 // The lane's state lives in its slice of shared memory, the tables once
 // per CTA.
 //
+// Wide lanes (W or H over 64, W * H <= 4096: code-blocks such as 1024 x 4
+// or 16 x 256) take a simple design, `ht_decode_wide_kernel`: one warp per
+// code-block, whose first thread decodes the block serially in the
+// scalar decoder's order (the pair's CxtVLC codewords, its UVLC, its
+// MagSgn samples; then MagRef and SigProp in the stripe scan) with the
+// above row's rho and ebot and the block's significance and sign bits in
+// shared memory and the magnitudes in the output block; the warp zeroes
+// the block first and applies the signs last.
+//
 // Bound.  The bytes are ~100x below the first design's time; a lane takes
 // the chain warp's serial decode (a few hundred cycles a quad) and, for
-// K2, the second warp's SigProp walk, which overlap.
+// K2, the second warp's SigProp walk, which overlap.  A wide lane takes
+// its one thread's serial decode of up to 1,024 quads.
 
 #include "t1_warp.cuh"
 
 #define HT_N_CTX 8
-#define HT_MAX_GW 32          // blocks are at most 64 wide
+#define HT_MAX_GW 32          // v2 blocks are at most 64 wide
 #define HT_LANES 4            // code-blocks per CTA, two warps each
-// a lane's shared memory: the chain's progress (quad rows done), then the
-// quad map, rho | eps_k << 4 | u << 8 per quad
+#define HT_WIDE_WARPS 4       // wide code-blocks per CTA, one warp each
+#define HT_U_MAX 40           // the largest exponent bound U decoded
+#define HT_BAD (1 << 13)      // a table entry of an invalid codeword
+#define HT_ERR_VLC 1          // the lane error codes
+#define HT_ERR_EXP 2
+#define HT_ROWS_ALL (1 << 30) // the chain's count once it has failed
+#define HT_NO_ROW 0x7FFFFFFF  // no failing quad row
+// a lane's shared memory: the chain's progress (quad rows done) and its
+// failing quad row, then the quad map, rho | eps_k << 4 | u << 8 per quad
 #define HT_MAP_BYTES (HT_MAX_GW * HT_MAX_GW * 2)
 #define HT_CLN_BYTES (16 + HT_MAP_BYTES)
 // K2: cleanup significance (one 64-bit word per sample row); each
@@ -113,19 +143,40 @@ __device__ __forceinline__ Row row_at(const uint8_t* row, int len)
 }
 
 // Word k of the cover as loaded: row bytes 4k - mis .. 4k - mis + 3 (the
-// bytes before the row, in word 0, are never read), 0 for a word wholly
-// past the row, which is not loaded.  row_word masks the bytes past the
-// row; the two are apart so that a load's latency ends at its first use.
+// bytes before the row, in word 0, are never read), all ones for a word
+// wholly past the row, which is not loaded.  row_word sets the bytes past
+// the row to 0xFF, as the scalar readers read past a segment's end; the
+// two are apart so that a load's latency ends at its first use.
 __device__ __forceinline__ uint32_t row_raw(const Row& r, int k)
 {
-    return r.len + r.mis - 4 * k > 0 ? t1_ldg32(r.a + 4 * k) : 0u;
+    return r.len + r.mis - 4 * k > 0 ? t1_ldg32(r.a + 4 * k) : ~0u;
 }
 
 __device__ __forceinline__ uint32_t row_word(const Row& r, int k,
                                              uint32_t raw)
 {
     const int in = r.len + r.mis - 4 * k;        // bytes of the word inside
-    return in >= 4 ? raw : in <= 0 ? 0u : raw & ((1u << (8 * in)) - 1u);
+    return in >= 4 ? raw : in <= 0 ? ~0u : raw | ~((1u << (8 * in)) - 1u);
+}
+
+// The m <= 57 bits of the row from bit b on (a rare path: U over 25).
+__device__ __forceinline__ uint64_t row_bits(const Row& r, int b, int m)
+{
+    const int a = b + 8 * r.mis, k = a >> 5, s = a & 31;
+    const uint32_t w0 = row_word(r, k, row_raw(r, k));
+    const uint32_t w1 = row_word(r, k + 1, row_raw(r, k + 1));
+    const uint32_t w2 = row_word(r, k + 2, row_raw(r, k + 2));
+    uint64_t v = ((uint64_t)w1 << 32 | w0) >> s;
+    if (s)
+        v |= (uint64_t)w2 << (64 - s);
+    return v & ((1ull << m) - 1ull);
+}
+
+// Bit length of a 64-bit value.
+__device__ __forceinline__ int bitlen64(uint64_t x)
+{
+    const uint32_t hi = (uint32_t)(x >> 32);
+    return hi ? 64 - t1_clz(hi) : 32 - t1_clz((uint32_t)x);
 }
 
 // Every line of the row into L1, spread over the warp.
@@ -217,6 +268,22 @@ __device__ __forceinline__ void rd_skip(Reader& s, int m)
     }
 }
 
+// A UVLC suffix of sl bits on the prefix class's base, with the 5-bit
+// escape: a 5-bit suffix of 31 is followed by e, u = 36 + e
+// (t1ht.scalar._read_u_pair `val`).
+__device__ __forceinline__ int uvlc_tail(Reader& r, int base, int sl)
+{
+    if (!sl)
+        return base;
+    const int v = (int)(rd_peek(r) & ((1u << sl) - 1u));
+    rd_skip(r, sl);
+    if (sl < 5 || v != 31)
+        return base + v;
+    const int e = (int)(rd_peek(r) & 31u);
+    rd_skip(r, 5);
+    return 36 + e;
+}
+
 struct MelState {
     int k, run, pend;
 };
@@ -269,8 +336,9 @@ __device__ __forceinline__ void pclass(uint32_t wv, int pxor, int& ln,
 // The decode tables of a CTA, built from the wrapper's CxtVLC table
 // (entry = sym | len << symb at (fam * 8 + ctx) * 128 + window): at
 // [0, lut_n) each CxtVLC entry as len | rho << 3 | (rho & 0xC != 0) << 7 |
-// u_off << 8 | eps_k << 9, so that bit 7 is the next quad's left-context
-// bit in place; at [lut_n, lut_n + 256) the pair-coupled UVLC
+// u_off << 8 | eps_k << 9 | HT_BAD where the wrapper's table marks the
+// window invalid (bit symb + 3), so that bit 7 is the next quad's
+// left-context bit in place; at [lut_n, lut_n + 256) the pair-coupled UVLC
 // (t1ht.scalar._read_u_pair) of the prefixes and suffix lengths, indexed
 // by mode << 6 | the next 6 bits, mode 1, 2: u_off of the first or the
 // second quad only, 3: both, 0: both in the initial quad row with the
@@ -310,7 +378,8 @@ __device__ __forceinline__ void build_tables(const int* lut_g, int lut_n,
             const int sym = e & ((1 << symb) - 1);
             const int rho = sym & 15;
             tab[i] = ((e >> symb) & 7) | (rho << 3) | ((rho & 0xC) ? 128 : 0)
-                | (((sym >> 4) & 1) << 8) | (((sym >> 5) & 15) << 9);
+                | (((sym >> 4) & 1) << 8) | (((sym >> 5) & 15) << 9)
+                | (((e >> (symb + 3)) & 1) ? HT_BAD : 0);
             continue;
         }
         const int mode = (i - lut_n) >> 6;
@@ -370,8 +439,10 @@ struct Chain {
 
 // The chain warp's decode of quad row g (INITIAL: g = 0) into the quad
 // map.  vt: the CxtVLC table of the row's family, ut: the UVLC table.
+// Returns false at an invalid codeword, with the row's quads from the
+// failing pair on zeroed.
 template <bool INITIAL>
-__device__ __forceinline__ void chain_row(Chain& c, int g, int gw,
+__device__ __forceinline__ bool chain_row(Chain& c, int g, int gw,
                                           t1_saddr vt, t1_saddr ut,
                                           uint16_t* map)
 {
@@ -386,7 +457,7 @@ __device__ __forceinline__ void chain_row(Chain& c, int g, int gw,
         const int ca0 = (int)(ca & 3) << 8, ca1 = (int)(ca & 12) << 6;
         ca >>= 4;
         // the pair's VLC bits: two CxtVLC codewords (<= 7 bits each) and
-        // its UVLC (<= 16 bits) fit one peek
+        // its UVLC (<= 16 bits without an escape) fit one peek
         const uint32_t v = rd_peek(c.vlc);
         int used = 0;
         // MEL significance event (context-0 quads) + CxtVLC symbol
@@ -403,9 +474,10 @@ __device__ __forceinline__ void chain_row(Chain& c, int g, int gw,
         // the pair's UVLC (both u_off in the initial row: its MEL event
         // adds 2 to both u, or selects mode 0)
         const int off = ((e0 >> 8) & 1) | ((e1 >> 7) & 2);
-        int u0 = 0, u1 = 0;
+        int u0 = 0, u1 = 0, add = 0, ue = 0;
+        uint32_t sfx = 0;
         if (off) {
-            int mode = off, add = 0;
+            int mode = off;
             if (INITIAL && off == 3) {
                 if (mel_event(c.m, c.mel))
                     add = 2;
@@ -413,8 +485,8 @@ __device__ __forceinline__ void chain_row(Chain& c, int g, int gw,
                     mode = 0;
             }
             const uint32_t wv = v >> used;
-            const int ue = t1_lds32(ut + 4 * ((mode << 6) | (int)(wv & 63u)));
-            const uint32_t sfx = wv >> (ue & 7);
+            ue = t1_lds32(ut + 4 * ((mode << 6) | (int)(wv & 63u)));
+            sfx = wv >> (ue & 7);
             const int esl0 = (ue >> 3) & 7, esl1 = (ue >> 6) & 7;
             u0 = ((ue >> 9) & 7) + (int)(sfx & ((1u << esl0) - 1u)) + add;
             u1 = ((ue >> 12) & 7)
@@ -422,6 +494,30 @@ __device__ __forceinline__ void chain_row(Chain& c, int g, int gw,
             used += ue >> 15;
         }
         rd_skip(c.vlc, used);
+        // the rare cases, tested once the reader has moved on (off the
+        // chain's critical path): an invalid codeword (the scalar decoder
+        // gives up before the pair's UVLC), and a UVLC escape: a suffix
+        // reads u = 36 only as a 5-bit suffix of 31, which the escape's
+        // 5 bits follow (t1ht.scalar._read_u_pair `val`)
+        if ((e0 | e1) & HT_BAD) {
+            for (int qx = qx0; qx < gw; qx++)
+                map[g * HT_MAX_GW + qx] = 0;
+            return false;
+        }
+        if (u0 == 36 + add || u1 == 36 + add) {
+            const int esl1 = (ue >> 6) & 7;
+            if (u0 == 36 + add) {
+                // the first suffix escapes: the table took its 5 bits (in
+                // the peek: <= 14 + 6 + 5 + 5 bits) as the second suffix,
+                // which follows them
+                u0 = 36 + (int)((sfx >> 5) & 31u) + add;
+                rd_skip(c.vlc, 5 - esl1);
+                u1 = uvlc_tail(c.vlc, (ue >> 12) & 7, esl1) + add;
+            } else {
+                u1 = 36 + (int)(rd_peek(c.vlc) & 31u) + add;
+                rd_skip(c.vlc, 5);
+            }
+        }
         map[g * HT_MAX_GW + qx0] = map_entry(e0, u0);
         if (has1)
             map[g * HT_MAX_GW + qx1] = map_entry(e1, u1);
@@ -433,11 +529,14 @@ __device__ __forceinline__ void chain_row(Chain& c, int g, int gw,
     }
     c.ab = nab;
     c.bl = nbl;
+    return true;
 }
 
 // The chain warp: the MEL, CxtVLC and UVLC decode of every quad of the
 // w x h block into the quad map, quad row by quad row, each finished row
-// counted at *done.  tab: the CTA's decode tables (build_tables).
+// counted at done[0].  At an invalid codeword the chain notes its quad row
+// at done[1] (HT_NO_ROW until then) and counts HT_ROWS_ALL.  tab: the
+// CTA's decode tables (build_tables).
 __device__ __forceinline__ void cleanup_chain(const uint8_t* mel_row,
                                               int lmel,
                                               const uint8_t* vlc_row,
@@ -451,15 +550,23 @@ __device__ __forceinline__ void cleanup_chain(const uint8_t* mel_row,
     rd_init(c.vlc, vlc_row, lvlc);
     c.m.k = c.m.run = c.m.pend = 0;
     c.ab = c.bl = 0;
+    done[1] = HT_NO_ROW;
     const t1_saddr vt = t1_smem(tab), ut = vt + 4 * lut_n;
     const int gw = (w + 1) >> 1, gh = (h + 1) >> 1;
-    chain_row<true>(c, 0, gw, vt + (nfam == 2 ? 4 * (HT_N_CTX << 7) : 0), ut,
-                    map);
-    t1_publish(done, 1);
-    for (int g = 1; g < gh; g++) {
-        chain_row<false>(c, g, gw, vt, ut, map);
-        t1_publish(done, g + 1);
+    int g = 0;
+    if (chain_row<true>(c, 0, gw, vt + (nfam == 2 ? 4 * (HT_N_CTX << 7) : 0),
+                        ut, map)) {
+        t1_publish(done, 1);
+        for (g = 1; g < gh; g++) {
+            if (!chain_row<false>(c, g, gw, vt, ut, map))
+                break;
+            t1_publish(done, g + 1);
+        }
+        if (g == gh)
+            return;
     }
+    done[1] = g;
+    t1_publish(done, HT_ROWS_ALL);
 }
 
 // The cleanup significance rows y_from .. y_to - 1 of the w x h block from
@@ -562,7 +669,7 @@ __device__ __forceinline__ void sp_stripe(Reader& sp, int w, t1_saddr cb,
 }
 
 // The second warp of a valid lane: stripe by stripe, once the chain warp
-// has counted the quad rows it needs at *done, (K2) the stripe's cleanup
+// has counted the quad rows it needs at done[0], (K2) the stripe's cleanup
 // significance rows, column bytes and SigProp walk, then the MagSgn steps
 // of its two quad rows (one thread per quad: kappa from the ebot its own
 // thread found in the row above, U and the bit count, a warp scan for the
@@ -571,15 +678,17 @@ __device__ __forceinline__ void sp_stripe(Reader& sp, int w, t1_saddr cb,
 // samples before it in the stripe order, and the quad's 2 x 2 outputs);
 // last, the rows below the block.  Every element of the lane's (H, W)
 // block o is written.  ref (K2, 0 < p < 32, npass >= 2): SigProp, and
-// MagRef with npass >= 3, from the rows sp_row and mr_row.
-__device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
-                                             int p, int w, int h,
-                                             const int* tab, int lut_n,
-                                             unsigned char* ws, int* o,
-                                             int W, int H, bool ref,
-                                             const uint8_t* sp_row, int lsp,
-                                             const uint8_t* mr_row, int lmr,
-                                             int np)
+// MagRef with npass >= 3, from the rows sp_row and mr_row.  It stops past
+// the chain's failing quad row (done[1]) or at a U over 40, zeroes the
+// block and returns the lane's error code.
+__device__ __forceinline__ int consume_lane(const uint8_t* ms_row, int lms,
+                                            int p, int w, int h,
+                                            const int* tab, int lut_n,
+                                            unsigned char* ws, int* o,
+                                            int W, int H, bool ref,
+                                            const uint8_t* sp_row, int lsp,
+                                            const uint8_t* mr_row, int lmr,
+                                            int np)
 {
     const int* done = reinterpret_cast<const int*>(ws);
     const uint16_t* map = reinterpret_cast<const uint16_t*>(ws + 16);
@@ -614,9 +723,11 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
     int mr_base = 0;                 // MagRef bits before the stripe
     int cs_done = 0;                 // cleanup significance rows built
     uint64_t c4[4] = { 0, 0, 0, 0 }; // the stripe's
+    bool uerr = false;               // a U over 40
     // the MagSgn step of quad row g
     auto quad_row = [&](int g) {
-        // 1. kappa, U and the quad's MagSgn bit count
+        // 1. kappa, U and the quad's MagSgn bit count; a U over 40 counts
+        // 1 << 20 bits, which the scan's total shows
         warp_each([&](int t) {
             len[t] = 0;
             ue[t] = 0;
@@ -627,12 +738,20 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
             if (!rho)
                 return;
             const int kappa = (rho & (rho - 1)) ? max(1, eb[t] - 1) : 1;
-            const int U = min(kappa + (e >> 8), 25);
+            const int U = kappa + (e >> 8);
+            if (U > HT_U_MAX) {
+                len[t] = 1 << 20;
+                return;
+            }
             const int ek = (e >> 4) & rho;
             len[t] = U * t1_popc64((uint64_t)rho) - t1_popc64((uint64_t)ek);
             ue[t] = rho | (ek << 4) | (U << 8);
         });
         const int tot = warp_scan(len);
+        if (tot >= 1 << 20) {
+            uerr = true;
+            return;
+        }
         const uint8_t* nb = news + 64 * (g >> 1);   // the stripe's news
         // 2. the quad's samples, refined, and its 2 x 2 outputs
         warp_each([&](int t) {
@@ -641,9 +760,10 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
                 return;
             const int rho = ue[t] & 15, ek = (ue[t] >> 4) & 15;
             const int U = ue[t] >> 8;
-            int v[4] = { 0, 0, 0, 0 };
+            uint32_t m[4] = { 0u, 0u, 0u, 0u };   // magnitudes
+            int sg = 0;                           // signs
             int ebot = 0;
-            if (rho) {
+            if (rho && U <= 25) {
                 Window x = win_at(rms, base + len[t]);
 #pragma unroll
                 for (int i = 0; i < 4; i++) {
@@ -652,11 +772,25 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
                     const int k_i = (ek >> i) & 1;
                     const uint32_t full = win_take(x, U - k_i)
                         | ((uint32_t)k_i << (U - 1));
-                    const uint32_t mag2 = shl32((full >> 1) + 1u, p1)
-                        + half;
-                    v[i] = (full & 1u) ? (int)(0u - mag2) : (int)mag2;
+                    m[i] = shl32((full >> 1) + 1u, p1) + half;
+                    sg |= (int)(full & 1u) << i;
                     if (i & 1)
                         ebot = max(ebot, 32 - t1_clz(full));
+                }
+            } else if (rho) {                     // U of 26 .. 40
+                int pos = base + len[t];
+                for (int i = 0; i < 4; i++) {
+                    if (!((rho >> i) & 1))
+                        continue;
+                    const int k_i = (ek >> i) & 1;
+                    const uint64_t full = row_bits(rms, pos, U - k_i)
+                        | ((uint64_t)k_i << (U - 1));
+                    pos += U - k_i;
+                    const uint64_t vi = (full >> 1) + 1u;
+                    m[i] = (uint32_t)(p1 < 64 ? vi << p1 : 0u) + half;
+                    sg |= (int)(full & 1u) << i;
+                    if (i & 1)
+                        ebot = max(ebot, bitlen64(full));
                 }
             }
             eb[t] = ebot;
@@ -711,19 +845,17 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
                         const int i = 2 * dx + dy;
                         if ((own[dx] >> dy) & 1) {
                             if (mref) {
-                                const int cur = v[i];
-                                const uint32_t av = cur < 0
-                                    ? 0u - (uint32_t)cur : (uint32_t)cur;
-                                const uint32_t vq = shr32(av - half, p + 1);
-                                const uint32_t nm = shl32((vq << 1)
-                                                          | (bits[dx] & 1u),
-                                                          p) + half_bp;
-                                v[i] = cur < 0 ? (int)(0u - nm) : (int)nm;
+                                // the magnitude modulo 2^32, its sign
+                                // apart, as the scalar's int64 one
+                                const uint32_t vq = shr32(m[i] - half, p + 1);
+                                m[i] = shl32((vq << 1) | (bits[dx] & 1u), p)
+                                    + half_bp;
                                 bits[dx] >>= 1;
                             }
                         } else if ((nb[x] >> (ys + dy)) & 1) {
-                            v[i] = ((nb[x] >> (4 + ys + dy)) & 1)
-                                ? (int)(0u - mag_new) : (int)mag_new;
+                            m[i] = mag_new;
+                            sg = (sg & ~(1 << i))
+                                | (((nb[x] >> (4 + ys + dy)) & 1) << i);
                         }
                     }
                 }
@@ -732,14 +864,27 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
             for (int i = 0; i < 4; i++) {
                 const int x = x0 + (i >> 1), y = 2 * g + (i & 1);
                 if (x < W && y < H)
-                    o[y * W + x] = x < w && y < h ? v[i] : 0;
+                    o[y * W + x] = x < w && y < h
+                        ? ((sg >> i) & 1 ? (int)(0u - m[i]) : (int)m[i])
+                        : 0;
             }
         });
         base += tot;
     };
-    for (int y0 = 0; y0 < h; y0 += 4) {
+    int crow = HT_NO_ROW;            // the chain's failing quad row
+    for (int y0 = 0; y0 < h && !uerr; y0 += 4) {
         const int sx = y0 >> 2, g_end = min(2 * sx + 2, gh);
         t1_wait_ge(done, min(gh, ref ? 2 * sx + 3 : g_end));
+        {
+            // one reading for the whole warp
+            WarpReg<int> cr;
+            warp_each([&](int t) {
+                cr[t] = *reinterpret_cast<const volatile int*>(done + 1);
+            });
+            crow = warp_shfl(cr, 0);
+        }
+        if (crow != HT_NO_ROW)
+            ref = false;             // the lane is zeroed: no SigProp
         if (ref) {
             const int y_to = min(y0 + 5, h);
             cs_rows(map, w, cs_done, y_to, cs32);
@@ -758,34 +903,46 @@ __device__ __forceinline__ void consume_lane(const uint8_t* ms_row, int lms,
             for (int r = 0; r < 4; r++)
                 c4[r] = y0 + r < h ? cs[y0 + r] : 0;
         }
-        for (int g = 2 * sx; g < g_end; g++)
+        for (int g = 2 * sx; g < g_end && g <= crow && !uerr; g++)
             quad_row(g);
+        if (g_end > crow)            // past the chain's failing row
+            break;
+    }
+    if (uerr || crow != HT_NO_ROW) {
+        warp_sync();
+        warp_for(W * H, [&](int i) { o[i] = 0; });
+        return uerr ? HT_ERR_EXP : HT_ERR_VLC;
     }
     // the rows below the block's quad rows
     const int y1 = 2 * gh;
     if (y1 < H)
         warp_for((H - y1) * W, [&](int i) { o[y1 * W + i] = 0; });
+    return 0;
 }
 
 // Lane `lane` of the batch, its warp `role` (0: the chain, 1: the rest;
 // the host runs role 0, then role 1): its parameters clamped as the
-// contract says, then its decode, or zeros for an invalid or empty lane.
-// tab: the CTA's decode tables (build_tables); ws: the lane's
-// HT_CLN_BYTES (HT_REF_BYTES for K2) of shared memory, its first word 0.
-// sp == nullptr: K1; else K2 with the lane's SigProp and MagRef rows and
-// pass count.
+// contract says, then its decode, or zeros for an invalid or empty lane,
+// and (role 1) its error code at err[lane].  tab: the CTA's decode tables
+// (build_tables); ws: the lane's HT_CLN_BYTES (HT_REF_BYTES for K2) of
+// shared memory, its first word 0.  sp == nullptr: K1; else K2 with the
+// lane's SigProp and MagRef rows and pass count.
 __device__ __forceinline__ void decode_one(
     int role, const int* tab, int lut_n, int nfam, unsigned char* ws,
     int lane, const uint8_t* ms, int lms, const uint8_t* mel, int lmel,
     const uint8_t* vlc, int lvlc, const int* pv, const int* wv,
     const int* hv, const int* valid, int* out, int W, int H,
-    const uint8_t* sp, int lsp, const uint8_t* mr, int lmr, const int* npv)
+    const uint8_t* sp, int lsp, const uint8_t* mr, int lmr, const int* npv,
+    int* err)
 {
     const int w = min(wv[lane], W), h = min(hv[lane], H);
     int* o = out + (size_t)lane * W * H;
     if (valid[lane] != 1 || w <= 0 || h <= 0) {
-        if (role)
+        if (role) {
             warp_for(W * H, [&](int i) { o[i] = 0; });
+            if (warp_leader())
+                err[lane] = 0;
+        }
         return;
     }
     if (role == 0) {
@@ -798,9 +955,258 @@ __device__ __forceinline__ void decode_one(
     const int p = pv[lane];
     const int np = sp ? npv[lane] : 1;
     const bool ref = sp && np >= 2 && p > 0 && p < 32;
-    consume_lane(ms + (size_t)lane * lms, lms, p, w, h, tab, lut_n, ws, o, W,
-                 H, ref, ref ? sp + (size_t)lane * lsp : nullptr, lsp,
-                 ref ? mr + (size_t)lane * lmr : nullptr, lmr, np);
+    const int code = consume_lane(
+        ms + (size_t)lane * lms, lms, p, w, h, tab, lut_n, ws, o, W, H, ref,
+        ref ? sp + (size_t)lane * lsp : nullptr, lsp,
+        ref ? mr + (size_t)lane * lmr : nullptr, lmr, np);
+    if (warp_leader())
+        err[lane] = code;
+}
+
+// ---- wide lanes: one warp per code-block, its first thread serial -------
+
+// A wide lane's shared memory: the above row's rho and ebot per quad, then
+// the block's significance and sign bits (W x H each).
+__host__ __device__ __forceinline__ int ht_wide_bytes(int W, int H)
+{
+    const int gw = (W + 1) >> 1;
+    const int bits = (W * H + 127) / 128 * 16;
+    return (2 * gw + 15) / 16 * 16 + 2 * bits;
+}
+
+__device__ __forceinline__ int vlc_bit(Reader& r)
+{
+    const int b = (int)(rd_peek(r) & 1u);
+    rd_skip(r, 1);
+    return b;
+}
+
+// A UVLC prefix (polarity pxor applied): whether it is 3 bits long, its
+// base and its suffix length (t1ht.scalar._read_u_pair `pfx`).
+__device__ __forceinline__ void uvlc_prefix(Reader& r, int pxor, int& l3,
+                                            int& base, int& sl)
+{
+    l3 = 0;
+    sl = 0;
+    if ((vlc_bit(r) ^ (pxor & 1)) == 0) {
+        base = 1;
+    } else if ((vlc_bit(r) ^ ((pxor >> 1) & 1)) == 0) {
+        base = 2;
+    } else {
+        l3 = 1;
+        const bool b = (vlc_bit(r) ^ ((pxor >> 2) & 1)) == 0;
+        base = b ? 3 : 5;
+        sl = b ? 1 : 5;
+    }
+}
+
+__device__ __forceinline__ bool bit_at(const uint32_t* m, int i)
+{
+    return (m[i >> 5] >> (i & 31)) & 1u;
+}
+
+__device__ __forceinline__ void bit_set(uint32_t* m, int i, bool v)
+{
+    m[i >> 5] = (m[i >> 5] & ~(1u << (i & 31))) | ((uint32_t)v << (i & 31));
+}
+
+// The serial decode of a wide lane by one thread, in the order of
+// grok_tpu/t1ht/scalar.py `ht_decode_block`: the cleanup's magnitudes
+// (modulo 2^32) into o, row stride W, with their significance and sign
+// bits, then (ref) MagRef on the cleanup-significant samples and SigProp,
+// each in the stripe scan.  Returns the lane's error code.
+__device__ __forceinline__ int wide_serial(
+    const t1_saddr vt0, const t1_saddr vti, int pxor, const uint8_t* ms_row,
+    int lms, const uint8_t* mel_row, int lmel, const uint8_t* vlc_row,
+    int lvlc, int p, int w, int h, int W, uint8_t* rrow, uint8_t* erow,
+    uint32_t* sig, uint32_t* neg, int* o, bool ref, const uint8_t* sp_row,
+    int lsp, const uint8_t* mr_row, int lmr, int np)
+{
+    Reader mel, vlc;
+    rd_init(mel, mel_row, lmel);
+    rd_init(vlc, vlc_row, lvlc);
+    MelState ms = { 0, 0, 0 };
+    const Row rms = row_at(ms_row, lms);
+    int msp = 0;
+    const int gw = (w + 1) >> 1, gh = (h + 1) >> 1, p1 = p + 1;
+    const uint32_t half = p > 0 ? shl32(1u, p) : 0u;
+    const uint32_t half_bp = p > 1 ? shl32(1u, p - 1) : 0u;
+    for (int g = 0; g < gh; g++) {
+        const t1_saddr vt = g ? vt0 : vti;
+        int left = 0;                // rho of the quad to the left
+        for (int qx0 = 0; qx0 < gw; qx0 += 2) {
+            const int nq = min(2, gw - qx0);
+            int e[2] = { 0, 0 };
+            for (int j = 0; j < nq; j++) {
+                const int qx = qx0 + j;
+                const int ra = g ? rrow[qx] : 0;
+                const int rar = g && qx + 1 < gw ? rrow[qx + 1] : 0;
+                const int c = ((left & 0xC) != 0) | (((ra & 0xA) != 0) << 1)
+                    | (((rar & 2) != 0) << 2);
+                if (c || mel_event(ms, mel)) {
+                    e[j] = t1_lds32(vt + 4 * ((c << 7)
+                                              | (int)(rd_peek(vlc) & 0x7Fu)));
+                    if (e[j] & HT_BAD)
+                        return HT_ERR_VLC;
+                    rd_skip(vlc, e[j] & 7);
+                }
+                left = (e[j] >> 3) & 15;
+                rrow[qx] = (uint8_t)left;    // the row above is read first
+            }
+            // the pair's UVLC (t1ht.scalar._read_u_pair)
+            const bool off0 = (e[0] >> 8) & 1;
+            const bool off1 = nq > 1 && ((e[1] >> 8) & 1);
+            int u[2] = { 0, 0 };
+            int l0, b0, s0, l1, b1, s1;
+            if (off0 && off1) {
+                int add = 0;
+                if (g == 0 && mel_event(ms, mel)) {
+                    add = 2;
+                    uvlc_prefix(vlc, pxor, l0, b0, s0);
+                    uvlc_prefix(vlc, pxor, l1, b1, s1);
+                } else {
+                    uvlc_prefix(vlc, pxor, l0, b0, s0);
+                    if (g == 0 && l0) {      // u0 >= 3 => u1 <= 2: one bit
+                        b1 = vlc_bit(vlc) + 1;
+                        s1 = 0;
+                    } else {
+                        uvlc_prefix(vlc, pxor, l1, b1, s1);
+                    }
+                }
+                u[0] = uvlc_tail(vlc, b0, s0) + add;
+                u[1] = uvlc_tail(vlc, b1, s1) + add;
+            } else if (off0 || off1) {
+                uvlc_prefix(vlc, pxor, l0, b0, s0);
+                u[off0 ? 0 : 1] = uvlc_tail(vlc, b0, s0);
+            }
+            // the quads' MagSgn samples
+            for (int j = 0; j < nq; j++) {
+                const int qx = qx0 + j, rho = (e[j] >> 3) & 15;
+                const int eb_above = g ? erow[qx] : 0;
+                erow[qx] = 0;
+                if (!rho)
+                    continue;
+                const int kappa = (rho & (rho - 1)) ? max(1, eb_above - 1)
+                                                    : 1;
+                const int U = kappa + u[j];
+                if (U > HT_U_MAX)
+                    return HT_ERR_EXP;
+                const int ek = (e[j] >> 9) & 15;
+                int ebot = 0;
+                for (int i = 0; i < 4; i++) {
+                    if (!((rho >> i) & 1))
+                        continue;
+                    const int k = (ek >> i) & 1;
+                    const uint64_t full = row_bits(rms, msp, U - k)
+                        | ((uint64_t)k << (U - 1));
+                    msp += U - k;
+                    if (i & 1)
+                        ebot = max(ebot, bitlen64(full));
+                    const int y = 2 * g + (i & 1), x = 2 * qx + (i >> 1);
+                    if (y < h && x < w) {
+                        const uint64_t vi = (full >> 1) + 1u;
+                        o[y * W + x] = (int)((uint32_t)(p1 < 64 ? vi << p1
+                                                        : 0u) + half);
+                        bit_set(sig, y * W + x, true);
+                        bit_set(neg, y * W + x, full & 1u);
+                    }
+                }
+                erow[qx] = (uint8_t)ebot;
+            }
+        }
+    }
+    if (!ref)
+        return 0;
+    // MagRef first: it refines only the cleanup-significant samples,
+    // which SigProp never touches, from a stream of its own
+    if (np >= 3) {
+        const Row rmr = row_at(mr_row, lmr);
+        int pos = 0;
+        for (int y0 = 0; y0 < h; y0 += 4)
+            for (int x = 0; x < w; x++)
+                for (int y = y0; y < min(y0 + 4, h); y++) {
+                    if (!bit_at(sig, y * W + x))
+                        continue;
+                    const uint32_t b = (uint32_t)row_bits(rmr, pos++, 1);
+                    uint32_t& m = reinterpret_cast<uint32_t&>(o[y * W + x]);
+                    m = shl32((shr32(m - half, p + 1) << 1) | b, p) + half_bp;
+                }
+    }
+    // SigProp: the significance grows as the scan goes
+    const Row rsp = row_at(sp_row, lsp);
+    int pos = 0;
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                if (bit_at(sig, y * W + x))
+                    continue;
+                bool nbr = false;
+                for (int yy = max(y - 1, 0); yy <= min(y + 1, h - 1); yy++)
+                    for (int xx = max(x - 1, 0); xx <= min(x + 1, w - 1);
+                         xx++)
+                        nbr |= bit_at(sig, yy * W + xx);
+                if (!nbr)
+                    continue;
+                if (!row_bits(rsp, pos++, 1))
+                    continue;
+                bit_set(neg, y * W + x, row_bits(rsp, pos++, 1) != 0);
+                bit_set(sig, y * W + x, true);
+                o[y * W + x] = (int)(half + half_bp);
+            }
+    return 0;
+}
+
+// A wide lane, run by the whole warp: the block zeroed, its serial decode
+// by the first thread, then the signs applied (or zeros for a failed
+// lane) and its error code at err[lane].  ws: the lane's
+// ht_wide_bytes(W, H) of shared memory.
+__device__ __forceinline__ void decode_wide_one(
+    const int* tab, int nfam, int pxor, unsigned char* ws, int lane,
+    const uint8_t* ms, int lms, const uint8_t* mel, int lmel,
+    const uint8_t* vlc, int lvlc, const int* pv, const int* wv,
+    const int* hv, const int* valid, int* out, int W, int H,
+    const uint8_t* sp, int lsp, const uint8_t* mr, int lmr, const int* npv,
+    int* err)
+{
+    const int w = min(wv[lane], W), h = min(hv[lane], H);
+    int* o = out + (size_t)lane * W * H;
+    const int GW = (W + 1) >> 1, nwords = (W * H + 31) >> 5;
+    uint8_t* rrow = ws;
+    uint8_t* erow = ws + GW;
+    uint32_t* sig = reinterpret_cast<uint32_t*>(ws + (2 * GW + 15) / 16 * 16);
+    uint32_t* neg = sig + (W * H + 127) / 128 * 4;
+    warp_for(W * H, [&](int i) { o[i] = 0; });
+    if (valid[lane] != 1 || w <= 0 || h <= 0) {
+        if (warp_leader())
+            err[lane] = 0;
+        return;
+    }
+    warp_for(nwords, [&](int i) { sig[i] = neg[i] = 0; });
+    warp_sync();
+    const int p = pv[lane];
+    const int np = sp ? npv[lane] : 1;
+    const bool ref = sp && np >= 2 && p > 0 && p < 32;
+    WarpReg<int> code;
+    warp_each([&](int t) { code[t] = 0; });
+    if (warp_leader()) {
+        const t1_saddr vt0 = t1_smem(tab);
+        code[0] = wide_serial(
+            vt0, vt0 + (nfam == 2 ? 4 * (HT_N_CTX << 7) : 0), pxor,
+            ms + (size_t)lane * lms, lms, mel + (size_t)lane * lmel, lmel,
+            vlc + (size_t)lane * lvlc, lvlc, p, w, h, W, rrow, erow, sig,
+            neg, o, ref, ref ? sp + (size_t)lane * lsp : nullptr, lsp,
+            ref ? mr + (size_t)lane * lmr : nullptr, lmr, np);
+    }
+    warp_sync();
+    const int c = warp_shfl(code, 0);
+    warp_for(W * H, [&](int i) {
+        if (c)
+            o[i] = 0;
+        else if (bit_at(neg, i))
+            o[i] = (int)(0u - (uint32_t)o[i]);
+    });
+    if (warp_leader())
+        err[lane] = c;
 }
 
 #ifdef __CUDACC__
@@ -816,7 +1222,7 @@ ht_decode_kernel(const uint8_t* __restrict__ ms, int lms,
                  int nfam, int pxor, int* __restrict__ out, int nl, int W,
                  int H, const uint8_t* __restrict__ sp, int lsp,
                  const uint8_t* __restrict__ mr, int lmr,
-                 const int* __restrict__ npv)
+                 const int* __restrict__ npv, int* __restrict__ err)
 {
     __shared__ int tab[HT_TAB_MAX];
     extern __shared__ __align__(16) unsigned char smem[];
@@ -831,7 +1237,34 @@ ht_decode_kernel(const uint8_t* __restrict__ ms, int lms,
         return;
     decode_one(wi & 1, tab, lut_n, nfam, smem + (wi >> 1) * bytes, lane, ms,
                lms, mel, lmel, vlc, lvlc, pv, wv, hv, valid, out, W, H,
-               REFINE ? sp : nullptr, lsp, mr, lmr, npv);
+               REFINE ? sp : nullptr, lsp, mr, lmr, npv, err);
+}
+
+template <bool REFINE>
+__global__ void __launch_bounds__(HT_WIDE_WARPS * 32)
+ht_decode_wide_kernel(const uint8_t* __restrict__ ms, int lms,
+                      const uint8_t* __restrict__ mel, int lmel,
+                      const uint8_t* __restrict__ vlc, int lvlc,
+                      const int* __restrict__ pv, const int* __restrict__ wv,
+                      const int* __restrict__ hv,
+                      const int* __restrict__ valid,
+                      const int* __restrict__ lut_g, int lut_n, int symb,
+                      int nfam, int pxor, int* __restrict__ out, int nl,
+                      int W, int H, const uint8_t* __restrict__ sp, int lsp,
+                      const uint8_t* __restrict__ mr, int lmr,
+                      const int* __restrict__ npv, int* __restrict__ err)
+{
+    __shared__ int tab[HT_TAB_MAX];
+    extern __shared__ __align__(16) unsigned char smem[];
+    build_tables(lut_g, lut_n, symb, pxor, tab);
+    __syncthreads();
+    const int wi = threadIdx.x >> 5;
+    const int lane = blockIdx.x * HT_WIDE_WARPS + wi;
+    if (lane >= nl)
+        return;
+    decode_wide_one(tab, nfam, pxor, smem + wi * ht_wide_bytes(W, H), lane,
+                    ms, lms, mel, lmel, vlc, lvlc, pv, wv, hv, valid, out, W,
+                    H, REFINE ? sp : nullptr, lsp, mr, lmr, npv, err);
 }
 
 template <bool REFINE>
@@ -840,12 +1273,24 @@ static int launch(const void* ms, int lms, const void* mel, int lmel,
                   const void* h, const void* valid, const void* lut,
                   int lut_n, int symb, int nfam, int pxor, void* out, int nl,
                   int W, int H, const void* sp, int lsp, const void* mr,
-                  int lmr, const void* npass, void* stream)
+                  int lmr, const void* npass, void* err, void* stream)
 {
     if (nl <= 0)
         return 0;
     if (lut_n + 768 > HT_TAB_MAX)
         return (int)cudaErrorInvalidValue;
+    if (W > 64 || H > 64) {
+        const int blocks = (nl + HT_WIDE_WARPS - 1) / HT_WIDE_WARPS;
+        ht_decode_wide_kernel<REFINE><<<blocks, HT_WIDE_WARPS * 32,
+                                        HT_WIDE_WARPS * ht_wide_bytes(W, H),
+                                        (cudaStream_t)stream>>>(
+            (const uint8_t*)ms, lms, (const uint8_t*)mel, lmel,
+            (const uint8_t*)vlc, lvlc, (const int*)p, (const int*)w,
+            (const int*)h, (const int*)valid, (const int*)lut, lut_n, symb,
+            nfam, pxor, (int*)out, nl, W, H, (const uint8_t*)sp, lsp,
+            (const uint8_t*)mr, lmr, (const int*)npass, (int*)err);
+        return (int)cudaGetLastError();
+    }
     const int smem = HT_LANES * (REFINE ? HT_REF_BYTES : HT_CLN_BYTES);
     const int blocks = (nl + HT_LANES - 1) / HT_LANES;
     ht_decode_kernel<REFINE><<<blocks, HT_LANES * 64, smem,
@@ -854,12 +1299,13 @@ static int launch(const void* ms, int lms, const void* mel, int lmel,
         (const uint8_t*)vlc, lvlc, (const int*)p, (const int*)w,
         (const int*)h, (const int*)valid, (const int*)lut, lut_n, symb, nfam,
         pxor, (int*)out, nl, W, H, (const uint8_t*)sp, lsp,
-        (const uint8_t*)mr, lmr, (const int*)npass);
+        (const uint8_t*)mr, lmr, (const int*)npass, (int*)err);
     return (int)cudaGetLastError();
 }
 
-// out is written whole: zeros outside each lane's w x h and on invalid
-// lanes.
+// out is written whole: zeros outside each lane's w x h, on invalid lanes
+// and on failed ones; err gets each lane's error code.
+// Lanes of W or H over 64 take the wide kernel.
 extern "C" int grk_ht_decode_cleanup(const void* ms, int ms_len,
                                      const void* mel, int mel_len,
                                      const void* vlc, int vlc_len,
@@ -867,11 +1313,11 @@ extern "C" int grk_ht_decode_cleanup(const void* ms, int ms_len,
                                      const void* h, const void* valid,
                                      const void* lut, int lut_n, int symb,
                                      int nfam, int pxor, void* out, int nl,
-                                     int W, int H, void* stream)
+                                     int W, int H, void* err, void* stream)
 {
     return launch<false>(ms, ms_len, mel, mel_len, vlc, vlc_len, p, w, h,
                          valid, lut, lut_n, symb, nfam, pxor, out, nl, W, H,
-                         nullptr, 0, nullptr, 0, nullptr, stream);
+                         nullptr, 0, nullptr, 0, nullptr, err, stream);
 }
 
 extern "C" int grk_ht_decode_refine(const void* ms, int ms_len,
@@ -883,11 +1329,12 @@ extern "C" int grk_ht_decode_refine(const void* ms, int ms_len,
                                     int nfam, int pxor, void* out, int nl,
                                     int W, int H, const void* sp, int sp_len,
                                     const void* mr, int mr_len,
-                                    const void* npass, void* stream)
+                                    const void* npass, void* err,
+                                    void* stream)
 {
     return launch<true>(ms, ms_len, mel, mel_len, vlc, vlc_len, p, w, h,
                         valid, lut, lut_n, symb, nfam, pxor, out, nl, W, H,
-                        sp, sp_len, mr, mr_len, npass, stream);
+                        sp, sp_len, mr, mr_len, npass, err, stream);
 }
 
 #endif

@@ -161,9 +161,10 @@ __device__ __forceinline__ void t1_clear_vis(uint16_t* fl, int nfl)
     warp_for((nfl + 1) >> 1, [&](int i) { f2[i] &= keep; });
 }
 
-// The samples of a stripe (rows y0 .. y1 - 1, columns below w, flag row
-// stride s) a pass may code, as one 64-bit column mask per stripe row,
-// built by the warp from the flags at stripe start:
+// The samples of a stripe (rows y0 .. y1 - 1, columns c0 .. c0 + 63 below
+// w, flag row stride s) a pass may code, as one 64-bit column mask per
+// stripe row (bit x for column c0 + x), built by the warp from the flags
+// at the start of the stripe's 64-column chunk:
 //   SPP: an insignificant, unvisited sample with a significant neighbour
 //        (without the VSC masking: a superset); the serial walk adds the
 //        samples after one that becomes significant, the one below it
@@ -175,12 +176,12 @@ __device__ __forceinline__ void t1_clear_vis(uint16_t* fl, int nfl)
 template <int PASS>
 __device__ __forceinline__ T1Nibbles t1_stripe_masks(const uint16_t* fl,
                                                      int s, int w, int y0,
-                                                     int y1)
+                                                     int y1, int c0 = 0)
 {
     return warp_nibbles([&](int x) {
         int n = 0;
-        if (x < w) {
-            const uint16_t* f = fl + (y0 + 1) * s + x + 1;
+        if (c0 + x < w) {
+            const uint16_t* f = fl + (y0 + 1) * s + c0 + x + 1;
             for (int y = y0; y < y1; y++, f += s) {
                 int v = *f;
                 bool c = PASS == 0 ? (!(v & (F_SIG | F_VIS)) && (v & 0xFF))

@@ -37,10 +37,10 @@ def _lib():
             ip, ip, ip,                       # blk out arrays
             ip, ctypes.c_int, ip,             # chunks, cap, counts
         ]
-        lib.grk_ht_scan2.restype = ctypes.c_int
-        lib.grk_ht_scan2.argtypes = [
+        lib.grk_ht_scan2_bits.restype = ctypes.c_int
+        lib.grk_ht_scan2_bits.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, llp, ip, ctypes.c_int, ip,
-            u8p, ctypes.c_longlong, llp]
+            u8p, ctypes.c_longlong, llp, ip]
         lib.grk_ht_assemble_batch.restype = ctypes.c_int
         lib.grk_ht_assemble_batch.argtypes = [
             u8p, llp, llp, llp, llp, llp, llp, ip, ctypes.c_int, u8p,
@@ -48,10 +48,10 @@ def _lib():
         lib.grk_ht_raw_batch.restype = ctypes.c_int
         lib.grk_ht_raw_batch.argtypes = [
             u8p, llp, llp, ctypes.c_int, u8p, ctypes.c_longlong, llp]
-        lib.grk_ht_unstuff_batch.restype = ctypes.c_int
-        lib.grk_ht_unstuff_batch.argtypes = [
+        lib.grk_ht_unstuff_batch_bits.restype = ctypes.c_int
+        lib.grk_ht_unstuff_batch_bits.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, llp, ip, ctypes.c_int,
-            u8p, ctypes.c_longlong, llp]
+            u8p, ctypes.c_longlong, llp, llp]
         lib.grk_t2_emit.restype = ctypes.c_int
         lib.grk_t2_emit.argtypes = [
             ctypes.c_int, ip, ip, ip, ip, ip, ip,
@@ -143,9 +143,11 @@ def ht_scan2(body: bytes, off: np.ndarray, lens: np.ndarray):
     """Scan + split HT cleanup segments into clean sub-streams.
 
     Returns (out7 (n, 7) int32 [ok, ms_off, ms_len, suf_off, suf_len,
-    n_ff, n_7f], digest uint8 array) — offsets index the digest; ok = 0
-    for a valid framing, -1 otherwise.  None if the digest overflowed
-    (never for well-formed input: capacity is 3*len + 16 per block)."""
+    n_ff, n_7f], digest uint8 array, bits (n, 3) int32 [ms, mel, vlc]) —
+    offsets index the digest; ok = 0 for a valid framing, -1 otherwise;
+    bits: each clean sub-stream's bits as the scalar decoder reads them,
+    past which it reads 1-bits.  None if the digest overflowed (never for
+    well-formed input: capacity is 3*len + 16 per block)."""
     lib = _lib()
     n = len(off)
     off = np.ascontiguousarray(off, np.int64)
@@ -154,12 +156,13 @@ def ht_scan2(body: bytes, off: np.ndarray, lens: np.ndarray):
     dcap = int(3 * int(lens.sum()) + 24 * n + 64)
     digest = np.zeros(dcap, np.uint8)
     used = ctypes.c_longlong(0)
-    rc = lib.grk_ht_scan2(body, len(body), _llp(off), _ip(lens), n,
-                          _ip(out), _u8p(digest), dcap,
-                          ctypes.byref(used))
+    bits = np.zeros((n, 3), np.int32)
+    rc = lib.grk_ht_scan2_bits(body, len(body), _llp(off), _ip(lens), n,
+                               _ip(out), _u8p(digest), dcap,
+                               ctypes.byref(used), _ip(bits))
     if rc:
         return None
-    return out, digest[:int(used.value)]
+    return out, digest[:int(used.value)], bits
 
 
 def ht_assemble_batch(buf: np.ndarray, ms_off, ms_bits, mel_off, mel_bits,
@@ -212,8 +215,10 @@ def ht_raw_batch(buf: np.ndarray, offs, bits):
 def ht_unstuff_batch(body: bytes, offs, lens):
     """Un-stuff n raw HT SigProp / HT MagRef wire segments (body[offs[i]:
     offs[i] + lens[i]]) into clean LSB-first bytes, back-to-back.
-    Returns (out uint8 buffer, clean lens (n,) int64); each segment is
-    byte-identical to t1ht/wire.py _unstuff_lsb of its wire bytes."""
+    Returns (out uint8 buffer, clean lens (n,) int64, each segment's clean
+    bits (n,) int64, past which the scalar decoder reads 1-bits); each
+    segment is byte-identical to t1ht/wire.py _unstuff_lsb of its wire
+    bytes."""
     lib = _lib()
     n = len(offs)
     offs = np.ascontiguousarray(offs, np.int64)
@@ -221,11 +226,13 @@ def ht_unstuff_batch(body: bytes, offs, lens):
     ocap = int(lens.sum()) + 8
     out = np.zeros(ocap, np.uint8)
     olens = np.zeros(n, np.int64)
-    rc = lib.grk_ht_unstuff_batch(body, len(body), _llp(offs), _ip(lens), n,
-                                  _u8p(out), ocap, _llp(olens))
+    bits = np.zeros(n, np.int64)
+    rc = lib.grk_ht_unstuff_batch_bits(body, len(body), _llp(offs),
+                                       _ip(lens), n, _u8p(out), ocap,
+                                       _llp(olens), _llp(bits))
     if rc:
         raise ValueError("a refinement segment lies outside the tile body")
-    return out, olens
+    return out, olens, bits
 
 
 def t2_emit_prepare(ctxs: dict, ctx_keys: list):

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from grok_tpu_torch.core.params import CBLK_RESET, CBLK_SEGSYM, CBLK_VSC
+from grok_tpu_torch.ops.ht_decode import lane_dims_ok
 from grok_tpu_torch.t1 import luts, mq
 from grok_tpu_torch.t1.records import (PASS_CLN, PASS_REF, PASS_SIG,
                                        is_raw_pass, pass_schedule,
@@ -472,11 +473,15 @@ def _check(name, t, dtype, device, shape=None):
 
 
 def _checked(body, start, npass, nbps, orient, w, h, style, ptbl, W: int,
-             H: int) -> torch.device:
-    """The wrappers' checks; returns the lanes' device."""
+             H: int, v1: bool = False) -> torch.device:
+    """The wrappers' checks; returns the lanes' device.  Lanes of any
+    legal code-block size (sides 1..1024, at most 4096 samples); the
+    first design's of up to 64 x 64."""
     dev = body.device
-    if not (1 <= W <= 64 and 1 <= H <= 64):
-        raise ValueError(f"block dims {W}x{H} outside 1..64")
+    if not lane_dims_ok(W, H) or (v1 and (W > 64 or H > 64)):
+        raise ValueError(f"block dims {W}x{H} outside 1..1024 with at most "
+                         f"4096 samples" + (", 64x64 for the first design"
+                                            if v1 else ""))
     NL = start.shape[0]
     _check("body", body, torch.uint8, dev)
     if body.dim() != 1 or body.numel() == 0:
@@ -506,7 +511,8 @@ def t1_decode_lanes(body, start, npass, nbps, orient, w, h, style, ptbl,
 
     body: (NB,) uint8, every lane's codeword bytes; start: (NL,) int32,
     each lane's first byte in body; npass, nbps (<= 30), orient, w, h,
-    style: (NL,) int32 with 1 <= w <= W, 1 <= h <= H; ptbl: (NL, P, 3)
+    style: (NL,) int32 with 1 <= w <= W, 1 <= h <= H (W, H: sides up to
+    1024, at most 4096 samples); ptbl: (NL, P, 3)
     int32, the segment table (module docstring; offsets relative to
     start, the segments inside body).  Lanes with nbps outside
     [0, 30] decode to zeros.  CPU tensors run the plain version; CUDA
@@ -545,8 +551,10 @@ def t1_decode_lanes_v1(body, start, npass, nbps, orient, w, h, style, ptbl,
                        W: int, H: int):
     """t1_decode_lanes through the first kernel design (csrc/
     t1_decode_v1.cu, one thread per lane, its flags in a device-memory
-    scratch): the same arguments, checks and result."""
-    dev = _checked(body, start, npass, nbps, orient, w, h, style, ptbl, W, H)
+    scratch): the same arguments, checks and result, on lanes of up to
+    64 x 64."""
+    dev = _checked(body, start, npass, nbps, orient, w, h, style, ptbl, W, H,
+                   v1=True)
     if dev.type == "cpu":
         return t1_decode_lanes_ref(body, start, npass, nbps, orient, w, h,
                                    style, ptbl, W, H)

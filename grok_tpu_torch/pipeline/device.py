@@ -49,8 +49,9 @@ from grok_tpu_torch.ops.t1_decode import t1_decode_lanes
 
 # per-lane meta columns of the uploaded meta array: the HT lane (K1) and
 # the Part-1 lane (K3) of the same block
-META_COLS = 10    # ms_start, ms_len, suf_start, suf_len, p, valid,
-#                   mq_start, mq_len, npass, nbps
+META_COLS = 13    # ms_start, ms_len, suf_start, suf_len, p, valid,
+#                   mq_start, mq_len, npass, nbps, and the HT lane's clean
+#                   MagSgn, MEL and VLC bits (native.ht_scan2)
 
 
 def stage_bytes(body: torch.Tensor, start: torch.Tensor, ln: torch.Tensor,
@@ -67,6 +68,15 @@ def stage_bytes(body: torch.Tensor, start: torch.Tensor, ln: torch.Tensor,
         idx = start[:, None] + k
     idx = idx.clamp(0, body.numel() - 1)
     return torch.where(k < ln[:, None], body[idx].to(torch.int32), 0)
+
+
+def fill_ones(rows: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
+    """Per-lane clean byte rows (NL, L+1) with every bit from nbits (NL,)
+    on set: the 1-bits the scalar HT decoder reads past a sub-stream's
+    end (its readers take 0xFF bytes there)."""
+    k8 = 8 * torch.arange(rows.shape[1], device=rows.device)
+    keep = (nbits.to(torch.int64)[:, None] - k8).clamp(0, 8)
+    return rows | ((0xFF << keep) & 0xFF).to(rows.dtype)
 
 
 def unstuff_suffix(suf_f: torch.Tensor, suf_r: torch.Tensor,
@@ -129,6 +139,29 @@ def unstuff_suffix(suf_f: torch.Tensor, suf_r: torch.Tensor,
 
     pad1 = torch.zeros((NL, 1), dtype=i32, device=dev)
     return torch.cat([mel, pad1], dim=1), torch.cat([vlc, pad1], dim=1)
+
+
+def mq_groups(buckets) -> list:
+    """K3's launches over a program's Part-1 lanes: [(W, H, bucket
+    indices)], one launch in W x H lanes each.  One group where the
+    largest bucket dims hold at most 4096 samples (the components code
+    blocks of one shape, and no bucket is larger than its nominal block);
+    else each bucket, largest first, joins the first group whose dims
+    still fit (components coding blocks of different shapes, such as
+    128x32 and 32x128)."""
+    groups = []
+    for bi in sorted(range(len(buckets)),
+                     key=lambda i: -buckets[i].W * buckets[i].H):
+        b = buckets[bi]
+        for g in groups:
+            W, H = max(g[0], b.W), max(g[1], b.H)
+            if W * H <= 4096:
+                g[0], g[1] = W, H
+                g[2].append(bi)
+                break
+        else:
+            groups.append([b.W, b.H, [bi]])
+    return [(W, H, sorted(bis)) for W, H, bis in groups]
 
 
 @dataclass(frozen=True)
@@ -227,9 +260,11 @@ class DecodeProgram:
                            if custom_inv is not None else None)
         self.wh = [(dev_t(a[:, 0], torch.int32), dev_t(a[:, 1], torch.int32))
                    for a in whs]
-        # K3 decodes the lanes of every bucket in one launch, in the
-        # largest bucket's block dims
-        self.mq_dims = (max(b.W for b in buckets), max(b.H for b in buckets))
+        self.mq_groups = mq_groups(buckets)
+        # each lane's bucket, in meta order (K3's groups select by it)
+        self.lane_bucket = dev_t(np.repeat(
+            np.arange(len(buckets)), [N * len(b.blocks) for b in buckets]),
+            torch.int64)
         self.mq_lanes = (dev_t(np.concatenate(oris), torch.int32),
                          torch.cat([w for w, _h in self.wh]),
                          torch.cat([h for _w, h in self.wh]))
@@ -240,13 +275,16 @@ class DecodeProgram:
 
     def stage(self, body: torch.Tensor, meta: torch.Tensor, bi: int,
               Lms: int, Lsuf: int, Dm: int) -> tuple:
-        """K1's inputs of bucket bi: (ms, mel, vlc, p, w, h, valid)."""
+        """K1's inputs of bucket bi: (ms, mel, vlc, p, w, h, valid), each
+        stream filled with 1-bits past its clean bits."""
         mt = self.lane_meta(meta, bi).to(torch.int64)
         u8 = torch.uint8
-        ms = stage_bytes(body, mt[:, 0], mt[:, 1], Lms, False)
+        ms = fill_ones(stage_bytes(body, mt[:, 0], mt[:, 1], Lms, False),
+                       mt[:, 10])
         suf_f = stage_bytes(body, mt[:, 2], mt[:, 3], Lsuf, False)
         suf_r = stage_bytes(body, mt[:, 2], mt[:, 3] - 1, Lsuf, True)
         mel, vlc = unstuff_suffix(suf_f, suf_r, Dm)
+        mel, vlc = fill_ones(mel, mt[:, 11]), fill_ones(vlc, mt[:, 12])
         w, h = self.wh[bi]
         return (ms.to(u8), mel.to(u8), vlc.to(u8),
                 mt[:, 4].to(torch.int32), w, h, mt[:, 5].to(torch.int32))
@@ -255,7 +293,7 @@ class DecodeProgram:
         """K3's inputs for the lanes of every bucket, in meta order:
         (body, start, npass, nbps, orient, w, h, style, ptbl), one
         default-style codeword segment [0, dlen) per lane that opens at
-        pass 0 and is never raw.  Decode them in mq_dims."""
+        pass 0 and is never raw.  decode_mq decodes them."""
         start, dlen, npass, nbps = (meta[:, k].contiguous()
                                     for k in (6, 7, 8, 9))
         zero = torch.zeros_like(dlen)
@@ -278,29 +316,61 @@ class DecodeProgram:
         return (body, start, npass, nbps, ori[pos], w[pos], h[pos], style,
                 ptbl)
 
+    def decode_mq(self, args: tuple, pos: torch.Tensor | None = None) -> list:
+        """K3 over Part-1 lanes, one launch per group of mq_groups: args
+        are stage_mq's (every lane, in meta order; pos None) or
+        stage_mq_lanes' (pos: (n,) int64 on the device, each lane's index
+        in meta order).  Returns per bucket its lanes' (n, H, W) int32
+        samples, zeros on the lanes not given; None for a bucket none of
+        whose group's lanes was given."""
+        total = self.lane_bucket.shape[0]
+        outs = [None] * len(self.buckets)
+        for W, H, bis in self.mq_groups:
+            sub, at = args, pos
+            if len(self.mq_groups) > 1:
+                owner = self.lane_bucket if pos is None \
+                    else self.lane_bucket[pos]
+                k = torch.nonzero(torch.isin(owner, torch.tensor(
+                    bis, device=owner.device)))[:, 0]
+                if not k.numel():
+                    continue
+                sub = (args[0],) + tuple(t.index_select(0, k)
+                                         for t in args[1:])
+                at = k if pos is None else pos[k]
+            got = t1_decode_lanes(*sub, W, H)
+            if at is None:
+                full = got
+            else:
+                full = got.new_zeros((total, H, W))
+                full[at] = got
+            for bi in bis:
+                b, lo = self.buckets[bi], self.lane_base[bi]
+                outs[bi] = full[lo:lo + self.N * len(b.blocks), :b.H, :b.W]
+        return outs
+
     def run(self, body: torch.Tensor, meta: torch.Tensor,
             dims: list) -> list:
         """body: uint8 digest and/or raw codewords; meta: (lanes,
         META_COLS) int32; dims: per bucket (Lms, Lsuf, Dm, any HT lane,
         any Part-1 lane).  Returns N lists of per-component int32
         planes."""
-        # 1-2. the block decodes: K3 once over every Part-1 lane, K1 per
-        # bucket
+        # 1-2. the block decodes: K3 over every Part-1 lane (once, or
+        # once per group of bucket shapes), K1 per bucket
         if any(d[4] for d in dims):
-            mq = t1_decode_lanes(*self.stage_mq(body, meta), *self.mq_dims)
+            mq = self.decode_mq(self.stage_mq(body, meta))
         ms2 = []
         for bi, b in enumerate(self.buckets):
             Lms, Lsuf, Dm, any_ht, any_mq = dims[bi]
             n = self.N * len(b.blocks)
             if any_ht:
-                out = ht_decode_lanes(*self.stage(body, meta, bi, Lms, Lsuf,
-                                                  Dm), b.W, b.H)
+                # (a permissive decode reads no error code back)
+                out, _err = ht_decode_lanes(*self.stage(
+                    body, meta, bi, Lms, Lsuf, Dm), b.W, b.H)
             else:
                 out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
                                   device=self.device)
             if any_mq:
-                lo = self.lane_base[bi]
-                out = out + mq[lo:lo + n, :b.H, :b.W]
+                out = out + mq[bi]
             ms2.append(out)
         return self.synthesize(ms2)
 

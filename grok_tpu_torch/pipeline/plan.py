@@ -6,10 +6,12 @@ the port's device decodes read: the geometry, the C Tier-2 parser's
 descriptor arrays (and the contexts and packet order the Python parse,
 t2/parse.py, walks: the tile's POC, else the main header's), per-block
 metadata in the parser's global block order, with each block's
-code-block style and its rect in band coordinates for the window mask
-(`window_mask`), and per component the ROI Maxshift (RGN, main and tile)
-and a custom MCT's inverse.  Plans are cached per (main header, tile,
-reduce, mixed, tile overrides: COD, COC, QCD, QCC, RGN, POC).  A plan
+code-block style, its rect in band coordinates for the window mask
+(`window_mask`) and its place in the JAX package's decode order (the
+order a strict decode's exception follows), and per component the ROI
+Maxshift (RGN, main and tile) and a custom MCT's inverse.  Plans are
+cached per (main header, tile, reduce, mixed, tile overrides: COD, COC,
+QCD, QCC, RGN, POC).  A plan
 holds no table state; the decode programs kept on it
 (pipeline/serve.py) are keyed on t1ht.tables.VERSION.
 """
@@ -56,6 +58,11 @@ class ServePlan:
     ht_p_ext: int = 0                 # ht_planes COM extension (derive_p)
     canon_idx: np.ndarray | None = None   # mixed: each block's index in
     #                                       the HT-mixed bitmap
+    job_idx: np.ndarray | None = None   # each block's index in the
+    #                                     component, resolution, band,
+    #                                     precinct, code-block order in
+    #                                     which the JAX package's
+    #                                     decode_tile decodes blocks
     ctx_keys: list = field(default_factory=list)   # (c, r, p) per context,
     #                                       in the parser's order
     seg_mask: int = -1                # T2 segmentation style mask
@@ -64,7 +71,7 @@ class ServePlan:
     fast: dict = field(default_factory=dict)   # device programs, staging
 
 
-def _pow2_at_least(v: int, lo: int = 4, hi: int = 64) -> int:
+def _pow2_at_least(v: int, lo: int = 4, hi: int = 1024) -> int:
     p = lo
     while p < v and p < hi:
         p *= 2
@@ -118,7 +125,8 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
     band_ids: dict = {}
     bucket_ids: dict = {}
     bucket_dims: list = []
-    canon = canon_block_indices(geo) if coder == "mixed" else None
+    # the canonical order is the JAX package's decode order too
+    canon = canon_block_indices(geo)
     for (c, r, p) in ctx_keys:
         quant = geo.quants[c]
         irrev = bool(geo.styles[c].irreversible)
@@ -133,16 +141,15 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
             mb = quant.mb(r, bg.orient)
             delta = float(quant.delta(r, bg.orient))
             for cblk_i, cb in enumerate(bg.precincts[p].cblks):
-                if canon is not None:
-                    canon_l.append(canon[(c, r, band_i, p, cblk_i)])
+                canon_l.append(canon[(c, r, band_i, p, cblk_i)])
                 mb_l.append(mb)
                 rok_l.append(r < r_lim_c)
                 style_l.append(geo.styles[c].cblk_style)
                 blk_rect_l.append((cb.rect.x0, cb.rect.y0, cb.rect.x1,
                                    cb.rect.y1))
                 blk_band_l.append(bid_w)
-                if cb.rect.w > 64 or cb.rect.h > 64:
-                    return None   # beyond the device kernels' bucket cap
+                # a bucket no larger than the nominal power-of-two block
+                # (an edge block is smaller): at most 4096 samples
                 key = (_pow2_at_least(cb.rect.w), _pow2_at_least(cb.rect.h))
                 bid = bucket_ids.setdefault(key, len(bucket_ids))
                 if bid == len(bucket_dims):
@@ -201,8 +208,9 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         blk_rect=np.asarray(blk_rect_l, np.int64).reshape(-1, 4),
         blk_band=np.asarray(blk_band_l, np.int64), band_info=band_info,
         ht_p_ext=hdr.ht_planes_ext(),
-        canon_idx=np.asarray(canon_l, np.int64) if canon is not None
-        else None, ctx_keys=ctx_keys, seg_mask=seg_mask,
+        canon_idx=np.asarray(canon_l, np.int64) if coder == "mixed"
+        else None, job_idx=np.asarray(canon_l, np.int64),
+        ctx_keys=ctx_keys, seg_mask=seg_mask,
         roi=tuple(int(geo.rgn.get(c, 0)) for c in range(len(geo.tcgs))),
         custom_inv=custom_inv)
 

@@ -15,21 +15,25 @@ rest on the device.
 
 Scope: one tile of HT cleanup-only, Part-1 default-style (one codeword
 segment per block, any number of layers) or single-layer HT-mixed
-code-blocks, all streams of a batch under one main header and the same
-tile overrides (COC, QCC, RGN, POC), decoded whole or under a layer cap
-(dp.max_layers: each stream's chunks of later layers dropped), whole or
-in a window (dp.window: the blocks that miss the synthesis-dilated
-window decode as zeros, plan.py window_mask), with the ROI Maxshift
-undone on the device.  Refined HT blocks, Part-1 mode switches and
-multi-segment blocks, layered HT-mixed streams, packed packet headers
-(PPM/PPT), a custom MCT, and streams the C Tier-2 parse declines (cut
-short, or corrupt) raise GeneralRoute, which the entry points answer
-with the general device route (pipeline/tile.py decode_tile, kernels
-K1, K2 and K3, with the Python Tier-2 parse where the C one declines),
-as the JAX package's serving decode declines them to its decode_tile.
-Anything else (strict decodes, HT code-blocks with mode switches,
-code-blocks over 64) raises NotImplementedError naming the route: a
-quiet host decode would hide the device.
+code-blocks of any legal size (sides up to 1024, at most 4096 samples),
+all streams of a batch under one main header and the same tile overrides
+(COC, QCC, RGN, POC), decoded whole or under a layer cap (dp.max_layers:
+each stream's chunks of later layers dropped), whole or in a window
+(dp.window: the blocks that miss the synthesis-dilated window decode as
+zeros, plan.py window_mask), with the ROI Maxshift undone on the device.
+A strict decode (dp.strict) of Part-1 blocks is served as a permissive
+one, as the JAX package serves it (its strict Tier-2 parse raises where
+the C parse declines, on the general route).  Refined HT blocks, Part-1
+mode switches and multi-segment blocks, layered HT-mixed streams, packed
+packet headers (PPM/PPT), a custom MCT, streams the C Tier-2 parse
+declines (cut short, or corrupt) and strict decodes of HT or HT-mixed
+blocks raise GeneralRoute, which the entry points answer with the
+general device route (pipeline/tile.py decode_tile, kernels K1, K2 and
+K3, with the Python Tier-2 parse where the C one declines, and the
+scalar decoder's exceptions on a strict decode), as the JAX package's
+serving decode declines them to its decode_tile.  Anything else (HT
+code-blocks with mode switches) raises NotImplementedError naming the
+route: a quiet host decode would hide the device.
 """
 
 from __future__ import annotations
@@ -165,26 +169,24 @@ def stage_dims(sc: np.ndarray) -> tuple:
 
 def _scan_ht(plan, body: bytes, offs, lens, numbps, si: int):
     """C wire scan of a stream's HT blocks -> (scan rows with the cleanup
-    plane in column 0, digest); raises outside the K1 route's scope."""
+    plane in column 0 and the clean MagSgn, MEL and VLC bits in columns 7
+    to 9, digest); raises outside the K1 route's scope."""
     res = native.ht_scan2(body, offs, lens)
     if res is None:
         raise _unsupported("general path", "HT wire scan overflow")
-    scan, dig = res
+    scan, dig, bits = res
     if (scan[:, 0] < 0).any():
-        raise _unsupported("general path", f"stream {si}: invalid HT "
-                           f"framing")
+        # the general route decodes such a block as zeros, or raises the
+        # scalar decoder's "bad framing" on a strict decode
+        raise GeneralRoute(f"stream {si}, whose HT framing is invalid")
     # per-block cleanup plane (t1ht.scalar.derive_p: cleanup-only, so
     # p = 0 unless the ht_planes COM extension is present), kept in scan
     # column 0 (the validity flag)
     scan[:, 0] = np.minimum(plan.ht_p_ext, np.maximum(numbps - 1, 0))
-    # the kernel's UVLC has no 13-bit escape: u <= numbps - p <= 24
-    if ((numbps - scan[:, 0]) > 24).any():
-        raise _unsupported("general path", "more than 24 magnitude planes "
-                           "below the cleanup plane")
     if scan.size and int(scan[:, 2:5:2].max()) > MAX_STREAM:
         raise _unsupported("general path", "a sub-stream longer than "
                            f"{MAX_STREAM} bytes")
-    return scan, dig
+    return np.concatenate([scan, bits], 1), dig
 
 
 def _concat_layers(body: bytes, chunks: np.ndarray, n_blks: int):
@@ -219,12 +221,14 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                                for q in ths):
         raise _unsupported("general path",
                            "batch streams with different tile overrides")
-    if dp.strict:
-        raise _unsupported("strict decode", "strict=True")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
         raise _unsupported("general path", "HT code-blocks with mode "
-                           "switches or code-blocks over 64x64")
+                           "switches")
+    if dp.strict and plan.coder != "mq":
+        # the scalar decoder's checks: on the general route, which reads
+        # each HT lane's error code back
+        raise GeneralRoute("a strict decode of HT code-blocks")
     if plan.coder == "mq" and plan.style.any():
         raise GeneralRoute("Part-1 mode switches")
     if plan.custom_inv is not None:
@@ -241,7 +245,7 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
     N = len(bodies)
     fidx, bsel = _full_index(plan)
     nf = fidx.size
-    scans = np.zeros((N, nf, 7), np.int64)
+    scans = np.zeros((N, nf, 10), np.int64)
     valid = np.zeros((N, nf), bool)           # HT lanes (K1)
     mqrows = np.zeros((N, nf, 4), np.int64)   # Part-1 lanes (K3): offset
     #                                           in the stream's raw body,
@@ -352,7 +356,7 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
     for sel in bsel:
         if sel.size == 0:
             continue
-        sc = scans[:, sel].reshape(-1, 7)
+        sc = scans[:, sel].reshape(-1, 10)
         v = valid[:, sel].reshape(-1)
         mqr = mqrows[:, sel].reshape(-1, 4)
         dbase = np.repeat(dig_base, sel.size)
@@ -367,6 +371,7 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         meta[:, 6] = np.where(mq_on, mqr[:, 0] + np.repeat(raw_base,
                                                            sel.size), 0)
         meta[:, 7:10] = mqr[:, 1:4]
+        meta[:, 10:13] = sc[:, 7:10]
         metas.append(meta)
         dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
     meta_all = np.concatenate(metas)

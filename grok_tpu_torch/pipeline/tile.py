@@ -10,8 +10,9 @@ truncation refinement by trial decodes with kernel K3, and the packet
 emission by the C Tier-2 coder, native.t2_emit), and `decode_tile`, the
 general device decode route for the streams the serving decode declines
 (refined HT blocks, Part-1 mode switches, layered HT-mixed streams,
-packed packet headers, a custom MCT, packets cut short or corrupt), with
-kernels K1, K2 and K3, whole or in a window.
+packed packet headers, a custom MCT, packets cut short or corrupt,
+strict decodes of HT blocks), with kernels K1, K2 and K3, whole or in a
+window, for code-blocks of any legal size.
 
 Reference parity: [grok: src/lib/core/tile/TileProcessor.cpp ::
 compressTile] — behavior normative per ISO 15444-1.
@@ -362,7 +363,32 @@ def _general_unsupported(what: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported ({why}); the PyTorch port's general decode "
         f"route decodes HT (cleanup and refinement passes), Part-1 (every "
-        f"mode switch) and HT-mixed code-blocks up to 64x64")
+        f"mode switch) and HT-mixed code-blocks")
+
+
+# A strict decode's HT block errors, the exceptions of grok_tpu/t1ht/
+# scalar.py ht_decode_block(strict=True): the kernels' lane error codes
+# (ops/ht_decode.py ERR_VLC, ERR_EXP), and the host's for a cleanup
+# segment cut short or badly framed
+_HT_ERR_TRUNC, _HT_ERR_FRAMING = 3, 4
+_HT_ERRORS = {1: "HT cleanup: bad VLC code",
+              2: "HT cleanup: bad exponent bound",
+              _HT_ERR_TRUNC: "HT cleanup segment truncated",
+              _HT_ERR_FRAMING: "HT cleanup: bad framing"}
+
+
+def raise_first_ht_error(job_idx: np.ndarray, blocks: np.ndarray,
+                         codes: np.ndarray) -> None:
+    """Raise the ValueError of the failing HT block (codes != 0) that the
+    JAX package's decode_tile meets first: it decodes a tile's blocks in
+    component, resolution, band, precinct and code-block order (job_idx:
+    each plan block's place in it; blocks: the plan blocks the codes
+    belong to), and its scalar decoder raises at the first failing
+    one."""
+    bad = np.nonzero(np.asarray(codes) != 0)[0]
+    if bad.size:
+        first = bad[np.argmin(job_idx[np.asarray(blocks)[bad]])]
+        raise ValueError(_HT_ERRORS[int(codes[first])])
 
 
 @dataclass
@@ -375,41 +401,47 @@ class GeneralStaged:
     meta: list                # per bucket: (lanes, 10) int64 host rows: ms,
     #                           suffix, SigProp, MagRef (start, length) in
     #                           the digest, p, npass
-    mq: tuple | None = None   # K3's arguments (t1_decode_lanes, before
-    #                           the program's mq_dims) over the tile's
-    #                           Part-1 lanes
+    mq: tuple | None = None   # K3's arguments (the program's decode_mq)
+    #                           over the tile's Part-1 lanes
     mq_pos: object = None     # (n,) int64: each Part-1 lane's index in
     #                           meta order
     mct_round: bool = False   # synthesize's rounding under a custom MCT
     zero_lanes: object = None  # (z,) int64 host: the HT lanes (meta
     #                           order) decoded as zeros (valid = 0): a
     #                           cleanup segment cut short or badly framed
+    strict: tuple | None = None   # a strict decode: (the plan's job_idx,
+    #                           each lane's block (meta order), each
+    #                           lane's host error code), the device's
+    #                           codes read back after the block decodes
 
     def run(self) -> list:
         import torch
 
         from grok_tpu_torch.ops.ht_decode import decode_ht_blocks
-        from grok_tpu_torch.ops.t1_decode import t1_decode_lanes
         prog = self.program
-        full = None
-        if self.mq is not None:
-            mq = t1_decode_lanes(*self.mq, *prog.mq_dims)
-            full = mq.new_zeros((sum(m.shape[0] for m in self.meta),)
-                                + mq.shape[1:])
-            full[self.mq_pos] = mq
-        outs = []
+        mq = prog.decode_mq(self.mq, self.mq_pos) \
+            if self.mq is not None else [None] * len(prog.buckets)
+        outs, errs = [], []
         for bi, b in enumerate(prog.buckets):
             n = self.meta[bi].shape[0]
             la = self.lanes[bi]
-            if la is not None:
-                out = decode_ht_blocks(*la, b.W, b.H)
-            else:
+            if la is None:
                 out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
                                   device=prog.device)
-            if full is not None:
-                lo = prog.lane_base[bi]
-                out = out + full[lo:lo + n, :b.H, :b.W]
+                errs.append(torch.zeros(n, dtype=torch.int32,
+                                        device=prog.device))
+            else:
+                out, err = decode_ht_blocks(*la, b.W, b.H)
+                errs.append(err)
+            if mq[bi] is not None:
+                out = out + mq[bi]
             outs.append(out)
+        if self.strict is not None:
+            # the one read-back a strict decode adds
+            job_idx, blocks, codes = self.strict
+            dev = torch.cat(errs).cpu().numpy()
+            raise_first_ht_error(job_idx, blocks,
+                                 np.where(codes != 0, codes, dev))
         return prog.synthesize(outs, self.mct_round)[0]
 
 
@@ -438,18 +470,30 @@ def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM; a block cut short reads
     past its bytes as past a segment's end), their raw codewords in the
     same upload, decoded by one K3 launch over the Part-1 lanes of every
-    bucket; a block sees zeros from the coder it does not use.  Then the serving
-    decode's ROI shift, dequantization, placement, inverse DWT and MCT
+    bucket (one per group of bucket shapes where no one lane of 4096
+    samples covers them); a block sees zeros from the coder it does not
+    use.  Then the serving decode's ROI shift, dequantization, placement, inverse DWT and MCT
     (a custom one rounded as the JAX package rounds it), DC shift and
     clip (pipeline/device.py DecodeProgram.synthesize), at dp.reduce.
     With dp.window, only the blocks that meet the synthesis-dilated
     window (band_window) are decoded: every pixel inside the window is
-    exact, the rest is not meaningful.
+    exact, the rest is not meaningful.  Code-blocks of any legal size
+    (sides up to 1024, at most 4096 samples) decode in buckets of their
+    power-of-two sizes.
 
-    Raises NotImplementedError naming the route for strict decodes,
-    code-blocks over 64 x 64, HT code-blocks with mode switches, Part-1
-    blocks outside 1..109 passes or 0..30 magnitude planes, and HT blocks
-    of more than 24 planes below the cleanup plane."""
+    A strict decode (dp.strict) raises what the JAX package's strict
+    decode_tile raises: the Python Tier-2 parse's exception where the C
+    parse declines (a missing EPH, an SOP sequence mismatch, a packet body
+    past the tile data), then, for the HT block it decodes first
+    (raise_first_ht_error), the scalar decoder's ValueError: a cleanup
+    segment cut short or badly framed (found on the host), an invalid
+    CxtVLC codeword or an exponent bound over 40 (the kernels' lane error
+    codes, read back once).  Part-1 blocks decode unchecked, as the JAX
+    package's do.
+
+    Raises NotImplementedError naming the route for HT code-blocks with
+    mode switches and Part-1 blocks outside 1..109 passes or 0..30
+    magnitude planes."""
     return stage_general(cs, hdr, t, th, body, dp, device=device).run()
 
 
@@ -462,7 +506,8 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     from grok_tpu_torch.core.params import CBLK_HT
     from grok_tpu_torch.ops.ht_decode import MAX_STREAM
     from grok_tpu_torch.ops.t1_decode import MAX_NUMBPS, segment_table
-    from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
+    from grok_tpu_torch.pipeline.device import (fill_ones, stage_bytes,
+                                                unstuff_suffix)
     from grok_tpu_torch.pipeline.plan import _plan_for, window_mask
     from grok_tpu_torch.pipeline.serve import (_full_index, _program,
                                                _upload, stage_dims)
@@ -473,12 +518,10 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     device = torch.device(device)
     th = th or TileHeader()
     route = "general decode route"
-    if dp.strict:
-        raise _general_unsupported("strict decode", "strict=True")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
     if plan is None:
         raise _general_unsupported(route, "HT code-blocks with mode "
-                                   "switches or code-blocks over 64x64")
+                                   "switches")
     bitmap = None
     if plan.coder == "mixed":
         # the stream's bitmap routes each block (a block past its end is
@@ -493,7 +536,8 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
                                           plan.eph)
     if parsed is None:
-        parsed = parse_packets(body, plan, hdr_buf=th.ppt, strict=False)
+        parsed = parse_packets(body, plan, hdr_buf=th.ppt,
+                               strict=bool(dp.strict))
     incl, zb, _npass, chunks, _end = parsed
     keep = np.asarray(incl, bool) & plan.rok
     if dp.window is not None:
@@ -509,6 +553,7 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     n_ht = 0                 # HT blocks, their lanes zeroed included
     zero = []                # blocks whose cleanup segment was cut short
     #                          or badly framed: zero lanes (valid = 0)
+    host_err = {}            # a strict decode's: block -> error code
     for b in sorted(states):
         data, seg_lens, n = states[b].assemble(body, dp.max_layers)
         if n <= 0:
@@ -525,15 +570,12 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
             if numbps <= 0 or seg_lens[0] > len(data):
                 # nothing to decode, or the cleanup segment's suffix (at
                 # its end) is gone: the JAX package decodes such a block
-                # as zeros
+                # as zeros, or raises on a strict decode
                 zero.append(b)
+                if numbps > 0 and data:
+                    host_err[b] = _HT_ERR_TRUNC
                 continue
             p = derive_p(n, numbps, plan.ht_p_ext)
-            # K1's UVLC has no 13-bit escape (ht_block_eligible)
-            if numbps - p > 24:
-                raise _general_unsupported(
-                    route, f"an HT block of {numbps} planes and cleanup "
-                    f"plane {p}")
             # the passes decoded, as the JAX package's scalar decoder
             # takes them: SigProp, then MagRef, each where its segment
             # was signalled, none below a cleanup plane of 0
@@ -570,9 +612,10 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
 
     # -- HT: C split of the cleanup segments, C un-stuffing of the
     # refinement segments, one digest; per lane in meta order: ms,
-    # suffix, SigProp, MagRef (start, length), p, npass, and the C scan's
-    # stuffing counts -----------------------------------------------------
-    meta = np.zeros((fidx.size, 10), np.int64)
+    # suffix, SigProp, MagRef (start, length), p, npass, the clean bits
+    # of the MagSgn, MEL, VLC, SigProp and MagRef streams (past which the
+    # scalar decoder reads 1-bits), and the C scan's stuffing counts ------
+    meta = np.zeros((fidx.size, 15), np.int64)
     sc = np.zeros((fidx.size, 7), np.int64)
     if ht:
         seg = np.asarray([s + [0] * (3 - n) for _b, _d, s, n, _nb, _p in ht],
@@ -583,14 +626,17 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         res = native.ht_scan2(cat, doff, seg[:, 0])
         if res is None:
             raise _general_unsupported(route, "HT wire scan overflow")
-        scan, dig = res
+        scan, dig, bits = res
         # a badly framed cleanup segment: a zero lane, as the JAX
-        # package decodes it
+        # package decodes it, or a strict decode's error
         ok = scan[:, 0] >= 0
-        zero += [x[0] for x, good in zip(ht, ok) if not good]
-        sp_c, sp_len = native.ht_unstuff_batch(cat, doff + seg[:, 0],
-                                               seg[:, 1])
-        mr_c, mr_len = native.ht_unstuff_batch(
+        for x, good in zip(ht, ok):
+            if not good:
+                zero.append(x[0])
+                host_err[x[0]] = _HT_ERR_FRAMING
+        sp_c, sp_len, sp_bits = native.ht_unstuff_batch(
+            cat, doff + seg[:, 0], seg[:, 1])
+        mr_c, mr_len, mr_bits = native.ht_unstuff_batch(
             cat, doff + seg[:, 0] + seg[:, 1], seg[:, 2])
         longest = max(int(scan[:, 2].max()), int(scan[:, 4].max()),
                       int(sp_len.max()), int(mr_len.max()))
@@ -605,7 +651,9 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
                          dig_base + scan[:, 3], scan[:, 4],
                          sp_base + np.cumsum(sp_len) - sp_len, sp_len,
                          mr_base + np.cumsum(mr_len) - mr_len, mr_len,
-                         [x[5] for x in ht], [x[3] for x in ht]], 1)
+                         [x[5] for x in ht], [x[3] for x in ht],
+                         bits[:, 0], bits[:, 1], bits[:, 2], sp_bits,
+                         mr_bits], 1)
         meta[rows[ok]] = vals[ok]
         sc[rows[ok], 5:7] = scan[ok, 5:7]
     sc[:, 2], sc[:, 4] = meta[:, 1], meta[:, 3]
@@ -653,10 +701,14 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         suf_f = stage_bytes(body_d, mt[:, 2], mt[:, 3], Lsuf, False)
         suf_r = stage_bytes(body_d, mt[:, 2], mt[:, 3] - 1, Lsuf, True)
         mel, vlc = unstuff_suffix(suf_f, suf_r, Dm)
+        mel, vlc = fill_ones(mel, mt[:, 11]), fill_ones(vlc, mt[:, 12])
         Lrf = _quant_len(int(max(m[:, 5].max(), m[:, 7].max())))
-        ms = stage_bytes(body_d, mt[:, 0], mt[:, 1], Lms, False)
-        sp = stage_bytes(body_d, mt[:, 4], mt[:, 5], Lrf, False)
-        mr = stage_bytes(body_d, mt[:, 6], mt[:, 7], Lrf, False)
+        ms = fill_ones(stage_bytes(body_d, mt[:, 0], mt[:, 1], Lms, False),
+                       mt[:, 10])
+        sp = fill_ones(stage_bytes(body_d, mt[:, 4], mt[:, 5], Lrf, False),
+                       mt[:, 13])
+        mr = fill_ones(stage_bytes(body_d, mt[:, 6], mt[:, 7], Lrf, False),
+                       mt[:, 14])
         w, h = prog.wh[len(lanes)]
         i32 = torch.int32
         lanes.append((ms.to(u8), mel.to(u8), vlc.to(u8), sp.to(u8),
@@ -666,6 +718,12 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     staged = GeneralStaged(prog, lanes, metas, mct_round=mct_round,
                            zero_lanes=lane_of[zero] if zero else
                            np.zeros(0, np.int64))
+    if dp.strict:
+        blocks = fidx[np.concatenate(bsel)]        # meta order
+        codes = np.zeros(fidx.size, np.int64)
+        for b, c in host_err.items():
+            codes[lane_of[b]] = c
+        staged.strict = (plan.job_idx, blocks, codes)
     if mq:
         staged.mq_pos = torch.from_numpy(mq_pos).to(device)
         staged.mq = prog.stage_mq_lanes(body_d, up[2], up[3],

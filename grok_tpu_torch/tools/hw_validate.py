@@ -287,7 +287,7 @@ def ht_decode_inputs(mneg: torch.Tensor, wv: torch.Tensor, hv: torch.Tensor,
     if scan is None or (scan[0][:, 0] < 0).any():
         raise RuntimeError("the C scan refused the assembled segments")
     sc = np.zeros((n, 7), np.int64)
-    sc[coded], digest = scan
+    sc[coded], digest, _bits = scan
     body = torch.from_numpy(np.concatenate([digest, np.zeros(16, np.uint8)])
                             ).to(dev)
     m = torch.from_numpy(sc).to(dev)
@@ -311,9 +311,11 @@ def run_ht_dec(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
     nbmax = int(mag.max()).bit_length()
     lanes = ht_decode_inputs(torch.from_numpy(mneg).to(device), wv, hv,
                              ht_caps(w, h, nbmax))
-    got = ht_decode.ht_decode_lanes(*lanes, w, h)
-    ref = ht_decode.ht_decode_lanes_ref(*lanes, w, h)
+    got, codes = ht_decode.ht_decode_lanes(*lanes, w, h)
+    ref, rcodes = ht_decode.ht_decode_lanes_ref(*lanes, w, h)
     err = int((got.long() - ref.long()).abs().max())
+    # intact lanes: no error code, as the plain version says
+    codes_ok = torch.equal(codes, rcodes) and not bool(codes.any())
     v1 = torch.equal(got, ht_decode.ht_decode_lanes_v1(*lanes, w, h))
     g = got.cpu().numpy()
     exact = int(((np.abs(g) == 2 * mag) & ((g < 0) == neg)).all((1, 2))
@@ -322,12 +324,14 @@ def run_ht_dec(device, w: int = 32, h: int = 32, nblocks: int = 1024) -> dict:
         device, lambda: ht_decode.ht_decode_lanes_v1(*lanes, w, h),
         lambda: ht_decode.ht_decode_lanes(*lanes, w, h))
     res = dict(check="ht_dec", device=str(device), blocks=nblocks,
-               ok=err == 0 and exact == nblocks and v1, max_abs_err=err,
+               ok=err == 0 and exact == nblocks and v1 and codes_ok,
+               max_abs_err=err,
                equal_to_v1=v1, ms=ms, prev_ms=prev_ms)
     res["mp_s"] = nblocks * w * h / 1e3 / res["ms"]
     return _report(res, f"{w}x{h}x{nblocks}: {exact}/{nblocks} bit-exact "
                    f"to the source, max_abs_err {err} against the plain "
-                   f"version, every lane equal to v1={v1}; kernel "
+                   f"version, every lane equal to v1={v1}, no lane "
+                   f"flagged={codes_ok}; kernel "
                    f"{ms:.4f} ms/launch ({res['mp_s']:.1f} MP/s), v1 "
                    f"{prev_ms:.4f} ms/launch, in turns")
 

@@ -81,10 +81,12 @@ def _check_kernel(card, seed, sigmas):
     lanes, dims, refs = _blocks(seed, 96, 64, sigmas)
     dev = [t.to(card) for t in lanes]
     before = H.ht_decode_lanes.launches
-    got = H.ht_decode_lanes(*dev, 64, 64)
+    got, err = H.ht_decode_lanes(*dev, 64, 64)
     torch.cuda.synchronize()
     assert H.ht_decode_lanes.launches == before + 1
-    assert torch.equal(got, H.ht_decode_lanes_ref(*dev, 64, 64))
+    ref, rerr = H.ht_decode_lanes_ref(*dev, 64, 64)
+    assert torch.equal(got, ref) and torch.equal(err, rerr)
+    assert not err.any()
     out = got.cpu().numpy()
     for j, ((w, h), (m2, ng)) in enumerate(zip(dims, refs)):
         assert np.array_equal(np.abs(out[j, :h, :w]), m2), j
@@ -325,11 +327,12 @@ def test_refine_kernels_match_plain_versions(card):
         npv = torch.full((96,), n, dtype=torch.int32)
         args = (*cut[:3], *lanes[1:], 64, 64, cut[3], cut[4], npv)
         before = H.ht_decode_lanes.refine_launches
-        out = H.ht_decode_lanes(*[a.to(card) if torch.is_tensor(a) else a
-                                  for a in args])
+        out, err = H.ht_decode_lanes(*[a.to(card) if torch.is_tensor(a)
+                                       else a for a in args])
         torch.cuda.synchronize()
         assert H.ht_decode_lanes.refine_launches == before + 1
-        assert torch.equal(out.cpu(), H.ht_decode_lanes_ref(*args))
+        ref, rerr = H.ht_decode_lanes_ref(*args)
+        assert torch.equal(out.cpu(), ref) and torch.equal(err.cpu(), rerr)
 
 
 @pytest.mark.parametrize("rows, L", [(64, 128), (1000, 7), (3, 1)])
@@ -503,10 +506,12 @@ def _corrupted(lanes, seed):
 @pytest.mark.parametrize("tables", ["default", "dropin"])
 def test_ht_decoders_match_first_design(card, tables):
     """K1 and K2 (one warp per lane) against their first designs (one
-    thread per lane, the full-lane oracle) and their plain versions on
-    every lane of 96 seeded lanes of up to 64x64 (an invalid lane, cleanup
-    planes 0..3, 1..3 passes) and of the same lanes corrupted, under both
-    table families; one launch each."""
+    thread per lane, the full-lane oracle of valid lanes) and their plain
+    versions on every lane of 96 seeded lanes of up to 64x64 (an invalid
+    lane, cleanup planes 0..3, 1..3 passes), and against their plain
+    versions, error codes included, on the same lanes corrupted (the
+    first design reads 0-bits past a row, caps U at 25 and flags
+    nothing), under both table families; one launch each."""
     if tables == "dropin":
         _install_dropin()
     try:
@@ -517,19 +522,99 @@ def test_ht_decoders_match_first_design(card, tables):
                 more = dev[7:] if k2 else []
                 before = (H.ht_decode_lanes.launches,
                           H.ht_decode_lanes.refine_launches)
-                got = H.ht_decode_lanes(*dev[:7], 64, 64, *more)
+                got, err = H.ht_decode_lanes(*dev[:7], 64, 64, *more)
                 torch.cuda.synchronize()
                 assert (H.ht_decode_lanes.launches,
                         H.ht_decode_lanes.refine_launches) == (
                     before[0] + (not k2), before[1] + k2)
-                assert torch.equal(got, H.ht_decode_lanes_v1(
-                    *dev[:7], 64, 64, *more))
-                assert torch.equal(got.cpu(), H.ht_decode_lanes_ref(
-                    *lanes[:7], 64, 64, *(lanes[7:] if k2 else [])))
+                if lanes is clean:
+                    assert torch.equal(got, H.ht_decode_lanes_v1(
+                        *dev[:7], 64, 64, *more))
+                    assert not err.any()
+                ref, rerr = H.ht_decode_lanes_ref(
+                    *lanes[:7], 64, 64, *(lanes[7:] if k2 else []))
+                assert torch.equal(got.cpu(), ref)
+                assert torch.equal(err.cpu(), rerr)
         assert got.abs().max() > 0
     finally:
         if tables == "dropin":
             _reset_tables()
+
+
+@pytest.mark.parametrize("seed, count, bw, bh", [
+    (17, 48, 16, 16), (6, 24, 32, 32), (7, 12, 128, 8), (8, 8, 16, 128),
+    (9, 8, 1024, 4)])
+def test_ht_decoders_flag_lanes_and_take_wide_lanes(card, seed, count, bw,
+                                                     bh):
+    """K1 and K2 on lanes whose bytes were flipped (tests/
+    test_torch_strict.py: invalid codewords, exponent bounds over 40, U
+    up to 40 and UVLC escapes), narrow (the two-warp design) and wide
+    (W or H over 64: the wide design): equal to the plain version,
+    error codes included."""
+    import grok_tpu.t1ht.scalar as scalar
+    from test_torch_strict import flipped_jobs, port_lanes
+    jobs = [j for j in flipped_jobs(seed, count, bw, bh)
+            if scalar.parse_cleanup(j["data"], j["seg_lens"][0])]
+    lanes = port_lanes(jobs, bw, bh)
+    dev = [t.to(card) for t in lanes]
+    for more, cpu_more in ((dev[7:], lanes[7:]), ([], [])):
+        got, err = H.ht_decode_lanes(*dev[:7], bw, bh, *more)
+        ref, rerr = H.ht_decode_lanes_ref(*lanes[:7], bw, bh, *cpu_more)
+        assert torch.equal(err.cpu(), rerr)
+        assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.parametrize("W, H", [(128, 32), (16, 256), (1024, 4)])
+def test_part1_decoder_on_wide_lanes(card, W, H):
+    """K3 on lanes over 64 on a side (a stripe in chunks of 64 columns),
+    coded by the plain K5: equal to its plain version and the source."""
+    rng = np.random.default_rng(W * H + 3)
+    mneg = np.zeros((6, H, W), np.int32)
+    dims = []
+    for j in range(6):
+        w = W if j < 3 else int(rng.integers(1, W + 1))
+        h = H if j < 3 else int(rng.integers(1, H + 1))
+        mag = rng.integers(0, 1 << 3, (h, w)) * (rng.random((h, w)) < 0.5)
+        neg = rng.random((h, w)) < 0.5
+        mneg[j, :h, :w] = (mag << 1) | (neg & (mag > 0))
+        dims.append((w, h))
+    col = lambda v: torch.tensor(list(v), dtype=torch.int32)  # noqa: E731
+    nb = col(int(np.abs(mneg[j] >> 1).max()).bit_length() for j in range(6))
+    ins = (torch.from_numpy(mneg), col(j % 4 for j in range(6)), nb,
+           col(d[0] for d in dims), col(d[1] for d in dims))
+    L, R = W * H * 3 + 64, 3 * 3 - 2
+    out, lens, _r, _s = E5.t1_encode_lanes_ref(*ins, L, R)
+    body = torch.cat([out[j, 1:1 + int(lens[j])] for j in range(6)]
+                     + [torch.zeros(1, dtype=torch.uint8)])
+    start = (torch.cumsum(lens, 0) - lens).to(torch.int32)
+    zero = torch.zeros_like(lens)
+    ptbl = torch.stack([zero, lens, zero], 1)[:, None].contiguous()
+    lanes = (body, start, (3 * nb - 2).clamp(min=0).to(torch.int32), nb,
+             ins[1], ins[3], ins[4], zero, ptbl)
+    got = D3.t1_decode_lanes(*(t.to(card) for t in lanes), W, H)
+    want = D3.t1_decode_lanes_ref(*lanes, W, H)
+    assert torch.equal(got.cpu(), want)
+    assert np.array_equal(np.abs(want.numpy()) >> 1, mneg >> 1)
+
+
+@pytest.mark.parametrize("kw", [dict(ht=True), dict(),
+                                dict(ht=True, ht_planes=2, num_layers=2,
+                                     rates=[8.0, 2.0])],
+                         ids=["HT", "Part-1", "refined"])
+def test_wide_block_decode_on_card(card, kw):
+    """A 160x136 RGB stream in 128x32 code-blocks decoded on the card
+    equal to the CPU decode (the plain versions), strict included."""
+    img = synthetic_image(136, 160, 3, seed=44)
+    if "ht" not in kw:
+        img = img >> 5
+    data = compress(img, CompressParams(num_resolutions=3, cblk_w_exp=7,
+                                        cblk_h_exp=5, **kw))
+    from grok_tpu_torch.core.params import DecompressParams as PDP
+    for dp in (PDP(), PDP(strict=True)):
+        got = api.decompress_device(data, dp, device=card)
+        want = api.decompress_device(data, dp, device="cpu")
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
 
 
 @pytest.mark.parametrize("kw", [dict(ht=True), dict()], ids=["HT", "Part-1"])

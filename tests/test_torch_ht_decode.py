@@ -87,8 +87,9 @@ SIGMAS = [15, 300, 4, 80, 1000, 20, 9, 2, 50, 10000, 3, 150]
 def test_ref_matches_scalar_coder():
     jobs, refs = _jobs(0, SHAPES, SIGMAS)
     _, lanes = _lanes(jobs)
-    out = H.ht_decode_lanes_ref(*lanes, 64, 64)
+    out, err = H.ht_decode_lanes_ref(*lanes, 64, 64)
     assert out.shape == (128, 64, 64) and out.dtype == torch.int32
+    assert err.shape == (128,) and not err.any()
     _assert_scalar_exact(out, jobs, refs)
     assert not out[len(jobs):].any()          # invalid lanes stay zero
 
@@ -102,8 +103,8 @@ def _vs_pallas_interpret(seed, sigmas):
         jnp.asarray(ms), jnp.asarray(mel), jnp.asarray(vlc),
         jnp.asarray(pv), jnp.asarray(wh), jnp.asarray(valid), 8, 8, 1,
         interpret=True)).transpose(2, 0, 1)
-    got = H.ht_decode_lanes(*lanes, 8, 8)
-    assert np.array_equal(got.numpy(), want)
+    got, err = H.ht_decode_lanes(*lanes, 8, 8)
+    assert np.array_equal(got.numpy(), want) and not err.any()
     _assert_scalar_exact(got, jobs, refs)
 
 
@@ -116,7 +117,8 @@ def test_matches_pallas_interpret_normative_tables(normative_shaped):
     _vs_pallas_interpret(2, [8, 8, 3, 20, 8, 5])
     jobs, refs = _jobs(3, SHAPES, [8] * len(SHAPES))
     _, lanes = _lanes(jobs)
-    _assert_scalar_exact(H.ht_decode_lanes_ref(*lanes, 64, 64), jobs, refs)
+    _assert_scalar_exact(H.ht_decode_lanes_ref(*lanes, 64, 64)[0], jobs,
+                         refs)
 
 
 def _jax_lut():
@@ -154,9 +156,10 @@ def test_wrapper_cpu_runs_plain_version_without_counting():
     jobs, _ = _jobs(4, [(8, 8), (5, 7)], [40, 400])
     _, lanes = _lanes(jobs)
     before = H.ht_decode_lanes.launches
-    got = H.ht_decode_lanes(*lanes, 8, 8)
+    got, err = H.ht_decode_lanes(*lanes, 8, 8)
     assert H.ht_decode_lanes.launches == before
-    assert torch.equal(got, H.ht_decode_lanes_ref(*lanes, 8, 8))
+    ref, rerr = H.ht_decode_lanes_ref(*lanes, 8, 8)
+    assert torch.equal(got, ref) and torch.equal(err, rerr)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
@@ -173,8 +176,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     for args in bad:
         with pytest.raises(ValueError):
             H.ht_decode_lanes(*args, 8, 8)
-    with pytest.raises(ValueError):
-        H.ht_decode_lanes(*lanes, 128, 8)                   # > 64 wide
+    # sides up to 1024 within 4096 samples (A.6.1): over that raises
+    for dims in ((2048, 2), (128, 64), (0, 8)):
+        with pytest.raises(ValueError):
+            H.ht_decode_lanes(*lanes, *dims)
     with pytest.raises(ValueError):
         H.ht_decode_lanes(*lanes[:3], p.to("meta"), w, h, valid, 8, 8)
 

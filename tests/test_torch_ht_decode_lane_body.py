@@ -14,11 +14,17 @@ turn), and held lane by lane against the plain version,
     rows) and the initial-row UVLC rules (the pair's MEL event, and the
     3-bit first prefix that implies u1 <= 2);
   - corrupt and truncated lanes: streams cut short (reads past the row
-    give 0) and bytes that drive U to its cap of 25;
+    give 1-bits) and random bytes that meet invalid codewords (flagged
+    lanes, all zeros);
   - lanes built to chain SigProp significance along a stripe's row,
     across the boundary between two threads' columns and across column
     32, down a column, over stripe boundaries and back up a stripe;
-  - a few lanes against grok_tpu.t1ht.scalar.ht_decode_block directly.
+  - a few lanes against grok_tpu.t1ht.scalar.ht_decode_block directly;
+  - lanes whose bytes were flipped (tests/test_torch_strict.py): the
+    error codes of invalid codewords and exponent bounds over 40, U up
+    to 40 and UVLC escapes, reads past the segments' ends, on lanes up
+    to 32 x 32 (the two-warp design) and on wide ones, 128 x 8,
+    16 x 128 and 128 x 16 (the wide design), also intact.
 
 Every comparison is exact over every output sample, the padding
 included (the host output buffers start dirty).  The file skips, with its
@@ -53,21 +59,30 @@ extern "C" int host_ht_decode(const uint8_t* ms, int lms, const uint8_t* mel,
                               const int* valid, const int* lut, int lut_n,
                               int symb, int nfam, int pxor, int* out, int nl,
                               int W, int H, const uint8_t* sp, int lsp,
-                              const uint8_t* mr, int lmr, const int* npass)
+                              const uint8_t* mr, int lmr, const int* npass,
+                              int* err)
 {
     // the CTA's tables, and the lane's workspace, dirty as a CTA's shared
     // memory may be but for its first word (the kernel zeroes it)
     std::vector<int> tab(lut_n + 768, -1);
     build_tables(lut, lut_n, symb, pxor, tab.data());
-    std::vector<unsigned char> buf(HT_REF_BYTES + 16, 0xA5);
+    const bool wide = W > 64 || H > 64;
+    std::vector<unsigned char> buf(
+        (wide ? ht_wide_bytes(W, H) : HT_REF_BYTES) + 16, 0xA5);
     unsigned char* ws = (unsigned char*)(((uintptr_t)buf.data() + 15)
                                          & ~(uintptr_t)15);
     for (int lane = 0; lane < nl; lane++) {
+        if (wide) {
+            decode_wide_one(tab.data(), nfam, pxor, ws, lane, ms, lms, mel,
+                            lmel, vlc, lvlc, p, w, h, valid, out, W, H, sp,
+                            lsp, mr, lmr, npass, err);
+            continue;
+        }
         *(int*)ws = 0;
         for (int role = 0; role < 2; role++)
             decode_one(role, tab.data(), lut_n, nfam, ws, lane, ms, lms, mel,
                        lmel, vlc, lvlc, p, w, h, valid, out, W, H, sp, lsp,
-                       mr, lmr, npass);
+                       mr, lmr, npass, err);
     }
     return 0;
 }
@@ -91,7 +106,7 @@ def lib(tmp_path_factory):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.host_ht_decode.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, vp, vp,
                                    vp, ci, ci, ci, ci, vp, ci, ci, ci, vp,
-                                   ci, vp, ci, vp]
+                                   ci, vp, ci, vp, vp]
     return lib
 
 
@@ -106,8 +121,9 @@ def _rows(t, shift: int):
 
 
 def host_decode(lib, lanes, W: int, H: int, shift: int = 0):
-    """The K1 lane body (K2 with sp, mr, npass in lanes) on the host:
-    ht_decode_lanes' output."""
+    """The K1 lane body (K2 with sp, mr, npass in lanes; the wide lane
+    body for W or H over 64) on the host: ht_decode_lanes' output, the
+    planes and the error codes."""
     ms, mel, vlc, p, w, h, valid = lanes[:7]
     refine = len(lanes) == 10
     keep, ptr = [], {}
@@ -119,24 +135,26 @@ def host_decode(lib, lanes, W: int, H: int, shift: int = 0):
             for t in (p, w, h, valid) + ((lanes[9],) if refine else ())]
     NL = ms.shape[0]
     out = np.full((NL, H, W), -0x5A5A5A5A, np.int32)
-    lut, symb, nfam, pxor = D.vlc_dec_lut()
-    lut = np.ascontiguousarray(lut, np.int32)
+    err = np.full(NL, -7, np.int32)
+    _, symb, nfam, pxor = D.vlc_dec_lut()
+    lut = np.ascontiguousarray(D.vlc_dec_lut_marked(), np.int32)
     lib.host_ht_decode(
         ptr["ms"], ms.shape[1], ptr["mel"], mel.shape[1], ptr["vlc"],
         vlc.shape[1], *(a.ctypes.data for a in ints[:4]), lut.ctypes.data,
         lut.size, symb, nfam, pxor, out.ctypes.data, NL, W, H,
         ptr["sp"] if refine else None, lanes[7].shape[1] if refine else 0,
         ptr["mr"] if refine else None, lanes[8].shape[1] if refine else 0,
-        ints[4].ctypes.data if refine else None)
-    return torch.from_numpy(out)
+        ints[4].ctypes.data if refine else None, err.ctypes.data)
+    return torch.from_numpy(out), torch.from_numpy(err)
 
 
 def _check(lib, lanes, W: int, H: int, shift: int = 0):
-    """The lane body equal to the plain version on every output sample;
-    returns the host body's output."""
-    got = host_decode(lib, lanes, W, H, shift)
-    assert torch.equal(got, D.ht_decode_lanes_ref(*lanes[:7], W, H,
-                                                  *lanes[7:]))
+    """The lane body equal to the plain version on every output sample and
+    error code; returns the host body's output."""
+    got, err = host_decode(lib, lanes, W, H, shift)
+    want, werr = D.ht_decode_lanes_ref(*lanes[:7], W, H, *lanes[7:])
+    assert torch.equal(err, werr)
+    assert torch.equal(got, want)
     return got
 
 
@@ -273,11 +291,12 @@ def test_lane_bodies_on_corrupt_and_truncated_lanes(lib):
     enc = _lanes(blocks, side, side, [1 + i % 3 for i in range(n)])
     coded = _corrupt(_coded(enc, side, side, True), np.random.default_rng(9))
     got = _check(lib, coded[:7], side, side, shift=1)
-    # U reached its cap of 25 on some lane: a 25-bit MagSgn value, so
-    # (|v| - half) >> (p + 1) = (full >> 1) + 1 > 2^23
-    p = coded[3].numpy().astype(np.int64)[:, None, None]
-    vq = (np.abs(got.numpy().astype(np.int64)) - (1 << p)) >> (p + 1)
-    assert vq.max() > 1 << 23
+    # random bytes meet an invalid CxtVLC codeword: those lanes are
+    # flagged and all zeros, as the scalar decoder gives them; the others
+    # decode
+    _, err = D.ht_decode_lanes_ref(*coded[:7], side, side)
+    assert (err == D.ERR_VLC).any() and not got[err != 0].any()
+    assert got[err == 0].any()
     _check(lib, _k2(coded, [1 + i % 3 for i in range(n)]), side, side,
            shift=2)
     # rows of one byte: every read past the first byte gives 0
@@ -312,7 +331,7 @@ def test_lane_bodies_match_scalar_decoder(lib):
     jobs, refs = jobs[:24], refs[:24]
     _, t = _dec_lanes(jobs)
     t = [x[:len(jobs)].contiguous() for x in t]
-    got = host_decode(lib, t, 32, 32, shift=1).numpy()
+    got = host_decode(lib, t, 32, 32, shift=1)[0].numpy()
     assert any(j["numpasses"] == 3 for j in jobs)
     for i, (j, (m2, ng)) in enumerate(zip(jobs, refs)):
         v = got[i, :j["h"], :j["w"]]
@@ -321,7 +340,24 @@ def test_lane_bodies_match_scalar_decoder(lib):
         assert not got[i, j["h"]:].any() and not got[i, :, j["w"]:].any()
     # the cleanup-only route (K1) on the same lanes' first pass
     first = [i for i, j in enumerate(jobs) if j["numpasses"] == 1]
-    k1 = host_decode(lib, [x[first] for x in t[:7]], 32, 32).numpy()
+    k1 = host_decode(lib, [x[first] for x in t[:7]], 32, 32)[0].numpy()
     for r, i in enumerate(first):
         j, (m2, ng) = jobs[i], refs[i]
         assert np.array_equal(np.abs(k1[r, :j["h"], :j["w"]]), m2), i
+
+
+@pytest.mark.parametrize("seed, count, W, H, flips", [
+    (17, 48, 16, 16, True), (6, 24, 32, 32, True), (7, 12, 128, 8, True),
+    (8, 8, 16, 128, True), (9, 8, 128, 16, False)])
+def test_lane_bodies_on_flipped_and_wide_lanes(lib, seed, count, W, H,
+                                               flips):
+    import grok_tpu.t1ht.scalar as scalar
+    from test_torch_strict import flipped_jobs, port_lanes
+    jobs = [j for j in flipped_jobs(seed, count, W, H, flips)
+            if scalar.parse_cleanup(j["data"], j["seg_lens"][0])]
+    lanes = port_lanes(jobs, W, H)
+    got = _check(lib, lanes[:7], W, H, shift=1)     # K1 on every cleanup
+    _check(lib, lanes, W, H, shift=3)               # K2 with its passes
+    _, err = D.ht_decode_lanes_ref(*lanes[:7], W, H)
+    assert got[err == 0].any()
+    assert (err != 0).any() == flips or W > 64

@@ -192,8 +192,9 @@ def _assert_scalar_exact(out, jobs, refs):
 def test_k2_plain_matches_scalar_decoder(P):
     jobs, refs = _refined_jobs(10 + P, P)
     _, t = _dec_lanes(jobs)
-    out = D.ht_decode_lanes(*t[:7], 32, 32, *t[7:])
+    out, err = D.ht_decode_lanes(*t[:7], 32, 32, *t[7:])
     assert out.shape == (128, 32, 32) and out.dtype == torch.int32
+    assert not err.any()
     _assert_scalar_exact(out, jobs, refs)
     assert not out[len(jobs):].any()
 
@@ -206,8 +207,8 @@ def test_k2_plain_matches_pallas_refine_interpret():
     want = np.asarray(pallas_ht_decode_refine(
         *(jnp.asarray(a) for a in jx), 8, 8, 1,
         interpret=True)).transpose(2, 0, 1)
-    got = D.ht_decode_lanes(*t[:7], 8, 8, *t[7:])
-    assert np.array_equal(got.numpy(), want)
+    got, err = D.ht_decode_lanes(*t[:7], 8, 8, *t[7:])
+    assert np.array_equal(got.numpy(), want) and not err.any()
     _assert_scalar_exact(got, jobs, refs)
 
 
@@ -224,7 +225,7 @@ def test_k4r_to_k2_round_trip_matches_the_scalar_decode():
     for n in (1, 2, 3):
         out = D.ht_decode_lanes(cut[0], cut[1], cut[2], *lanes[1:], 32, 32,
                                 cut[3], cut[4],
-                                _col([n] * len(blocks))).numpy()
+                                _col([n] * len(blocks)))[0].numpy()
         for j, (mag, neg) in enumerate(blocks):
             h, w = mag.shape
             enc = scalar.ht_encode_block(mag, neg, j % 4, p=P)
@@ -242,13 +243,14 @@ def test_decode_ht_blocks_routes_cleanup_and_refined_lanes():
     refine = t[9].numpy() >= 2
     assert refine.any() and (~refine[:len(jobs)]).any()
     before = (D.ht_decode_lanes.launches, D.ht_decode_lanes.refine_launches)
-    out = D.decode_ht_blocks(*t[:3], t[7], t[8], *t[3:7], t[9], refine, 32,
-                             32)
+    out, err = D.decode_ht_blocks(*t[:3], t[7], t[8], *t[3:7], t[9], refine,
+                                  32, 32)
     # CPU tensors: the plain versions, no launch counted
     assert (D.ht_decode_lanes.launches,
             D.ht_decode_lanes.refine_launches) == before
     _assert_scalar_exact(out, jobs, refs)
-    assert torch.equal(out, D.ht_decode_lanes(*t[:7], 32, 32, *t[7:]))
+    want, werr = D.ht_decode_lanes(*t[:7], 32, 32, *t[7:])
+    assert torch.equal(out, want) and torch.equal(err, werr)
 
 
 def test_refine_wrappers_reject_what_the_kernels_do_not_take():

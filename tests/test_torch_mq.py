@@ -205,8 +205,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(mixed_blocks):
     with pytest.raises(ValueError, match="no Part-1 encode kernel"):
         E.t1_encode_lanes(*(t.to("meta") for t in ins), 64, 16)
     la = _k3_lanes(_coded(5, 0, n=3), 0)
+    # sides up to 1024 within 4096 samples (A.6.1); the first design up
+    # to 64 x 64
     with pytest.raises(ValueError, match="outside"):
-        D.t1_decode_lanes(*la, 65, 16)
+        D.t1_decode_lanes(*la, 65, 64)
+    with pytest.raises(ValueError, match="outside"):
+        D.t1_decode_lanes_v1(*la, 65, 16)
     with pytest.raises(ValueError, match="shape"):
         D.t1_decode_lanes(la[0], la[1][:2], *la[2:], 16, 16)
 

@@ -149,8 +149,8 @@ def test_stager_and_unstuff_match_jax_random_bytes(Dm):
 def test_out_of_scope_streams_raise(rgb):
     """What the port takes now decodes as the JAX package does: a BYPASS
     Part-1 stream (on the general route) and windows (served, and on the
-    general route for a refined stream), equal inside the window.  A
-    strict decode still raises."""
+    general route for a refined stream), equal inside the window, and a
+    strict decode, equal to grok_tpu.decompress_device(strict=True)."""
     img = synthetic_image(64, 64, 1, seed=6)
     mq = compress(img, CompressParams(num_resolutions=3, cblk_style=0x01))
     got = api.decompress_device_batch([mq], device="cpu")[0]
@@ -161,9 +161,12 @@ def test_out_of_scope_streams_raise(rgb):
     win = DecompressParams(window=(0, 0, 32, 32))
     got = _np(api.decompress_device(ht, win, device="cpu"))
     assert np.array_equal(got[:32, :32], decompress(ht, win).to_array())
-    with pytest.raises(NotImplementedError, match="strict"):
-        api.decompress_device(ht, DecompressParams(strict=True),
-                              device="cpu")
+    strict = _np(api.decompress_device(ht, DecompressParams(strict=True),
+                                       device="cpu"))
+    want = japi.decompress_device(ht, DecompressParams(strict=True))
+    want = [np.asarray(a) for a in want]
+    assert np.array_equal(strict, want[0] if len(want) == 1
+                          else np.stack(want, -1))
     # a layer cap on a single-layer stream is served: the whole stream
     capped = api.decompress_device(ht, DecompressParams(max_layers=1),
                                    device="cpu")

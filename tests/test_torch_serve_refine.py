@@ -16,6 +16,7 @@ torch.set_num_threads(1)
 
 from grok_tpu import CompressParams as JCP  # noqa: E402
 from grok_tpu import DecompressParams as JDP  # noqa: E402
+from grok_tpu import api as japi  # noqa: E402
 from grok_tpu import compress, decompress, native  # noqa: E402
 from grok_tpu.util.oracle import synthetic_image  # noqa: E402
 from grok_tpu_torch import api  # noqa: E402
@@ -163,8 +164,12 @@ def test_out_of_scope_on_refined_streams_still_raises(streams):
     want = decompress(data, JDP(strict=False,
                                 window=(0, 0, 32, 32))).to_array()
     assert np.array_equal(got[:32, :32], want)
-    with pytest.raises(NotImplementedError, match="strict"):
-        api.decompress_device(data, PDP(strict=True), device="cpu")
+    # a strict decode: the JAX package's strict device decode
+    strict = _np(api.decompress_device(data, PDP(strict=True), device="cpu"))
+    want = japi.decompress_device(data, JDP(strict=True))
+    want = [np.asarray(a) for a in want]
+    assert np.array_equal(strict, want[0] if len(want) == 1
+                          else np.stack(want, -1))
     # packed packet headers (PPM) on a refined stream: the general route
     # with the Python Tier-2 parse, bit-exact to grok_tpu.decompress
     img = synthetic_image(64, 64, 1, seed=6)

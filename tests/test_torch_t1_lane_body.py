@@ -12,7 +12,11 @@ versions, `t1_decode_lanes_ref` and `t1_encode_lanes_ref`:
     that a column missing from a stripe's visit mask changes the codeword;
   - the committed mode-switch vectors (grok_tpu_torch/t1/mq_vectors.npz:
     BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), also against the scalar
-    decodes stored with them.
+    decodes stored with them;
+  - K3 on wide lanes (128 x 8, 16 x 256, 1024 x 4: a stripe walked in
+    64-column chunks), coded by the plain K5 (the encode kernel takes
+    lanes of up to 64 x 64), significance chains across the chunk edges
+    included.
 
 Every comparison is exact: codeword bytes, lengths, watermark rows and
 the sigtype map for K5, the signed reconstruction for K3.  The plain
@@ -293,3 +297,35 @@ def test_decode_lane_body_on_mode_switch_vectors(lib):
     assert np.array_equal(got, v["mag2"])
     assert np.array_equal(got, D.t1_decode_lanes_ref(
         *lanes, vectors.SIDE, vectors.SIDE).numpy())
+
+
+def _wide_round_trip(lib, blocks, W: int, H: int):
+    """K3's lane body on W x H lanes (W or H over 64) against the plain
+    version and the source, the codewords from the plain K5."""
+    ins = _lanes(blocks, W, H)
+    nbmax = max(1, int(ins[2].max()))
+    L, R = W * H * (nbmax + 2) // 2 + 64, 3 * nbmax - 2
+    L += -L % 4
+    out, lens, _rates, _st = E.t1_encode_lanes_ref(*ins, L, R)
+    lanes = _decode_lanes(ins, out, lens)
+    dec = host_decode(lib, lanes, W, H)
+    assert np.array_equal(dec, D.t1_decode_lanes_ref(*lanes, W, H).numpy())
+    assert np.array_equal(np.abs(dec) >> 1, ins[0].numpy() >> 1)
+    assert np.array_equal(dec < 0, (ins[0].numpy() & 1) == 1)
+
+
+@pytest.mark.parametrize("W, H", [(128, 8), (16, 256), (1024, 4)])
+def test_decode_lane_body_on_wide_lanes(lib, W, H):
+    rng = np.random.default_rng(W + H)
+    blocks = []
+    for i in range(3):
+        w = W if i == 0 else int(rng.integers(1, W + 1))
+        h = H if i == 0 else int(rng.integers(1, H + 1))
+        mag = rng.integers(0, 8, (h, w))
+        mag[rng.random((h, w)) < 0.6] = 0
+        blocks.append((mag, rng.random((h, w)) < 0.5))
+    if W > 64:
+        # significance chains along rows through the 64-column chunk
+        # edges (a missed carry changes the codeword)
+        blocks += [b for b in _chains(W, 8)[:3] if b[0].shape[0] <= H]
+    _wide_round_trip(lib, blocks, W, H)

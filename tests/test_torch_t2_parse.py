@@ -254,12 +254,11 @@ def _port_blocks(data: bytes) -> list:
 def test_sop_resync_after_corrupt_packets(gray, rgb, caplog):
     """The first 4 bytes of a mid-stream packet inverted (its SOP
     marker): the parse resyncs on the next SOP marker where the JAX
-    package does, and the Part-1 decode gives its planes.  For the HT
-    stream the parse is held block by block: the packets parsed after a
-    corrupt one can hand a block an invalid VLC codeword, which the JAX
-    package's scalar decoder answers with a zero block and K1, like the
-    JAX package's own HT kernel, decodes without a check (a per-lane
-    error flag is queued with the strict decodes)."""
+    package does, and the decode gives its planes.  For the HT stream
+    the packets parsed after the corrupt one hand a block an invalid VLC
+    codeword, which the JAX package's scalar decoder answers with a zero
+    block: K1 flags the lane and zeroes it (ERR_VLC), and the parse is
+    held block by block too."""
     part1 = dv.flip_mid_packet(compress(gray, JCP(sop=True, eph=True,
                                                  **LAYERED1)))
     ht = dv.flip_mid_packet(compress(rgb, JCP(sop=True, eph=True,
@@ -272,6 +271,7 @@ def test_sop_resync_after_corrupt_packets(gray, rgb, caplog):
     assert np.array_equal(got.shape, ref_decode(ht).shape)
     assert np.array_equal(port_decode(part1), ref_decode(part1))
     assert _port_blocks(ht) == _ref_blocks(ht)
+    assert np.array_equal(port_decode(ht), ref_decode(ht))
 
 
 @pytest.mark.parametrize("tiles", [False, True])
@@ -360,10 +360,16 @@ def test_rsiz_profile_violations_raise_the_jax_packages_error(rsiz):
 
 
 def test_strict_decodes_still_raise(layered):
+    """A strict decode of a cut stream raises what the JAX package's
+    strict device decode raises, its type and message."""
+    import grok_tpu
     stream, start, ends = layered["part1"]
     data = _cut_at(stream, start, ends, "inside_a_block")
-    with pytest.raises(NotImplementedError, match="strict"):
+    with pytest.raises(Exception) as want:
+        grok_tpu.decompress_device(data, JDP(strict=True))
+    with pytest.raises(type(want.value)) as got:
         api.decompress_device(data, PDP(strict=True), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------
