@@ -192,9 +192,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                16x256 blocks, 2 layers, at max_layers 1 and 2 (general,
                K3), (W-win) a 512x512 window at (333, 211) on (W-h) and
                (W-1), and (S) the (T-h) HT frame with a byte of 24 blocks'
-               codewords zeroed (hbad; with random bytes, hbad_rand, held
-               to the port's committed hash: it also meets the open fault
-               of magnitudes of 2^31 or more).  The warm-up decode's own
+               codewords zeroed (hbad; with random bytes, hbad_rand, whose
+               lanes of magnitudes of 2^31 or more are marked and
+               re-decoded in int64, held to the JAX package's hash as
+               well).  The warm-up decode's own
                K1, K2 and K3 launches are recorded: their error codes zero
                on every lane of an intact stream, flagged lanes all zero
                and held against the plain version, and on each wide shape
@@ -1894,13 +1895,11 @@ def main() -> int:
               "w1s_L2": ("W-1s", {"K3": 1}),
               "wh_win": ("W-win", {"K1": None}),
               "w1_win": ("W-win", {"K3": 1}), "hbad": ("S", {"K1": None}),
-              "hbad_rand": ("S", {"K1": None})}
-    # the port's hash where it is not the JAX package's (the open fault
-    # of magnitudes of 2^31 or more, ROADMAP section 3)
-    port_hash = {"hbad_rand": wide_vectors.HBAD_RAND_PORT_SHA}
+              "hbad_rand": ("S", {"K1": None, "K12i64": None})}
     wide = {}            # (kernel, shape): ms, plain_ms, bytes, launches
     plain_done = set()   # (kernel, W, H) held against the plain version
     flagged = 0
+    i64_lanes = [0]      # lanes re-decoded in int64 (recorded launches)
 
     def wide_rec(kernel, W, H):
         return wide.setdefault((kernel, f"{W}x{H}"), {
@@ -1919,15 +1918,16 @@ def main() -> int:
         for mod, alias, name in spots:
             real = getattr(mod, name)
 
-            def spy(*a, _real=real, _name=name):
-                out = _real(*a)
+            def spy(*a, _real=real, _name=name, **kw):
+                out = _real(*a, **kw)
                 kern = "K3" if _name == "t1_decode_lanes" else (
+                    "K12i64" if kw.get("i64") else
                     "K2" if len(a) > 9 else "K1")
                 calls.append((kern, a, out))
                 return out
             # the wrappers count their launches on the name they are
             # called by: the spy's counts go back to them below
-            spy.launches = spy.refine_launches = 0
+            spy.launches = spy.refine_launches = spy.i64_launches = 0
             saved.append((mod, alias, name, real, spy))
             setattr(mod, name, spy)
             setattr(alias, name, spy)
@@ -1940,6 +1940,7 @@ def main() -> int:
                 real.launches += spy.launches
                 if hasattr(real, "refine_launches"):
                     real.refine_launches += spy.refine_launches
+                    real.i64_launches += spy.i64_launches
 
     def held_lanes(keep, w, h, more_key):
         """The lanes of a main-path launch held against the plain
@@ -1970,30 +1971,31 @@ def main() -> int:
                 calls = rec
             times.append(dt)
             planes = damaged_vectors.window_planes(out, win) if win else out
-            want = port_hash.get(case, whashes[case])
-            if stream_vectors.plane_hash(planes) != want:
+            if stream_vectors.plane_hash(planes) != whashes[case]:
                 _fail(f"decode {row_name} {case}: planes differ from the "
-                      f"committed {'port ' if case in port_hash else ''}"
-                      f"hash")
+                      f"committed hash")
         got = counts()
-        per = {k: got[k] / (REPS_DMG + 1) for k in ("K1", "K2", "K3")}
+        per = {k: got[k] / (REPS_DMG + 1)
+               for k in ("K1", "K2", "K3", "K12i64")}
+        # the int64 re-decode runs only where a corrupt block is marked
         need(f"{row_name} {case} decode", got, list(kneed),
-             ["K4", "K4r", "K5"] + v1s)
+             ["K4", "K4r", "K5"] + v1s
+             + ([] if name in wide_vectors.EDITED else ["K12i64"]))
         for k, n in kneed.items():
             if n is not None and per[k] != n:
                 _fail(f"decode {row_name} {case}: {per[k]} {k} launches per "
                       f"decode, not {n}")
-        rec_n = {k: sum(c[0] == k for c in calls) for k in ("K1", "K2", "K3")}
+        rec_n = {k: sum(c[0] == k for c in calls)
+                 for k in ("K1", "K2", "K3", "K12i64")}
         if any(rec_n[k] != per[k] for k in rec_n):
             _fail(f"decode {row_name} {case}: {rec_n} launches recorded, "
                   f"{per} counted per decode")
         best, med = min(times[1:]), float(np.median(times[1:]))
-        which = (f"port hash (the JAX package's: {whashes[case][:12]}...)"
-                 if case in port_hash else "hash")
-        print(f"decode {row_name} {case}: equal to the committed {which}"
+        print(f"decode {row_name} {case}: equal to the committed hash"
               f"; best of {REPS_DMG}: {best * 1e3:.3f} ms/call (median "
               f"{med * 1e3:.3f}); launches per decode K1 {per['K1']:g}, K2 "
-              f"{per['K2']:g}, K3 {per['K3']:g} [{card}]", flush=True)
+              f"{per['K2']:g}, K3 {per['K3']:g}, int64 re-decodes "
+              f"{per['K12i64']:g} [{card}]", flush=True)
         # the main path's own launches against the plain versions
         for kern, a, res in calls:
             if kern == "K3":
@@ -2025,8 +2027,22 @@ def main() -> int:
             W, H = a[7], a[8]
             lanes, more = a[:7], a[9:]
             got_k, err = res
+            if kern == "K12i64":
+                # the marked lanes' int64 re-decode, whole, against the
+                # plain version's int64 mode
+                ref, rerr = ht_decode.ht_decode_lanes_ref(
+                    *lanes, W, H, *more, i64=True)
+                if not (torch.equal(got_k, ref) and torch.equal(err, rerr)):
+                    _fail(f"the int64 re-decode of {case}'s marked lanes "
+                          f"({W}x{H}) disagrees with its plain version")
+                i64_lanes[0] += int(err.numel())
+                print(f"K1/K2 int64 re-decode {case} {W}x{H}: "
+                      f"{err.numel()} marked lanes equal to the plain "
+                      f"version's int64 mode (largest |sample| "
+                      f"{int(got_k.abs().max())}) [{card}]", flush=True)
+                continue
             kd = k1 if kern == "K1" else k2
-            bad = err != 0
+            bad = (err != 0) & (err != ht_decode.MARK_I64)
             nerr = int(bad.sum())
             if case not in wide_vectors.EDITED and nerr:
                 _fail(f"{kern} flagged {nerr} lanes of the intact {case}")
@@ -2136,6 +2152,8 @@ def main() -> int:
                           f" [{card}]", flush=True)
     if not flagged:
         _fail("no lane of the broken HT stream was flagged")
+    if not i64_lanes[0]:
+        _fail("no lane of hbad_rand was re-decoded in int64")
     for kern, W, H in (("K1", 1024, 4), ("K2", 0, 0), ("K3", 0, 0)):
         if not any(k == kern and (W == 0 or (w, h) == (W, H))
                    for k, w, h in plain_done):

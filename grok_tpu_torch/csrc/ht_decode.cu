@@ -20,7 +20,14 @@
 // codeword (a window the table marks), 2 an exponent bound U > 40; such a
 // lane is all zeros, its refinement passes not applied.  The kernel
 // writes every element: zeros outside each lane's w x h and on invalid
-// lanes.  The plain PyTorch version is grok_tpu_torch/ops/ht_decode.py
+// lanes.  A lane that decodes may also be marked (code 8, HT_MARK_I64):
+// some quad of it has U + p >= 31, so its magnitudes may reach 2^31 and
+// its int32 samples be the scalar's int64 ones modulo 2^32 only.  Only a
+// corrupt block gets there (an intact one's U stays under Mb + 2); the
+// caller re-decodes the marked lanes with the int64 entry points
+// (`grk_ht_decode_*_i64`: the wide design below, its output int64, its
+// arithmetic modulo 2^64 as the scalar's numpy int64), whatever their
+// size.  The plain PyTorch version is grok_tpu_torch/ops/ht_decode.py
 // `ht_decode_lanes_ref`; the first design, csrc/ht_decode_v1.cu (one
 // thread per code-block, no error codes), is kept as the full-lane oracle
 // on valid lanes of up to 64 x 64.  The three are held identical on the
@@ -91,6 +98,8 @@
 
 #include "t1_warp.cuh"
 
+#include <type_traits>
+
 #define HT_N_CTX 8
 #define HT_MAX_GW 32          // v2 blocks are at most 64 wide
 #define HT_LANES 4            // code-blocks per CTA, two warps each
@@ -99,6 +108,7 @@
 #define HT_BAD (1 << 13)      // a table entry of an invalid codeword
 #define HT_ERR_VLC 1          // the lane error codes
 #define HT_ERR_EXP 2
+#define HT_MARK_I64 8         // decoded, some quad with U + p >= 31
 #define HT_ROWS_ALL (1 << 30) // the chain's count once it has failed
 #define HT_NO_ROW 0x7FFFFFFF  // no failing quad row
 // a lane's shared memory: the chain's progress (quad rows done) and its
@@ -125,6 +135,20 @@ __device__ __forceinline__ uint32_t shl32(uint32_t x, int s)
 __device__ __forceinline__ uint32_t shr32(uint32_t x, int s)
 {
     return (unsigned)s >= 32u ? 0u : x >> s;
+}
+
+// The same shifts on the word a wide lane keeps its magnitudes in: 32
+// bits for the int32 output, 64 for the int64 one.
+template <class M>
+__device__ __forceinline__ M shlw(M x, int s)
+{
+    return (unsigned)s >= 8u * sizeof(M) ? (M)0 : (M)(x << s);
+}
+
+template <class M>
+__device__ __forceinline__ M shrw(M x, int s)
+{
+    return (unsigned)s >= 8u * sizeof(M) ? (M)0 : (M)(x >> s);
 }
 
 // A lane's stream row of `len` bytes at any alignment, read as the aligned
@@ -717,8 +741,8 @@ __device__ __forceinline__ int consume_lane(const uint8_t* ms_row, int lms,
     Reader sp;
     if (ref)
         rd_init(sp, sp_row, lsp);
-    WarpReg<int> eb, len, ue;
-    warp_each([&](int t) { eb[t] = 0; });
+    WarpReg<int> eb, len, ue, big;
+    warp_each([&](int t) { eb[t] = big[t] = 0; });
     int base = 0;                    // MagSgn bits before the quad row
     int mr_base = 0;                 // MagRef bits before the stripe
     int cs_done = 0;                 // cleanup significance rows built
@@ -746,6 +770,7 @@ __device__ __forceinline__ int consume_lane(const uint8_t* ms_row, int lms,
             const int ek = (e >> 4) & rho;
             len[t] = U * t1_popc64((uint64_t)rho) - t1_popc64((uint64_t)ek);
             ue[t] = rho | (ek << 4) | (U << 8);
+            big[t] |= U + p >= 31;
         });
         const int tot = warp_scan(len);
         if (tot >= 1 << 20) {
@@ -917,7 +942,7 @@ __device__ __forceinline__ int consume_lane(const uint8_t* ms_row, int lms,
     const int y1 = 2 * gh;
     if (y1 < H)
         warp_for((H - y1) * W, [&](int i) { o[y1 * W + i] = 0; });
-    return 0;
+    return warp_ballot(big) ? HT_MARK_I64 : 0;
 }
 
 // Lane `lane` of the batch, its warp `role` (0: the chain, 1: the rest;
@@ -1012,16 +1037,22 @@ __device__ __forceinline__ void bit_set(uint32_t* m, int i, bool v)
 
 // The serial decode of a wide lane by one thread, in the order of
 // grok_tpu/t1ht/scalar.py `ht_decode_block`: the cleanup's magnitudes
-// (modulo 2^32) into o, row stride W, with their significance and sign
-// bits, then (ref) MagRef on the cleanup-significant samples and SigProp,
-// each in the stripe scan.  Returns the lane's error code.
+// (modulo 2^32 for an int output T, 2^64 for a long long one) into o, row
+// stride W, with their significance and sign bits, then (ref) MagRef on
+// the cleanup-significant samples and SigProp, each in the stripe scan.
+// Returns the lane's error code, or HT_MARK_I64 for a lane that decodes
+// with a quad of U + p >= 31.
+template <class T>
 __device__ __forceinline__ int wide_serial(
     const t1_saddr vt0, const t1_saddr vti, int pxor, const uint8_t* ms_row,
     int lms, const uint8_t* mel_row, int lmel, const uint8_t* vlc_row,
     int lvlc, int p, int w, int h, int W, uint8_t* rrow, uint8_t* erow,
-    uint32_t* sig, uint32_t* neg, int* o, bool ref, const uint8_t* sp_row,
+    uint32_t* sig, uint32_t* neg, T* o, bool ref, const uint8_t* sp_row,
     int lsp, const uint8_t* mr_row, int lmr, int np)
 {
+    // the magnitude word: 32 bits for int output, 64 for long long
+    typedef typename std::conditional<sizeof(T) == 8, uint64_t,
+                                      uint32_t>::type M;
     Reader mel, vlc;
     rd_init(mel, mel_row, lmel);
     rd_init(vlc, vlc_row, lvlc);
@@ -1029,8 +1060,9 @@ __device__ __forceinline__ int wide_serial(
     const Row rms = row_at(ms_row, lms);
     int msp = 0;
     const int gw = (w + 1) >> 1, gh = (h + 1) >> 1, p1 = p + 1;
-    const uint32_t half = p > 0 ? shl32(1u, p) : 0u;
-    const uint32_t half_bp = p > 1 ? shl32(1u, p - 1) : 0u;
+    const M half = p > 0 ? shlw((M)1, p) : (M)0;
+    const M half_bp = p > 1 ? shlw((M)1, p - 1) : (M)0;
+    bool big = false;                // a quad of U + p >= 31
     for (int g = 0; g < gh; g++) {
         const t1_saddr vt = g ? vt0 : vti;
         int left = 0;                // rho of the quad to the left
@@ -1091,6 +1123,7 @@ __device__ __forceinline__ int wide_serial(
                 const int U = kappa + u[j];
                 if (U > HT_U_MAX)
                     return HT_ERR_EXP;
+                big |= U + p >= 31;
                 const int ek = (e[j] >> 9) & 15;
                 int ebot = 0;
                 for (int i = 0; i < 4; i++) {
@@ -1105,8 +1138,8 @@ __device__ __forceinline__ int wide_serial(
                     const int y = 2 * g + (i & 1), x = 2 * qx + (i >> 1);
                     if (y < h && x < w) {
                         const uint64_t vi = (full >> 1) + 1u;
-                        o[y * W + x] = (int)((uint32_t)(p1 < 64 ? vi << p1
-                                                        : 0u) + half);
+                        o[y * W + x] = (T)(M)((M)(p1 < 64 ? vi << p1 : 0u)
+                                              + half);
                         bit_set(sig, y * W + x, true);
                         bit_set(neg, y * W + x, full & 1u);
                     }
@@ -1115,8 +1148,9 @@ __device__ __forceinline__ int wide_serial(
             }
         }
     }
+    const int done = big ? HT_MARK_I64 : 0;
     if (!ref)
-        return 0;
+        return done;
     // MagRef first: it refines only the cleanup-significant samples,
     // which SigProp never touches, from a stream of its own
     if (np >= 3) {
@@ -1127,9 +1161,10 @@ __device__ __forceinline__ int wide_serial(
                 for (int y = y0; y < min(y0 + 4, h); y++) {
                     if (!bit_at(sig, y * W + x))
                         continue;
-                    const uint32_t b = (uint32_t)row_bits(rmr, pos++, 1);
-                    uint32_t& m = reinterpret_cast<uint32_t&>(o[y * W + x]);
-                    m = shl32((shr32(m - half, p + 1) << 1) | b, p) + half_bp;
+                    const M b = (M)row_bits(rmr, pos++, 1);
+                    const M m = (M)o[y * W + x];
+                    o[y * W + x] = (T)(M)(shlw((M)(shrw((M)(m - half), p + 1)
+                                                   << 1) | b, p) + half_bp);
                 }
     }
     // SigProp: the significance grows as the scan goes
@@ -1151,25 +1186,29 @@ __device__ __forceinline__ int wide_serial(
                     continue;
                 bit_set(neg, y * W + x, row_bits(rsp, pos++, 1) != 0);
                 bit_set(sig, y * W + x, true);
-                o[y * W + x] = (int)(half + half_bp);
+                o[y * W + x] = (T)(M)(half + half_bp);
             }
-    return 0;
+    return done;
 }
 
 // A wide lane, run by the whole warp: the block zeroed, its serial decode
 // by the first thread, then the signs applied (or zeros for a failed
 // lane) and its error code at err[lane].  ws: the lane's
-// ht_wide_bytes(W, H) of shared memory.
+// ht_wide_bytes(W, H) of shared memory.  T: int (K1/K2's output) or long
+// long (the int64 re-decode of marked lanes, any lane size).
+template <class T>
 __device__ __forceinline__ void decode_wide_one(
     const int* tab, int nfam, int pxor, unsigned char* ws, int lane,
     const uint8_t* ms, int lms, const uint8_t* mel, int lmel,
     const uint8_t* vlc, int lvlc, const int* pv, const int* wv,
-    const int* hv, const int* valid, int* out, int W, int H,
+    const int* hv, const int* valid, T* out, int W, int H,
     const uint8_t* sp, int lsp, const uint8_t* mr, int lmr, const int* npv,
     int* err)
 {
+    typedef typename std::conditional<sizeof(T) == 8, uint64_t,
+                                      uint32_t>::type M;
     const int w = min(wv[lane], W), h = min(hv[lane], H);
-    int* o = out + (size_t)lane * W * H;
+    T* o = out + (size_t)lane * W * H;
     const int GW = (W + 1) >> 1, nwords = (W * H + 31) >> 5;
     uint8_t* rrow = ws;
     uint8_t* erow = ws + GW;
@@ -1190,7 +1229,7 @@ __device__ __forceinline__ void decode_wide_one(
     warp_each([&](int t) { code[t] = 0; });
     if (warp_leader()) {
         const t1_saddr vt0 = t1_smem(tab);
-        code[0] = wide_serial(
+        code[0] = wide_serial<T>(
             vt0, vt0 + (nfam == 2 ? 4 * (HT_N_CTX << 7) : 0), pxor,
             ms + (size_t)lane * lms, lms, mel + (size_t)lane * lmel, lmel,
             vlc + (size_t)lane * lvlc, lvlc, p, w, h, W, rrow, erow, sig,
@@ -1200,10 +1239,10 @@ __device__ __forceinline__ void decode_wide_one(
     warp_sync();
     const int c = warp_shfl(code, 0);
     warp_for(W * H, [&](int i) {
-        if (c)
+        if (c & (HT_ERR_VLC | HT_ERR_EXP))
             o[i] = 0;
         else if (bit_at(neg, i))
-            o[i] = (int)(0u - (uint32_t)o[i]);
+            o[i] = (T)(M)((M)0 - (M)o[i]);
     });
     if (warp_leader())
         err[lane] = c;
@@ -1240,7 +1279,7 @@ ht_decode_kernel(const uint8_t* __restrict__ ms, int lms,
                REFINE ? sp : nullptr, lsp, mr, lmr, npv, err);
 }
 
-template <bool REFINE>
+template <bool REFINE, class T>
 __global__ void __launch_bounds__(HT_WIDE_WARPS * 32)
 ht_decode_wide_kernel(const uint8_t* __restrict__ ms, int lms,
                       const uint8_t* __restrict__ mel, int lmel,
@@ -1249,7 +1288,7 @@ ht_decode_wide_kernel(const uint8_t* __restrict__ ms, int lms,
                       const int* __restrict__ hv,
                       const int* __restrict__ valid,
                       const int* __restrict__ lut_g, int lut_n, int symb,
-                      int nfam, int pxor, int* __restrict__ out, int nl,
+                      int nfam, int pxor, T* __restrict__ out, int nl,
                       int W, int H, const uint8_t* __restrict__ sp, int lsp,
                       const uint8_t* __restrict__ mr, int lmr,
                       const int* __restrict__ npv, int* __restrict__ err)
@@ -1262,12 +1301,12 @@ ht_decode_wide_kernel(const uint8_t* __restrict__ ms, int lms,
     const int lane = blockIdx.x * HT_WIDE_WARPS + wi;
     if (lane >= nl)
         return;
-    decode_wide_one(tab, nfam, pxor, smem + wi * ht_wide_bytes(W, H), lane,
+    decode_wide_one<T>(tab, nfam, pxor, smem + wi * ht_wide_bytes(W, H), lane,
                     ms, lms, mel, lmel, vlc, lvlc, pv, wv, hv, valid, out, W,
                     H, REFINE ? sp : nullptr, lsp, mr, lmr, npv, err);
 }
 
-template <bool REFINE>
+template <bool REFINE, bool I64 = false>
 static int launch(const void* ms, int lms, const void* mel, int lmel,
                   const void* vlc, int lvlc, const void* p, const void* w,
                   const void* h, const void* valid, const void* lut,
@@ -1275,19 +1314,21 @@ static int launch(const void* ms, int lms, const void* mel, int lmel,
                   int W, int H, const void* sp, int lsp, const void* mr,
                   int lmr, const void* npass, void* err, void* stream)
 {
+    typedef typename std::conditional<I64, long long, int>::type T;
     if (nl <= 0)
         return 0;
     if (lut_n + 768 > HT_TAB_MAX)
         return (int)cudaErrorInvalidValue;
-    if (W > 64 || H > 64) {
+    if (I64 || W > 64 || H > 64) {
         const int blocks = (nl + HT_WIDE_WARPS - 1) / HT_WIDE_WARPS;
-        ht_decode_wide_kernel<REFINE><<<blocks, HT_WIDE_WARPS * 32,
-                                        HT_WIDE_WARPS * ht_wide_bytes(W, H),
-                                        (cudaStream_t)stream>>>(
+        ht_decode_wide_kernel<REFINE, T><<<blocks, HT_WIDE_WARPS * 32,
+                                           HT_WIDE_WARPS
+                                           * ht_wide_bytes(W, H),
+                                           (cudaStream_t)stream>>>(
             (const uint8_t*)ms, lms, (const uint8_t*)mel, lmel,
             (const uint8_t*)vlc, lvlc, (const int*)p, (const int*)w,
             (const int*)h, (const int*)valid, (const int*)lut, lut_n, symb,
-            nfam, pxor, (int*)out, nl, W, H, (const uint8_t*)sp, lsp,
+            nfam, pxor, (T*)out, nl, W, H, (const uint8_t*)sp, lsp,
             (const uint8_t*)mr, lmr, (const int*)npass, (int*)err);
         return (int)cudaGetLastError();
     }
@@ -1335,6 +1376,42 @@ extern "C" int grk_ht_decode_refine(const void* ms, int ms_len,
     return launch<true>(ms, ms_len, mel, mel_len, vlc, vlc_len, p, w, h,
                         valid, lut, lut_n, symb, nfam, pxor, out, nl, W, H,
                         sp, sp_len, mr, mr_len, npass, err, stream);
+}
+
+// The int64 re-decode of marked lanes (code HT_MARK_I64): the same
+// arguments, out (NL, H, W) int64, every lane through the wide design.
+extern "C" int grk_ht_decode_cleanup_i64(const void* ms, int ms_len,
+                                         const void* mel, int mel_len,
+                                         const void* vlc, int vlc_len,
+                                         const void* p, const void* w,
+                                         const void* h, const void* valid,
+                                         const void* lut, int lut_n,
+                                         int symb, int nfam, int pxor,
+                                         void* out, int nl, int W, int H,
+                                         void* err, void* stream)
+{
+    return launch<false, true>(ms, ms_len, mel, mel_len, vlc, vlc_len, p, w,
+                               h, valid, lut, lut_n, symb, nfam, pxor, out,
+                               nl, W, H, nullptr, 0, nullptr, 0, nullptr,
+                               err, stream);
+}
+
+extern "C" int grk_ht_decode_refine_i64(const void* ms, int ms_len,
+                                        const void* mel, int mel_len,
+                                        const void* vlc, int vlc_len,
+                                        const void* p, const void* w,
+                                        const void* h, const void* valid,
+                                        const void* lut, int lut_n, int symb,
+                                        int nfam, int pxor, void* out, int nl,
+                                        int W, int H, const void* sp,
+                                        int sp_len, const void* mr,
+                                        int mr_len, const void* npass,
+                                        void* err, void* stream)
+{
+    return launch<true, true>(ms, ms_len, mel, mel_len, vlc, vlc_len, p, w,
+                              h, valid, lut, lut_n, symb, nfam, pxor, out,
+                              nl, W, H, sp, sp_len, mr, mr_len, npass, err,
+                              stream);
 }
 
 #endif

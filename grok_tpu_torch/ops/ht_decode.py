@@ -48,8 +48,15 @@ Each lane also gets an error code, returned beside the planes, the
 cases in which the scalar decoder gives up on a block: 0 decoded; 1 an
 invalid CxtVLC codeword (`ERR_VLC`); 2 an exponent bound U > 40
 (`ERR_EXP`), whichever the scalar meets first.  A flagged lane is all zeros, its SigProp and
-MagRef passes not applied, as the scalar returns it.  Lanes of W or H
-over 64 (W * H <= 4096) take the kernel's wide design.
+MagRef passes not applied, as the scalar returns it.  A lane that decodes
+but has a quad with U + p >= 31 is marked instead (`MARK_I64`): its
+magnitudes may reach 2^31, where its int32 samples are the scalar's int64
+ones modulo 2^32 only.  Only a corrupt block gets there; the decode
+routes re-decode such lanes with `i64=True` (int64 output, arithmetic
+modulo 2^64 as the scalar's numpy int64; on the card the wide design for
+every lane size, its own launch counter) and synthesize their tile in
+int64.  Lanes of W or H over 64 (W * H <= 4096) take the kernel's wide
+design.
 """
 
 from __future__ import annotations
@@ -70,6 +77,8 @@ MAX_STREAM = 256 * 32 - 8
 # code" and "bad exponent bound"
 ERR_VLC = 1
 ERR_EXP = 2
+# a decoded lane whose magnitudes may reach 2^31 (a quad of U + p >= 31)
+MARK_I64 = 8
 # the largest exponent bound U the scalar decoder takes
 U_MAX = 40
 _M32 = 0xFFFFFFFF
@@ -165,7 +174,7 @@ def _bitlen(x: torch.Tensor) -> torch.Tensor:
 
 
 def ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int,
-                        sp=None, mr=None, npass=None):
+                        sp=None, mr=None, npass=None, i64: bool = False):
     """Plain PyTorch decode of NL lanes -> ((NL, H, W) int32, each lane's
     error code (NL,) int32): the cleanup, then with sp, mr, npass given
     the refinement passes of `_refine_ref`.
@@ -173,12 +182,17 @@ def ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int,
     ms/mel/vlc: (NL, L+1) uint8 clean streams (each its own L); p, w, h,
     valid: (NL,) int32.  Magnitudes run modulo 2^32 beside their signs,
     which gives the int32 results of the kernel and, wrapped to int32,
-    of the scalar decoder's int64 ones."""
-    mag, neg, err = _cleanup_ref(ms, mel, vlc, p, w, h, valid, W, H)
+    of the scalar decoder's int64 ones; with i64, modulo 2^64 into int64
+    planes, the scalar decoder's own."""
+    mask = -1 if i64 else _M32
+    mag, neg, err = _cleanup_ref(ms, mel, vlc, p, w, h, valid, W, H, mask)
     if sp is not None:
-        mag, neg = _refine_ref(mag, neg, sp, mr, p, w, h, valid, npass)
-    out = _wrap32(torch.where(neg, -mag, mag))
-    out[err != 0] = 0
+        mag, neg = _refine_ref(mag, neg, sp, mr, p, w, h, valid, npass,
+                               mask)
+    out = torch.where(neg, -mag, mag)
+    if not i64:
+        out = _wrap32(out)
+    out[(err != 0) & (err != MARK_I64)] = 0
     return out, err.to(torch.int32)
 
 
@@ -205,9 +219,11 @@ def _bit_reader(buf: torch.Tensor, nbytes: int):
     return bits
 
 
-def _refine_ref(mag, neg, sp, mr, p, w, h, valid, npass) -> tuple:
+def _refine_ref(mag, neg, sp, mr, p, w, h, valid, npass,
+                mask: int = _M32) -> tuple:
     """HT SigProp (npass >= 2) and HT MagRef (npass >= 3) at plane p - 1
-    over the cleanup's magnitudes (int64, modulo 2^32) and signs of the
+    over the cleanup's magnitudes (int64, modulo 2^32, or 2^64 with mask
+    -1) and signs of the
     lanes with 0 < p < 32, in the 4-row stripe scan
     (grok_tpu/ops/pallas_ht.py:722-818): a sample SigProp makes
     significant becomes +-((1 << p) + half_bp), half_bp = 1 << (p - 1)
@@ -246,8 +262,8 @@ def _refine_ref(mag, neg, sp, mr, p, w, h, valid, npass) -> tuple:
     byte = torch.where(off < mrv.shape[1], byte, 0xFF)
     bit = (byte >> (bpos & 7)) & 1
     cur = v[:, order]
-    vq = ((cur - half) & _M32) >> (pb + 1)
-    nm = (((((vq << 1) | bit) << pb) & _M32) + half_bp) & _M32
+    vq = ((cur - half) & mask) >> (pb + 1)
+    nm = (((((vq << 1) | bit) << pb) & mask) + half_bp) & mask
     ref = v.clone()
     ref[:, order] = torch.where(cond, nm, cur)
     rng = ng.clone()
@@ -271,11 +287,13 @@ def _refine_ref(mag, neg, sp, mr, p, w, h, valid, npass) -> tuple:
     return ref.reshape(NL, H, W), rng.reshape(NL, H, W)
 
 
-def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int) -> tuple:
+def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int,
+                 mask: int = _M32) -> tuple:
     """Plain PyTorch cleanup decode of NL lanes -> (mag, neg, err): the
-    magnitudes mag2 modulo 2^32 (int64), the signs (bool), (NL, H, W),
-    and each lane's error code, (NL,) int64 (its planes are not
-    meaningful where it is not 0)."""
+    magnitudes mag2 modulo 2^32 (int64; modulo 2^64 with mask -1), the
+    signs (bool), (NL, H, W), and each lane's error code, (NL,) int64 (its
+    planes are not meaningful where it is ERR_VLC or ERR_EXP; MARK_I64
+    where it decodes with a quad of U + p >= 31)."""
     N_CTX = _t.N_CTX
     dev = ms.device
     i64 = torch.int64
@@ -302,6 +320,7 @@ def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int) -> tuple:
     mag = torch.zeros((NL, H, W), dtype=i64, device=dev)
     neg = torch.zeros((NL, H, W), dtype=torch.bool, device=dev)
     err = torch.zeros(NL, dtype=i64, device=dev)
+    big = torch.zeros(NL, dtype=torch.bool, device=dev)
     zero = torch.zeros(NL, dtype=i64, device=dev)
     false = torch.zeros(NL, dtype=torch.bool, device=dev)
 
@@ -415,6 +434,7 @@ def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int) -> tuple:
         multi = (rhoq & (rhoq - 1)) != 0
         kappa = torch.where(multi, torch.clamp(eb_above - 1, min=1), 1)
         bad = act_q & (rhoq != 0) & (kappa + u > U_MAX)
+        wide = act_q & (rhoq != 0) & (kappa + u + p >= 31)
         # a lane over the bound is flagged: its reads only stay in range
         U = torch.clamp(kappa + u, max=U_MAX)
         ek = sym >> 5
@@ -427,15 +447,17 @@ def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int) -> tuple:
             wd = msb(ms_bp)
             full = (wd & ((1 << m) - 1)) | (k_i << (U - 1))
             ms_bp = ms_bp + torch.where(m_i, m, 0)
-            vi = ((full >> 1) + 1) & _M32
-            sh = torch.where(p1 < 32, vi << p1.clamp(0, 31), 0) & _M32
-            mags.append((sh + half) & _M32)
+            vi = ((full >> 1) + 1) & mask
+            nbits = 64 if mask == -1 else 32
+            sh = torch.where(p1 < nbits, vi << p1.clamp(0, nbits - 1),
+                             0) & mask
+            mags.append((sh + half) & mask)
             negs.append((full & 1) == 1)
             smasks.append(m_i)
             if i & 1:
                 ebot = torch.maximum(ebot,
                                      torch.where(m_i, _bitlen(full), 0))
-        return mags, negs, smasks, rhoq | (ebot << 4), ms_bp, bad
+        return mags, negs, smasks, rhoq | (ebot << 4), ms_bp, bad, wide
 
     def put(y, x, sel, m, n):
         mag[:, y, x] = torch.where(sel, m, mag[:, y, x])
@@ -483,20 +505,22 @@ def _cleanup_ref(ms, mel, vlc, p, w, h, valid, W: int, H: int) -> tuple:
             else:
                 evu = zero
             u0, u1, vlc_bp = uvlc_pair(initial, evu, off0, off1, vlc_bp)
-            mg0, ng0, sm0, st0, ms_bp, ubad0 = magsgn_quad(sym0, top0, u0,
-                                                           act0, ms_bp)
+            mg0, ng0, sm0, st0, ms_bp, ubad0, big0 = magsgn_quad(
+                sym0, top0, u0, act0, ms_bp)
             err = flag(ubad0, ERR_EXP)
+            big |= big0
             rho[:, g + 1, qx0 + 1] = torch.where(act0, st0,
                                                  rho[:, g + 1, qx0 + 1])
             write_quad(g, qx0, mg0, ng0, sm0)
             if has2:
-                mg1, ng1, sm1, st1, ms_bp, ubad1 = magsgn_quad(
+                mg1, ng1, sm1, st1, ms_bp, ubad1, big1 = magsgn_quad(
                     sym1, top1, u1, act1, ms_bp)
                 err = flag(ubad1, ERR_EXP)
+                big |= big1
                 rho[:, g + 1, qx1 + 1] = torch.where(
                     act1, st1, rho[:, g + 1, qx1 + 1])
                 write_quad(g, qx1, mg1, ng1, sm1)
-    return mag, neg, err
+    return mag, neg, torch.where((err == 0) & big, MARK_I64, err)
 
 
 def _check(name, t, dtype, shape0, device):
@@ -511,9 +535,9 @@ def _check(name, t, dtype, shape0, device):
 
 
 def _decode(v1: bool, counter, ms, mel, vlc, p, w, h, valid, W: int,
-            H: int, sp, mr, npass):
-    """ht_decode_lanes through the kernel design v1 or v2, the launch
-    counted on `counter`."""
+            H: int, sp, mr, npass, i64: bool = False):
+    """ht_decode_lanes through the kernel design v1 or v2 (with i64 its
+    int64 entry points), the launch counted on `counter`."""
     dev = ms.device
     NL = ms.shape[0]
     refine = sp is not None
@@ -539,19 +563,19 @@ def _decode(v1: bool, counter, ms, mel, vlc, p, w, h, valid, W: int,
         raise ValueError("the first design takes lanes of up to 64x64")
     if dev.type == "cpu":
         got = ht_decode_lanes_ref(ms, mel, vlc, p, w, h, valid, W, H, sp,
-                                  mr, npass)
+                                  mr, npass, i64)
         return got[0] if v1 else got
     if dev.type != "cuda":
         raise ValueError(f"no HT decode kernel for device {dev}")
     from grok_tpu_torch._build import load_library
     libs = load_library()
     lib = libs.ht_decode_v1 if v1 else libs.ht_decode
-    sfx = "_v1" if v1 else ""
+    sfx = "_v1" if v1 else "_i64" if i64 else ""
     _, symb, nfam, pxor = vlc_dec_lut()
     lut = _lut_on(dev)
     # v2 writes every element, v1 only the significant samples
     out = (torch.zeros if v1 else torch.empty)(
-        (NL, H, W), dtype=torch.int32, device=dev)
+        (NL, H, W), dtype=torch.int64 if i64 else torch.int32, device=dev)
     err = torch.empty(NL, dtype=torch.int32, device=dev)
     if NL == 0:
         return out if v1 else (out, err)
@@ -570,7 +594,9 @@ def _decode(v1: bool, counter, ms, mel, vlc, p, w, h, valid, W: int,
     if rc != 0:
         raise RuntimeError(f"HT {'refine' if refine else 'cleanup'} decode "
                            f"kernel launch failed: cudaError {rc}")
-    if refine:
+    if i64:
+        counter.i64_launches += 1
+    elif refine:
         counter.refine_launches += 1
     else:
         counter.launches += 1
@@ -578,11 +604,13 @@ def _decode(v1: bool, counter, ms, mel, vlc, p, w, h, valid, W: int,
 
 
 def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
-                    sp=None, mr=None, npass=None):
+                    sp=None, mr=None, npass=None, i64: bool = False):
     """Cleanup-decode NL lanes -> (signed mag2 (NL, H, W) int32, each
-    lane's error code (NL,) int32: 0, ERR_VLC or ERR_EXP; a flagged lane
-    is all zeros).  A permissive caller ignores the codes, which costs no
-    host sync.
+    lane's error code (NL,) int32: 0, ERR_VLC or ERR_EXP, a flagged lane
+    all zeros; MARK_I64, a decoded lane whose magnitudes may reach 2^31).
+    With i64 the planes are int64, the scalar decoder's own (the decode
+    routes' re-decode of the marked lanes; on the card every lane through
+    the kernel's wide design, counted on `i64_launches`).
 
     ms/mel/vlc: (NL, L+1) uint8 clean LSB-first streams, each filled with
     1-bits past its last clean bit (each stream may have its own L); p,
@@ -596,11 +624,12 @@ def ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W: int, H: int,
     cleanup, then SigProp (npass >= 2) and MagRef (npass >= 3) at plane
     p - 1 for the lanes with p > 0, in one launch."""
     return _decode(False, ht_decode_lanes, ms, mel, vlc, p, w, h, valid, W,
-                   H, sp, mr, npass)
+                   H, sp, mr, npass, i64)
 
 
 ht_decode_lanes.launches = 0            # K1 launches
 ht_decode_lanes.refine_launches = 0     # K2 launches
+ht_decode_lanes.i64_launches = 0        # int64 re-decodes (K1 or K2)
 
 
 def ht_decode_lanes_v1(ms, mel, vlc, p, w, h, valid, W: int, H: int,
@@ -618,14 +647,14 @@ ht_decode_lanes_v1.refine_launches = 0  # K2 v1 launches
 
 
 def decode_ht_blocks(ms, mel, vlc, sp, mr, p, w, h, valid, npass,
-                     refine: np.ndarray, W: int, H: int):
+                     refine: np.ndarray, W: int, H: int, i64: bool = False):
     """Decode one bucket of W x H HT code-blocks -> ((NL, H, W) int32,
     the (NL,) int32 error codes): one K1 launch over the
     cleanup-only lanes and one K2 launch over the refined lanes (host
     mask `refine`), as grok_tpu/ops/pallas_ht.py `decode_ht_blocks`
     buckets them.  Arguments as ht_decode_lanes'; every lane is staged
     with its SigProp and MagRef streams (empty for cleanup-only
-    blocks)."""
+    blocks).  i64: int64 planes (ht_decode_lanes' i64)."""
     NL = ms.shape[0]
     refine = np.asarray(refine, bool)
     if refine.shape != (NL,):
@@ -635,8 +664,9 @@ def decode_ht_blocks(ms, mel, vlc, sp, mr, p, w, h, valid, npass,
         # one launch over every lane, no selection
         rf = bool(refine.any())
         return ht_decode_lanes(ms, mel, vlc, p, w, h, valid, W, H,
-                               *((sp, mr, npass) if rf else ()))
-    out = torch.zeros((NL, H, W), dtype=torch.int32, device=ms.device)
+                               *((sp, mr, npass) if rf else ()), i64=i64)
+    out = torch.zeros((NL, H, W), dtype=torch.int64 if i64 else torch.int32,
+                      device=ms.device)
     err = torch.zeros(NL, dtype=torch.int32, device=ms.device)
     for idx, rf in groups:
         sel = torch.from_numpy(idx).to(ms.device)
@@ -644,7 +674,7 @@ def decode_ht_blocks(ms, mel, vlc, sp, mr, p, w, h, valid, npass,
                 (ms, mel, vlc, p, w, h, valid)]
         extra = [t.index_select(0, sel) for t in (sp, mr, npass)] \
             if rf else []
-        out[sel], err[sel] = ht_decode_lanes(*pick, W, H, *extra)
+        out[sel], err[sel] = ht_decode_lanes(*pick, W, H, *extra, i64=i64)
     return out, err
 
 
@@ -661,6 +691,13 @@ def bind(lib: ctypes.CDLL, sfx: str = "") -> None:
     fn = getattr(lib, f"grk_ht_decode_refine{sfx}")
     fn.argtypes = head + [vp, ci, vp, ci, vp] + tail
     fn.restype = ci
+    if not sfx:
+        # the int64 re-decode of marked lanes: the same signatures
+        for kind, extra in (("cleanup", []), ("refine", [vp, ci, vp, ci,
+                                                         vp])):
+            fn = getattr(lib, f"grk_ht_decode_{kind}_i64")
+            fn.argtypes = head + extra + tail
+            fn.restype = ci
 
 
 def bind_v1(lib: ctypes.CDLL) -> None:

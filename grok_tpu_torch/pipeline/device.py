@@ -44,7 +44,7 @@ import torch
 
 from grok_tpu_torch.core.geometry import BAND_LL, Rect
 from grok_tpu_torch.ops import dwt, mct
-from grok_tpu_torch.ops.ht_decode import ht_decode_lanes
+from grok_tpu_torch.ops.ht_decode import MARK_I64, ht_decode_lanes
 from grok_tpu_torch.ops.t1_decode import t1_decode_lanes
 
 # per-lane meta columns of the uploaded meta array: the HT lane (K1) and
@@ -358,26 +358,32 @@ class DecodeProgram:
         # once per group of bucket shapes), K1 per bucket
         if any(d[4] for d in dims):
             mq = self.decode_mq(self.stage_mq(body, meta))
-        ms2 = []
+        ms2, ht = [], []
         for bi, b in enumerate(self.buckets):
             Lms, Lsuf, Dm, any_ht, any_mq = dims[bi]
             n = self.N * len(b.blocks)
             if any_ht:
-                # (a permissive decode reads no error code back)
-                out, _err = ht_decode_lanes(*self.stage(
-                    body, meta, bi, Lms, Lsuf, Dm), b.W, b.H)
+                args = self.stage(body, meta, bi, Lms, Lsuf, Dm)
+                out, err = ht_decode_lanes(*args, b.W, b.H)
+                ht.append((bi, args, err))
             else:
                 out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
                                   device=self.device)
             if any_mq:
                 out = out + mq[bi]
             ms2.append(out)
-        return self.synthesize(ms2)
+        planes = self.synthesize(ms2)
+        wide = redecode_marked(
+            ms2, [(bi, args, None, err) for bi, args, err in ht],
+            lambda bi, a, _rf: ht_decode_lanes(
+                *a, self.buckets[bi].W, self.buckets[bi].H, i64=True)[0])
+        return planes if wide is None else self.synthesize(wide)
 
     def synthesize(self, outs: list, mct_round: bool = False) -> list:
         """Steps 3-5 from the block decodes: outs[bi] is bucket bi's
         (N * blocks, H, W) int32 signed mag2 with the half-bit, in lane
-        order.  mct_round: under a custom MCT, round the reversible
+        order (int64 after redecode_marked: only the dequantization then
+        runs in int64).  mct_round: under a custom MCT, round the reversible
         components to the nearest integer instead of truncating them
         toward zero (the JAX package rounds them where its C block
         decoder takes the tile, a tile without HT blocks).  Returns N
@@ -399,7 +405,10 @@ class DecodeProgram:
             vals = torch.where(m < 0, -(m2 >> 1), m2 >> 1)
             flat = torch.zeros(self.total, dtype=torch.int32,
                                device=self.device)
-        flat[self.tgt] = vals
+        # int64 planes (redecode_marked): each coefficient sign * (mag2 >>
+        # 1) in int64, then wrapped to int32, as the JAX package's host
+        # decode places its int64 band arrays in int32 synthesis buffers
+        flat[self.tgt] = vals.to(flat.dtype)
 
         N = self.N
 
@@ -439,3 +448,34 @@ class DecodeProgram:
             final.append(mct.dc_shift_inv(arr.to(torch.int32), prec, sgnd))
         return [[final[ci][si] for ci in range(len(final))]
                 for si in range(N)]
+
+
+def redecode_marked(outs: list, ht: list, decode_i64) -> list | None:
+    """The repair of magnitudes of 2^31 or more, after a decode's block
+    coders ran: outs[bi] is bucket bi's int32 output; ht holds (bi, K1/K2
+    arguments, refine mask or None, error codes) for each bucket the HT
+    coders decoded.  One read-back says whether any lane is marked
+    (ops/ht_decode.py MARK_I64, only a corrupt block's): if none, None,
+    and the int32 synthesis stands.  Otherwise every bucket as int64, the
+    marked lanes re-decoded by decode_i64(bi, their arguments, their
+    refine mask) (int64 planes, the scalar decoder's), added to the
+    bucket's Part-1 output on those lanes (zero on an HT lane), for a
+    synthesis whose dequantization runs in int64, as the JAX package's
+    host decode does (sign * (mag2 >> 1), then int32 on)."""
+    if not ht:
+        return None
+    flags = [(err == MARK_I64) for _bi, _a, _rf, err in ht]
+    if not bool(torch.stack([f.any() for f in flags]).any()):
+        return None
+    wide = [o.to(torch.int64) for o in outs]
+    for (bi, args, rf, err), f in zip(ht, flags):
+        sel = torch.nonzero(f)[:, 0]
+        if not sel.numel():
+            continue
+        sub = tuple(t.index_select(0, sel) for t in args)
+        got = decode_i64(bi, sub, None if rf is None
+                         else rf[sel.cpu().numpy()])
+        # the int32 output of those lanes is theirs alone modulo 2^32;
+        # the difference is the int64 decode's
+        wide[bi][sel] += got - got.to(torch.int32).to(torch.int64)
+    return wide

@@ -417,11 +417,12 @@ class GeneralStaged:
     def run(self) -> list:
         import torch
 
-        from grok_tpu_torch.ops.ht_decode import decode_ht_blocks
+        from grok_tpu_torch.ops.ht_decode import MARK_I64, decode_ht_blocks
+        from grok_tpu_torch.pipeline.device import redecode_marked
         prog = self.program
         mq = prog.decode_mq(self.mq, self.mq_pos) \
             if self.mq is not None else [None] * len(prog.buckets)
-        outs, errs = [], []
+        outs, errs, ht = [], [], []
         for bi, b in enumerate(prog.buckets):
             n = self.meta[bi].shape[0]
             la = self.lanes[bi]
@@ -433,6 +434,7 @@ class GeneralStaged:
             else:
                 out, err = decode_ht_blocks(*la, b.W, b.H)
                 errs.append(err)
+                ht.append((bi, la[:10], la[10], err))
             if mq[bi] is not None:
                 out = out + mq[bi]
             outs.append(out)
@@ -440,9 +442,17 @@ class GeneralStaged:
             # the one read-back a strict decode adds
             job_idx, blocks, codes = self.strict
             dev = torch.cat(errs).cpu().numpy()
+            dev[dev == MARK_I64] = 0             # decoded, not an error
             raise_first_ht_error(job_idx, blocks,
                                  np.where(codes != 0, codes, dev))
-        return prog.synthesize(outs, self.mct_round)[0]
+        planes = prog.synthesize(outs, self.mct_round)
+        wide = redecode_marked(
+            outs, ht, lambda bi, a, rf: decode_ht_blocks(
+                *a, rf, prog.buckets[bi].W, prog.buckets[bi].H,
+                i64=True)[0])
+        if wide is not None:
+            planes = prog.synthesize(wide, self.mct_round)
+        return planes[0]
 
 
 def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,

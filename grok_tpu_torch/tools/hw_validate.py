@@ -89,6 +89,9 @@ COUNTERS = {"K1": (ht_decode.ht_decode_lanes, "launches"),
             "K4r": (ht_encode.ht_encode_lanes, "refine_launches"),
             "K5": (t1_encode.t1_encode_lanes, "launches"),
             "P1": (lane_gather.lane_gather, "launches"),
+            # K1/K2's int64 re-decode of lanes marked MARK_I64 (a corrupt
+            # block's magnitudes past int32)
+            "K12i64": (ht_decode.ht_decode_lanes, "i64_launches"),
             # the first designs of K1, K2, K3, K4, K4r and K5: the oracle,
             # on no serving path
             "K1v1": (ht_decode.ht_decode_lanes_v1, "launches"),

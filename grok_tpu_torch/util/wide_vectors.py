@@ -32,10 +32,9 @@ parse and the blocks meet invalid CxtVLC codewords: hbad with zero bytes,
 hbad_rand with random ones.  `hashes["hbad"]` is hbad's permissive decode
 (the JAX package's scalar decoder zeroes such blocks; so does K1).
 hbad_rand also leaves blocks that decode to magnitudes of 2^31 or more,
-where the port's int32 coefficients differ from the JAX package's int64
-ones (ROADMAP §3, open): the port's decode of hbad_rand is pinned to
-HBAD_RAND_PORT_SHA (the plain versions on the CPU and the kernels on the
-card), not `hashes["hbad_rand"]`.  `strict` holds what
+which the port re-decodes in int64 (ops/ht_decode.py MARK_I64), so that
+its decode of both gives `hashes` (the plain versions on the CPU and the
+kernels on the card).  `strict` holds what
 grok_tpu.decompress_device(strict=True) gives for both, for m1 and wh,
 and for every stream of damaged_vectors.py's CASES: the exception's type
 name and message, or "planes" and the plane hash (for the PPM stream
@@ -94,12 +93,6 @@ CASES = {
 # and the byte of hbad's (hbad_rand's are random)
 BAD_SEED, BAD_BLOCKS, BAD_BYTE = 3, 24, 0x00
 EDITED = ("hbad", "hbad_rand")
-# the port's plane hash of hbad_rand (the open fault of magnitudes of
-# 2^31 or more: not the JAX package's hashes["hbad_rand"])
-HBAD_RAND_PORT_SHA = ("e491fa700427f00df6f35d961bfcca00ecfb74788a72a6d4839"
-                      "517bdebb759c8")
-
-
 def load() -> tuple:
     """({name: codestream bytes}, {case: plane hash}, {name: edits (k,
     2) int64 [offset, byte]} of hbad and hbad_rand, {stream: (outcome,

@@ -86,6 +86,31 @@ extern "C" int host_ht_decode(const uint8_t* ms, int lms, const uint8_t* mel,
     }
     return 0;
 }
+
+// the int64 re-decode of marked lanes: every lane through the wide design
+// with long long output
+extern "C" int host_ht_decode_i64(const uint8_t* ms, int lms,
+                                  const uint8_t* mel, int lmel,
+                                  const uint8_t* vlc, int lvlc, const int* p,
+                                  const int* w, const int* h,
+                                  const int* valid, const int* lut,
+                                  int lut_n, int symb, int nfam, int pxor,
+                                  long long* out, int nl, int W, int H,
+                                  const uint8_t* sp, int lsp,
+                                  const uint8_t* mr, int lmr,
+                                  const int* npass, int* err)
+{
+    std::vector<int> tab(lut_n + 768, -1);
+    build_tables(lut, lut_n, symb, pxor, tab.data());
+    std::vector<unsigned char> buf(ht_wide_bytes(W, H) + 16, 0xA5);
+    unsigned char* ws = (unsigned char*)(((uintptr_t)buf.data() + 15)
+                                         & ~(uintptr_t)15);
+    for (int lane = 0; lane < nl; lane++)
+        decode_wide_one(tab.data(), nfam, pxor, ws, lane, ms, lms, mel,
+                        lmel, vlc, lvlc, p, w, h, valid, out, W, H, sp, lsp,
+                        mr, lmr, npass, err);
+    return 0;
+}
 """
 
 
@@ -107,6 +132,7 @@ def lib(tmp_path_factory):
     lib.host_ht_decode.argtypes = [vp, ci, vp, ci, vp, ci, vp, vp, vp, vp,
                                    vp, ci, ci, ci, ci, vp, ci, ci, ci, vp,
                                    ci, vp, ci, vp, vp]
+    lib.host_ht_decode_i64.argtypes = lib.host_ht_decode.argtypes
     return lib
 
 
@@ -120,10 +146,12 @@ def _rows(t, shift: int):
     return buf, buf.ctypes.data + shift
 
 
-def host_decode(lib, lanes, W: int, H: int, shift: int = 0):
+def host_decode(lib, lanes, W: int, H: int, shift: int = 0,
+                i64: bool = False):
     """The K1 lane body (K2 with sp, mr, npass in lanes; the wide lane
-    body for W or H over 64) on the host: ht_decode_lanes' output, the
-    planes and the error codes."""
+    body for W or H over 64, and for every lane with i64, its int64
+    output) on the host: ht_decode_lanes' output, the planes and the
+    error codes."""
     ms, mel, vlc, p, w, h, valid = lanes[:7]
     refine = len(lanes) == 10
     keep, ptr = [], {}
@@ -134,11 +162,11 @@ def host_decode(lib, lanes, W: int, H: int, shift: int = 0):
     ints = [np.ascontiguousarray(t.numpy(), np.int32)
             for t in (p, w, h, valid) + ((lanes[9],) if refine else ())]
     NL = ms.shape[0]
-    out = np.full((NL, H, W), -0x5A5A5A5A, np.int32)
+    out = np.full((NL, H, W), -0x5A5A5A5A, np.int64 if i64 else np.int32)
     err = np.full(NL, -7, np.int32)
     _, symb, nfam, pxor = D.vlc_dec_lut()
     lut = np.ascontiguousarray(D.vlc_dec_lut_marked(), np.int32)
-    lib.host_ht_decode(
+    (lib.host_ht_decode_i64 if i64 else lib.host_ht_decode)(
         ptr["ms"], ms.shape[1], ptr["mel"], mel.shape[1], ptr["vlc"],
         vlc.shape[1], *(a.ctypes.data for a in ints[:4]), lut.ctypes.data,
         lut.size, symb, nfam, pxor, out.ctypes.data, NL, W, H,
@@ -361,3 +389,26 @@ def test_lane_bodies_on_flipped_and_wide_lanes(lib, seed, count, W, H,
     _, err = D.ht_decode_lanes_ref(*lanes[:7], W, H)
     assert got[err == 0].any()
     assert (err != 0).any() == flips or W > 64
+
+
+@pytest.mark.parametrize("seed, W, H", [(17, 16, 16), (12, 16, 16),
+                                        (7, 128, 8)])
+def test_int64_lane_body_on_marked_lanes(lib, seed, W, H):
+    """The mark of lanes whose magnitudes may pass int32 (MARK_I64) and
+    the int64 re-decode (the wide design with long long output, K1 and
+    K2) equal the plain version's int64 mode on flipped lanes, whose
+    scalar magnitudes reach 2^31 and more on some decoded lanes."""
+    import grok_tpu.t1ht.scalar as scalar
+    from test_torch_strict import flipped_jobs, port_lanes
+    jobs = [j for j in flipped_jobs(seed, 48 if W <= 64 else 12, W, H)
+            if scalar.parse_cleanup(j["data"], j["seg_lens"][0])]
+    lanes = port_lanes(jobs, W, H)
+    marked = 0
+    for la in (lanes[:7], lanes):
+        got, err = host_decode(lib, la, W, H, shift=2, i64=True)
+        want, werr = D.ht_decode_lanes_ref(*la[:7], W, H, *la[7:], i64=True)
+        assert torch.equal(err, werr)
+        assert torch.equal(got, want)
+        marked += int((err == D.MARK_I64).sum())
+    if seed == 17:
+        assert marked

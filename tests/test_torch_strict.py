@@ -160,13 +160,15 @@ def port_lanes(jobs, W: int, H: int):
             col(j["n"] for j in jobs))
 
 
-def scalar_planes(jobs, W: int, H: int) -> np.ndarray:
+def scalar_planes(jobs, W: int, H: int, wrap: bool = True) -> np.ndarray:
     """The scalar decoder's permissive decodes as signed mag2 wrapped to
-    int32, (NL, H, W)."""
+    int32, (NL, H, W) (int64, as they are, without wrap)."""
     out = np.zeros((len(jobs), H, W), np.int64)
     for i, j in enumerate(jobs):
         m2, ng = scalar.ht_decode_block(*_args(j), ht_planes=j["P"])
         out[i, :j["h"], :j["w"]] = np.where(ng, -m2, m2)
+    if not wrap:
+        return out
     out &= 0xFFFFFFFF
     return np.where(out >= 1 << 31, out - (1 << 32), out).astype(np.int32)
 
@@ -189,8 +191,19 @@ def test_plain_k1_k2_equal_the_scalar_decoder_and_flag_its_class(
     want = scalar_planes(jobs, W, H)
     # K2 (every lane with its passes) and K1 (the cleanup-only lanes)
     got, err = D.ht_decode_lanes_ref(*lanes[:7], W, H, *lanes[7:])
-    assert np.array_equal(err.numpy(), np.where(cls == WIDE_U, 0, cls))
+    # a decoded lane may be marked for the int64 re-decode (MARK_I64):
+    # every lane whose scalar magnitudes pass int32 is, and its int64
+    # re-decode gives the scalar's int64 planes
+    e = err.numpy()
+    assert np.array_equal(np.where(e == D.MARK_I64, 0, e),
+                          np.where(cls == WIDE_U, 0, cls))
     assert np.array_equal(got.numpy(), want)
+    wide = scalar_planes(jobs, W, H, wrap=False)
+    over = (np.abs(wide) >= 1 << 31).reshape(len(jobs), -1).any(1)
+    assert (e[over] == D.MARK_I64).all()
+    g64, e64 = D.ht_decode_lanes_ref(*lanes[:7], W, H, *lanes[7:], i64=True)
+    assert torch.equal(e64, err)
+    assert np.array_equal(g64.numpy(), wide)
     one = np.nonzero([j["n"] == 1 for j in jobs])[0]
     sel = torch.from_numpy(one)
     got1, err1 = D.ht_decode_lanes_ref(*(t[sel] for t in lanes[:7]), W, H)
@@ -390,3 +403,41 @@ def test_strict_names_the_jax_packages_first_failing_block():
         raise_first_ht_error(job, np.array([a, a + 1]), np.array([2, 1]))
     with pytest.raises(ValueError, match="bad exponent bound"):
         raise_first_ht_error(job, np.array([a, a + 1]), np.array([1, 2]))
+
+
+@pytest.mark.skipif(not native.available(), reason="no C toolchain")
+@pytest.mark.parametrize("route", ["served", "general"])
+def test_permissive_decode_of_magnitudes_past_int32_equals_the_jax_package(
+        monkeypatch, route):
+    """The 48 x 40 HT stream of 16 x 16 precincts with 16 blocks'
+    codewords broken (seed 0): the scalar decoder's magnitudes reach
+    2^35 on blocks it decodes.  The port marks those lanes (MARK_I64),
+    re-decodes them in int64 and dequantizes them in int64, so that its
+    permissive decode equals grok_tpu.decompress on every sample, served
+    and on the general route; without the re-decode it does not."""
+    from grok_tpu_torch.pipeline import device as pdev
+    rgb = synthetic_image(48, 40, 3, seed=32)
+    ht = grok_tpu.compress(rgb, JCP(ht=True, cblk_w_exp=3, cblk_h_exp=3,
+                                    prec_w_exps=[4, 4, 4],
+                                    prec_h_exps=[4, 4, 4], num_resolutions=3,
+                                    num_layers=2, rates=[16.0, 4.0]))
+    data = corrupt_blocks(ht, 0, 16)
+    want = np.stack([c.data for c in grok_tpu.decompress(
+        data, JDP(strict=False)).components])
+    seen = []
+    real = pdev.redecode_marked
+
+    def decode(repair: bool):
+        def spy(outs, ht_, fn):
+            got = real(outs, ht_, fn) if repair else None
+            seen.append(got is not None)
+            return got
+        monkeypatch.setattr(pdev, "redecode_marked", spy)
+        if route == "served":
+            return _np(api.decompress_device(data, PDP(strict=False),
+                                             device="cpu"))
+        return _np(api.stage_general_device(data, PDP(strict=False),
+                                            device="cpu").run())
+    assert (decode(False) != want).sum() > 300
+    assert np.array_equal(decode(True), want)
+    assert seen == [False, True]
