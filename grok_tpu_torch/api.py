@@ -2,7 +2,8 @@
 
 Mirrors grok_tpu/api.py `decompress_device[_batch]` and
 `compress_device[_batch]` for the served shapes, single-tile and tiled
-(one tile-part per tile), decodes whole or in a window, of intact, cut
+(encodes in one or more tile-parts per tile, with precincts, POC, PLT,
+TLM, PLM, PPM and quality layers), decodes whole or in a window, of intact, cut
 or corrupt streams, with packed headers, ROI, tile overrides or a
 custom MCT.  The entry
 points run on the CUDA card unless the caller asks for another device
@@ -324,15 +325,27 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
 
 
 def _main_header_bytes(hdr: MainHeader, params: CompressParams,
-                       tlm_entries: list[tuple[int, int]] | None) -> bytes:
+                       tlm_entries: list[tuple[int, int]] | None,
+                       ppm_chunks: list[bytes] | None = None,
+                       plm_lists: list[list[int]] | None = None) -> bytes:
+    """grok_tpu/api.py `_main_header_bytes` for the headers the port
+    encodes: SIZ, CAP, COD, QCD, POC, TLM, PLM (one list of packet
+    lengths per tile-part), PPM (one blob of packed headers per tile) and
+    the comments."""
     out = bytearray(struct.pack(">H", j2k.SOC))
     out += j2k.write_siz(hdr.siz, hdr.rsiz, hdr.comps)
     if hdr.cap is not None:
         out += j2k.write_cap(*hdr.cap)
     out += j2k.write_cod(hdr.cod)
     out += j2k.write_qcd(hdr.qcd)
+    if hdr.pocs:
+        out += j2k.write_poc(hdr.pocs, len(hdr.comps))
     if tlm_entries is not None:
         out += j2k.write_tlm(tlm_entries)
+    if plm_lists is not None:
+        out += j2k.write_plm(plm_lists)
+    if ppm_chunks is not None:
+        out += j2k.write_ppm(ppm_chunks)
     if params.comment:
         out += j2k.write_com(params.comment)
     if params.ht_planes:
@@ -375,8 +388,11 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     sliced on the device and all frames' code-blocks of the tile share
     one launch of each block coder the stream uses (K4 for HT, K4r for
     refined HT, K5 for Part-1, both for HT-mixed), with the tile's own
-    layer budgets; each stream carries one tile-part per tile, in tile
-    order, as grok_tpu.compress writes it."""
+    layer budgets.  Each stream carries its tiles in tile order, each in
+    up to params.max_tile_parts tile-parts (split at packet boundaries),
+    with non-default precincts, progression-order changes (POC), PLT,
+    TLM, PLM, PPM and quality targets where params ask for them, as
+    grok_tpu.compress writes it."""
     params = params or CompressParams(ht=True)
     if not arrays_list:
         return []
@@ -403,11 +419,6 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     if len(set(comp_shapes)) != 1 or len(comp_shapes[0]) != 2:
         raise NotImplementedError("encode of subsampled components is not "
                                   "ported")
-    if params.max_tile_parts != 1:
-        raise NotImplementedError("encode into several tile-parts is not "
-                                  "ported")
-    if params.write_plm:
-        raise NotImplementedError("PLM encode is not ported")
     comps = [torch.stack([f[ci] for f in frames])
              for ci in range(len(comp_shapes))]
     x0, y0 = origin
@@ -422,19 +433,36 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
         per_tile.append(try_encode_serving_batch(tc, hdr, params, t))
     out = []
     for fi in range(len(frames)):
-        tps, tlm = [], []
+        tps, tlm, plm, ppm = [], [], [], []
         for t, results in enumerate(per_tile):
             res = results[fi]
-            plt_seg = j2k.write_plt(res.packet_lens) if params.write_plt \
-                else b""
-            plt_seg = res.com + plt_seg      # the HT-mixed bitmap COM first
-            psot = 12 + len(plt_seg) + 2 + len(res.body)
-            tp = j2k.write_sot(t, psot, 0, 1) + plt_seg + \
-                struct.pack(">H", j2k.SOD) + res.body
-            tps.append(tp)
-            tlm.append((t, len(tp)))
+            ppm.append(res.headers)
+            # the packet sequence split across tile-parts at packet
+            # boundaries, as grok_tpu.compress splits it: the tile-header
+            # markers (the HT-mixed bitmap COM, then the PLT) in part 0
+            nparts = max(1, min(params.max_tile_parts,
+                                len(res.packets) or 1))
+            per = -(-len(res.packets) // nparts) if nparts > 1 else None
+            for pi in range(nparts):
+                if per is None:
+                    lens, body = res.packet_lens, res.body
+                else:
+                    lens = res.packet_lens[pi * per:(pi + 1) * per]
+                    body = b"".join(res.packets[pi * per:(pi + 1) * per])
+                seg = j2k.write_plt(lens, zplt=pi) if params.write_plt \
+                    else b""
+                if pi == 0:
+                    seg = res.com + seg
+                psot = 12 + len(seg) + 2 + len(body)
+                tp = j2k.write_sot(t, psot, pi, nparts) + seg + \
+                    struct.pack(">H", j2k.SOD) + body
+                tps.append(tp)
+                tlm.append((t, len(tp)))
+                plm.append(list(lens))
         mh = _main_header_bytes(hdr, params,
-                                tlm if params.write_tlm else None)
+                                tlm if params.write_tlm else None,
+                                ppm if params.write_ppm else None,
+                                plm if params.write_plm else None)
         stream = mh + b"".join(tps) + struct.pack(">H", j2k.EOC)
         if params.jp2:
             stream = jp2.wrap_jp2(

@@ -256,6 +256,19 @@ def write_qcd(q: QuantStyle) -> bytes:
     return _seg(QCD, _sqcd_payload(q))
 
 
+def write_poc(pocs: list[Poc], numcomps: int) -> bytes:
+    payload = b""
+    for p in pocs:
+        payload += struct.pack(">B", p.rs)
+        payload += (struct.pack(">B", p.cs) if numcomps < 257
+                    else struct.pack(">H", p.cs))
+        payload += struct.pack(">HB", p.layer_end, p.re)
+        payload += (struct.pack(">B", p.ce) if numcomps < 257
+                    else struct.pack(">H", p.ce))
+        payload += struct.pack(">B", int(p.order))
+    return _seg(POC, payload)
+
+
 def write_com(text: str | bytes, binary: bool = False) -> bytes:
     data = text.encode("latin-1") if isinstance(text, str) else bytes(text)
     return _seg(COM, struct.pack(">H", 0 if binary else 1) + data)
@@ -295,6 +308,39 @@ def write_plt(lengths: list[int], zplt: int = 0) -> bytes:
             v >>= 7
         payload += bytes(reversed(chunks))
     return _seg(PLT, payload)
+
+
+def write_plm(per_part_lengths: list[list[int]], zplm: int = 0) -> bytes:
+    """PLM (A.4.6): packet lengths in the MAIN header, one Nplm-prefixed
+    varint list per tile-part in stream order.  Returns b"" when any
+    tile-part's list exceeds the 255-byte Nplm field (caller falls back
+    to PLT / no index)."""
+    payload = struct.pack(">B", zplm)
+    for lens in per_part_lengths:
+        blob = b""
+        for ln in lens:
+            chunks = [ln & 0x7F]
+            v = ln >> 7
+            while v:
+                chunks.append((v & 0x7F) | 0x80)
+                v >>= 7
+            blob += bytes(reversed(chunks))
+        if len(blob) > 255:
+            return b""
+        payload += struct.pack(">B", len(blob)) + blob
+    if len(payload) + 4 > 65535:
+        return b""
+    return _seg(PLM, payload)
+
+
+def write_ppm(chunks: list[bytes]) -> bytes:
+    """PPM (A.7.4): the packed packet headers in the main header, one
+    Nppm-prefixed blob per tile in stream order, in one segment (Zppm 0),
+    as grok_tpu/api.py `_main_header_bytes` writes it."""
+    payload = bytearray(struct.pack(">B", 0))
+    for chunk in chunks:
+        payload += struct.pack(">I", len(chunk)) + chunk
+    return struct.pack(">HH", PPM, len(payload) + 2) + payload
 
 
 # -- segment readers ----------------------------------------------------------

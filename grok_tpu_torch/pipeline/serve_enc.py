@@ -38,11 +38,13 @@ targets, shrinks each targeted Part-1 block's final truncation by trial
 decodes on the device (K3), and emits the packets.
 
 Scope: HT code-blocks (cleanup-only or refined, any number of layers,
-byte-rate targets), Part-1 default-style code-blocks (any number of
-layers, byte-rate targets) or HT-mixed sets of the two (one quality
-layer with no target), one tile per call (the entry point loops over a
-stream's tiles, api.py compress_device_batch), one tile-part,
-default precincts, no ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything
+byte-rate or quality targets), Part-1 default-style code-blocks (any
+number of layers, byte-rate or quality targets) or HT-mixed sets of the
+two (one quality layer with no target), one tile per call (the entry
+point loops over a stream's tiles and splits them into tile-parts,
+api.py compress_device_batch), any precincts, progression-order changes
+and PPM's split packet headers (the Tier-2 finish, pipeline/tile.py), no
+ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything
 else raises NotImplementedError naming the route: the port has no host
 encoder to fall back to.  Reversible streams are byte-identical to the
 JAX package's encoders.
@@ -68,7 +70,9 @@ from grok_tpu_torch.ops.t1_encode import (rates_from_watermarks,
 from grok_tpu_torch.pipeline.tile import (TileGeometry, canon_block_indices,
                                           finish_tile_encode)
 from grok_tpu_torch.t1.records import SIG_SPP, EncodedBlock, PassInfo
-from grok_tpu_torch.t2.rate import layer_budget_consts, layer_targets_for_tile
+from grok_tpu_torch.t2.rate import (layer_budget_consts,
+                                    layer_targets_for_tile,
+                                    quality_targets_for_tile)
 from grok_tpu_torch.transform.mct_np import mct_component_norms
 
 _EPLANS: dict = {}
@@ -117,8 +121,6 @@ def _build_plan(hdr, t: int) -> EncPlan:
         raise _unsupported("Part-1 mode switches encode",
                            "a code-block style other than HT cleanup or "
                            "the Part-1 default")
-    if any(cs.prec_exps for cs in geo.styles):
-        raise _unsupported("general encode", "non-default precincts")
     irrevs = {bool(cs.irreversible) for cs in geo.styles}
     if len(irrevs) != 1:
         raise _unsupported("general encode", "components mixing 5/3 and "
@@ -283,10 +285,11 @@ def _lane_index(plan: EncPlan, N: int, device: torch.device):
 
 
 def targeted(params) -> bool:
-    """Whether the encode needs the PCRD allocation: several layers or a
-    byte-rate target (a ratio above 1)."""
+    """Whether the encode needs the PCRD allocation: several layers, a
+    byte-rate target (a ratio above 1) or quality targets."""
     return params.num_layers != 1 or bool(
-        params.rates and any(r > 1 for r in params.rates))
+        params.rates and any(r > 1 for r in params.rates)) or bool(
+        params.fixed_quality and params.quality)
 
 
 def stage_encode_lanes(comps: list, hdr, params, t: int = 0):
@@ -298,15 +301,8 @@ def stage_encode_lanes(comps: list, hdr, params, t: int = 0):
     the device.  Raises NotImplementedError outside the served scope."""
     if params.roi_shift > 0 or params.roi_rect is not None:
         raise _unsupported("ROI encode", "roi_shift / roi_rect")
-    if params.write_ppm:
-        raise _unsupported("PPM encode", "write_ppm")
-    if params.pocs:
-        raise _unsupported("POC encode", "progression-order changes")
     if params.mct == MCTMode.AUTO_RD:
         raise _unsupported("AUTO_RD MCT encode", "mct=AUTO_RD")
-    if params.fixed_quality:
-        raise _unsupported("fixed-quality encode (PCRD)", "fixed_quality: "
-                           "quality targets")
     plan = _plan_for(hdr, t)
     if plan.coder != "ht" or params.ht_mixed:
         if params.ht_planes:
@@ -607,6 +603,10 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
     N = lanes[0].shape[0] // B
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
     targets = _layer_targets(hdr, plan.geo, params)
+    finish = dict(quality_targets=quality_targets_for_tile(hdr, plan.geo,
+                                                           params),
+                  pocs=hdr.pocs, split_headers=bool(params.write_ppm),
+                  device=lanes[0].device)
     if plan.coder == "mq":
         encs = _encode_mq(plan, lanes, targeted(params))
     else:
@@ -631,8 +631,7 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
         frame = encs[fi * B:(fi + 1) * B]
         if not mixed:
             results.append(finish_tile_encode(plan.geo, jobs, frame,
-                                              targets, device=lanes[0]
-                                              .device))
+                                              targets, **finish))
             continue
         bitmap = bytearray(nbytes)
         for bi, ci in enumerate(canon):
@@ -642,8 +641,7 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
             else:
                 frame[bi] = mq_e
         res = finish_tile_encode(plan.geo, jobs, frame, targets,
-                                 seg_style_mask=~CBLK_HT,
-                                 device=lanes[0].device)
+                                 seg_style_mask=~CBLK_HT, **finish)
         res.com = j2k.write_com(b"GRKTPU_HTMIX=" + bytes(bitmap),
                                 binary=True)
         results.append(res)

@@ -34,7 +34,11 @@ from grok_tpu_torch.core.quant import Quantizer
 from grok_tpu_torch.ops.ht_decode import _quant_len
 from grok_tpu_torch.t2.packet import PrecinctCtx
 from grok_tpu_torch.t2.progression import iter_packets
-from grok_tpu_torch.t2.rate import allocate_layers, convex_hull
+from grok_tpu_torch.t2.rate import (allocate_layers,
+                                    allocate_layers_quality, convex_hull)
+
+SOP_MARKER = b"\xff\x91"
+EPH_MARKER = b"\xff\x92"
 
 
 def quantizer_from_style(q: QuantStyle, cs: CodingStyleComp,
@@ -141,6 +145,7 @@ class TileEncodeResult:
     packet_lens: list[int]
     body: bytes                      # concatenated packets
     com: bytes = b""                 # tile-part COM (the HT-mixed bitmap)
+    headers: bytes = b""             # packed packet headers (PPM only)
     refined: int = 0                 # blocks the minimal-flush refinement
     #                                  shrank
     reclaimed: int = 0               # bytes it took off their truncations
@@ -238,29 +243,39 @@ def _refine_truncations(ejobs: list[dict], encs: list, layer_cum: list,
 
 def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
                        layer_targets: list | None = None,
-                       seg_style_mask: int = -1, *,
-                       device) -> TileEncodeResult:
+                       seg_style_mask: int = -1, *, device,
+                       quality_targets: list | None = None,
+                       pocs: list | None = None,
+                       split_headers: bool = False) -> TileEncodeResult:
     """Rate allocation + Tier-2 emission over already-coded blocks.
 
     ejobs need key (c, r, p, band_i, cblk_i), mb and, for the PCRD
     allocation, weight (the band's distortion weight) per block; encs
     are the EncodedBlocks.  layer_targets: cumulative byte budget per
-    layer, None for "every remaining pass".  One layer with no target
-    ships every pass of every block and runs no allocation; otherwise
-    the convex hulls and the layer allocation (t2/rate.py) pick each
-    block's passes per layer, with every candidate allocation sized by
-    the C emitter, and the Part-1 minimal-flush refinement shrinks the
-    final truncation of blocks whose jobs carry style, orient, w and h
+    layer, None for "every remaining pass"; quality_targets: each
+    layer's allowed total squared error (t2/rate.py
+    quality_targets_for_tile), which takes the place of the byte targets.
+    One layer with no target ships every pass of every block and runs no
+    allocation; otherwise the convex hulls and the layer allocation
+    (t2/rate.py: by byte targets, every candidate allocation sized by the
+    emitter, or by quality targets) pick each block's passes per layer,
+    and the Part-1 minimal-flush refinement shrinks the final truncation
+    of blocks whose jobs carry style, orient, w and h
     (_refine_truncations: trial decodes on `device`, the serving
     encode's; a required keyword, so that no caller's refinement runs on
     another device than its encode), as grok_tpu/pipeline/tile.py
-    `finish_tile_encode` does for byte targets (its quality targets are
-    not ported).
+    `finish_tile_encode` does.
+    pocs: the progression-order changes the packets follow; such packets
+    are emitted by the Python packet encoder (t2/packet.py
+    encode_packet), as the JAX package emits them, the others by the C
+    Tier-2 coder.  split_headers (PPM): the packet headers are returned
+    apart (TileEncodeResult.headers, in packet order) and the packets
+    are their bodies alone.
     seg_style_mask: AND-mask on the Tier-2 segmentation style (HT-mixed
     sets emit with ~CBLK_HT); the emitter chunks each block's codeword by
     its passes' termination flags."""
     num_layers = geo.cod.num_layers
-    trivial = num_layers == 1 and (
+    trivial = quality_targets is None and num_layers == 1 and (
         not layer_targets or all(t is None for t in layer_targets))
     ctxs = geo.make_contexts(seg_style_mask)
     hulls, rate_tables, entry_keys = [], [], []
@@ -286,26 +301,76 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
     kidx = {k: i for i, k in enumerate(keys)}
     pkt_cache: dict = {}
 
+    def order(nl: int) -> list:
+        return list(iter_packets(geo.tcgs, geo.subsampling, nl,
+                                 geo.cod.prog_order, geo.rect.x0,
+                                 geo.rect.y0, pocs or None))
+
     def pkts_for(nl: int):
         if nl not in pkt_cache:
-            pl = list(iter_packets(geo.tcgs, geo.subsampling, nl,
-                                   geo.cod.prog_order, geo.rect.x0,
-                                   geo.rect.y0))
+            pl = order(nl)
             pkt_cache[nl] = (
                 np.asarray([kidx[(pc.comp, pc.res, pc.prec)] for pc in pl],
                            np.int32),
                 np.asarray([pc.layer for pc in pl], np.int32))
         return pkt_cache[nl]
 
+    def contexts(layer_cum) -> dict:
+        """Fresh precinct contexts holding the blocks with their passes
+        per layer, for the Python packet encoder."""
+        cs = geo.make_contexts(seg_style_mask)
+        for key, cums in zip(entry_keys, layer_cum):
+            c, r, p, band_i, cblk_i = key
+            src = ctxs[(c, r, p)].eblocks[band_i][cblk_i]
+            cs[(c, r, p)].set_block(band_i, cblk_i, src.enc,
+                                    src.enc.numbps + src.zb)
+            cs[(c, r, p)].eblocks[band_i][cblk_i].layer_cum = cums
+        return cs
+
+    def python_emit(cs: dict, nl: int) -> TileEncodeResult:
+        """grok_tpu/pipeline/tile.py's Python emission: whole packets
+        (SOP, header, EPH, body), or with split_headers the bodies and
+        the headers apart."""
+        pkts, headers = [], bytearray()
+        for pc in order(nl):
+            hd, bd = cs[(pc.comp, pc.res, pc.prec)].encode_packet(pc.layer)
+            if split_headers:
+                headers += hd
+                pkts.append(bd)
+                continue
+            pkt = bytearray()
+            if geo.cod.sop:
+                idx = len(pkts) & 0xFFFF
+                pkt += SOP_MARKER + bytes([0, 4, idx >> 8, idx & 0xFF])
+            pkt += hd
+            if geo.cod.eph:
+                pkt += EPH_MARKER
+            pkts.append(bytes(pkt + bd))
+        return TileEncodeResult(packets=pkts,
+                                packet_lens=[len(p) for p in pkts],
+                                body=b"".join(pkts), headers=bytes(headers))
+
+    c_emit = not pocs and not split_headers
     if trivial:
+        cums = []
         for key in entry_keys:
             c, r, p, band_i, cblk_i = key
             st = ctxs[(c, r, p)].eblocks[band_i][cblk_i]
             st.layer_cum = [st.enc.numpasses]
+            cums.append(st.layer_cum)
+        if not c_emit:
+            return python_emit(contexts(cums), 1)
         pc_a, pl_a = pkts_for(1)
         packets = native.t2_emit(ctxs, keys, list(zip(pc_a, pl_a)), 1,
                                  geo.cod.sop, geo.cod.eph)
-    else:
+        if packets is None:
+            raise RuntimeError("the C Tier-2 emitter declined the tile")
+        return TileEncodeResult(packets=packets,
+                                packet_lens=[len(p) for p in packets],
+                                body=b"".join(packets))
+
+    prep = None
+    if not pocs:
         # prepared emitter: the static arrays are flattened once; every
         # PCRD bisection step and the final emission are one C call
         prep = native.t2_emit_prepare(ctxs, keys)
@@ -316,43 +381,57 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
                           for (c, r, p, band_i, cblk_i) in entry_keys],
                          np.int64)
 
-        def emit(layer_cum, nlayers: int):
-            lc = np.zeros((prep["n_blks"], nlayers), np.int32)
-            lc[e2g] = np.asarray(layer_cum, np.int32)
-            pc_a, pl_a = pkts_for(nlayers)
-            pk = native.t2_emit_prepared(prep, pc_a, pl_a, lc, nlayers,
-                                         geo.cod.sop, geo.cod.eph)
-            if pk is None:
-                raise RuntimeError("the C Tier-2 emitter declined the tile")
-            return pk
+    def emit(layer_cum, nlayers: int):
+        if prep is None:
+            return python_emit(contexts(layer_cum), nlayers).packets
+        lc = np.zeros((prep["n_blks"], nlayers), np.int32)
+        lc[e2g] = np.asarray(layer_cum, np.int32)
+        pc_a, pl_a = pkts_for(nlayers)
+        pk = native.t2_emit_prepared(prep, pc_a, pl_a, lc, nlayers,
+                                     geo.cod.sop, geo.cod.eph)
+        if pk is None:
+            raise RuntimeError("the C Tier-2 emitter declined the tile")
+        return pk
 
-        def simulate(layer_cum) -> int:
-            nl = len(layer_cum[0]) if layer_cum else num_layers
-            return sum(len(p) for p in emit(layer_cum, nl))
+    def simulate(layer_cum) -> int:
+        nl = len(layer_cum[0]) if layer_cum else num_layers
+        return sum(len(p) for p in emit(layer_cum, nl))
 
-        totals = []
-        for (c, r, p, band_i, cblk_i) in entry_keys:
-            totals.append(ctxs[(c, r, p)].eblocks[band_i][cblk_i]
-                          .enc.numpasses)
+    totals = []
+    for (c, r, p, band_i, cblk_i) in entry_keys:
+        totals.append(ctxs[(c, r, p)].eblocks[band_i][cblk_i]
+                      .enc.numpasses)
+    if quality_targets is not None:
+        dists_list = [np.array([pi.dist * j["weight"] for pi in enc.passes])
+                      for j, enc in zip(ejobs, encs)]
+        # targets arrive as the allowed total squared error: the required
+        # reduction against the largest one achievable
+        e0 = sum(float(d[-1]) for d in dists_list if len(d))
+        conv = [None if q is None else max(e0 - float(q), 0.0)
+                for q in quality_targets]
+        layer_cum = allocate_layers_quality(hulls, num_layers, conv,
+                                            totals, dists_list)
+    else:
         layer_cum = allocate_layers(hulls, num_layers, layer_targets or [],
                                     simulate, totals,
                                     pass_rates=rate_tables)
-        changes, trials = _refine_truncations(ejobs, encs, layer_cum, device)
+    changes, trials = _refine_truncations(ejobs, encs, layer_cum, device)
+    if prep is not None:
         for i, pno, rate in changes:
             # the prepared arrays hold the rates as they were allocated
             prep["pass_rates"][prep["pass_off"][e2g[i]] + pno] = rate
+    if c_emit:
         packets = emit(layer_cum, num_layers)
-        return TileEncodeResult(
-            packets=packets, packet_lens=[len(p) for p in packets],
-            body=b"".join(packets), refined=len(changes),
-            reclaimed=sum(int(rate_tables[i][pno]) - rate
-                          for i, pno, rate in changes),
-            trial_lanes=trials)
-    if packets is None:
-        raise RuntimeError("the C Tier-2 emitter declined the tile")
-    return TileEncodeResult(packets=packets,
-                            packet_lens=[len(p) for p in packets],
-                            body=b"".join(packets))
+        res = TileEncodeResult(packets=packets,
+                               packet_lens=[len(p) for p in packets],
+                               body=b"".join(packets))
+    else:
+        res = python_emit(contexts(layer_cum), num_layers)
+    res.refined = len(changes)
+    res.reclaimed = sum(int(rate_tables[i][pno]) - rate
+                        for i, pno, rate in changes)
+    res.trial_lanes = trials
+    return res
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,7 @@
 """PCRD rate allocation (post-compression rate-distortion optimization).
 
-The port's copy of grok_tpu/t2/rate.py without `allocate_layers_quality`
-(the serving encode takes byte targets only) and without the sharded
-encode's slope bounds (the port has no sharded encode).
+The port's copy of grok_tpu/t2/rate.py without the sharded encode's
+slope bounds (the port has no sharded encode).
 
 Per code-block: convex-hull filtering of the (rate, weighted distortion)
 pass envelope.  Per layer: global lambda bisection over the hull slopes,
@@ -212,6 +211,65 @@ def allocate_layers(hulls: list[Hull], num_layers: int,
             layer_cum[b].append(chosen[b])
         prev = chosen
     return layer_cum
+
+
+def allocate_layers_quality(hulls: list[Hull], num_layers: int,
+                            dist_targets: list[float | None],
+                            total_passes: list[int],
+                            dists: list[np.ndarray]) -> list[list[int]]:
+    """Fixed-quality allocation: per layer, the cheapest (highest-slope)
+    pass set whose cumulative distortion reduction meets the target.
+
+    dist_targets: cumulative weighted-squared-error reduction per layer
+    (None = everything).  dists[b][p]: cumulative reduction per pass.
+    """
+    nb = len(hulls)
+    layer_cum: list[list[int]] = [[] for _ in range(nb)]
+    prev = [0] * nb
+    bank = _HullBank(hulls)
+    dists_mat = _cum_table(dists)
+    all_slopes = np.concatenate([h.slopes for h in hulls if len(h.slopes)]) \
+        if any(len(h.slopes) for h in hulls) else np.array([1.0])
+    smin = float(all_slopes.min()) * 0.5
+    smax = float(all_slopes.max()) * 2.0 + 1.0
+
+    def reduction(chosen):
+        return _cum_lookup(dists_mat, np.asarray(chosen, np.int64))
+
+    for l in range(num_layers):
+        tgt = dist_targets[l] if l < len(dist_targets) else None
+        if tgt is None:
+            chosen = [max(total_passes[b], prev[b]) for b in range(nb)]
+        else:
+            lo, hi = smin, smax
+            chosen = [max(total_passes[b], prev[b]) for b in range(nb)]
+            prev_a = np.asarray(prev, np.int64)
+            for _ in range(40):
+                mid = 0.5 * (lo + hi)
+                trial = bank.passes(mid, prev_a).tolist()
+                if reduction(trial) >= tgt:
+                    chosen = trial
+                    lo = mid        # try fewer bytes (higher threshold)
+                else:
+                    hi = mid
+        for b in range(nb):
+            layer_cum[b].append(chosen[b])
+        prev = chosen
+    return layer_cum
+
+
+def quality_targets_for_tile(hdr, geo, params) -> list | None:
+    """Each layer's allowed total squared error for a fixed-quality
+    encode (params.fixed_quality with PSNR targets params.quality; None
+    for a layer whose target is not above 0), over the tile's samples,
+    as grok_tpu.compress computes them; None without quality targets."""
+    if not (params.fixed_quality and params.quality):
+        return None
+    npix = sum(geo.comp_rects[c].w * geo.comp_rects[c].h
+               for c in range(len(hdr.comps)))
+    peak = (1 << hdr.comps[0].prec) - 1
+    return [None if q <= 0 else peak * peak / (10.0 ** (q / 10.0)) * npix
+            for q in params.quality]
 
 
 def layer_budget_consts(hdr, params) -> tuple:

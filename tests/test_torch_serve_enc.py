@@ -92,9 +92,14 @@ def test_lossy_ict_97_decodes_within_one_of_jax_device_encode(
 def test_out_of_scope_parameters_raise(rgb):
     poc = Poc(rs=0, cs=0, layer_end=1, re=3, ce=3, order=ProgOrder.LRCP)
     # Part-1 targeted and layered encodes are served, as the host
-    # encoder codes them, and tiled encodes too
+    # encoder codes them, and tiled encodes too; so are POC, PPM, PLM,
+    # several tile-parts and non-default precincts (the general encode's
+    # stream layouts)
     for kw in (dict(ht=False, rates=[8.0]), dict(ht=False, num_layers=2),
-               dict(tile_w=32, tile_h=32)):
+               dict(tile_w=32, tile_h=32), dict(pocs=[poc]),
+               dict(write_ppm=True), dict(write_plm=True),
+               dict(max_tile_parts=2),
+               dict(prec_w_exps=[4, 5, 5], prec_h_exps=[4, 5, 5])):
         assert api.compress_device(rgb, PCP(**dict(CP, **kw)),
                                    device="cpu") == \
             compress(rgb, JCP(**dict(CP, **kw)))
@@ -102,14 +107,8 @@ def test_out_of_scope_parameters_raise(rgb):
             (dict(ht_mixed=True, ht=False, num_layers=2), "multi-layer"),
             (dict(ht_mixed=True, ht=False, rates=[8.0]), "rate-targeted"),
             (dict(ht=False, cblk_style=0x01), "Part-1 mode switches"),
-            (dict(pocs=[poc]), "POC"),
-            (dict(write_ppm=True), "PPM"),
-            (dict(write_plm=True), "PLM"),
             (dict(mct=MCTMode.AUTO_RD), "AUTO_RD"),
-            (dict(roi_comp=0, roi_shift=4), "ROI"),
-            (dict(max_tile_parts=2), "tile-parts"),
-            (dict(prec_w_exps=[4, 5, 5], prec_h_exps=[4, 5, 5]),
-             "precincts")):
+            (dict(roi_comp=0, roi_shift=4), "ROI")):
         with pytest.raises(NotImplementedError, match=what):
             api.compress_device(rgb, PCP(**dict(CP, **kw)), device="cpu")
     with pytest.raises(NotImplementedError, match=r"Mb = \d+ > 24"):
