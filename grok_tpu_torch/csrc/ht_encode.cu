@@ -56,6 +56,13 @@
 // Bound.  The bytes are ~100x below the first design's time; what bounds
 // a lane is its chain of __syncwarp-separated steps (five per quad-row
 // step, three per stripe) and lane 0's MEL events.
+//
+// Wide lanes (W or H over 64, sides up to 1024, at most 4096 samples)
+// take a simple design of their own, `ht_encode_wide_kernel`: one warp
+// per code-block, its first thread coding the block serially in the
+// scalar coder's order (the first design's lane body), the two rows of
+// quad states and the significance bits in the warp's shared memory; the
+// warp zeroes ns first.
 
 #include "t1_warp.cuh"
 
@@ -747,6 +754,225 @@ __device__ __forceinline__ void encode_one(
     }
 }
 
+// ---- wide lanes: one warp per code-block, its first thread serial ------
+
+// A wide lane's shared memory: two rows of (ebot << 4) | rho quad states
+// of GW + 2 entries, then the block's significance bits (W x H).
+__host__ __device__ __forceinline__ int ht_enc_wide_bytes(int W, int H)
+{
+    const int gw = (W + 1) >> 1;
+    return (8 * (gw + 2) + 15) / 16 * 16 + (W * H + 127) / 128 * 16;
+}
+
+// Significance, CxtVLC codeword and MagSgn fields of one quad; the MEL
+// significance event for context-0 quads.  Writes the quad's state word
+// into cur[qx + 1] and returns u (u_off = u > 0).
+__device__ __forceinline__ int wide_quad(const int* blk, int W, int bw,
+                                         int bh, int p, int g, int qx,
+                                         const int* prev, int* cur,
+                                         Mel& mel, Sink& smel, Sink& svlc,
+                                         Sink& sms, const int* lut,
+                                         int symb, int famoff)
+{
+    int rho = 0, ebot = 0, uact = 0;
+    uint32_t v[4];
+    int e[4];
+    for (int i = 0; i < 4; i++) {
+        // quad scan order n0=(0,0) n1=(1,0) n2=(0,1) n3=(1,1), (dy, dx)
+        const int y = 2 * g + (i & 1), x = 2 * qx + (i >> 1);
+        v[i] = 0;
+        e[i] = 0;
+        if (y < bh && x < bw) {
+            const int mn = blk[y * W + x];
+            const uint32_t vq = ((uint32_t)mn >> 1) >> p;
+            if (vq > 0) {
+                rho |= 1 << i;
+                v[i] = ((vq - 1u) << 1) | ((uint32_t)mn & 1u);
+                e[i] = 32 - t1_clz(v[i]);
+                uact = max(uact, e[i]);
+                if (i & 1)
+                    ebot = max(ebot, e[i]);
+            }
+        }
+    }
+    cur[qx + 1] = rho | (ebot << 4);
+    const int rl = cur[qx] & 0xF;
+    const int ra = prev[qx + 1] & 0xF;
+    const int rar = prev[qx + 2] & 0xF;
+    const int c = ((rl & 0xC) != 0) | (((ra & 0xA) != 0) << 1)
+        | (((rar & 0x2) != 0) << 2);
+    const int base = (famoff + c) << symb;
+    if (c == 0) {
+        mel_encode(mel, smel, rho != 0);
+        if (rho == 0)
+            return 0;
+    }
+    if (rho == 0) {
+        const int ent = lut[base];
+        sink_put(svlc, (uint32_t)(ent & 0x7F), ent >> 7);
+        return 0;
+    }
+    const int eab = prev[qx + 1] >> 4;
+    const int kappa = (rho & (rho - 1)) ? max(1, eab - 1) : 1;
+    const int U = max(kappa, uact);
+    const int u = U - kappa;
+    const int sym = ((u > 0) << 4) | rho;
+    int ek = 0;
+    for (int i = 0; i < 4; i++)
+        if (((rho >> i) & 1) && e[i] == U)
+            ek |= 1 << i;
+    int ent = 0;
+    if (ek && symb == 9)
+        ent = lut[base | (ek << 5) | sym];
+    if (ent == 0) {                  // no EMB entry: the eps_k = 0 symbol
+        ek = 0;
+        ent = lut[base | sym];
+    }
+    sink_put(svlc, (uint32_t)(ent & 0x7F), ent >> 7);
+    for (int i = 0; i < 4; i++)
+        if ((rho >> i) & 1)
+            sink_put(sms, v[i], U - ((ek >> i) & 1));
+    return u;
+}
+
+// The cleanup pass of one valid wide lane by one thread, quad pair by
+// quad pair: its three streams at o, their bit counts at bits[lane],
+// bits[nl + lane], bits[2 nl + lane].  rows: 2 (gw + 2) ints.
+__device__ void wide_cleanup(const int* blk, int W, int w, int h, int p,
+                             const int* lut, int symb, int nfam, int pxor,
+                             int* rows, uint8_t* o, int lms, int lmel,
+                             int lvlc, int* bits, int nl, int lane)
+{
+    Sink sms = { (uint32_t*)o, lms / 4, 0, 0ull, 0, 0, false };
+    Sink smel = { (uint32_t*)(o + lms), lmel / 4, 0, 0ull, 0, 0, false };
+    Sink svlc = { (uint32_t*)(o + lms + lmel), lvlc / 4, 0, 0ull, 0, 0,
+                  false };
+    Mel mel = { 0, 0 };
+    const int gw = (w + 1) >> 1, gh = (h + 1) >> 1;
+    for (int j = 0; j < gw + 2; j++)
+        rows[j] = 0;
+    for (int g = 0; g < gh; g++) {
+        const int* prev = rows + (g & 1) * (gw + 2);
+        int* cur = rows + ((g + 1) & 1) * (gw + 2);
+        for (int j = 0; j < gw + 2; j++)
+            cur[j] = 0;
+        const bool initial = g == 0;
+        const int famoff = (nfam == 2 && initial) ? HT_N_CTX : 0;
+        for (int qx0 = 0; qx0 < gw; qx0 += 2) {
+            const int u0 = wide_quad(blk, W, w, h, p, g, qx0, prev, cur, mel,
+                                     smel, svlc, sms, lut, symb, famoff);
+            int u1 = 0;
+            if (qx0 + 1 < gw)
+                u1 = wide_quad(blk, W, w, h, p, g, qx0 + 1, prev, cur, mel,
+                               smel, svlc, sms, lut, symb, famoff);
+            if (u0 > 0 || u1 > 0) {
+                bool big;
+                const uint64_t f = uvlc_pair(initial, u0, u1, pxor, big);
+                if (initial && u0 > 0 && u1 > 0)
+                    mel_encode(mel, smel, big ? 1 : 0);
+                // at most 26 bits: two prefixes and two escaped suffixes
+                sink_put(svlc, (uint32_t)f, (int)(f >> 32));
+            }
+        }
+    }
+    if (mel.run > 0)                 // a pending run as a claimed full run
+        sink_put(smel, 1u, 1);
+    bits[lane] = sink_finish(sms);
+    bits[nl + lane] = sink_finish(smel);
+    bits[2 * nl + lane] = sink_finish(svlc);
+}
+
+__device__ __forceinline__ bool wide_sig(const uint32_t* sg, int i)
+{
+    return (sg[i >> 5] >> (i & 31)) & 1u;
+}
+
+// HT SigProp and HT MagRef at plane p - 1 of one wide lane by one thread,
+// each in the 4-row stripe scan (columns left to right, rows top to
+// bottom in a stripe column): the streams after the cleanup's at o, their
+// bit counts at bits[3 nl + lane], bits[4 nl + lane], the 1s of ns at nsl
+// (row stride W).  sg: the significance bits, row stride w.
+__device__ void wide_refine(const int* blk, int W, int w, int h, int p,
+                            uint32_t* sg, uint8_t* o, int lsp, int lmr,
+                            int* bits, int nl, int lane, uint8_t* nsl)
+{
+    const int bp = p - 1;
+    for (int i = 0; i < (w * h + 31) >> 5; i++)
+        sg[i] = 0;
+    for (int y = 0; y < h; y++)
+        for (int x = 0; x < w; x++)
+            if ((((uint32_t)blk[y * W + x] >> 1) >> p) > 0)
+                sg[(y * w + x) >> 5] |= 1u << ((y * w + x) & 31);
+    Sink ssp = { (uint32_t*)o, lsp / 4, 0, 0ull, 0, 0, false };
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                if (wide_sig(sg, y * w + x))
+                    continue;
+                bool nbr = false;
+                for (int yy = max(y - 1, 0); yy <= min(y + 1, h - 1); yy++)
+                    for (int xx = max(x - 1, 0); xx <= min(x + 1, w - 1);
+                         xx++)
+                        nbr |= wide_sig(sg, yy * w + xx);
+                if (!nbr)
+                    continue;
+                const uint32_t mn = (uint32_t)blk[y * W + x];
+                const uint32_t bit = ((mn >> 1) >> bp) & 1u;
+                sink_put(ssp, bit | ((mn & 1u) << 1), 1 + (int)bit);
+                if (bit) {
+                    sg[(y * w + x) >> 5] |= 1u << ((y * w + x) & 31);
+                    nsl[y * W + x] = 1;
+                }
+            }
+    bits[3 * nl + lane] = sink_finish(ssp);
+    Sink smr = { (uint32_t*)(o + lsp), lmr / 4, 0, 0ull, 0, 0, false };
+    for (int y0 = 0; y0 < h; y0 += 4)
+        for (int x = 0; x < w; x++)
+            for (int y = y0; y < min(y0 + 4, h); y++) {
+                const uint32_t mag = (uint32_t)blk[y * W + x] >> 1;
+                if ((mag >> p) > 0)
+                    sink_put(smr, (mag >> bp) & 1u, 1);
+            }
+    bits[4 * nl + lane] = sink_finish(smr);
+}
+
+// Lane `lane` of a wide batch, run by the whole warp: ns zeroed (K4r),
+// then the block coded by the first thread, the bit counts of an invalid
+// lane and of a lane without refinement 0.  ws: the warp's
+// ht_enc_wide_bytes(W, H) of shared memory.
+__device__ __forceinline__ void encode_wide_one(
+    const int* lut, int symb, int nfam, int pxor, unsigned char* ws, int lane,
+    const int* mneg, const int* pv, const int* wv, const int* hv,
+    const int* valid, uint8_t* out, int row, int lms, int lmel, int lvlc,
+    int lsp, int lmr, int* bits, uint8_t* ns, int nl, int W, int H)
+{
+    const int w = min(wv[lane], W), h = min(hv[lane], H);
+    const bool on = valid[lane] == 1 && w > 0 && h > 0;
+    const int p = pv[lane];
+    const int* blk = mneg + (size_t)lane * W * H;
+    uint8_t* o = out + (size_t)lane * row;
+    const bool ref = ns != nullptr && on && p > 0;
+    uint8_t* nsl = ns != nullptr ? ns + (size_t)lane * W * H : nullptr;
+    if (nsl != nullptr)
+        warp_for(W * H, [&](int i) { nsl[i] = 0; });
+    warp_sync();
+    if (warp_leader()) {
+        int* rows = reinterpret_cast<int*>(ws);
+        uint32_t* sg = reinterpret_cast<uint32_t*>(
+            ws + (8 * (((W + 1) >> 1) + 2) + 15) / 16 * 16);
+        if (on)
+            wide_cleanup(blk, W, w, h, p, lut, symb, nfam, pxor, rows, o,
+                         lms, lmel, lvlc, bits, nl, lane);
+        if (ref)
+            wide_refine(blk, W, w, h, p, sg, o + lms + lmel + lvlc, lsp, lmr,
+                        bits, nl, lane, nsl);
+        const int nstreams = ns != nullptr ? 5 : 3;
+        for (int k = on ? (ref ? 5 : 3) : 0; k < nstreams; k++)
+            bits[k * nl + lane] = 0;
+    }
+    warp_sync();
+}
+
 #ifdef __CUDACC__
 
 template <bool REFINE>
@@ -776,6 +1002,33 @@ ht_encode_kernel(const int* __restrict__ mneg, const int* __restrict__ pv,
 }
 
 template <bool REFINE>
+__global__ void __launch_bounds__(HT_WARPS * 32)
+ht_encode_wide_kernel(const int* __restrict__ mneg,
+                      const int* __restrict__ pv,
+                      const int* __restrict__ wv, const int* __restrict__ hv,
+                      const int* __restrict__ valid,
+                      const int* __restrict__ lut_g, int lut_n, int symb,
+                      int nfam, int pxor, uint8_t* __restrict__ out, int row,
+                      int lms, int lmel, int lvlc, int lsp, int lmr,
+                      int* __restrict__ bits, uint8_t* __restrict__ ns,
+                      int nl, int W, int H)
+{
+    extern __shared__ __align__(16) unsigned char smem[];
+    int* lut = reinterpret_cast<int*>(smem);
+    for (int i = threadIdx.x; i < lut_n; i += blockDim.x)
+        lut[i] = lut_g[i];
+    __syncthreads();
+    const int lane = blockIdx.x * HT_WARPS + (threadIdx.x >> 5);
+    if (lane >= nl)
+        return;
+    unsigned char* ws = smem + ((lut_n * 4 + 15) & ~15)
+        + (threadIdx.x >> 5) * ht_enc_wide_bytes(W, H);
+    encode_wide_one(lut, symb, nfam, pxor, ws, lane, mneg, pv, wv, hv, valid,
+                    out, row, lms, lmel, lvlc, lsp, lmr, bits,
+                    REFINE ? ns : nullptr, nl, W, H);
+}
+
+template <bool REFINE>
 static int launch(const void* mneg, const void* p, const void* w,
                   const void* h, const void* valid, const void* lut,
                   int lut_n, int symb, int nfam, int pxor, void* out,
@@ -784,6 +1037,23 @@ static int launch(const void* mneg, const void* p, const void* w,
 {
     if (nl <= 0)
         return 0;
+    if (W > 64 || H > 64) {
+        const int smem = ((lut_n * 4 + 15) & ~15)
+            + HT_WARPS * ht_enc_wide_bytes(W, H);
+        cudaError_t err = cudaFuncSetAttribute(
+            ht_encode_wide_kernel<REFINE>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess)
+            return (int)err;
+        const int blocks = (nl + HT_WARPS - 1) / HT_WARPS;
+        ht_encode_wide_kernel<REFINE><<<blocks, HT_WARPS * 32, smem,
+                                        (cudaStream_t)stream>>>(
+            (const int*)mneg, (const int*)p, (const int*)w, (const int*)h,
+            (const int*)valid, (const int*)lut, lut_n, symb, nfam, pxor,
+            (uint8_t*)out, row, lms, lmel, lvlc, lsp, lmr, (int*)bits,
+            (uint8_t*)ns, nl, W, H);
+        return (int)cudaGetLastError();
+    }
     const int smem = ((lut_n * 4 + 15) & ~15)
         + HT_WARPS * (REFINE ? HT_REF_BYTES : HT_CLN_BYTES);
     cudaError_t err = cudaFuncSetAttribute(

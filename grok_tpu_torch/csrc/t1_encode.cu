@@ -29,7 +29,11 @@
 // stripe's visit masks before the walk (one 64-bit column mask per
 // stripe row, eight ballots: csrc/t1_common.cuh `t1_stripe_masks`),
 // clear F_VIS after each cleanup, and write the watermark rows and the
-// sigtype map, coalesced, at the end.  The grid is persistent, sized
+// sigtype map, coalesced, at the end.  A block wider than 64 (sides up
+// to 1024, at most 4096 samples) walks each stripe in chunks of 64
+// columns, left to right, each chunk's masks built once the chunk before
+// it is coded, as K3 walks it (csrc/t1_decode.cu); each lane codes its
+// own w x h only.  The grid is persistent, sized
 // from the occupancy of the (W, H) workspace (twelve 64 x 64 lanes per
 // SM): each warp takes lane after lane from a device counter, in the
 // order of a device argsort of nbps * w * h, longest first.
@@ -207,19 +211,26 @@ __device__ void encode_lane(const T1Tables& t, unsigned char* ws,
     for (int k = 0; k < nbps; k++) {
         const int bpl = nbps - 1 - k;
         for (int ptype = k >= 1 ? 0 : 2; ptype < 3; ptype++) {
-            for (int y0 = 0; y0 < h; y0 += 4) {
+            // stripe by stripe, each in chunks of 64 columns (one chunk
+            // up to 64 wide): a chunk's masks are built after the walk of
+            // the chunk before it, from flags that carry its new
+            // significance
+            for (int y0 = 0; y0 < h; y0 += 4)
+            for (int c0 = 0; c0 < w; c0 += 64) {
                 const int y1 = min(y0 + 4, h), nr = y1 - y0;
+                const int cw = min(w - c0, 64);
                 const T1Nibbles m = ptype == 0
-                    ? t1_stripe_masks<0>(fl, s, w, y0, y1)
-                    : ptype == 1 ? t1_stripe_masks<1>(fl, s, w, y0, y1)
-                    : t1_stripe_masks<2>(fl, s, w, y0, y1);
+                    ? t1_stripe_masks<0>(fl, s, w, y0, y1, c0)
+                    : ptype == 1 ? t1_stripe_masks<1>(fl, s, w, y0, y1, c0)
+                    : t1_stripe_masks<2>(fl, s, w, y0, y1, c0);
                 if (warp_leader()) {
                     uint64_t cols = t1_columns(m);
                     int carry = 0;      // SPP: rows added to the next column
                     while (cols) {
-                        const int x = t1_ffs64(cols) - 1;
+                        const int cx = t1_ffs64(cols) - 1;
+                        const int x = c0 + cx;
                         cols &= cols - 1;
-                        int nib = t1_nibble(m, x) | carry;
+                        int nib = t1_nibble(m, cx) | carry;
                         carry = 0;
                         if (ptype == 0) {                      // SPP
                             for (int dy = 0; dy < nr; dy++) {
@@ -241,8 +252,9 @@ __device__ void encode_lane(const T1Tables& t, unsigned char* ws,
                                 *f |= F_VIS;
                             }
                             carry &= (1 << nr) - 1;
-                            if (carry && x + 1 < w)
-                                cols |= (uint64_t)1 << (x + 1);
+                            // the next chunk's masks see these rows' flags
+                            if (carry && cx + 1 < cw)
+                                cols |= (uint64_t)1 << (cx + 1);
                         } else if (ptype == 1) {               // MRP
                             for (int dy = 0; dy < nr; dy++) {
                                 if (!((nib >> dy) & 1))

@@ -66,7 +66,7 @@ import ctypes
 import numpy as np
 import torch
 
-from grok_tpu_torch.ops.ht_encode import stripe_order
+from grok_tpu_torch.ops.ht_encode import lane_dims_ok, stripe_order
 from grok_tpu_torch.t1ht import tables as _t
 
 # Longest per-lane clean sub-stream the serving path stages (bytes):
@@ -82,12 +82,6 @@ MARK_I64 = 8
 # the largest exponent bound U the scalar decoder takes
 U_MAX = 40
 _M32 = 0xFFFFFFFF
-
-
-def lane_dims_ok(W: int, H: int) -> bool:
-    """A legal code-block bucket: sides 1..1024, at most 4096 samples
-    (ISO 15444-1 A.6.1)."""
-    return 1 <= W <= 1024 and 1 <= H <= 1024 and W * H <= 4096
 
 
 def _quant_len(maxlen: int) -> int:

@@ -53,6 +53,12 @@ import torch
 
 from grok_tpu_torch.t1ht import tables as _t
 
+
+def lane_dims_ok(W: int, H: int) -> bool:
+    """A legal code-block bucket: sides 1..1024, at most 4096 samples
+    (ISO 15444-1 A.6.1)."""
+    return 1 <= W <= 1024 and 1 <= H <= 1024 and W * H <= 4096
+
 # e = MEL exponent table indexed by the MEL state k (0..12)
 _MEL_E = (0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 4, 5)
 
@@ -386,8 +392,9 @@ def _encode(v1: bool, counter, mneg, p, w, h, valid, LMS: int, LMEL: int,
         _check(name, t, torch.int32, NL, dev)
         if t.dim() != 1:
             raise ValueError(f"{name} must be (NL,), got {tuple(t.shape)}")
-    if not (1 <= W <= 64 and 1 <= H <= 64):
-        raise ValueError(f"block dims {W}x{H} outside 1..64")
+    if not lane_dims_ok(W, H) or (v1 and (W > 64 or H > 64)):
+        raise ValueError(f"block dims {W}x{H} outside 1..1024 with at most "
+                         f"4096 samples{' (64 x 64 for v1)' if v1 else ''}")
     for name, L in (("LMS", LMS), ("LMEL", LMEL), ("LVLC", LVLC)):
         if L < 4 or L % 4:
             raise ValueError(f"{name} = {L} is not a positive multiple of 4")
@@ -445,8 +452,9 @@ def ht_encode_lanes(mneg, p, w, h, valid, LMS: int, LMEL: int, LVLC: int,
     """Cleanup-encode NL lanes -> (streams (NL, LMS+LMEL+LVLC) uint8,
     bits (3, NL) int32); see the module docstring for the layout.
 
-    mneg: (NL, H, W) int32 with 1 <= W, H <= 64; p, w, h, valid: (NL,)
-    int32, every lane with w <= W and h <= H.  LMS, LMEL, LVLC: per-lane
+    mneg: (NL, H, W) int32 with 1 <= W, H <= 1024, W * H <= 4096 (lanes
+    over 64 on a side take the kernel's wide design); p, w, h, valid:
+    (NL,) int32, every lane with w <= W and h <= H.  LMS, LMEL, LVLC: per-lane
     stream capacities in bytes, multiples of 4.  CPU tensors run the
     plain version; CUDA tensors launch the kernel, and anything the
     kernel does not take raises.

@@ -47,6 +47,7 @@ import torch
 from grok_tpu_torch.ops.t1_decode import (F_MU, F_SIG, F_VIS, _check,
                                           lut_on, mark_sig, stripe_order,
                                           tables_on)
+from grok_tpu_torch.ops.ht_encode import lane_dims_ok
 from grok_tpu_torch.t1 import mq
 from grok_tpu_torch.t1.records import SIG_CLN, SIG_SPP, pass_schedule
 
@@ -258,8 +259,9 @@ def _checked(mneg, orient, numbps, w, h, L: int, R: int) -> torch.device:
     if mneg.dim() != 3:
         raise ValueError(f"mneg must be (NL, H, W), got {tuple(mneg.shape)}")
     NL, H, W = mneg.shape
-    if not (1 <= W <= 64 and 1 <= H <= 64):
-        raise ValueError(f"block dims {W}x{H} outside 1..64")
+    if not lane_dims_ok(W, H):
+        raise ValueError(f"block dims {W}x{H} outside 1..1024 with at most "
+                         f"4096 samples")
     _check("mneg", mneg, torch.int32, dev)
     for name, t in (("orient", orient), ("numbps", numbps), ("w", w),
                     ("h", h)):
@@ -293,7 +295,8 @@ def t1_encode_lanes(mneg, orient, numbps, w, h, L: int, R: int):
     int32, rates (NL, R) int32, sigtype (NL, H, W) int8); see the module
     docstring for the layout.
 
-    mneg: (NL, H, W) int32 with 1 <= W, H <= 64; orient, numbps (<= 30),
+    mneg: (NL, H, W) int32 with 1 <= W, H <= 1024, W * H <= 4096 (a
+    stripe over 64 wide is walked in 64-column chunks); orient, numbps (<= 30),
     w, h: (NL,) int32, every lane with 1 <= w <= W and 1 <= h <= H (a
     lane with numbps 0 codes nothing).  L: per-lane byte capacity, a
     multiple of 4 and at least 4; R: watermark rows (3 * planes - 2
@@ -332,6 +335,8 @@ def t1_encode_lanes_v1(mneg, orient, numbps, w, h, L: int, R: int):
     t1_encode_v1.cu, one thread per lane, its flags in a device-memory
     scratch): the same arguments, checks and result."""
     dev = _checked(mneg, orient, numbps, w, h, L, R)
+    if mneg.shape[1] > 64 or mneg.shape[2] > 64:
+        raise ValueError("the first design takes lanes of up to 64x64")
     if dev.type == "cpu":
         return t1_encode_lanes_ref(mneg, orient, numbps, w, h, L, R)
     from grok_tpu_torch._build import load_library

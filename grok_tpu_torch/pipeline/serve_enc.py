@@ -67,6 +67,7 @@ from grok_tpu_torch.ops.ht_encode import (_bitlen, _cap_bytes,
                                           ht_encode_lanes, refine_caps)
 from grok_tpu_torch.ops.t1_encode import (rates_from_watermarks,
                                           t1_encode_lanes)
+from grok_tpu_torch.pipeline.plan import _pow2_at_least
 from grok_tpu_torch.pipeline.tile import (TileGeometry, canon_block_indices,
                                           finish_tile_encode)
 from grok_tpu_torch.t1.records import SIG_SPP, EncodedBlock, PassInfo
@@ -170,8 +171,9 @@ def _build_plan(hdr, t: int) -> EncPlan:
     if mbmax > 24:
         raise _unsupported("general encode", f"Mb = {mbmax} > 24 magnitude "
                            f"planes")
-    if W > 64 or H > 64:
-        raise _unsupported("general encode", "code-blocks over 64x64")
+    # the lanes' bucket: the blocks' nominal power-of-two size (code-blocks
+    # of any legal shape, sides up to 1024, at most 4096 samples)
+    W, H = _pow2_at_least(W, lo=1), _pow2_at_least(H, lo=1)
     mct_mode = 0
     if geo.cod.mct and len(comps_sig) >= 3:
         mct_mode = 2 if geo.styles[0].irreversible else 1

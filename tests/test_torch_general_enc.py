@@ -156,3 +156,119 @@ def test_general_encode_without_a_card_raises(frames):
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         api.compress_device(frames["rgb"], pp)
+
+
+# ---------------------------------------------------------------------------
+# Code-blocks over 64 on a side
+# ---------------------------------------------------------------------------
+
+def _gray(h: int, w: int, bits: int):
+    """A synthetic gray frame of `bits` bits (few planes: the plain K5
+    and K3 step every pass of a lane in turn), as the JAX package's
+    Image and as the array."""
+    from grok_tpu.core.image import ColorSpace, Component, Image
+    g = synthetic_image(h, w, 1, seed=3).astype(np.int32) >> (8 - bits)
+    return Image(components=[Component(g, prec=bits, sgnd=False)],
+                 color_space=ColorSpace.GRAY), g
+
+
+# (frame h, w, bits, CompressParams keywords): 128 x 4 blocks over two
+# resolutions; 16 x 256 and 256 x 16 blocks in one resolution (the frame
+# one block); HT, refined HT in two layers, Part-1
+WIDE = {
+    "128x4_ht": (40, 256, 4, dict(ht=True, num_resolutions=2, cblk_w_exp=7,
+                                  cblk_h_exp=2)),
+    "128x4_refined_ht": (40, 256, 4, dict(ht=True, ht_planes=1,
+                                          num_layers=2, rates=[6.0, 1.0],
+                                          num_resolutions=2, cblk_w_exp=7,
+                                          cblk_h_exp=2)),
+    "128x4_part1": (40, 256, 4, dict(num_resolutions=2, cblk_w_exp=7,
+                                     cblk_h_exp=2)),
+    "16x256_ht": (256, 48, 4, dict(ht=True, num_resolutions=1, cblk_w_exp=4,
+                                   cblk_h_exp=8)),
+    "16x256_part1": (256, 16, 2, dict(num_resolutions=1, cblk_w_exp=4,
+                                      cblk_h_exp=8)),
+    "256x16_refined_ht": (16, 256, 4, dict(ht=True, ht_planes=1,
+                                           num_layers=2, rates=[6.0, 1.0],
+                                           num_resolutions=1, cblk_w_exp=8,
+                                           cblk_h_exp=4)),
+    "256x16_part1": (16, 256, 2, dict(num_resolutions=1, cblk_w_exp=8,
+                                      cblk_h_exp=4)),
+}
+
+
+@pytest.mark.parametrize("case", list(WIDE))
+def test_wide_code_blocks_byte_identical_and_decode_back(case):
+    h, w, bits, kw = WIDE[case]
+    jimg, g = _gray(h, w, bits)
+    got = api.compress_device(g, PCP(**kw), prec=bits, device="cpu")
+    assert got == compress(jimg, JCP(**kw))
+    if not kw.get("ht_planes"):
+        assert np.array_equal(np.asarray(api.decompress_device(
+            got, device="cpu")[0]), g)
+
+
+def test_wide_lanes_bucket_to_their_nominal_size_with_capacities_no_larger():
+    """The encode plan buckets wide lanes to the blocks' nominal
+    power-of-two size, and a wide lane's stream capacities are those of a
+    64 x 64 lane (it holds no more samples)."""
+    from grok_tpu_torch.pipeline import serve_enc
+
+    def plan(h, w, cw, ch):
+        hdr = api._build_main_header(h, w, 1, 8, False, PCP(
+            ht=True, num_resolutions=2, cblk_w_exp=cw, cblk_h_exp=ch))
+        return serve_enc._build_plan(hdr, 0)
+    wide, square = plan(40, 240, 10, 2), plan(128, 128, 6, 6)
+    assert (wide.W, wide.H) == (128, 4)        # 120 x 4 blocks: 128 x 4
+    assert max(bw for *_b, _bh, bw in wide.blocks) == 120
+    assert (square.W, square.H) == (64, 64)
+    assert all(a <= b for a, b in zip(wide.caps, square.caps))
+    assert wide.mq_caps[0] <= square.mq_caps[0]
+
+
+@pytest.mark.parametrize("W, H", [(128, 4), (16, 256), (256, 16)])
+def test_wide_plain_encoders_equal_the_scalar_coders(W, H):
+    """The plain K4 on wide lanes (one full, one clipped) against
+    grok_tpu.t1ht.ht_encode_block at cleanup planes 0 and 1, and on 128 x
+    4 lanes the plain K5 against the Part-1 grok_tpu.t1.t1_scalar
+    encode_block (two planes)."""
+    from grok_tpu.t1.t1_scalar import encode_block
+    from grok_tpu_torch.ops import ht_encode as E
+    from grok_tpu_torch.ops import t1_encode as T
+    from test_torch_ht_encode import _scalar_clean
+    rng = np.random.default_rng(W * H + W)
+    blocks = []
+    for w, h in ((W, H), (W - 5, max(H - 3, 1))):
+        mag = rng.integers(0, 4, (h, w)).astype(np.int64)
+        mag[rng.random((h, w)) < 0.3] = 0
+        blocks.append((mag, rng.random((h, w)) < 0.5))
+    mneg = np.zeros((2, H, W), np.int32)
+    for j, (m, n) in enumerate(blocks):
+        mneg[j, :m.shape[0], :m.shape[1]] = (m << 1) | (n & (m > 0))
+
+    def col(v):
+        return torch.tensor(list(v), dtype=torch.int32)
+    ws, hs = col(m.shape[1] for m, _ in blocks), col(m.shape[0]
+                                                      for m, _ in blocks)
+    nq = ((W + 1) // 2) * ((H + 1) // 2)
+    caps = (E._cap_bytes(W * H * 4), E._cap_bytes(nq * 9 // 8 + 16),
+            E._cap_bytes(nq * 15 // 8 + 16))
+    for p in (0, 1):
+        streams, bits = E.ht_encode_lanes_ref(
+            torch.from_numpy(mneg), col([p, p]), ws, hs, col([1, 1]), *caps)
+        starts = np.cumsum((0,) + caps)
+        for j, (m, n) in enumerate(blocks):
+            for k, (b, nbits) in enumerate(_scalar_clean(m, n, 1, p)):
+                assert int(bits[k, j]) == nbits, (p, j, k)
+                nbytes = (nbits + 7) // 8
+                assert streams[j, starts[k]:starts[k] + nbytes].numpy() \
+                    .tobytes() == bytes(b[:nbytes]), (p, j, k)
+    if W * H == 4096:
+        # the whole-frame cases above hold the plain K5 at these shapes
+        return
+    nb = col(int(m.max()).bit_length() for m, _ in blocks)
+    out, lens, _rates, _st = T.t1_encode_lanes_ref(
+        torch.from_numpy(mneg), col([1, 1]), nb, ws, hs, W * H + 64, 4)
+    for j, (m, n) in enumerate(blocks):
+        assert out[j, 1:1 + int(lens[j])].numpy().tobytes() == \
+            encode_block(m, n & (m > 0), 1, 0).data

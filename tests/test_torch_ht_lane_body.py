@@ -55,12 +55,20 @@ extern "C" int host_ht_encode(const int* mneg, const int* p, const int* w,
                               int H)
 {
     // the warp's workspace, dirty as a CTA's shared memory may be
-    std::vector<unsigned char> buf(HT_REF_BYTES + 16, 0xA5);
+    const bool wide = W > 64 || H > 64;
+    std::vector<unsigned char> buf(
+        (wide ? ht_enc_wide_bytes(W, H) : HT_REF_BYTES) + 16, 0xA5);
     unsigned char* ws = (unsigned char*)(((uintptr_t)buf.data() + 15)
                                          & ~(uintptr_t)15);
     for (int lane = 0; lane < nl; lane++)
-        encode_one(lut, symb, nfam, pxor, ws, lane, mneg, p, w, h, valid,
-                   out, row, lms, lmel, lvlc, lsp, lmr, bits, ns, nl, W, H);
+        if (wide)
+            encode_wide_one(lut, symb, nfam, pxor, ws, lane, mneg, p, w, h,
+                            valid, out, row, lms, lmel, lvlc, lsp, lmr, bits,
+                            ns, nl, W, H);
+        else
+            encode_one(lut, symb, nfam, pxor, ws, lane, mneg, p, w, h, valid,
+                       out, row, lms, lmel, lvlc, lsp, lmr, bits, ns, nl, W,
+                       H);
     return 0;
 }
 """
@@ -313,3 +321,27 @@ def test_lane_bodies_match_scalar_coder(lib):
             assert not ns[j, h:].any() and not ns[j, :, w:].any()
     finally:
         scalar._finish_raw = raw
+
+
+@pytest.mark.parametrize("W, H", [(128, 4), (16, 256), (256, 16)])
+def test_wide_lane_bodies_match_plain_versions(lib, W, H):
+    """The wide design (W or H over 64: one warp per block, its first
+    thread serial) on seeded lanes of up to W x H at cleanup planes 0..3,
+    invalid and all-zero lanes included, K4 and K4r, against the plain
+    versions."""
+    rng = np.random.default_rng(W + H)
+    blocks = []
+    for i in range(6):
+        w = W if i == 0 else int(rng.integers(1, W + 1))
+        h = H if i == 0 else int(rng.integers(1, H + 1))
+        mag = np.abs(rng.normal(0, 10 ** rng.uniform(0, 2.5),
+                                (h, w))).astype(np.int64)
+        mag[rng.random((h, w)) < 0.4] = 0
+        if i == 2:
+            mag[:] = 0
+        blocks.append((mag, rng.random((h, w)) < 0.5))
+    lanes = _lanes(blocks, W, H, [i % 4 for i in range(6)],
+                   valid=[1, 1, 1, 1, 0, 1])
+    caps = _caps(W, H)
+    for refine in (False, True):
+        _check(lib, lanes, caps if refine else caps[:3], refine)

@@ -300,13 +300,22 @@ def test_decode_lane_body_on_mode_switch_vectors(lib):
 
 
 def _wide_round_trip(lib, blocks, W: int, H: int):
-    """K3's lane body on W x H lanes (W or H over 64) against the plain
-    version and the source, the codewords from the plain K5."""
+    """K5's lane body on W x H lanes (W or H over 64: stripes walked in
+    64-column chunks) against the plain version, codewords, lengths,
+    watermarks and sigtype; then K3's lane body on the plain K5's
+    codewords against the plain version and the source."""
     ins = _lanes(blocks, W, H)
     nbmax = max(1, int(ins[2].max()))
     L, R = W * H * (nbmax + 2) // 2 + 64, 3 * nbmax - 2
     L += -L % 4
-    out, lens, _rates, _st = E.t1_encode_lanes_ref(*ins, L, R)
+    out, lens, rates, st = E.t1_encode_lanes_ref(*ins, L, R)
+    got = host_encode(lib, ins, L, R)
+    assert np.array_equal(got[1], lens.numpy())
+    assert np.array_equal(got[2], rates.numpy())
+    assert np.array_equal(got[3], st.numpy())
+    for j in range(len(blocks)):
+        n = 1 + int(lens[j])
+        assert np.array_equal(got[0][j, :n], out[j, :n].numpy()), j
     lanes = _decode_lanes(ins, out, lens)
     dec = host_decode(lib, lanes, W, H)
     assert np.array_equal(dec, D.t1_decode_lanes_ref(*lanes, W, H).numpy())
