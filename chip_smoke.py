@@ -207,6 +207,26 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                stream raise the exception the JAX package's strict device
                decode raised (type and message, committed with the
                hashes).
+  24. E       — the general encode on the card through compress_device,
+               a warm-up and 3 calls each (every rep the same bytes), with
+               the host split of one more: (E-dci) a digital-cinema 2K
+               frame (2048x1080, 12-bit, 9/7 + ICT, 6 resolutions, 32x32
+               Part-1 blocks, precincts 2^7 at r = 0 and 2^8 above, CPRL,
+               three tile-parts with TLM, one layer at 8:1, CINEMA_2K; K5,
+               the PCRD finish and the refinement's K3 trial decodes),
+               under the 1,302,083-byte ceiling, its layout read back,
+               decoded on the card against the source (PSNR) and, at
+               reduce 5, against the plain versions' CPU decode (within
+               1); (E-lay) the (B) frame in the committed layouts
+               of grok_tpu_torch/util/enc_vectors.npz (HT with precincts,
+               POC, 3 tile-parts, TLM and PLM; Part-1 with precincts and
+               PPM; Part-1 in 3 quality layers), equal to the committed
+               bytes; (E-w) the sources of wide_vectors.npz's whl, wh, wr
+               and w1 in code-blocks over 64 on a side, equal to the
+               committed bytes, the warm-up encode's own K4, K4r and K5
+               launches recorded and on each wide shape the largest lane
+               and up to 15 of the smallest held against the plain
+               version in the bucket's dims, then each wide launch timed.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -2184,6 +2204,210 @@ def main() -> int:
     print(f"wide code-block and strict phase: "
           f"{time.perf_counter() - t_wide:.1f} s", flush=True)
 
+    # ---- 24. the general encode (E-dci, E-lay, E-w) ------------------------
+    from grok_tpu_torch.core.params import Poc, ProgOrder, RsizProfile
+    from grok_tpu_torch.util import enc_vectors
+    t_gen = time.perf_counter()
+    REPS_GEN = 3
+
+    @contextlib.contextmanager
+    def enc_recorded():
+        """Every K4/K4r and K5 launch of the serving encode recorded, with
+        its arguments and result (the counts stay on the wrappers)."""
+        calls, saved = [], []
+        for name in ("ht_encode_lanes", "t1_encode_lanes"):
+            real = getattr(serve_enc, name)
+
+            def spy(*a, _real=real, _name=name, **kw):
+                out = _real(*a, **kw)
+                kern = "K5" if _name == "t1_encode_lanes" else (
+                    "K4r" if kw.get("refine") else "K4")
+                calls.append((kern, a, out))
+                return out
+            saved.append((name, real))
+            setattr(serve_enc, name, spy)
+        try:
+            yield calls
+        finally:
+            for name, real in saved:
+                setattr(serve_enc, name, real)
+
+    def encode_cell(row_name, frame, params, prec=8, record=False):
+        """A warm-up and REPS_GEN encodes of one frame on the card, every
+        rep the same bytes; the host split of one more call.  Returns
+        (stream, the warm-up's recorded launches, launch counts)."""
+        counts_zero()
+        times, out, calls = [], None, []
+        for rep in range(REPS_GEN + 1):
+            with (enc_recorded() if record and rep == 0 else
+                  contextlib.nullcontext()) as rec:
+                s, dt = timed(lambda: api.compress_device(
+                    frame, params, prec=prec, device=dev))
+            if rep == 0 and record:
+                calls = rec
+            times.append(dt)
+            if out is not None and s != out:
+                _fail(f"encode {row_name}: reps gave different bytes")
+            out = s
+        got = counts()
+        best, med = min(times[1:]), float(np.median(times[1:]))
+        host = _host_split(serve_enc, tile, lambda: timed(
+            lambda: api.compress_device(frame, params, prec=prec,
+                                        device=dev))[1])
+        print(f"encode {row_name}: {len(out)} bytes; best of {REPS_GEN}: "
+              f"{best * 1e3:.3f} ms/call (median {med * 1e3:.3f}); one more "
+              f"call {host['call'] * 1e3:.3f} ms: C wire assembly "
+              f"{host['assemble'] * 1e3:.3f} ms, Tier-2 finish "
+              f"{host['finish'] * 1e3:.3f} ms (truncation refinement "
+              f"{host['refine'] * 1e3:.3f} ms); launches per encode K4 "
+              f"{got['K4'] / (REPS_GEN + 1):g}, K4r "
+              f"{got['K4r'] / (REPS_GEN + 1):g}, K5 "
+              f"{got['K5'] / (REPS_GEN + 1):g}, K3 "
+              f"{got['K3'] / (REPS_GEN + 1):g} [{card}]", flush=True)
+        return out, calls, got
+
+    def upload(img):
+        return [torch.from_numpy(np.ascontiguousarray(img[..., c])).to(dev)
+                .to(torch.int32) for c in range(img.shape[2])]
+
+    # E-dci: a digital-cinema 2K frame, 12-bit, CINEMA_2K
+    dci_img = synthetic_image(1080, 2048, 3, seed=11).astype(np.int32) << 4
+    dci_p = CompressParams(
+        irreversible=True, num_resolutions=6, cblk_w_exp=5, cblk_h_exp=5,
+        prec_w_exps=[7] + [8] * 5, prec_h_exps=[7] + [8] * 5,
+        prog_order=ProgOrder.CPRL, max_tile_parts=3, write_tlm=True,
+        rates=[8.0], rsiz=RsizProfile.CINEMA_2K)
+    dci, _c, got = encode_cell("E-dci", upload(dci_img), dci_p, prec=12)
+    need("E-dci encode", got, ["K5", "K3"], ["K4", "K4r", "K1", "K2"] + v1s)
+    ceiling = 1_302_083                    # DCI 2K at 24 fps
+    if len(dci) > ceiling:
+        _fail(f"E-dci: {len(dci)} bytes over the {ceiling}-byte ceiling")
+    hdr = j2k.read_main_header(dci)
+    parts = j2k.read_tile_parts(dci, hdr)
+    if (len(parts) != 3 or len(hdr.tlm) != 3 or hdr.rsiz & 0xFFF != 3
+            or hdr.cod.comp.prec_exps != [(7, 7)] + [(8, 8)] * 5
+            or hdr.cod.prog_order != ProgOrder.CPRL):
+        _fail(f"E-dci: {len(parts)} tile-parts, {len(hdr.tlm)} TLM "
+              f"entries, Rsiz {hdr.rsiz:#x}, precincts "
+              f"{hdr.cod.comp.prec_exps}, not the CINEMA_2K layout")
+    out, dt = timed(lambda: api.decompress_device(dci, device=dev))
+    mse = sum(float(((o.double() - torch.from_numpy(dci_img[..., c]).to(dev)
+                      .double()) ** 2).mean()) for c, o in enumerate(out)) / 3
+    psnr = 10 * np.log10(4095.0 ** 2 / mse)
+    # the plain versions' CPU decode of the lowest resolution (reduce 5,
+    # 12 Part-1 lanes: a whole-frame plain decode takes many minutes)
+    low = api.decompress_device(dci, DP(reduce=5), device=dev)
+    cpu, cpu_s = timed(lambda: api.decompress_device(dci, DP(reduce=5),
+                                                     device="cpu"))
+    e = max(int((o.cpu().long() - c_.long()).abs().max())
+            for o, c_ in zip(low, cpu))
+    if e > 1:
+        _fail(f"E-dci: the card's decode at reduce 5 differs by {e} from "
+              f"the plain versions'")
+    print(f"E-dci: {len(dci)} bytes (ceiling {ceiling}), 3 tile-parts with "
+          f"TLM, precincts 2^7 at r = 0 and 2^8 above, CPRL; decoded on the "
+          f"card in {dt * 1e3:.1f} ms, PSNR {psnr:.2f} dB against the "
+          f"source; at reduce 5 ({tuple(low[0].shape)}) within {e} of the "
+          f"plain versions' CPU decode ({cpu_s:.1f} s) [{card}]",
+          flush=True)
+
+    # E-lay: reversible layouts of the (B) frame, the committed bytes
+    lay = enc_vectors.load()
+    for name in enc_vectors.NAMES:
+        params = CompressParams(**enc_vectors.params(name, Poc, ProgOrder))
+        s, _c, got = encode_cell(f"E-lay {name}", frames["B"][0], params)
+        need(f"E-lay {name} encode", got,
+             ["K4"] if params.ht else ["K5"], ["K4r", "K1", "K2"] + v1s)
+        if s != lay[name]:
+            _fail(f"E-lay {name}: the card's stream differs from the "
+                  f"committed one")
+        print(f"E-lay {name}: equal to the committed stream [{card}]",
+              flush=True)
+
+    # E-w: the wide code-block streams, encoded on the card
+    lut_e = ht_encode._lut_on(dev)
+    for name in ("whl", "wh", "wr", "w1"):
+        spec, kw = wide_vectors.SPECS[name]
+        h, w, ch, seed = spec[:4]
+        img = synthetic_image(h, w, ch, seed=seed)[:spec[4] if len(spec) > 4
+                                                  else None]
+        s, calls, got = encode_cell(f"E-w {name}", upload(img),
+                                    CompressParams(**kw), record=True)
+        if s != wstreams[name]:
+            _fail(f"E-w {name}: the card's stream differs from the "
+                  f"committed one")
+        rec_n = {k: sum(c[0] == k for c in calls) for k in ("K4", "K4r",
+                                                              "K5")}
+        if any(rec_n[k] * (REPS_GEN + 1) != got[k] for k in rec_n):
+            _fail(f"E-w {name}: {rec_n} launches recorded, {got} counted")
+        for kern, a, res in calls:
+            H, W = a[0].shape[1:]
+            if max(W, H) <= 64:
+                continue
+            if kern == "K5":
+                ins, (L, R) = a[:5], a[5:7]
+                sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
+                sub = tuple(t.index_select(0, sel) for t in ins)
+                ref, p_ms = _plain_ms(torch, lambda: t1_encode
+                                      .t1_encode_lanes_ref(*sub, L, R))
+                ok = hw_validate.encodes_equal(
+                    tuple(t.index_select(0, sel) for t in res), ref)
+                kd, nb = k5, _k5_bytes(ins, res[1], tables)
+
+                def launch(ins=ins, L=L, R=R):
+                    return t1_encode.t1_encode_lanes(*ins, L, R)
+            else:
+                lanes, caps = a[:5], tuple(a[5:8])
+                sel = held_lanes(lanes[4] == 1, lanes[2], lanes[3],
+                                 (lanes[0] >> 1).amax((1, 2)))
+                sub = tuple(t.index_select(0, sel) for t in lanes)
+                refine = kern == "K4r"
+
+                def plain():
+                    st, bt = ht_encode.ht_encode_lanes_ref(*sub, *caps)
+                    if not refine:
+                        return st, bt
+                    sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(
+                        *sub, *ht_encode.refine_caps(W, H))
+                    return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
+                ref, p_ms = _plain_ms(torch, plain)
+                allc = caps + (ht_encode.refine_caps(W, H) if refine else ())
+                ok = hw_validate.ht_encodes_equal(
+                    (res[0].index_select(0, sel), res[1][:, sel])
+                    + tuple(t.index_select(0, sel) for t in res[2:]), ref,
+                    allc[:-1])
+                kd = k4r if refine else k4
+                nb = (_k4r_bytes if refine else _k4_bytes)(lanes, res[1],
+                                                           lut_e)
+
+                def launch(lanes=lanes, caps=caps, refine=refine):
+                    return ht_encode.ht_encode_lanes(*lanes, *caps,
+                                                     refine=refine)
+            if not ok:
+                kd["err"] = max(kd["err"], 1)
+                _fail(f"{kern} disagrees with its plain version on the wide "
+                      f"lanes of E-w {name} ({W}x{H})")
+            k_ms = kernel_ms(dev, launch)
+            r = wide_rec(kern, W, H)
+            r["ms"] += k_ms
+            r["plain_ms"] += p_ms
+            r["bytes"] += nb
+            r["launches"] += 1
+            r["lanes"] += int(a[0].shape[0])
+            r["plain_lanes"] += int(sel.numel())
+            print(f"{kern} E-w {name} wide bucket {W}x{H}: {sel.numel()} of "
+                  f"the main path's {a[0].shape[0]} lanes (the largest "
+                  f"first of the held) equal to the plain version, plain "
+                  f"version {p_ms:.1f} ms; the launch {k_ms:.4f} ms, bound "
+                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
+                  f"[{card}]", flush=True)
+    for kern in ("K4", "K4r", "K5"):
+        if not any(k == kern for k, _sh in wide):
+            _fail(f"no wide {kern} launch of the general encode was held "
+                  f"against its plain version")
+    print(f"general encode phase: {time.perf_counter() - t_gen:.1f} s",
+          flush=True)
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -2198,12 +2422,13 @@ def main() -> int:
         if "prev_ms" in k:          # the first design's time, same lanes
             r["prev_ms"] = k["prev_ms"]
         kern = {"ht_cleanup_decode": "K1", "ht_refine_decode": "K2",
-                "mq_decode": "K3"}.get(name)
+                "mq_decode": "K3", "ht_cleanup_encode": "K4",
+                "ht_refine_encode": "K4r", "mq_encode": "K5"}.get(name)
         shapes = {sh: {"ms": v["ms"], "plain_ms": v["plain_ms"],
                        "bound_ms": v["bytes"] / HBM_BYTES_PER_S * 1e3,
                        "launches": v["launches"], "lanes": v["lanes"]}
                   for (k2_, sh), v in wide.items() if k2_ == kern}
-        if shapes:                  # phase 23's lanes over 64 on a side
+        if shapes:                  # phases 23, 24: lanes over 64 on a side
             r["wide"] = shapes
         return r
     print(json.dumps({"kernels": [

@@ -79,8 +79,10 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def frames():
+    # the gray frame's samples below 16 (8-bit, 4 magnitude planes at
+    # most): the Part-1 cases' plain K5 and K3 step every pass in turn
     return {"rgb": synthetic_image(48, 64, 3, seed=5),
-            "gray": synthetic_image(32, 48, 1, seed=6)}
+            "gray": synthetic_image(32, 48, 1, seed=6) >> 4}
 
 
 def params(kw: dict) -> tuple:
@@ -182,7 +184,7 @@ WIDE = {
                                           num_layers=2, rates=[6.0, 1.0],
                                           num_resolutions=2, cblk_w_exp=7,
                                           cblk_h_exp=2)),
-    "128x4_part1": (40, 256, 4, dict(num_resolutions=2, cblk_w_exp=7,
+    "128x4_part1": (40, 256, 2, dict(num_resolutions=2, cblk_w_exp=7,
                                      cblk_h_exp=2)),
     "16x256_ht": (256, 48, 4, dict(ht=True, num_resolutions=1, cblk_w_exp=4,
                                    cblk_h_exp=8)),
@@ -203,7 +205,9 @@ def test_wide_code_blocks_byte_identical_and_decode_back(case):
     jimg, g = _gray(h, w, bits)
     got = api.compress_device(g, PCP(**kw), prec=bits, device="cpu")
     assert got == compress(jimg, JCP(**kw))
-    if not kw.get("ht_planes"):
+    if not kw.get("ht_planes") and (kw.get("ht") or h * w < 4096):
+        # (a Part-1 frame of one 4096-sample block: the plain K3 steps
+        # every pass of it; the encode is the point here)
         assert np.array_equal(np.asarray(api.decompress_device(
             got, device="cpu")[0]), g)
 
@@ -272,3 +276,43 @@ def test_wide_plain_encoders_equal_the_scalar_coders(W, H):
     for j, (m, n) in enumerate(blocks):
         assert out[j, 1:1 + int(lens[j])].numpy().tobytes() == \
             encode_block(m, n & (m > 0), 1, 0).data
+
+
+# ---------------------------------------------------------------------------
+# The committed general-encode streams
+# ---------------------------------------------------------------------------
+
+def make_enc_streams(names=None) -> dict:
+    """The committed streams of grok_tpu_torch/util/enc_vectors.py, from
+    the JAX package: {name: bytes}."""
+    from grok_tpu_torch.util import enc_vectors as ev
+    h, w, ch, seed = ev.FRAME
+    img = synthetic_image(h, w, ch, seed=seed)
+    return {n: compress(img, JCP(**ev.params(n, JPoc, JPO)))
+            for n in (names or ev.NAMES)}
+
+
+def test_enc_vectors_carry_their_specs():
+    """What each committed stream carries, as its spec says, and the
+    file's size."""
+    import os
+
+    from grok_tpu_torch.util import enc_vectors as ev
+    streams = ev.load()
+    assert set(streams) == set(ev.NAMES)
+    for name, s in streams.items():
+        kw = ev.SPECS[name]
+        hdr = pj2k.read_main_header(s)
+        parts = pj2k.read_tile_parts(s, hdr)
+        assert (hdr.siz.xsiz, hdr.siz.ysiz) == ev.FRAME[1::-1]
+        assert hdr.cod.num_layers == kw.get("num_layers", 1)
+        assert bool(hdr.cod.comp.cblk_style & 0x40) == bool(kw.get("ht"))
+        assert hdr.cod.comp.prec_exps == (
+            list(zip(kw["prec_w_exps"], kw["prec_h_exps"]))
+            if "prec_w_exps" in kw else None)
+        assert len(hdr.pocs) == len(kw.get("pocs", ()))
+        assert len(parts) == kw.get("max_tile_parts", 1)
+        assert bool(hdr.tlm) == kw.get("write_tlm", False)
+        assert bool(hdr.plm) == kw.get("write_plm", False)
+        assert (hdr.ppm is not None) == kw.get("write_ppm", False)
+    assert os.path.getsize(ev.PATH) < 1_500_000
