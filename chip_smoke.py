@@ -912,10 +912,12 @@ def main() -> int:
         finally:
             ht_decode.ht_decode_lanes, pdevice.ht_decode_lanes = saved
 
-    def v1_lanes(*a):
+    def v1_lanes(*a, i64=False):
         """The first design behind ht_decode_lanes' contract: its planes
         and zero error codes (it flags nothing; the lanes it is given here
-        are intact)."""
+        are intact, so no int64 re-decode is asked of it)."""
+        if i64:
+            _fail("an int64 re-decode of an intact stream's lanes")
         out = ht_decode.ht_decode_lanes_v1(*a)
         return out, out.new_zeros(out.shape[0])
 

@@ -241,7 +241,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError):
         E.ht_encode_lanes(*lanes, 258, 64, 64)              # not 4-aligned
     with pytest.raises(ValueError):
-        E.ht_encode_lanes(torch.zeros((1, 8, 128), dtype=torch.int32),
-                          p, w, h, valid, 256, 64, 64)       # > 64 wide
+        E.ht_encode_lanes(torch.zeros((1, 8, 1024), dtype=torch.int32),
+                          p, w, h, valid, 256, 64, 64)       # > 4096 samples
     with pytest.raises(ValueError):
         E.ht_encode_lanes(mneg, p.to("meta"), w, h, valid, 256, 64, 64)

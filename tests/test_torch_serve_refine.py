@@ -181,13 +181,15 @@ def test_out_of_scope_on_refined_streams_still_raises(streams):
 def test_targeted_encode_scope(images):
     img = images["rgb"]
     # Part-1 targeted and layered encodes are served (byte-identity:
-    # tests/test_torch_serve_mq_rt.py); HT-mixed ones are not
+    # tests/test_torch_serve_mq_rt.py), and quality targets (byte-identity
+    # here); HT-mixed ones are not
     for kw, what in ((dict(ht=False, ht_mixed=True, rates=[8.0]),
                       "rate-targeted"),
                      (dict(ht=False, ht_mixed=True, num_layers=2),
                       "multi-layer"),
-                     (dict(ht=False, ht_planes=2), "refinement"),
-                     (dict(fixed_quality=True, quality=[30.0]),
-                      "fixed-quality")):
+                     (dict(ht=False, ht_planes=2), "refinement")):
         with pytest.raises(NotImplementedError, match=what):
             api.compress_device(img, PCP(**dict(CP, **kw)), device="cpu")
+    kw = dict(CP, fixed_quality=True, quality=[30.0])
+    assert api.compress_device(img, PCP(**kw), device="cpu") == \
+        compress(img, JCP(**kw))
