@@ -12,9 +12,11 @@ batch).  This is the contract of the TPU kernel grok_tpu/ops/
 pallas_ht_enc.py `_ht_encode_jit` with refine=False.
 
   - `ht_encode_lanes` is the wrapper: a CUDA tensor launches the
-    hand-written kernel in csrc/ht_encode.cu (one warp per lane), a CPU
-    tensor runs `ht_encode_lanes_ref`.  There is no fallback from one to
-    the other.
+    hand-written kernel in csrc/ht_encode.cu (one warp per lane; lanes
+    over 64 on a side, up to 1024 with at most 4096 samples, through its
+    wide design, the warp's first thread coding the block serially), a
+    CPU tensor runs `ht_encode_lanes_ref`.  There is no fallback from one
+    to the other.
   - `ht_encode_lanes_v1` launches the first design, csrc/
     ht_encode_v1.cu (one thread per lane): the full-lane oracle and
     timing yardstick of chip_smoke.py and tools/hw_validate.py, on no

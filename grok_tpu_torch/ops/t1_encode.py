@@ -14,8 +14,9 @@ codes exact-shape batches only).
   - `t1_encode_lanes` is the wrapper: a CUDA tensor launches the
     hand-written kernel in csrc/t1_encode.cu (one warp per lane, the
     lane's state in shared memory, a persistent grid that takes the
-    lanes longest first), a CPU tensor runs `t1_encode_lanes_ref`.  There
-    is no fallback from one to the other.
+    lanes longest first; a lane over 64 wide codes each stripe in chunks
+    of 64 columns), a CPU tensor runs `t1_encode_lanes_ref`.  There is no
+    fallback from one to the other.
   - `t1_encode_lanes_v1` launches the first design, csrc/t1_encode_v1.cu
     (one thread per lane), kept as the full-lane oracle and the speed
     yardstick of the kernel on the card (chip_smoke.py and the
