@@ -54,9 +54,9 @@ magnitudes may reach 2^31, where its int32 samples are the scalar's int64
 ones modulo 2^32 only.  Only a corrupt block gets there; the decode
 routes re-decode such lanes with `i64=True` (int64 output, arithmetic
 modulo 2^64 as the scalar's numpy int64; on the card the wide design for
-every lane size, its own launch counter) and synthesize their tile in
-int64.  Lanes of W or H over 64 (W * H <= 4096) take the kernel's wide
-design.
+every lane size, its own launch counter) and dequantize their tile in
+int64 (pipeline/device.py redecode_marked).  Lanes of W or H over 64
+(W * H <= 4096) take the kernel's wide design.
 """
 
 from __future__ import annotations

@@ -5,9 +5,11 @@ The port's copy of grok_tpu/pipeline/tile.py, for what the port serves:
 plans), `canon_block_indices` (the HT-mixed bitmap's block order),
 `band_window` (a decode window in band coordinates),
 `TileEncodeResult`, `finish_tile_encode` (the PCRD rate allocation over
-several layers or byte targets, t2/rate.py, the Part-1 minimal-flush
-truncation refinement by trial decodes with kernel K3, and the packet
-emission by the C Tier-2 coder, native.t2_emit), and `decode_tile`, the
+several layers, byte or quality targets, t2/rate.py, the Part-1
+minimal-flush truncation refinement by trial decodes with kernel K3, and
+the packet emission by the C Tier-2 coder, native.t2_emit, or for
+POC-ordered packets and PPM's split headers by the Python packet
+encoder, t2/packet.py), and `decode_tile`, the
 general device decode route for the streams the serving decode declines
 (refined HT blocks, Part-1 mode switches, layered HT-mixed streams,
 packed packet headers, a custom MCT, packets cut short or corrupt,
