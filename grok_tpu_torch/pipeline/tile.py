@@ -354,14 +354,12 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
 
     c_emit = not pocs and not split_headers
     if trivial:
-        cums = []
         for key in entry_keys:
             c, r, p, band_i, cblk_i = key
             st = ctxs[(c, r, p)].eblocks[band_i][cblk_i]
             st.layer_cum = [st.enc.numpasses]
-            cums.append(st.layer_cum)
         if not c_emit:
-            return python_emit(contexts(cums), 1)
+            return python_emit(ctxs, 1)
         pc_a, pl_a = pkts_for(1)
         packets = native.t2_emit(ctxs, keys, list(zip(pc_a, pl_a)), 1,
                                  geo.cod.sop, geo.cod.eph)
