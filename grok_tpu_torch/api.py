@@ -32,7 +32,7 @@ from grok_tpu_torch.core.geometry import Rect, SizGrid
 from grok_tpu_torch.core.image import ColorSpace
 from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
                                         DecompressParams, MCTMode)
-from grok_tpu_torch.core.quant import make_quantizer
+from grok_tpu_torch.core.quant import StepSize, make_quantizer
 from grok_tpu_torch.pipeline.plan import _th_ovr_key
 from grok_tpu_torch.pipeline.serve import (GeneralRoute, StagedBatch,
                                            stage_serving_batch,
@@ -281,11 +281,11 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
     mct_mode = params.mct
     if mct_mode is None:
         mct_mode = MCTMode.RCT_OR_ICT if ncomps >= 3 else MCTMode.NONE
-    if mct_mode in (MCTMode.CUSTOM, MCTMode.AUTO_RD):
-        raise NotImplementedError(f"{mct_mode.name} MCT encode is not "
-                                  f"ported")
-    if params.roi_shift > 0:
-        raise NotImplementedError("ROI encode is not ported")
+    if mct_mode == MCTMode.CUSTOM:
+        if params.custom_mct is None:
+            raise ValueError("MCTMode.CUSTOM requires custom_mct matrix")
+        if not params.irreversible:
+            raise ValueError("custom MCT requires the irreversible path")
     x0, y0 = origin
     siz = SizGrid(xsiz=x0 + w, ysiz=y0 + h, xosiz=x0, yosiz=y0,
                   xtsiz=params.tile_w, ytsiz=params.tile_h,
@@ -314,12 +314,28 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
         # entry (0 = HT-only code-blocks; bit 5 = mixed); Rsiz bit 14
         hdr.cap = (1 << (32 - 15), [0x20 if params.ht_mixed else 0])
         hdr.rsiz |= 0x4000
+    if mct_mode == MCTMode.CUSTOM:
+        hdr.custom_mct = np.asarray(params.custom_mct, dtype=float)
+        hdr.rsiz |= 0x8000 | 0x0100      # Part-2 extended + MCT extension
     q = make_quantizer(params.num_resolutions, prec, params.irreversible,
                        params.num_guard_bits, params.quant_step,
                        derived=not params.quant_style_expounded
                        and params.irreversible)
-    hdr.qcd = QuantStyle(style=q.style, guard_bits=q.guard_bits,
-                         steps=q.steps if q.style != 1 else q.steps[:1])
+    for c in range(ncomps):
+        steps = q.steps if q.style != 1 else q.steps[:1]
+        if (c == params.roi_comp and params.roi_shift > 0
+                and not params.irreversible):
+            # Maxshift headroom: the signalled exponents raised so that
+            # Mb = guard + eps - 1 covers the upshifted ROI planes
+            steps = [StepSize(expn=st.expn + params.roi_shift,
+                              mant=st.mant) for st in steps]
+        qs = QuantStyle(style=q.style, guard_bits=q.guard_bits, steps=steps)
+        if c == 0:
+            hdr.qcd = qs
+        elif qs != hdr.qcd:
+            hdr.qcc[c] = qs
+    if params.roi_shift > 0 and params.roi_comp >= 0:
+        hdr.rgn[params.roi_comp] = params.roi_shift
     hdr.pocs = list(params.pocs)
     return hdr
 
@@ -329,17 +345,24 @@ def _main_header_bytes(hdr: MainHeader, params: CompressParams,
                        ppm_chunks: list[bytes] | None = None,
                        plm_lists: list[list[int]] | None = None) -> bytes:
     """grok_tpu/api.py `_main_header_bytes` for the headers the port
-    encodes: SIZ, CAP, COD, QCD, POC, TLM, PLM (one list of packet
-    lengths per tile-part), PPM (one blob of packed headers per tile) and
-    the comments."""
+    encodes: SIZ, CAP, COD, QCD, QCC, RGN, POC, the custom MCT's
+    MCT/MCC/MCO, TLM, PLM (one list of packet lengths per tile-part), PPM
+    (one blob of packed headers per tile) and the comments, in the
+    reference's order."""
     out = bytearray(struct.pack(">H", j2k.SOC))
     out += j2k.write_siz(hdr.siz, hdr.rsiz, hdr.comps)
     if hdr.cap is not None:
         out += j2k.write_cap(*hdr.cap)
     out += j2k.write_cod(hdr.cod)
     out += j2k.write_qcd(hdr.qcd)
+    for c, q in hdr.qcc.items():
+        out += j2k.write_qcc(c, len(hdr.comps), q)
+    for c, sh in hdr.rgn.items():
+        out += j2k.write_rgn(c, len(hdr.comps), sh)
     if hdr.pocs:
         out += j2k.write_poc(hdr.pocs, len(hdr.comps))
+    if hdr.custom_mct is not None:
+        out += j2k.write_mct_set(hdr.custom_mct)
     if tlm_entries is not None:
         out += j2k.write_tlm(tlm_entries)
     if plm_lists is not None:
@@ -391,8 +414,9 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     layer budgets.  Each stream carries its tiles in tile order, each in
     up to params.max_tile_parts tile-parts (split at packet boundaries),
     with non-default precincts, progression-order changes (POC), PLT,
-    TLM, PLM, PPM and quality targets where params ask for them, as
-    grok_tpu.compress writes it."""
+    TLM, PLM, PPM and quality targets where params ask for them, any
+    Part-1 mode switches, ROI (params.roi_comp, roi_shift and roi_rect)
+    and a custom or AUTO_RD MCT, as grok_tpu.compress writes it."""
     params = params or CompressParams(ht=True)
     if not arrays_list:
         return []
@@ -412,7 +436,45 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     if len(shapes) != 1 or len(devs) != 1:
         raise ValueError("compress_device_batch: frames must share their "
                          "component shapes and device")
-    comp_shapes = shapes.pop()
+    if params.mct == MCTMode.AUTO_RD and len(frames[0]) >= 3:
+        return _auto_rd(frames, params, prec, sgnd, dev, origin)
+    return _encode_frames(frames, params, prec, sgnd, origin)
+
+
+def _auto_rd(frames: list, params: CompressParams, prec: int, sgnd: bool,
+             dev: torch.device, origin: tuple[int, int]) -> list[bytes]:
+    """The R-D choice of the colour transform, as grok_tpu/api.py
+    `compress` makes it for MCTMode.AUTO_RD: every frame encoded with
+    and without it; a lossless encode keeps the shorter stream, a lossy
+    one the stream whose decode (decompress_device, on the same device)
+    has the lower squared error against the frame (the first on a
+    tie)."""
+    lossless = not params.irreversible and not params.rates \
+        and not params.quality
+    cands = [_encode_frames(frames, replace(params, mct=m), prec, sgnd,
+                            origin)
+             for m in (MCTMode.RCT_OR_ICT, MCTMode.NONE)]
+    out = []
+    for fi, f in enumerate(frames):
+        best = None
+        for streams in cands:
+            data = streams[fi]
+            if lossless:
+                key = float(len(data))
+            else:
+                dec = decompress_device(data, device=dev)
+                key = float(sum(((d.to(torch.int64) - c.to(torch.int64))
+                                 ** 2).sum() for d, c in zip(dec, f)))
+            if best is None or key < best[0]:
+                best = (key, data)
+        out.append(best[1])
+    return out
+
+
+def _encode_frames(frames: list, params: CompressParams, prec: int,
+                   sgnd: bool, origin: tuple[int, int]) -> list[bytes]:
+    """compress_device_batch for frames of same-shaped device tensors."""
+    comp_shapes = tuple(tuple(c.shape) for c in frames[0])
     h, w = comp_shapes[0][:2]
     hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params,
                              origin)

@@ -4,8 +4,9 @@ The port's copy of grok_tpu/codestream/j2k.py.  The readers are whole:
 main-header and tile-part-header state machines for SOC SIZ COD COC QCD
 QCC RGN POC COM CAP TLM PLM PLT PPM PPT SOT SOD EOC, with error recovery
 on truncated streams (strict=False), so that the serving decode sees
-every marker it must refuse.  The writers are those the serving encode
-emits: SIZ CAP COD QCD COM TLM SOT PLT.
+every marker it must refuse.  The writers are those the encode emits:
+SIZ CAP COD QCD QCC RGN POC COM TLM PLM PPM SOT PLT and the custom MCT's
+MCT MCC MCO.
 
 Reference parity: [grok: src/lib/core/codestream/CodeStreamCompress.cpp,
 CodeStreamDecompress.cpp, codestream/markers/*] — behavior normative per
@@ -256,6 +257,18 @@ def write_qcd(q: QuantStyle) -> bytes:
     return _seg(QCD, _sqcd_payload(q))
 
 
+def write_qcc(comp: int, numcomps: int, q: QuantStyle) -> bytes:
+    head = (struct.pack(">B", comp) if numcomps < 257
+            else struct.pack(">H", comp))
+    return _seg(QCC, head + _sqcd_payload(q))
+
+
+def write_rgn(comp: int, numcomps: int, shift: int) -> bytes:
+    head = (struct.pack(">B", comp) if numcomps < 257
+            else struct.pack(">H", comp))
+    return _seg(RGN, head + struct.pack(">BB", 0, shift))
+
+
 def write_poc(pocs: list[Poc], numcomps: int) -> bytes:
     payload = b""
     for p in pocs:
@@ -272,6 +285,34 @@ def write_poc(pocs: list[Poc], numcomps: int) -> bytes:
 def write_com(text: str | bytes, binary: bool = False) -> bytes:
     data = text.encode("latin-1") if isinstance(text, str) else bytes(text)
     return _seg(COM, struct.pack(">H", 0 if binary else 1) + data)
+
+
+def write_mct_set(matrix) -> bytes:
+    """Part-2 custom MCT: one f64 decorrelation array (MCT), one component
+    collection binding all components (MCC), one ordering (MCO), as
+    read_main_header reads them back.  Array index 1, collection index
+    0."""
+    import numpy as np
+    m = np.asarray(matrix, dtype=">f8")
+    n = m.shape[0]
+    # MCT: Zmct=0, Imct = index 1 | type DECORRELATION(1)<<8 | f64(3)<<10,
+    # Ymct=0, data
+    imct = 1 | (1 << 8) | (3 << 10)
+    out = _seg(MCT, struct.pack(">HHH", 0, imct, 0) + m.tobytes())
+    # MCC: Zmcc=0, Imcc=0, Ymcc=0, Qmcc=1; collection: type 1 (matrix
+    # decorrelation), Nmccin comps in, the comp indices, Nmccout + indices,
+    # Tmcc = decorrelation array index (1) | offset array (0)
+    pl = struct.pack(">HBHH", 0, 0, 0, 1)
+    pl += struct.pack(">B", 1)
+    pl += struct.pack(">H", n) + b"".join(struct.pack(">B", c)
+                                          for c in range(n))
+    pl += struct.pack(">H", n) + b"".join(struct.pack(">B", c)
+                                          for c in range(n))
+    pl += struct.pack(">BBB", 1, 0, 0)
+    out += _seg(MCC, pl)
+    # MCO: one stage, collection 0
+    out += _seg(MCO, struct.pack(">BB", 1, 0))
+    return out
 
 
 def write_cap(pcap: int, scaps: list[int]) -> bytes:

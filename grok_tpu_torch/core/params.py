@@ -69,6 +69,7 @@ class CompressParams:
     cblk_style: int = 0
     irreversible: bool = False  # False -> 5/3 + RCT, True -> 9/7 + ICT
     mct: MCTMode | None = None  # None -> auto (on iff >= 3 comps)
+    custom_mct: object = None   # MCTMode.CUSTOM: the (C, C) forward matrix
     prog_order: ProgOrder = ProgOrder.LRCP
     prec_w_exps: list[int] = field(default_factory=list)   # per-resolution PPx
     prec_h_exps: list[int] = field(default_factory=list)

@@ -174,10 +174,14 @@ def inv_2d_level(ll, hl, lh, hh, rect: Rect, irreversible: bool):
 
 
 def fwd_multilevel(samples: torch.Tensor, tc_rect: Rect,
-                   num_resolutions: int, irreversible: bool) -> list:
-    """bands[0] = LL array; bands[r] = (HL, LH, HH) for r >= 1."""
+                   num_resolutions: int, irreversible: bool,
+                   dtype: torch.dtype | None = None) -> list:
+    """bands[0] = LL array; bands[r] = (HL, LH, HH) for r >= 1.  9/7
+    lifts in float32 unless dtype says otherwise (float64 after a custom
+    MCT, as the JAX package's host encode lifts it)."""
     nl = num_resolutions - 1
-    dtype = torch.float32 if irreversible else torch.int32
+    if dtype is None:
+        dtype = torch.float32 if irreversible else torch.int32
     cur = samples.to(dtype)
     out: list = [None] * num_resolutions
     for r in range(nl, 0, -1):

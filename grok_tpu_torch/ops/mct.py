@@ -1,9 +1,9 @@
 """Device MCT + DC level shift in PyTorch, batched over leading axes.
 
 Port of grok_tpu/ops/mct.py: RCT and the DC shift are exact int32
-arithmetic; ICT is f32; the inverse of a custom (Part-2) MCT is float64,
-as the JAX package's host decode computes it
-(transform/mct_np.py custom_mct_inv).
+arithmetic; ICT is f32; a custom (Part-2) MCT and its inverse are
+float64, as the JAX package's host encode and decode compute them
+(transform/mct_np.py custom_mct_fwd and custom_mct_inv).
 
 Reference parity: [grok: src/lib/core/transform/mct.cpp] — ISO 15444-1
 G.2/G.3.
@@ -57,6 +57,12 @@ def custom_inv(comps: list, inv: torch.Tensor) -> list:
     x = torch.stack([c.to(torch.float64) for c in comps])
     out = torch.tensordot(inv, x, dims=([1], [0]))
     return list(out.unbind(0))
+
+
+def custom_fwd(comps: list, matrix: torch.Tensor) -> list:
+    """A custom MCT: the (C, C) float64 forward matrix applied across the
+    components, in float64, by the same product as custom_inv."""
+    return custom_inv(comps, matrix)
 
 
 def dc_shift_fwd(x, prec: int, sgnd: bool):

@@ -52,6 +52,7 @@ JAX package's encoders.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -65,16 +66,19 @@ from grok_tpu_torch.core.quant import band_level, band_norm
 from grok_tpu_torch.ops import dwt, mct
 from grok_tpu_torch.ops.ht_encode import (_bitlen, _cap_bytes,
                                           ht_encode_lanes, refine_caps)
-from grok_tpu_torch.ops.t1_encode import (rates_from_watermarks,
-                                          t1_encode_lanes)
+from grok_tpu_torch.ops.t1_encode import pass_records, t1_encode_lanes
 from grok_tpu_torch.pipeline.plan import _pow2_at_least
-from grok_tpu_torch.pipeline.tile import (TileGeometry, canon_block_indices,
+from grok_tpu_torch.pipeline.tile import (TileGeometry, band_window,
+                                          canon_block_indices,
                                           finish_tile_encode)
 from grok_tpu_torch.t1.records import SIG_SPP, EncodedBlock, PassInfo
 from grok_tpu_torch.t2.rate import (layer_budget_consts,
                                     layer_targets_for_tile,
                                     quality_targets_for_tile)
-from grok_tpu_torch.transform.mct_np import mct_component_norms
+from grok_tpu_torch.transform.mct_np import (custom_mct_inverse,
+                                             mct_component_norms)
+
+_log = logging.getLogger("grok_tpu_torch")
 
 _EPLANS: dict = {}
 _EPLANS_MAX = 16
@@ -83,9 +87,9 @@ _EPLANS_MAX = 16
 def _unsupported(route: str, why: str) -> NotImplementedError:
     return NotImplementedError(
         f"{route} is not ported ({why}); the PyTorch port encodes "
-        f"HT and Part-1 default-style streams (tiled, layered and "
-        f"rate-targeted too, HT refined too) and single-layer HT-mixed "
-        f"streams only")
+        f"HT, Part-1 (any mode switches) and HT-mixed streams (tiled, "
+        f"layered and rate-targeted too, HT refined too, with ROI and "
+        f"any MCT) of unsubsampled components with Mb <= 24")
 
 
 @dataclass
@@ -97,40 +101,43 @@ class EncPlan:
     lane_w: np.ndarray        # PCRD distortion weight per block
     comps_sig: tuple          # per comp: (rect, numres, prec, sgnd, irrev,
     #                           ((r, orient, delta), ...))
-    mct_mode: int             # 0 none, 1 RCT, 2 ICT
+    mct_mode: int             # 0 none, 1 RCT, 2 ICT, 3 custom (Part 2)
     W: int                    # lane block dims: the largest block
     H: int
     coder: str                # "ht" (K4, or K4 + K5 when mixed) or "mq"
     caps: tuple               # per-lane (LMS, LMEL, LVLC) bytes (K4)
     mq_caps: tuple            # per-lane byte capacity and watermark rows
     #                           (L, R) (K5)
+    lane_style: np.ndarray    # code-block style per block
+    band_rects: dict          # (ci, r, orient) -> the band's Rect
     fast: dict = field(default_factory=dict)   # device index tensors
 
 
 def _build_plan(hdr, t: int) -> EncPlan:
     geo = TileGeometry.build(hdr, t)
-    if geo.rgn:
-        raise _unsupported("ROI encode", "an RGN shift")
-    if geo.custom_mct is not None:
-        raise _unsupported("custom MCT encode", "a Part-2 MCT matrix")
     styles = {cs.cblk_style for cs in geo.styles}
     if styles == {CBLK_HT}:
         coder = "ht"
-    elif styles == {0}:
+    elif not any(st & CBLK_HT for st in styles):
         coder = "mq"
     else:
-        raise _unsupported("Part-1 mode switches encode",
-                           "a code-block style other than HT cleanup or "
-                           "the Part-1 default")
+        raise _unsupported("HT code-blocks with mode switches encode",
+                           "a code-block style of HT with Part-1 mode "
+                           "switches")
     irrevs = {bool(cs.irreversible) for cs in geo.styles}
     if len(irrevs) != 1:
         raise _unsupported("general encode", "components mixing 5/3 and "
                            "9/7")
-    mct_norms = mct_component_norms(bool(geo.styles[0].irreversible)) \
-        if geo.cod.mct else None
+    mct_norms = None
+    if geo.cod.mct:
+        mct_norms = mct_component_norms(bool(geo.styles[0].irreversible))
+    elif geo.custom_mct is not None:
+        mct_norms = mct_component_norms(
+            True, custom_inv=custom_mct_inverse(geo.custom_mct))
     mbmax = 0
     W = H = 1
     blocks, lane_block, lane_mb, lane_w, comps_sig = [], [], [], [], []
+    lane_style, band_rects = [], {}
     for c, tcg in enumerate(geo.tcgs):
         quant = geo.quants[c]
         cs = geo.styles[c]
@@ -141,6 +148,7 @@ def _build_plan(hdr, t: int) -> EncPlan:
             for band_i, bg in enumerate(rg.bands):
                 bands_sig.append((rg.r, bg.orient,
                                   float(quant.delta(rg.r, bg.orient))))
+                band_rects[(c, rg.r, bg.orient)] = bg.rect
                 mb = quant.mb(rg.r, bg.orient)
                 mbmax = max(mbmax, mb)
                 # PCRD weight, op for op as the JAX package's encoders
@@ -159,6 +167,7 @@ def _build_plan(hdr, t: int) -> EncPlan:
                         lane_block.append((c, rg.r, p, band_i, cblk_i))
                         lane_mb.append(mb)
                         lane_w.append(wgt)
+                        lane_style.append(cs.cblk_style)
                         W = max(W, cb.rect.w)
                         H = max(H, cb.rect.h)
         rect = geo.comp_rects[c]
@@ -177,6 +186,8 @@ def _build_plan(hdr, t: int) -> EncPlan:
     mct_mode = 0
     if geo.cod.mct and len(comps_sig) >= 3:
         mct_mode = 2 if geo.styles[0].irreversible else 1
+    elif geo.custom_mct is not None:
+        mct_mode = 3
     # per-lane stream capacities: MagSgn <= Mb + 1 bits per sample; MEL
     # <= 2 significance events + 1 initial-pair event of <= 6 bits per
     # quad pair (9 bits/quad); VLC <= 7-bit codeword + 8-bit UVLC per
@@ -186,15 +197,20 @@ def _build_plan(hdr, t: int) -> EncPlan:
             _cap_bytes(nq * 9 // 8 + 16), _cap_bytes(nq * 15 // 8 + 16))
     # Part-1 codeword capacity: 4 bits per sample and magnitude plane
     # (the MQ coder spends about one bit per decision on noise-like data,
-    # a decision per sample and plane plus a sign), and one watermark row
-    # per pass of the deepest block
-    mq_caps = (_cap_bytes(W * H * (mbmax + 1) // 2 + 64),
-               max(3 * mbmax - 2, 1))
+    # a decision per sample and plane plus a sign; a raw pass spends at
+    # most two bits per sample), 8 bytes more per pass where a mode switch
+    # may terminate segments (a flush and a stuffing byte), and one rate
+    # row per pass of the deepest block
+    R = max(3 * mbmax - 2, 1)
+    mq_caps = (_cap_bytes(W * H * (mbmax + 1) // 2 + 64
+                          + (8 * R if any(lane_style) else 0)), R)
     return EncPlan(geo=geo, blocks=blocks, lane_block=lane_block,
                    lane_mb=np.asarray(lane_mb, np.int32),
                    lane_w=np.asarray(lane_w, np.float64),
                    comps_sig=tuple(comps_sig), mct_mode=mct_mode, W=W, H=H,
-                   coder=coder, caps=caps, mq_caps=mq_caps)
+                   coder=coder, caps=caps, mq_caps=mq_caps,
+                   lane_style=np.asarray(lane_style, np.int32),
+                   band_rects=band_rects)
 
 
 def _hdr_key(hdr):
@@ -205,7 +221,10 @@ def _hdr_key(hdr):
             tuple((c.prec, c.sgnd, c.dx, c.dy) for c in hdr.comps),
             repr(hdr.cod), repr(hdr.qcd),
             tuple(sorted((k, repr(v)) for k, v in hdr.coc.items())),
-            tuple(sorted((k, repr(v)) for k, v in hdr.qcc.items())))
+            tuple(sorted((k, repr(v)) for k, v in hdr.qcc.items())),
+            tuple(sorted(hdr.rgn.items())),
+            None if hdr.custom_mct is None
+            else np.asarray(hdr.custom_mct, np.float64).tobytes())
 
 
 def _plan_for(hdr, t: int) -> EncPlan:
@@ -219,33 +238,91 @@ def _plan_for(hdr, t: int) -> EncPlan:
     return plan
 
 
-def _stage_bands(comps: list, plan: EncPlan) -> dict:
+def _stage_bands(comps: list, plan: EncPlan, roi_rect=None) -> dict:
     """DC shift + MCT + forward DWT + quantization of (N, h, w) component
-    stacks -> {(ci, r, orient): (N, bh, bw) int32 (mag << 1) | neg}."""
+    stacks, then the ROI's Maxshift upshift -> {(ci, r, orient): (N, bh,
+    bw) int32 (mag << 1) | neg}."""
     outs = []
     for ci, csig in enumerate(plan.comps_sig):
         (_rect, _numres, prec, sgnd, _irrev, _bands) = csig
         outs.append(mct.dc_shift_fwd(comps[ci].to(torch.int32), prec, sgnd))
-    if plan.mct_mode and len(outs) >= 3:
+    if plan.mct_mode == 3:
+        # a custom MCT, in float64 (and so the 9/7 lifting and the
+        # quantization after it), as the JAX package's host encode
+        outs = mct.custom_fwd(outs, torch.tensor(
+            np.asarray(plan.geo.custom_mct, np.float64),
+            device=outs[0].device))
+    elif plan.mct_mode and len(outs) >= 3:
         if plan.mct_mode == 2:
             outs[:3] = mct.ict_fwd(*(o.to(torch.float32) for o in outs[:3]))
         else:
             outs[:3] = mct.rct_fwd(*outs[:3])
-    band_mneg = {}
+    band_mag, band_neg = {}, {}
     for ci, csig in enumerate(plan.comps_sig):
         (rect_t, numres, _prec, _sgnd, irrev, bands) = csig
-        blist = dwt.fwd_multilevel(outs[ci], Rect(*rect_t), numres, irrev)
+        f64 = plan.mct_mode == 3
+        blist = dwt.fwd_multilevel(outs[ci], Rect(*rect_t), numres, irrev,
+                                   torch.float64 if f64 else None)
         for (r, orient, delta) in bands:
             arr = blist[0] if r == 0 else blist[r][orient - 1]
-            if irrev:
+            if irrev and f64:
+                mag = torch.floor(arr.abs() / delta).to(torch.int32)
+            elif irrev:
                 inv = torch.tensor(1.0 / delta, dtype=torch.float32,
                                    device=arr.device)
                 mag = torch.floor(arr.abs() * inv).to(torch.int32)
             else:
                 mag = arr.abs().to(torch.int32)
-            band_mneg[(ci, r, orient)] = (mag << 1) | (arr < 0).to(
-                torch.int32)
-    return band_mneg
+            band_mag[(ci, r, orient)] = mag
+            band_neg[(ci, r, orient)] = (arr < 0).to(torch.int32)
+    if plan.geo.rgn:
+        _roi_upshift(plan, band_mag, roi_rect)
+    return {k: (m << 1) | band_neg[k] for k, m in band_mag.items()}
+
+
+def _roi_upshift(plan: EncPlan, band_mag: dict, roi_rect) -> None:
+    """Maxshift ROI (ISO 15444-1 Annex H): the magnitudes of each ROI
+    component's bands shifted up by its RGN shift inside the band's ROI
+    window, the whole band or roi_rect (canvas coordinates) mapped into
+    it by band_window, as grok_tpu/pipeline/tile.py `encode_tile` does;
+    with its warning, once per frame and component, where a band's
+    background magnitude reaches the shift."""
+    geo = plan.geo
+    wins = []
+    for ci, csig in enumerate(plan.comps_sig):
+        shift = geo.rgn.get(ci, 0)
+        if shift <= 0:
+            continue
+        nl = csig[1] - 1
+        for (r, orient, _delta) in csig[5]:
+            key = (ci, r, orient)
+            brect = plan.band_rects[key]
+            if roi_rect is not None:
+                dx, dy = geo.subsampling[ci]
+                sub = Rect(*roi_rect).intersect(geo.rect).ceil_scale(dx, dy)
+                bw = band_window(sub, nl, r, orient).intersect(brect)
+            else:
+                bw = brect
+            if not bw.empty:
+                wins.append((key, shift, bw, brect))
+    if not wins:
+        return
+    bgmax = torch.stack([band_mag[key].reshape(
+        band_mag[key].shape[0], -1).amax(1)
+        for key, _s, _bw, _br in wins], 1).cpu().numpy()   # (N, bands)
+    for fi in range(bgmax.shape[0]):
+        warned = set()
+        for i, (key, shift, _bw, _br) in enumerate(wins):
+            m = int(bgmax[fi, i])
+            if m >> shift and key[0] not in warned:
+                warned.add(key[0])
+                _log.warning(f"RGN shift {shift} < background magnitude "
+                             f"bits ({m.bit_length()}); decode will be "
+                             f"ambiguous (raise -R shift)")
+    for key, shift, bw, br in wins:
+        sl = band_mag[key][:, bw.y0 - br.y0:bw.y1 - br.y0,
+                           bw.x0 - br.x0:bw.x1 - br.x0]
+        sl <<= shift
 
 
 def _lane_index(plan: EncPlan, N: int, device: torch.device):
@@ -300,30 +377,23 @@ def stage_encode_lanes(comps: list, hdr, params, t: int = 0):
     (or K4r's) inputs
     (mneg, p, w, h, valid), one lane per code-block of every frame; p is
     each lane's cleanup plane, min(ht_planes, numbps - 1), computed on
-    the device.  Raises NotImplementedError outside the served scope."""
-    if params.roi_shift > 0 or params.roi_rect is not None:
-        raise _unsupported("ROI encode", "roi_shift / roi_rect")
-    if params.mct == MCTMode.AUTO_RD:
-        raise _unsupported("AUTO_RD MCT encode", "mct=AUTO_RD")
+    the device (P = 0 for Part-1 code-blocks, which the JAX package
+    codes without it too).  Raises NotImplementedError outside the
+    served scope."""
+    if params.mct == MCTMode.AUTO_RD and len(comps) >= 3:
+        raise _unsupported("AUTO_RD MCT encode of one tile", "mct=AUTO_RD: "
+                           "api.compress_device_batch encodes with and "
+                           "without the colour transform")
     plan = _plan_for(hdr, t)
-    if plan.coder != "ht" or params.ht_mixed:
-        if params.ht_planes:
-            raise _unsupported("HT refinement encode of Part-1 or HT-mixed "
-                               "code-blocks", "ht_planes > 0")
-        if params.ht_mixed and targeted(params):
-            # the JAX package codes these on the host too
-            raise _unsupported(
-                "multi-layer or rate-targeted encode (PCRD) of HT-mixed "
-                "code-blocks", "several layers or a byte target")
     N = int(comps[0].shape[0])
     device = comps[0].device
     order, src, wv, hv = _lane_index(plan, N, device)
-    band_mneg = _stage_bands(comps, plan)
+    band_mneg = _stage_bands(comps, plan, params.roi_rect)
     flat = torch.cat([band_mneg[k].reshape(-1) for k in order]
                      + [band_mneg[order[0]].new_zeros(1)])
     NL = N * len(plan.blocks)
     mneg = flat[src].reshape(NL, plan.H, plan.W)
-    P = int(params.ht_planes or 0)
+    P = int(params.ht_planes or 0) if plan.coder == "ht" else 0
     if P:
         # the encoder clamp: each lane's cleanup plane min(P, numbps - 1)
         mx = (mneg >> 1).reshape(NL, -1).amax(1).to(torch.int64)
@@ -333,20 +403,37 @@ def stage_encode_lanes(comps: list, hdr, params, t: int = 0):
     return plan, (mneg, pv, wv, hv, torch.ones_like(pv))
 
 
+def _per_lane(plan: EncPlan, name: str, vals, NL: int, device):
+    """A per-block int32 column tiled over the NL lanes of the frames,
+    on `device`, built once per (NL, device)."""
+    key = (name, NL, str(device))
+    got = plan.fast.get(key)
+    if got is None:
+        got = plan.fast[key] = torch.from_numpy(np.tile(
+            np.asarray(vals, np.int32), NL // len(plan.blocks))).to(device)
+    return got
+
+
 def mq_lane_inputs(plan: EncPlan, lanes: tuple) -> tuple:
     """K5's inputs (mneg, orient, numbps, w, h) from the staged lanes:
     numbps is each lane's magnitude bit length, computed on the
     device."""
     mneg, _p, wv, hv, _valid = lanes
     NL = mneg.shape[0]
-    key = ("orient", NL, str(mneg.device))
-    ori = plan.fast.get(key)
-    if ori is None:
-        ori = torch.from_numpy(np.tile(np.array(
-            [b[2] for b in plan.blocks], np.int32), NL // len(plan.blocks)))
-        ori = plan.fast[key] = ori.to(mneg.device)
+    ori = _per_lane(plan, "orient", [b[2] for b in plan.blocks], NL,
+                    mneg.device)
     mx = (mneg >> 1).reshape(NL, -1).amax(1).to(torch.int64)
     return mneg, ori, _bitlen(mx).to(torch.int32), wv, hv
+
+
+def mq_lane_styles(plan: EncPlan, lanes: tuple):
+    """K5's style column: each block's code-block style, or None where
+    every block is in the default style."""
+    mneg = lanes[0]
+    if not plan.lane_style.any():
+        return None
+    return _per_lane(plan, "style", plan.lane_style, mneg.shape[0],
+                     mneg.device)
 
 
 def _compact(buf: torch.Tensor, first: torch.Tensor, cnt: torch.Tensor,
@@ -520,17 +607,22 @@ def _mq_dist_stats(mneg, sigtype, numbps, R: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False) -> list:
+def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False,
+               styled: bool = True) -> list:
     """K5 over the staged lanes: one EncodedBlock per lane (frame-major),
-    a single codeword segment with rates from the watermarks.  want_dist:
-    each pass's exact distortion too (the PCRD finish), downloaded with
-    the stats."""
+    its segments, rates and termination flags as the JAX package's C
+    coder logs them (ops/t1_encode.py pass_records), in the blocks'
+    code-block styles (styled False: the default style, an HT-mixed
+    set's Part-1 coding).  want_dist: each pass's exact distortion too
+    (the PCRD finish), downloaded with the stats."""
     mneg, ori, nb, wv, hv = mq_lane_inputs(plan, lanes)
+    sty = mq_lane_styles(plan, lanes) if styled else None
     NL = mneg.shape[0]
     L, R = plan.mq_caps
-    out, lens, rates, sigtype = t1_encode_lanes(mneg, ori, nb, wv, hv, L, R)
+    out, lens, rates, sigtype = t1_encode_lanes(mneg, ori, nb, wv, hv, L, R,
+                                                sty)
 
-    # one download of the stats: length, numbps, watermark rows and the
+    # one download of the stats: length, numbps, rate rows and the
     # distortion sums
     cols = [lens[:, None], nb[:, None], rates]
     if want_dist:
@@ -554,6 +646,8 @@ def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False) -> list:
     # a lane's codeword follows the carry sentinel at byte 0 of its row
     first = torch.arange(NL, device=out.device) * L + 1
     body = _compact(out, first, lens.to(torch.int64), int(lens_h.sum()))
+    styles = np.tile(plan.lane_style, NL // len(plan.blocks)) if styled \
+        else np.zeros(NL, np.int32)
     encs = []
     for lane in range(NL):
         n = int(nb_h[lane])
@@ -561,15 +655,16 @@ def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False) -> list:
             encs.append(EncodedBlock())
             continue
         ln = int(lens_h[lane])
-        rr = rates_from_watermarks(stats[lane, 2:2 + R], n, ln)
+        rr, terms, seg_lens, seg_passes = pass_records(
+            stats[lane, 2:2 + R], n, ln, int(styles[lane]))
         # dist is read only by rate allocation, which the one-layer
         # untargeted finish does not run
         encs.append(EncodedBlock(
             data=body[offs[lane]:offs[lane] + ln].tobytes(), numbps=n,
             passes=[PassInfo(rate=v, dist=float(dist[lane, t])
-                             if want_dist else 0.0, term=t == len(rr) - 1)
+                             if want_dist else 0.0, term=terms[t])
                     for t, v in enumerate(rr)],
-            seg_lens=[ln], seg_passes=[len(rr)]))
+            seg_lens=seg_lens, seg_passes=seg_passes))
     return encs
 
 
@@ -604,45 +699,50 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
     B = len(plan.blocks)
     N = lanes[0].shape[0] // B
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
+    want_dist = targeted(params)
     targets = _layer_targets(hdr, plan.geo, params)
     finish = dict(quality_targets=quality_targets_for_tile(hdr, plan.geo,
                                                            params),
                   pocs=hdr.pocs, split_headers=bool(params.write_ppm),
                   device=lanes[0].device)
     if plan.coder == "mq":
-        encs = _encode_mq(plan, lanes, targeted(params))
+        encs = _encode_mq(plan, lanes, want_dist)
     else:
         encs = _encode_ht(plan, lanes, int(params.ht_planes or 0),
-                          targeted(params))
-    if mixed:
-        # both coders on the same lanes; the smaller codeword wins per
-        # block, HT on ties (grok_tpu/pipeline/tile.py encode_tile)
-        encs_mq = _encode_mq(plan, lanes)
-        canon = _canon(plan)
-        nbytes = (len(canon) + 7) // 8
-    jobs = [dict(key=kb, mb=int(mb), weight=float(w))
-            for kb, mb, w in zip(plan.lane_block, plan.lane_mb, plan.lane_w)]
-    if plan.coder == "mq":
-        # style, orient and size turn on the finish's minimal-flush
-        # truncation refinement of targeted Part-1 blocks (as in
-        # grok_tpu/pipeline/serve_enc.py)
-        for j, (_c, _r, orient, _y, _x, bh, bw) in zip(jobs, plan.blocks):
-            j.update(style=0, orient=int(orient), w=int(bw), h=int(bh))
+                          want_dist)
+    # each job carries its block's style, orient and size, which turn on
+    # the finish's minimal-flush truncation refinement of targeted
+    # single-segment Part-1 blocks (as grok_tpu/pipeline/tile.py
+    # encode_tile's jobs do)
+    jobs = [dict(key=kb, mb=int(mb), weight=float(w), style=int(st),
+                 orient=int(b[2]), w=int(b[6]), h=int(b[5]))
+            for kb, mb, w, st, b in zip(plan.lane_block, plan.lane_mb,
+                                        plan.lane_w, plan.lane_style,
+                                        plan.blocks)]
+    if not mixed:
+        return [finish_tile_encode(plan.geo, jobs, encs[fi * B:(fi + 1) * B],
+                                   targets, **finish) for fi in range(N)]
+    # HT-mixed: both coders on the same lanes, the Part-1 coding in the
+    # default style; the smaller codeword wins per block, HT on ties, and
+    # a Part-1 winner's job gets style 0 (grok_tpu/pipeline/tile.py
+    # encode_tile), so the refinement touches exactly those blocks
+    encs_mq = _encode_mq(plan, lanes, want_dist, styled=False)
+    canon = _canon(plan)
+    nbytes = (len(canon) + 7) // 8
     results = []
     for fi in range(N):
         frame = encs[fi * B:(fi + 1) * B]
-        if not mixed:
-            results.append(finish_tile_encode(plan.geo, jobs, frame,
-                                              targets, **finish))
-            continue
+        fjobs = []
         bitmap = bytearray(nbytes)
         for bi, ci in enumerate(canon):
             mq_e = encs_mq[fi * B + bi]
             if len(frame[bi].data) <= len(mq_e.data):
                 bitmap[ci >> 3] |= 1 << (ci & 7)          # an HT block
+                fjobs.append(jobs[bi])
             else:
                 frame[bi] = mq_e
-        res = finish_tile_encode(plan.geo, jobs, frame, targets,
+                fjobs.append(dict(jobs[bi], style=0))
+        res = finish_tile_encode(plan.geo, fjobs, frame, targets,
                                  seg_style_mask=~CBLK_HT, **finish)
         res.com = j2k.write_com(b"GRKTPU_HTMIX=" + bytes(bitmap),
                                 binary=True)

@@ -2,8 +2,8 @@
 and the custom MCT's inverse.
 
 The port's copy of `mct_component_norms` from grok_tpu/transform/
-mct_np.py, for the RCT and the ICT (the port encodes no custom MCT), and
-of `custom_mct_inv`, the NumPy model of the custom MCT's inverse that
+mct_np.py, for the RCT, the ICT and a custom MCT, and of
+`custom_mct_inv`, the NumPy model of the custom MCT's inverse that
 the device decode computes (ops/mct.py custom_inv: the same float64
 inverse matrix and products); the transforms themselves run on the
 device (ops/mct.py).
@@ -21,11 +21,14 @@ ICT_INV = np.array([
 ])
 
 
-def mct_component_norms(irreversible: bool) -> np.ndarray:
+def mct_component_norms(irreversible: bool,
+                        custom_inv: np.ndarray | None = None) -> np.ndarray:
     """L2 norm of each inverse-transform column: the per-component distortion
     weight used by PCRD (error in transformed comp c scales pixel MSE by
-    norm[c]^2)."""
-    if irreversible:
+    norm[c]^2); custom_inv: a custom MCT's inverse matrix."""
+    if custom_inv is not None:
+        inv = np.asarray(custom_inv, dtype=np.float64)
+    elif irreversible:
         inv = ICT_INV
     else:
         # RCT inverse linearized: G = Y - (Cb+Cr)/4; R = Cr + G; B = Cb + G

@@ -15,6 +15,7 @@ torch.set_num_threads(1)
 from grok_tpu import CompressParams as JCP  # noqa: E402
 from grok_tpu import compress, decompress, native  # noqa: E402
 from grok_tpu import api as japi  # noqa: E402
+from grok_tpu.core.params import MCTMode as JMCT  # noqa: E402
 from grok_tpu.util.oracle import synthetic_image  # noqa: E402
 from grok_tpu_torch import api  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams as PCP  # noqa: E402
@@ -103,14 +104,23 @@ def test_out_of_scope_parameters_raise(rgb):
         assert api.compress_device(rgb, PCP(**dict(CP, **kw)),
                                    device="cpu") == \
             compress(rgb, JCP(**dict(CP, **kw)))
-    for kw, what in (
-            (dict(ht_mixed=True, ht=False, num_layers=2), "multi-layer"),
-            (dict(ht_mixed=True, ht=False, rates=[8.0]), "rate-targeted"),
-            (dict(ht=False, cblk_style=0x01), "Part-1 mode switches"),
-            (dict(mct=MCTMode.AUTO_RD), "AUTO_RD"),
-            (dict(roi_comp=0, roi_shift=4), "ROI")):
-        with pytest.raises(NotImplementedError, match=what):
-            api.compress_device(rgb, PCP(**dict(CP, **kw)), device="cpu")
+    # and so are layered and rate-targeted HT-mixed encodes, Part-1 mode
+    # switches, AUTO_RD and ROI (on a corner of the frame: the Part-1
+    # coder's plain version is slow on the CPU)
+    part = np.ascontiguousarray(rgb[:32, :48])
+    for kw in (dict(ht_mixed=True, ht=False, num_layers=2),
+               dict(ht_mixed=True, ht=False, rates=[8.0]),
+               dict(ht=False, cblk_style=0x01),
+               dict(mct=MCTMode.AUTO_RD),
+               dict(roi_comp=0, roi_shift=12)):
+        jkw = dict(kw, mct=JMCT(kw["mct"])) if "mct" in kw else kw
+        assert api.compress_device(part, PCP(**dict(CP, **kw)),
+                                   device="cpu") == \
+            compress(part, JCP(**dict(CP, **jkw)))
+    # what stays out: subsampled components, and Mb over 24
+    with pytest.raises(NotImplementedError, match="subsampled"):
+        api.compress_device([rgb[:, :, 0], rgb[::2, ::2, 1],
+                             rgb[::2, ::2, 2]], PCP(**CP), device="cpu")
     with pytest.raises(NotImplementedError, match=r"Mb = \d+ > 24"):
         api.compress_device(rgb.astype(np.int32) << 15,
                             PCP(**CP, num_guard_bits=3), prec=23,

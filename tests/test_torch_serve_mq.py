@@ -147,25 +147,22 @@ def test_decode_mixed_streams_with_ht_blocks(monkeypatch):
         assert np.array_equal(_np(comps), a)
 
 
-@pytest.mark.parametrize("kw, what", [
-    (dict(cblk_style=CBLK_BYPASS), "mode switches"),
-    (dict(cblk_style=CBLK_VSC), "mode switches"),
-    (dict(num_layers=2), "multi-layer"),
-    (dict(rates=[8.0]), "rate-targeted"),
-    (dict(ht_mixed=True, num_layers=2), "multi-layer"),
+@pytest.mark.parametrize("kw", [
+    dict(cblk_style=CBLK_BYPASS),
+    dict(cblk_style=CBLK_VSC),
+    dict(num_layers=2),
+    dict(rates=[8.0]),
+    dict(ht_mixed=True, num_layers=2),
 ])
-def test_out_of_scope_encodes_raise(gray, kw, what):
-    """Mode switches and layered HT-mixed encodes raise; multi-layer and
-    rate-targeted Part-1 encodes are served (byte-identical to the host
-    encoder: tests/test_torch_serve_mq_rt.py covers them in full)."""
+def test_out_of_scope_encodes_raise(gray, kw):
+    """Encodes once out of the port's scope, now served: mode switches
+    (kernel K5 takes them), multi-layer and rate-targeted Part-1 and
+    layered HT-mixed encodes, byte-identical to the host encoder
+    (tests/test_torch_serve_mq_rt.py and tests/test_torch_enc_modes.py
+    cover them in full)."""
     params = dict(CP, **kw)
-    if set(kw) <= {"num_layers", "rates"}:
-        got = api.compress_device(gray[0], PCP(**params), prec=3,
-                                  device="cpu")
-        assert got == compress(_img(gray[0], 3), JCP(**params))
-        return
-    with pytest.raises(NotImplementedError, match=what):
-        api.compress_device(gray[0], PCP(**params), prec=3, device="cpu")
+    got = api.compress_device(gray[0], PCP(**params), prec=3, device="cpu")
+    assert got == compress(_img(gray[0], 3), JCP(**params))
 
 
 @pytest.mark.parametrize("kw, what", [

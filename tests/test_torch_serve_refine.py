@@ -181,15 +181,18 @@ def test_out_of_scope_on_refined_streams_still_raises(streams):
 def test_targeted_encode_scope(images):
     img = images["rgb"]
     # Part-1 targeted and layered encodes are served (byte-identity:
-    # tests/test_torch_serve_mq_rt.py), and quality targets (byte-identity
-    # here); HT-mixed ones are not
-    for kw, what in ((dict(ht=False, ht_mixed=True, rates=[8.0]),
-                      "rate-targeted"),
-                     (dict(ht=False, ht_mixed=True, num_layers=2),
-                      "multi-layer"),
-                     (dict(ht=False, ht_planes=2), "refinement")):
-        with pytest.raises(NotImplementedError, match=what):
-            api.compress_device(img, PCP(**dict(CP, **kw)), device="cpu")
+    # tests/test_torch_serve_mq_rt.py), and quality targets, rate-targeted
+    # and layered HT-mixed encodes and Part-1 encodes with ht_planes set
+    # (which, as in the JAX package, leaves Part-1 blocks as they are and
+    # signals its COM) (byte-identity here, on a corner of the frame: the
+    # Part-1 coder's plain version is slow on the CPU)
+    part = np.ascontiguousarray(img[:32, :48])
+    for kw in (dict(ht=False, ht_mixed=True, rates=[8.0]),
+               dict(ht=False, ht_mixed=True, num_layers=2),
+               dict(ht=False, ht_planes=2)):
+        assert api.compress_device(part, PCP(**dict(CP, **kw)),
+                                   device="cpu") == \
+            compress(part, JCP(**dict(CP, **kw)))
     kw = dict(CP, fixed_quality=True, quality=[30.0])
     assert api.compress_device(img, PCP(**kw), device="cpu") == \
         compress(img, JCP(**kw))

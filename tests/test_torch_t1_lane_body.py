@@ -16,7 +16,10 @@ versions, `t1_decode_lanes_ref` and `t1_encode_lanes_ref`:
   - K3 on wide lanes (128 x 8, 16 x 256, 1024 x 4: a stripe walked in
     64-column chunks), coded by the plain K5 (the encode kernel takes
     lanes of up to 64 x 64), significance chains across the chunk edges
-    included.
+    included;
+  - K5 on styled lanes (each of the six Part-1 mode switches alone, all
+    six, BYPASS with PTERM) of 1x1 to 16x16 against the plain version,
+    and of 64 x 64 against the JAX package's C block coder.
 
 Every comparison is exact: codeword bytes, lengths, watermark rows and
 the sigtype map for K5, the signed reconstruction for K3.  The plain
@@ -79,7 +82,8 @@ extern "C" int host_t1_decode(const uint8_t* body, long long nb,
 
 extern "C" int host_t1_encode(const int* mneg, const int* orient,
                               const int* numbps, const int* w, const int* h,
-                              const uint8_t* lut, const uint32_t* mqt,
+                              const int* style, const uint8_t* lut,
+                              const uint32_t* mqt,
                               uint8_t* out, int L, int* lengths, int* rates,
                               int R, int8_t* sigtype, int nl, int W, int H)
 {
@@ -88,8 +92,8 @@ extern "C" int host_t1_encode(const int* mneg, const int* orient,
     std::vector<unsigned char> buf;
     unsigned char* ws = aligned(buf, t1_lane_bytes(W, H, true));
     for (int lane = 0; lane < nl; lane++)
-        encode_one(t, ws, lane, mneg, orient, numbps, w, h, out, L, lengths,
-                   rates, R, sigtype, W, H);
+        encode_one(t, ws, lane, mneg, orient, numbps, w, h, style, out, L,
+                   lengths, rates, R, sigtype, W, H);
     return 0;
 }
 """
@@ -119,8 +123,8 @@ def lib(tmp_path_factory):
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.host_t1_decode.argtypes = [vp, cl, vp, vp, vp, vp, vp, vp, vp, vp,
                                    ci, vp, vp, vp, ci, ci, ci]
-    lib.host_t1_encode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, vp,
-                                   vp, ci, vp, ci, ci, ci]
+    lib.host_t1_encode.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                   vp, vp, ci, vp, ci, ci, ci]
     return lib
 
 
@@ -133,9 +137,11 @@ def _tables():
             np.ascontiguousarray(D.mq_table().view(np.uint32)))
 
 
-def host_encode(lib, ins, L: int, R: int) -> tuple:
-    """The K5 lane body on the host: t1_encode_lanes' outputs as numpy."""
+def host_encode(lib, ins, L: int, R: int, style=None) -> tuple:
+    """The K5 lane body on the host: t1_encode_lanes' outputs as numpy
+    (style: None, every lane in the default style, or (NL,) int32)."""
     mneg, ori, nb, w, h = (np.ascontiguousarray(t.numpy()) for t in ins)
+    sty = None if style is None else np.ascontiguousarray(style.numpy())
     NL, H, W = mneg.shape
     out = np.zeros((NL, L), np.uint8)
     lens = np.zeros(NL, np.int32)
@@ -143,7 +149,8 @@ def host_encode(lib, ins, L: int, R: int) -> tuple:
     st = np.full((NL, H, W), -7, np.int8)
     lut, mqt = _tables()
     lib.host_t1_encode(_ptr(mneg), _ptr(ori), _ptr(nb), _ptr(w), _ptr(h),
-                       _ptr(lut), _ptr(mqt), _ptr(out), L, _ptr(lens),
+                       None if sty is None else _ptr(sty), _ptr(lut),
+                       _ptr(mqt), _ptr(out), L, _ptr(lens),
                        _ptr(rates), R, _ptr(st), NL, W, H)
     return out, lens, rates, st
 
@@ -338,3 +345,77 @@ def test_decode_lane_body_on_wide_lanes(lib, W, H):
         # edges (a missed carry changes the codeword)
         blocks += [b for b in _chains(W, 8)[:3] if b[0].shape[0] <= H]
     _wide_round_trip(lib, blocks, W, H)
+
+
+# the six Part-1 mode switches alone, all of them, and BYPASS with PTERM
+STYLES = [0x01, 0x02, 0x04, 0x08, 0x10, 0x20, 0x3F, 0x11]
+
+
+def styled_blocks(seed: int, side: int, maxnb: int, per: int = 2):
+    """per blocks of 1x1 to side x side for each style of STYLES (the
+    first of each style with a full plane count, so BYPASS reaches its
+    raw passes): [(mag, neg)] and the styles."""
+    rng = np.random.default_rng(seed)
+    blocks, styles = [], []
+    for st in STYLES:
+        for i in range(per):
+            h = side if i == 0 else 1 + int(rng.integers(0, side))
+            w = side if i == 0 else 1 + int(rng.integers(0, side))
+            nb = maxnb if i == 0 else 1 + int(rng.integers(0, maxnb))
+            mag = rng.integers(0, 1 << nb, (h, w))
+            mag[rng.random((h, w)) < rng.uniform(0.4, 0.95)] = 0
+            mag[h // 2, w // 2] = (1 << nb) - 1
+            blocks.append((mag, rng.random((h, w)) < 0.5))
+            styles.append(st)
+    return blocks, styles
+
+
+# (seed, block side, planes): lanes of 1x1 to 16x16
+STYLED = [(11, 4, 8), (12, 16, 9)]
+
+
+def _styled_ins(blocks, styles, side: int) -> tuple:
+    ins = _lanes(blocks, side, side)
+    nbmax = max(1, int(ins[2].max()))
+    R = 3 * nbmax - 2
+    L = side * side * (nbmax + 2) // 2 + 64 + 8 * R
+    return ins, _col(styles), L + -L % 4, R
+
+
+@pytest.mark.parametrize("seed, side, maxnb", STYLED)
+def test_encode_lane_body_matches_plain_version_on_styled_lanes(
+        lib, seed, side, maxnb):
+    blocks, styles = styled_blocks(seed, side, maxnb)
+    ins, sty, L, R = _styled_ins(blocks, styles, side)
+    out, lens, rates, st = E.t1_encode_lanes_ref(*ins, L, R, sty)
+    got = host_encode(lib, ins, L, R, sty)
+    assert (lens >= 0).all()
+    assert np.array_equal(got[1], lens.numpy())
+    assert np.array_equal(got[2], rates.numpy())
+    assert np.array_equal(got[3], st.numpy())
+    for j in range(len(blocks)):
+        n = 1 + int(lens[j])
+        assert np.array_equal(got[0][j, :n], out[j, :n].numpy()), j
+
+
+def test_encode_lane_body_matches_c_coder_on_styled_64x64_lanes(lib):
+    """The lane body on 64 x 64 lanes of every style against the JAX
+    package's C block coder, whose equality with the plain version on
+    such lanes tests/test_torch_enc_modes.py holds (the plain version's
+    lockstep cost at this size is paid once, there)."""
+    native = pytest.importorskip("grok_tpu.native")
+    if not native.available():
+        pytest.skip("no C toolchain for the JAX package's block coder")
+    blocks, styles = styled_blocks(13, 64, 6, 1)
+    ins, sty, L, R = _styled_ins(blocks, styles, 64)
+    out, lens, rates, _st = host_encode(lib, ins, L, R, sty)
+    want = native.encode_tile_blocks(
+        [dict(mag=m, neg=n, orient=j % 4, style=st)
+         for j, ((m, n), st) in enumerate(zip(blocks, styles))])
+    for j, (e, st) in enumerate(zip(want, styles)):
+        total = int(lens[j])
+        assert bytes(out[j, 1:1 + total]) == e.data, (j, st)
+        rr, terms, _sl, _sp = E.pass_records(rates[j], int(ins[2][j]),
+                                             total, st)
+        assert rr == [p.rate for p in e.passes], (j, st)
+        assert terms == [p.term for p in e.passes], (j, st)
