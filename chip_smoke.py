@@ -227,6 +227,22 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                launches recorded and on each wide shape the largest lane
                and up to 15 of the smallest held against the plain
                version in the bucket's dims, then each wide launch timed.
+  25. E-ms    — mode switches, layered HT-mixed, ROI and a custom MCT on
+               the card through compress_device, a warm-up and 3 calls
+               each (every rep the same bytes), on the (B) frame: (ms_3f)
+               Part-1 lossless with all six mode switches, (ms_byp)
+               BYPASS in 3 layers at 24:1, (mix_lay) HT-mixed in 3
+               layers at 24:1, (roi) Part-1 lossless with a centred 640 x
+               360 Maxshift ROI, each equal to its committed stream of
+               grok_tpu_torch/util/enc_vectors.npz (the lossless ones to
+               their SHA-256), every styled K5 launch of the warm-ups
+               timed in turns with the same lanes in the default style
+               and held, on its largest lane and up to 15 of its
+               smallest, against the plain version (run on the host's
+               CPU in worker processes beside the card's work); then a
+               custom-MCT HT encode of the frame (the same bytes every
+               rep) and of a 64x96 RGB input, equal to the plain
+               versions' encode on the CPU.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -2410,6 +2426,97 @@ def main() -> int:
     print(f"general encode phase: {time.perf_counter() - t_gen:.1f} s",
           flush=True)
 
+    # ---- 25. mode switches, layered HT-mixed, ROI, custom MCT (E-ms) ------
+    import concurrent.futures
+    import multiprocessing
+
+    from grok_tpu_torch.core.params import MCTMode
+    t_ms = time.perf_counter()
+    modes = enc_vectors.load_modes()
+    # the styled K5 launches: timed, and in turns with the same lanes in
+    # the default style
+    k5s = {"ms": 0.0, "default_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+           "launches": 0, "lanes": 0, "plain_lanes": 0}
+    ms_need = {"ms_3f": ["K5"], "ms_byp": ["K5", "K3"],
+               "mix_lay": ["K4", "K5", "K3"], "roi": ["K5"]}
+    held = []
+    # the held lanes' plain versions run on the host's CPU, one process
+    # each, beside the card's work
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=3,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        for name in enc_vectors.MODE_NAMES:
+            params = CompressParams(**enc_vectors.params(name, Poc,
+                                                         ProgOrder))
+            s, calls, got = encode_cell(f"E-ms {name}", frames["B"][0],
+                                        params, record=True)
+            need(f"E-ms {name} encode", got, ms_need[name],
+                 ["K4r", "K1", "K2"] + v1s)
+            if not enc_vectors.matches(name, s, modes):
+                _fail(f"E-ms {name}: the card's stream differs from the "
+                      f"committed one")
+            print(f"E-ms {name}: equal to the committed stream"
+                  f"{' (its SHA-256)' if name in enc_vectors.HASHED else ''}"
+                  f" [{card}]", flush=True)
+            for kern, a, res in calls:
+                if kern != "K5" or len(a) < 8 or a[7] is None:
+                    continue
+                ins, (L, R), sty = a[:5], a[5:7], a[7]
+                sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
+                sub = tuple(t.index_select(0, sel).cpu()
+                            for t in ins + (sty,))
+                held.append((name, pool.submit(
+                    hw_validate.plain_encode_ms, *sub[:5], L, R, sub[5]),
+                    tuple(t.index_select(0, sel).cpu() for t in res)))
+                d_ms, s_ms = turns_ms(
+                    dev, lambda: t1_encode.t1_encode_lanes(*ins, L, R),
+                    lambda: t1_encode.t1_encode_lanes(*ins, L, R, sty))
+                nb = _k5_bytes(ins, res[1], tables) + _nbytes(sty)
+                nl = int(ins[0].shape[0])
+                k5s["ms"] += s_ms
+                k5s["default_ms"] += d_ms
+                k5s["bytes"] += nb
+                k5s["launches"] += 1
+                k5s["lanes"] += nl
+                k5s["plain_lanes"] += int(sel.numel())
+                print(f"K5 E-ms {name} styled launch (style "
+                      f"{sorted(set(sty.tolist()))}): {nl} lanes "
+                      f"{s_ms:.4f} ms; the same lanes in the default style "
+                      f"{d_ms:.4f} ms, in turns; bound "
+                      f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
+                      f"[{card}]", flush=True)
+        # a custom MCT: the same bytes every rep, and the card's encode of
+        # a small input equal to the plain versions' on the CPU
+        cm_p = CompressParams(ht=True, irreversible=True, num_resolutions=6,
+                              mct=MCTMode.CUSTOM,
+                              custom_mct=[[0.5, 0.3, 0.2],
+                                          [-0.2, 0.5, -0.3],
+                                          [0.1, -0.4, 0.3]])
+        s, _c, got = encode_cell("E-ms custom", frames["B"][0], cm_p)
+        need("E-ms custom encode", got, ["K4"], ["K4r", "K5"] + v1s)
+        cm_small = replace(cm_p, num_resolutions=3, cblk_w_exp=5,
+                           cblk_h_exp=5)
+        if api.compress_device(small_rgb, cm_small, device=dev) != \
+                api.compress_device(small_rgb, cm_small, device="cpu"):
+            _fail("E-ms custom: the card's encode of 64x96 RGB differs from "
+                  "the plain versions' on the CPU")
+        print(f"E-ms custom: {len(s)} bytes, the same every rep; 64x96 RGB "
+              f"byte-identical to the CPU encode through the plain versions "
+              f"[{card}]", flush=True)
+        for name, fut, got_sub in held:
+            ref, p_ms = fut.result()
+            if not hw_validate.encodes_equal(got_sub, ref):
+                _fail(f"K5 disagrees with its plain version on the styled "
+                      f"lanes of E-ms {name}")
+            k5s["plain_ms"] += p_ms
+            print(f"K5 E-ms {name}: the main path's largest styled lane and "
+                  f"{got_sub[1].numel() - 1} smallest equal to the plain "
+                  f"version (on the host CPU, {p_ms:.1f} ms)", flush=True)
+    if not k5s["launches"]:
+        _fail("no styled K5 launch was held against its plain version")
+    print(f"mode-switch phase: {time.perf_counter() - t_ms:.1f} s",
+          flush=True)
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -2432,6 +2539,13 @@ def main() -> int:
                   for (k2_, sh), v in wide.items() if k2_ == kern}
         if shapes:                  # phases 23, 24: lanes over 64 on a side
             r["wide"] = shapes
+        if kern == "K5":            # phase 25: the styled launches
+            r["styled"] = {
+                "ms": k5s["ms"], "default_ms": k5s["default_ms"],
+                "plain_ms": k5s["plain_ms"],
+                "bound_ms": k5s["bytes"] / HBM_BYTES_PER_S * 1e3,
+                "launches": k5s["launches"], "lanes": k5s["lanes"],
+                "plain_lanes": k5s["plain_lanes"]}
         return r
     print(json.dumps({"kernels": [
         row("ht_cleanup_decode", "ht_decode.cu",

@@ -48,21 +48,16 @@ def ict_inv(y, cb, cr):
     return _mat3(ICT_INV, y, cb, cr)
 
 
-def custom_inv(comps: list, inv: torch.Tensor) -> list:
-    """The inverse of a custom MCT: component i becomes sum_k inv[i, k] *
-    comps[k], in float64 (inv: the (C, C) float64 inverse matrix, on the
-    components' device; comps: C same-shaped tensors).  A matrix product
-    over the component axis, as the JAX package's np.tensordot: on the
-    CPU the same BLAS order, so that a sum on an exact .5 rounds alike."""
+def custom_mct(comps: list, matrix: torch.Tensor) -> list:
+    """A custom MCT (the encode's forward matrix) or its inverse (the
+    decode's): component i becomes sum_k matrix[i, k] * comps[k], in
+    float64 (matrix: (C, C) float64, on the components' device; comps: C
+    same-shaped tensors).  A matrix product over the component axis, as
+    the JAX package's np.tensordot: on the CPU the same BLAS order, so
+    that a sum on an exact .5 rounds alike."""
     x = torch.stack([c.to(torch.float64) for c in comps])
-    out = torch.tensordot(inv, x, dims=([1], [0]))
+    out = torch.tensordot(matrix, x, dims=([1], [0]))
     return list(out.unbind(0))
-
-
-def custom_fwd(comps: list, matrix: torch.Tensor) -> list:
-    """A custom MCT: the (C, C) float64 forward matrix applied across the
-    components, in float64, by the same product as custom_inv."""
-    return custom_inv(comps, matrix)
 
 
 def dc_shift_fwd(x, prec: int, sgnd: bool):

@@ -63,7 +63,7 @@ from grok_tpu_torch.ops.ht_encode import lane_dims_ok
 from grok_tpu_torch.t1 import mq
 from grok_tpu_torch.core.params import (CBLK_BYPASS, CBLK_PTERM, CBLK_RESET,
                                         CBLK_SEGSYM, CBLK_TERMALL, CBLK_VSC)
-from grok_tpu_torch.t1.records import (SIG_CLN, SIG_SPP, pass_schedule,
+from grok_tpu_torch.t1.records import (SIG_CLN, SIG_SPP,
                                        segment_pass_counts)
 
 

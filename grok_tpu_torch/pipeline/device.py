@@ -432,7 +432,7 @@ class DecodeProgram:
 
         # 5. inverse MCT + DC unshift/clip
         if self.custom_inv is not None:
-            outs = mct.custom_inv(outs, self.custom_inv)
+            outs = mct.custom_mct(outs, self.custom_inv)
         elif self.mct_mode and len(outs) >= 3:
             inv = mct.ict_inv if self.mct_mode == 2 else mct.rct_inv
             outs[0], outs[1], outs[2] = inv(outs[0], outs[1], outs[2])

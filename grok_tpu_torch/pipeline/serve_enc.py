@@ -1,14 +1,16 @@
 """Batched serving encode on a PyTorch device: HTJ2K, Part-1 and
 HT-mixed.
 
-The untargeted branches of grok_tpu/pipeline/serve_enc.py `try_encode_
-serving_batch`: N same-geometry frames of one tile go through one device
-pass —
+The branches of grok_tpu/pipeline/serve_enc.py `try_encode_serving_
+batch`, and what grok_tpu.compress_device codes on the host through
+grok_tpu/pipeline/tile.py `encode_tile`: N same-geometry frames of one
+tile go through one device pass —
 
-  1. DC shift, RCT/ICT, forward DWT and quantization to
+  1. DC shift, RCT/ICT or a custom MCT, forward DWT and quantization to
      mneg = (magnitude << 1) | sign, on (N, h, w) stacks of all frames
      (ops/mct.py, ops/dwt.py; 9/7 quantizes in f32 as the JAX device
-     path does);
+     path does, in float64 after a custom MCT as its host path does),
+     and the ROI's Maxshift upshift inside each band's window;
   2. every code-block of every frame gathered into one lane of an
      (NL, H, W) tensor, frame-major (one gather over index tensors built
      once per plan), each lane with its own (w, h);
@@ -17,14 +19,15 @@ pass —
      kernel K4r, which codes each lane's cleanup at plane min(P,
      numbps - 1) and, where that plane is above 0, HT SigProp and HT
      MagRef at the plane below; the EBCOT/MQ encode, kernel K5
-     (ops/t1_encode.py), for Part-1 default-style code-blocks; both for
-     HT-mixed sets, which keep the smaller codeword per block (HT on
-     ties) and name the HT blocks in a COM bitmap, as the JAX package's
-     mixed encoder does;
-  4. for a multi-layer or byte-rate-targeted HT or Part-1 encode, each
-     lane's exact distortion after each of its passes, summed in int64 on
-     the device (one pass over the staged lanes for HT, one pass row at a
-     time for Part-1);
+     (ops/t1_encode.py), for Part-1 code-blocks in their code-block
+     style (any of the six mode switches); both for HT-mixed sets (the
+     Part-1 coding in the default style), which keep the smaller
+     codeword per block (HT on ties) and name the HT blocks in a COM
+     bitmap, as the JAX package's mixed encoder does;
+  4. for a multi-layer or byte-rate-targeted encode, each lane's exact
+     distortion after each of its passes, summed in int64 on the device
+     (one pass over the staged lanes for HT, one pass row at a time for
+     Part-1);
   5. one download of the per-lane stats (bit counts or lengths and
      watermarks, magnitude, the distortion sums), then the used bytes
      compacted on the device by a prefix sum over the per-lane byte
@@ -37,17 +40,18 @@ native.ht_raw_batch stuffs the refinement streams; the Tier-2 finish
 targets, shrinks each targeted Part-1 block's final truncation by trial
 decodes on the device (K3), and emits the packets.
 
-Scope: HT code-blocks (cleanup-only or refined, any number of layers,
-byte-rate or quality targets), Part-1 default-style code-blocks (any
-number of layers, byte-rate or quality targets) or HT-mixed sets of the
-two (one quality layer with no target), one tile per call (the entry
-point loops over a stream's tiles and splits them into tile-parts,
-api.py compress_device_batch), any precincts, progression-order changes
-and PPM's split packet headers (the Tier-2 finish, pipeline/tile.py), no
-ROI, no custom or AUTO_RD MCT, Mb <= 24.  Anything
-else raises NotImplementedError naming the route: the port has no host
-encoder to fall back to.  Reversible streams are byte-identical to the
-JAX package's encoders.
+Scope: HT code-blocks (cleanup-only or refined), Part-1 code-blocks in
+any style of the six mode switches, or HT-mixed sets of HT and
+default-style Part-1 blocks, at any number of layers, byte-rate or
+quality targets; one tile per call (the entry point loops over a
+stream's tiles and splits them into tile-parts, api.py
+compress_device_batch); any precincts, progression-order changes and
+PPM's split packet headers (the Tier-2 finish, pipeline/tile.py); ROI
+and a custom MCT (AUTO_RD is the entry point's choice between two
+encodes); Mb <= 24.  Anything else (HT code-blocks with Part-1 mode
+switches, Mb > 24) raises NotImplementedError naming the route: the
+port has no host encoder to fall back to.  Reversible streams are
+byte-identical to the JAX package's encoders.
 """
 
 from __future__ import annotations
@@ -249,7 +253,7 @@ def _stage_bands(comps: list, plan: EncPlan, roi_rect=None) -> dict:
     if plan.mct_mode == 3:
         # a custom MCT, in float64 (and so the 9/7 lifting and the
         # quantization after it), as the JAX package's host encode
-        outs = mct.custom_fwd(outs, torch.tensor(
+        outs = mct.custom_mct(outs, torch.tensor(
             np.asarray(plan.geo.custom_mct, np.float64),
             device=outs[0].device))
     elif plan.mct_mode and len(outs) >= 3:

@@ -168,6 +168,16 @@ def encodes_equal(got, ref) -> bool:
             and torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3]))
 
 
+def plain_encode_ms(*args) -> tuple:
+    """(t1_encode_lanes_ref(*args), its wall ms) for CPU tensors, on one
+    thread: the plain version of a K5 launch's held lanes, run in a
+    worker process beside the card's work (chip_smoke.py phase 25)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = t1_encode.t1_encode_lanes_ref(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 def _call_ms(device: torch.device, fn):
     """(fn(), wall ms of the call, ended by a synchronize)."""
     _sync(device)

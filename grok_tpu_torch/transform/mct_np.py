@@ -4,7 +4,7 @@ and the custom MCT's inverse.
 The port's copy of `mct_component_norms` from grok_tpu/transform/
 mct_np.py, for the RCT, the ICT and a custom MCT, and of
 `custom_mct_inv`, the NumPy model of the custom MCT's inverse that
-the device decode computes (ops/mct.py custom_inv: the same float64
+the device decode computes (ops/mct.py custom_mct: the same float64
 inverse matrix and products); the transforms themselves run on the
 device (ops/mct.py).
 """

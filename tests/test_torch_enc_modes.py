@@ -127,6 +127,10 @@ CASES = {
     "bypass_termall_pterm_3_layers_targeted": dict(
         cblk_style=0x15, num_layers=3, rates=[40.0, 16.0, 6.0]),
     "vsc_segsym_reset_3_layers": dict(cblk_style=0x2A, num_layers=3),
+    # single-segment styled blocks: the truncation refinement's trial
+    # decodes run in the blocks' style
+    "vsc_segsym_reset_pterm_targeted": dict(cblk_style=0x3A, num_layers=2,
+                                            rates=[20.0, 6.0]),
     "bypass_tiled": dict(cblk_style=0x01, tile_w=24, tile_h=24),
     "bypass_vsc_wide": dict(cblk_style=0x09, cblk_w_exp=7, cblk_h_exp=2),
     "mixed_3_layers": dict(ht_mixed=True, num_layers=3),

@@ -284,12 +284,20 @@ def test_wide_plain_encoders_equal_the_scalar_coders(W, H):
 
 def make_enc_streams(names=None) -> dict:
     """The committed streams of grok_tpu_torch/util/enc_vectors.py, from
-    the JAX package: {name: bytes}."""
+    the JAX package (the mode-switch and HT-mixed encodes by
+    grok_tpu.compress_device, the layouts and roi by grok_tpu.compress,
+    which writes the same bytes on the reversible path: on the CPU the
+    JAX package's default-style device coder, which compress_device
+    takes for roi's blocks, fails on the frame's bottom-edge blocks of
+    fewer than 6 rows): {name: bytes}."""
+    import grok_tpu
+
     from grok_tpu_torch.util import enc_vectors as ev
     h, w, ch, seed = ev.FRAME
     img = synthetic_image(h, w, ch, seed=seed)
-    return {n: compress(img, JCP(**ev.params(n, JPoc, JPO)))
-            for n in (names or ev.NAMES)}
+    return {n: (grok_tpu.compress_device if n in ev.DEVICE_MADE
+                else compress)(img, JCP(**ev.params(n, JPoc, JPO)))
+            for n in (names or ev.NAMES + ev.MODE_NAMES)}
 
 
 def test_enc_vectors_carry_their_specs():
@@ -316,3 +324,48 @@ def test_enc_vectors_carry_their_specs():
         assert bool(hdr.plm) == kw.get("write_plm", False)
         assert (hdr.ppm is not None) == kw.get("write_ppm", False)
     assert os.path.getsize(ev.PATH) < 1_500_000
+
+
+def test_mode_vectors_carry_their_specs():
+    """The committed mode-switch, HT-mixed and ROI streams of the (B)
+    frame: the whole ones carry their specs, the hashed ones a 32-byte
+    digest; and the ROI's shift is the smallest the JAX package does not
+    warn about on this frame (the background's magnitude bits in the
+    ROI's band windows, computed by the port's staging)."""
+    from grok_tpu_torch.core.geometry import Rect
+    from grok_tpu_torch.pipeline import serve_enc
+    from grok_tpu_torch.pipeline.tile import band_window
+    from grok_tpu_torch.util import enc_vectors as ev
+    modes = ev.load_modes()
+    assert set(modes) == set(ev.MODE_NAMES)
+    for name, (data, digest) in modes.items():
+        kw = ev.SPECS[name]
+        assert len(bytes.fromhex(digest)) == 32
+        assert (data is None) == (name in ev.HASHED)
+        if data is None:
+            continue
+        hdr = pj2k.read_main_header(data)
+        assert (hdr.siz.xsiz, hdr.siz.ysiz) == ev.FRAME[1::-1]
+        assert hdr.cod.num_layers == kw.get("num_layers", 1)
+        assert hdr.cod.comp.cblk_style == kw.get("cblk_style", 0) | (
+            0x40 if kw.get("ht_mixed") else 0)
+        assert ev.matches(name, data, modes)
+        assert not ev.matches(name, data[:-1], modes)
+    h, w, ch, seed = ev.FRAME
+    img = synthetic_image(h, w, ch, seed=seed)
+    kw = dict(ev.SPECS["roi"], roi_shift=1)
+    hdr = api._build_main_header(h, w, ch, 8, False, PCP(**kw))
+    plan = serve_enc._build_plan(hdr, 0)
+    plan.geo.rgn = {}                       # the bands before the shift
+    bands = serve_enc._stage_bands(
+        [torch.from_numpy(np.ascontiguousarray(img[..., c]))[None]
+         for c in range(ch)], plan)
+    sub = Rect(*kw["roi_rect"]).intersect(plan.geo.rect)
+    top = 0
+    for r, orient, _d in plan.comps_sig[0][5]:
+        brect = plan.band_rects[(0, r, orient)]
+        bw = band_window(sub, plan.comps_sig[0][1] - 1, r, orient) \
+            .intersect(brect)
+        if not bw.empty:
+            top = max(top, int((bands[(0, r, orient)] >> 1).max()))
+    assert top.bit_length() == ev.ROI_SHIFT

@@ -68,8 +68,8 @@ def test_encode_plain_matches_scalar_coder(mixed_blocks):
         assert int(out[j, 0]) == 0                    # carry sentinel
         assert bytes(out[j, 1:1 + int(lens[j])].numpy()) == e.data, j
         if e.passes:
-            assert E.rates_from_watermarks(rates[j].numpy(), e.numbps,
-                                           len(e.data)) \
+            assert E.pass_records(rates[j].numpy(), e.numbps,
+                                  len(e.data))[0] \
                 == [p.rate for p in e.passes] \
                 == jpe.rates_from_watermarks(rates[j].numpy(), e.numbps,
                                              len(e.data))

@@ -167,7 +167,7 @@ def test_custom_mct_inverse_copies():
     for a, b in zip(pmct_np.custom_mct_inv(comps, MATRIX), want):
         assert np.array_equal(a, b)
     inv = torch.from_numpy(pmct_np.custom_mct_inverse(MATRIX))
-    got = pmct.custom_inv([torch.from_numpy(c).to(torch.int32)
+    got = pmct.custom_mct([torch.from_numpy(c).to(torch.int32)
                            for c in comps], inv)
     for a, b in zip(got, want):
         assert np.array_equal(a.numpy(), b)
