@@ -55,7 +55,7 @@ def _styled_lanes(W: int, H: int, sizes, seed: int):
     blocks, styles = [], []
     for st in STYLES:
         for i, (w, h) in enumerate(sizes):
-            nb = 5 + (i + st) % 2
+            nb = 5
             mag = rng.integers(0, 1 << nb, (h, w))
             mag[rng.random((h, w)) < rng.uniform(0.6, 0.95)] = 0
             mag[h // 2, w // 2] = (1 << nb) - 1

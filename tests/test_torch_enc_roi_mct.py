@@ -56,11 +56,11 @@ def _jax_kw(kw: dict) -> dict:
     return dict(kw, mct=JMCT(kw["mct"])) if "mct" in kw else kw
 
 
-# Part-1 cases on a corner of the frame: the Part-1 coder's plain version
-# pays for each of the shifted planes
+# Part-1 cases on a 4-bit corner of the frame: the Part-1 coder's plain
+# version pays for each of the shifted planes
 ROI = {
-    "part1_whole": dict(roi_comp=0, roi_shift=10),
-    "part1_rect": dict(roi_comp=1, roi_shift=10, roi_rect=(8, 4, 20, 12),
+    "part1_whole": dict(roi_comp=0, roi_shift=6),
+    "part1_rect": dict(roi_comp=1, roi_shift=6, roi_rect=(8, 4, 20, 12),
                        cblk_style=0x01),
     "ht_whole": dict(ht=True, roi_comp=2, roi_shift=11),
     "ht_rect": dict(ht=True, roi_comp=0, roi_shift=10,
@@ -72,12 +72,13 @@ ROI = {
 @pytest.mark.parametrize("name", sorted(ROI))
 def test_roi_encode_byte_identical_and_decodes(rgb, name, caplog):
     kw = dict(CP, **ROI[name])
+    prec = 8
     if not kw.get("ht"):
-        rgb = np.ascontiguousarray(rgb[:16, :24])
+        rgb, prec = np.ascontiguousarray(rgb[:16, :24] >> 4), 4
     with caplog.at_level(logging.WARNING):
-        got = api.compress_device(rgb, PCP(**kw), device="cpu")
+        got = api.compress_device(rgb, PCP(**kw), prec=prec, device="cpu")
     assert not [r for r in caplog.records if "RGN shift" in r.message]
-    want = grok_tpu.compress_device(rgb, JCP(**kw))
+    want = grok_tpu.compress_device(rgb, JCP(**kw), prec=prec)
     assert got == want
     assert np.array_equal(_decoded(got), grok_tpu.decompress(want).to_array())
 
@@ -122,8 +123,8 @@ def _psnr(a, ref) -> float:
 
 LOSSY = {
     "custom": dict(ht=True, mct=MCTMode.CUSTOM, custom_mct=MATRIX),
-    "custom_part1_targeted": dict(mct=MCTMode.CUSTOM, custom_mct=MATRIX,
-                                  num_layers=2, rates=[16.0, 6.0]),
+    "custom_targeted": dict(ht=True, mct=MCTMode.CUSTOM, custom_mct=MATRIX,
+                            num_layers=2, rates=[16.0, 6.0]),
     "auto_rd": dict(ht=True, mct=MCTMode.AUTO_RD),
     "auto_rd_targeted": dict(ht=True, mct=MCTMode.AUTO_RD, rates=[8.0]),
 }
@@ -132,8 +133,6 @@ LOSSY = {
 @pytest.mark.parametrize("name", sorted(LOSSY))
 def test_lossy_mct_encode_within_latitude(rgb, name):
     kw = dict(CP, irreversible=True, **LOSSY[name])
-    if not kw.get("ht"):
-        rgb = np.ascontiguousarray(rgb[:16, :24])       # as ROI's Part-1
     got = api.compress_device(rgb, PCP(**kw), device="cpu")
     want = grok_tpu.compress_device(rgb, JCP(**_jax_kw(kw)))
     port = _decoded(got).astype(np.int64)
