@@ -243,6 +243,34 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                custom-MCT HT encode of the frame (the same bytes every
                rep) and of a 64x96 RGB input, equal to the plain
                versions' encode on the CPU.
+  26. HT-sw   — HT code-blocks with Part-1 mode switches: the (B) and
+               (B-r) streams with their COD style OR'd with 0x3F and with
+               each single switch (grok_tpu_torch/util/stream_edit.py
+               or_cod_style), each decoded on the card equal to the
+               unedited stream's decode, through K1 (served) and K2 (the
+               general route).
+  27. G       — the mesh (grok_tpu_torch/parallel): (G) one 8192x8192
+               8-bit gray frame in one tile, Part-1 lossless 5/3, 6
+               resolutions, 64x64 blocks (16,384 lanes), and (G-97) its
+               4096x4096 crop in 9/7 at 20:1 and 8:1 in 2 layers (the
+               PCRD slope collective), each encoded and decoded through
+               compress_device / decompress_device without a mesh and
+               over Mesh(("cuda:0",) * 4) (and every visible card where
+               there are several; on one card, printed as not run): the
+               same bytes and planes meshed and unmeshed, (G) the source
+               bit for bit, K5 and K3 launched once a shard (once a call
+               unmeshed), a warm-up and 3 calls each, best and median;
+               each shard's K5 and K3 launch of (G) timed with its bound;
+               the finest 8192x8192 synthesis level sharded and
+               unsharded, timed and equal; then dryrun_multichip(4) on
+               virtual shards.
+  28. C-dist  — two worker processes on cuda:0 over Gloo (an ephemeral
+               127.0.0.1 port, a timeout on every wait):
+               compress_distributed and decompress_distributed of (C)
+               and (C1) with TLM; process 0's bytes equal to
+               compress_device's, its canvases to decompress_device's
+               and the source; best of 3 calls after a warm-up against
+               the single process's.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -267,6 +295,59 @@ REPS = 5                 # end-to-end reps after a warm-up; best reported
 REPS_DMG = 3             # the same for phase 22's 13 decodes
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 EDGE_H = 8               # (B1), (B-r) lanes held against the plain versions
+G_SIDE = 8192            # phase 27's giant tile (G)
+G_REPS = 3               # timed calls after a warm-up in phases 27, 28
+DIST_TIMEOUT_S = 600     # phase 28's wait on each worker process
+# phase 28's worker: process `rank` of 2 on cuda:0, over Gloo on `port`;
+# (C-dist) and (C1-dist) encoded and decoded reps + 1 times, process 0
+# writing its bytes and canvases under `out`; prints its best times
+_DIST_WORKER = r"""
+import json, sys, time
+rank, port, out, reps = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
+                         int(sys.argv[4]))
+import numpy as np
+import torch
+from grok_tpu_torch.core.params import CompressParams
+from grok_tpu_torch.parallel.distributed import (
+    compress_distributed, decompress_distributed, gather_bytes_to_host0,
+    init_distributed, shutdown_distributed)
+from grok_tpu_torch.util.synth import synthetic_image
+try:
+    got = init_distributed(f"127.0.0.1:{port}", 2, rank, timeout=300)
+    assert got == (rank, 2), got
+    dev = torch.device("cuda", 0)
+    uhd = synthetic_image(2160, 3840, 3, seed=9)
+    pt = dict(num_resolutions=6, tile_w=1024, tile_h=1024, write_tlm=True)
+    best = {}
+    for name, p in (("C", CompressParams(ht=True, **pt)),
+                    ("C1", CompressParams(**pt))):
+        enc_t, dec_t = [], []
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data = compress_distributed(uhd, p, device=dev)
+            torch.cuda.synchronize()
+            enc_t.append(time.perf_counter() - t0)
+            data = gather_bytes_to_host0(data if rank == 0 else b"")[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            planes = decompress_distributed(data, device=dev)
+            torch.cuda.synchronize()
+            dec_t.append(time.perf_counter() - t0)
+        best[name] = (min(enc_t[1:]), min(dec_t[1:]))
+        if rank == 0:
+            with open(f"{out}/{name}.j2k", "wb") as f:
+                f.write(data)
+            np.save(f"{out}/{name}.npy",
+                    torch.stack(planes, -1).cpu().numpy())
+        else:
+            assert planes is None
+    assert not [m for m in sys.modules if m in ("jax", "grok_tpu")
+                or m.startswith(("jax.", "grok_tpu."))]
+    print(json.dumps(best), flush=True)
+finally:
+    shutdown_distributed()
+"""
 _BLOCKED = ("jax", "jaxlib", "grok_tpu")
 
 
@@ -2517,6 +2598,248 @@ def main() -> int:
     print(f"mode-switch phase: {time.perf_counter() - t_ms:.1f} s",
           flush=True)
 
+    # ---- 26. HT code-blocks with Part-1 mode switches (B-sw, B-r-sw) -----
+    from grok_tpu_torch.util import stream_edit
+    t_sw = time.perf_counter()
+    for name, kern in (("B", "K1"), ("B-r", "K2")):
+        base = streams[name][0]
+        want = api.decompress_device(base, device=dev)
+        for bits in (0x3F, 0x01, 0x02, 0x04, 0x08, 0x10, 0x20):
+            edited = stream_edit.or_cod_style(base, bits)
+            counts_zero()
+            got = api.decompress_device(edited, device=dev)
+            torch.cuda.synchronize()
+            n = counts()
+            if n[kern] == 0:
+                _fail(f"the {name} stream with style bits {bits:#04x} "
+                      f"never launched {kern}")
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                _fail(f"the {name} stream with style bits {bits:#04x} "
+                      f"decodes differently from the unedited stream")
+        print(f"HT mode switches {name}-sw: the COD style OR'd with 0x3F "
+              f"and each of 0x01..0x20 decodes equal to the unedited "
+              f"stream, through {kern}", flush=True)
+    print(f"HT mode-switch phase: {time.perf_counter() - t_sw:.1f} s",
+          flush=True)
+
+    # ---- 27. the mesh: the giant tile (G) and its 9/7 crop (G-97) --------
+    from grok_tpu_torch.parallel import Mesh, sharding
+    from grok_tpu_torch.parallel.entry import dryrun_multichip
+    from grok_tpu_torch.ops import dwt
+    t_g = time.perf_counter()
+
+    @contextlib.contextmanager
+    def recorded(mod, fn_name):
+        """mod.fn_name wrapped to keep the arguments of every call (the
+        sharded wrappers call their module's kernel wrapper per shard).
+        The wrapper counts its launches on the name it is bound to, so
+        the spy carries the count while it stands in and hands it back."""
+        calls = []
+        real = getattr(mod, fn_name)
+
+        def spy(*a, **k):
+            calls.append(a)
+            return real(*a, **k)
+        spy.launches = real.launches
+        setattr(mod, fn_name, spy)
+        try:
+            yield calls
+        finally:
+            setattr(mod, fn_name, real)
+            real.launches = spy.launches
+
+    t0 = time.perf_counter()
+    g_img = synthetic_image(G_SIDE, G_SIDE, 1, seed=27)
+    g_src = torch.from_numpy(g_img).to(dev)
+    torch.cuda.synchronize()
+    print(f"setup: the {G_SIDE}x{G_SIDE} source made and uploaded in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    meshes = {"unmeshed": None, "4 virtual shards": Mesh((dev,) * 4)}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = sharding.tile_mesh()
+    else:
+        print("mesh of every visible card: not run (one card visible)",
+              flush=True)
+    g_cases = {
+        "G": (g_src, CompressParams(num_resolutions=6)),
+        "G-97": (g_src[:G_SIDE // 2, :G_SIDE // 2].contiguous(),
+                 CompressParams(irreversible=True, num_resolutions=6,
+                                num_layers=2, rates=[20.0, 8.0]))}
+    sharded = {}
+    for name, (src, params) in g_cases.items():
+        npx = src.shape[0] * src.shape[1]
+        enc, dec = {}, {}
+        for key, m in meshes.items():
+            p = replace(params, mesh=m)
+            nsh = m.size if m is not None else 1
+            times = []
+            counts_zero()
+            with recorded(t1_encode, "t1_encode_lanes") as k5_calls:
+                for _ in range(G_REPS + 1):
+                    out, dt = timed(lambda: api.compress_device(
+                        src, p, device=dev))
+                    times.append(dt)
+                    if key in enc and out != enc[key]:
+                        _fail(f"encode {name} ({key}): reps gave different "
+                              f"bytes")
+                    enc[key] = out
+            got = counts()
+            if got["K5"] != nsh * (G_REPS + 1):
+                _fail(f"encode {name} ({key}): {got['K5']} K5 launches in "
+                      f"{G_REPS + 1} calls, not {nsh} a call")
+            print(f"encode {name} ({key}): best {min(times[1:]) * 1e3:.3f} "
+                  f"ms, median {float(np.median(times[1:])) * 1e3:.3f} ms "
+                  f"of {G_REPS} calls, {npx / 1e6 / min(times[1:]):.2f} "
+                  f"MP/s; {len(enc[key])} bytes; K5 {got['K5']} launches "
+                  f"({nsh} a call), K3 {got['K3']} [{card}]", flush=True)
+            if enc[key] != enc["unmeshed"]:
+                _fail(f"encode {name}: the bytes over {key} differ from the "
+                      f"unmeshed encode's")
+            times = []
+            counts_zero()
+            with recorded(t1_decode, "t1_decode_lanes") as k3_calls:
+                for _ in range(G_REPS + 1):
+                    out, dt = timed(lambda: api.decompress_device(
+                        enc[key], api.DecompressParams(mesh=m), device=dev))
+                    times.append(dt)
+                    dec[key] = out[0]
+            got = counts()
+            if got["K3"] != nsh * (G_REPS + 1):
+                _fail(f"decode {name} ({key}): {got['K3']} K3 launches in "
+                      f"{G_REPS + 1} calls, not {nsh} a call")
+            print(f"decode {name} ({key}): best {min(times[1:]) * 1e3:.3f} "
+                  f"ms, median {float(np.median(times[1:])) * 1e3:.3f} ms "
+                  f"of {G_REPS} calls, {npx / 1e6 / min(times[1:]):.2f} "
+                  f"MP/s; K3 {got['K3']} launches ({nsh} a call) [{card}]",
+                  flush=True)
+            if not torch.equal(dec[key], dec["unmeshed"]):
+                _fail(f"decode {name}: the planes over {key} differ from "
+                      f"the unmeshed decode's")
+            if name == "G" and key == "4 virtual shards":
+                # each shard's launch of the first (warm-up) call, timed
+                shards = {"K5": k5_calls[:nsh], "K3": k3_calls[:nsh]}
+                for kern, calls in shards.items():
+                    row_ = {"cell": "G", "shards": nsh, "lanes": [],
+                            "ms": [], "bound_ms": [],
+                            "launches": nsh * (G_REPS + 1)}
+                    for a in calls:
+                        if kern == "K5":
+                            fn = (lambda a=a: t1_encode.t1_encode_lanes(*a))
+                            nb = _k5_bytes(a[:5], fn()[1], tables)
+                        else:
+                            fn = (lambda a=a: t1_decode.t1_decode_lanes(*a))
+                            nb = _k3_bytes(a[:9], tables)
+                        row_["lanes"].append(int(a[1].shape[0]))
+                        row_["ms"].append(kernel_ms(dev, fn, reps=3))
+                        row_["bound_ms"].append(nb / HBM_BYTES_PER_S * 1e3)
+                    sharded[kern] = row_
+                    print(f"{kern} {name} per shard: lanes {row_['lanes']}, "
+                          f"{[round(x, 4) for x in row_['ms']]} ms, bound "
+                          f"{[round(x, 4) for x in row_['bound_ms']]} ms "
+                          f"[{card}]", flush=True)
+            del k3_calls, k5_calls
+        if name == "G":
+            if not np.array_equal(dec["unmeshed"].cpu().numpy(), g_img):
+                _fail("decode G: the planes differ from the source")
+            print("decode G: meshed and unmeshed bit-exact to the source",
+                  flush=True)
+        else:
+            ref = src.cpu().numpy().astype(np.float64)
+            mse = np.mean((dec["unmeshed"].cpu().numpy() - ref) ** 2)
+            print(f"decode G-97: meshed equal to unmeshed, PSNR "
+                  f"{10 * np.log10(255 ** 2 / mse):.2f} dB", flush=True)
+    # the finest synthesis level of (G), unsharded and over the 4 shards
+    x = g_src.to(torch.int32)
+    rect = Rect(0, 0, G_SIDE, G_SIDE)
+    fine = dwt.fwd_2d_level(x, rect, False)
+    lvl = {"unsharded": lambda: dwt.inv_2d_level(*fine, rect, False),
+           "4 virtual shards": lambda: sharding.inv_2d_level_sharded(
+               *fine, rect, False, meshes["4 virtual shards"])}
+    outs = {}
+    for key, fn in lvl.items():
+        outs[key] = fn()
+        ts = [timed(fn)[1] for _ in range(G_REPS)]
+        print(f"synthesis level {G_SIDE}x{G_SIDE} ({key}): best "
+              f"{min(ts) * 1e3:.3f} ms, median "
+              f"{float(np.median(ts)) * 1e3:.3f} ms of {G_REPS} [{card}]",
+              flush=True)
+    if not torch.equal(outs["unsharded"], outs["4 virtual shards"]) or \
+            not torch.equal(outs["unsharded"], x):
+        _fail("the sharded synthesis level differs from the unsharded one")
+    del x, fine, outs, g_src, dec
+    torch.cuda.empty_cache()
+    dry = dryrun_multichip(4)
+    print(f"dryrun_multichip(4): every mesh path on {dry['mesh']}, the "
+          f"global statistic {dry['dist']}", flush=True)
+    print(f"mesh phase: {time.perf_counter() - t_g:.1f} s", flush=True)
+
+    # ---- 28. two processes over Gloo: (C-dist) and (C1-dist) -------------
+    import socket
+    import tempfile
+    t_mp = time.perf_counter()
+    pt_d = dict(num_resolutions=6, tile_w=1024, tile_h=1024, write_tlm=True)
+    dist_params = {"C": CompressParams(ht=True, **pt_d),
+                   "C1": CompressParams(**pt_d)}
+    single = {}
+    for name, p in dist_params.items():
+        enc_t, dec_t = [], []
+        for _ in range(G_REPS + 1):
+            data, dt = timed(lambda: api.compress_device(uhd, p, device=dev))
+            enc_t.append(dt)
+            planes, dt = timed(lambda: api.decompress_device(data,
+                                                             device=dev))
+            dec_t.append(dt)
+        single[name] = (data, planes, min(enc_t[1:]), min(dec_t[1:]))
+    with tempfile.TemporaryDirectory() as tmp:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        env.pop("GROK_COORDINATOR", None)
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", _DIST_WORKER, str(r), str(port), tmp,
+             str(G_REPS)], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        outs = []
+        try:
+            for p_ in procs:
+                outs.append(p_.communicate(timeout=DIST_TIMEOUT_S)[0])
+        except subprocess.TimeoutExpired:
+            for p_ in procs:
+                p_.kill()
+            _fail(f"a distributed worker passed {DIST_TIMEOUT_S} s")
+        finally:
+            for p_ in procs:
+                if p_.poll() is None:
+                    p_.kill()
+                    p_.wait()
+        for r, (p_, o) in enumerate(zip(procs, outs)):
+            if p_.returncode != 0:
+                _fail(f"distributed worker {r} exited {p_.returncode}:\n"
+                      f"{o[-4000:]}")
+        w_times = json.loads(outs[0].strip().splitlines()[-1])
+        for name in dist_params:
+            data, planes, enc_1, dec_1 = single[name]
+            with open(os.path.join(tmp, f"{name}.j2k"), "rb") as f:
+                if f.read() != data:
+                    _fail(f"{name}-dist: process 0's bytes differ from "
+                          f"compress_device's")
+            got = np.load(os.path.join(tmp, f"{name}.npy"))
+            if not np.array_equal(got, pixels(planes)) or \
+                    not np.array_equal(got, uhd):
+                _fail(f"{name}-dist: process 0's canvases differ from "
+                      f"decompress_device's or the source")
+            enc_2, dec_2 = w_times[name]
+            print(f"{name}-dist: 2 processes on one card over Gloo, "
+                  f"process 0's bytes and canvases equal to the single "
+                  f"process's; encode best {enc_2 * 1e3:.3f} ms (single "
+                  f"process {enc_1 * 1e3:.3f} ms), decode best "
+                  f"{dec_2 * 1e3:.3f} ms (single process {dec_1 * 1e3:.3f}"
+                  f" ms) of {G_REPS} [{card}]", flush=True)
+    print(f"multi-process phase: {time.perf_counter() - t_mp:.1f} s",
+          flush=True)
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -2539,6 +2862,8 @@ def main() -> int:
                   for (k2_, sh), v in wide.items() if k2_ == kern}
         if shapes:                  # phases 23, 24: lanes over 64 on a side
             r["wide"] = shapes
+        if kern in sharded:         # phase 27: (G)'s launches per shard
+            r["sharded"] = sharded[kern]
         if kern == "K5":            # phase 25: the styled launches
             r["styled"] = {
                 "ms": k5s["ms"], "default_ms": k5s["default_ms"],

@@ -11,14 +11,19 @@ Shared libraries with plain C interfaces, loaded with ctypes:
 
 Nothing is built at import.  Builds go to `_build/` beside this file
 (listed in .gitignore), keyed on a hash of the sources and flags so a
-changed source rebuilds; concurrent builders each write a temporary file
-and rename it into place.  A failed build raises with the compiler's
-output.
+changed source rebuilds.  A build holds an exclusive lock on
+`_build/.lock` (fcntl.flock) from the check for its output to the rename
+of the finished file into place, so that processes starting cold
+together (the workers of a distributed encode) build each library once:
+the later ones wait, then load the first one's.  A failed build raises
+with the compiler's output.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -64,6 +69,18 @@ def _digest(srcs: list[str], flags: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def _process_lock():
+    """The build directory's lock, held across processes."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def _start(cmd: list[str], so: str):
     """Start `cmd`, which writes to a temporary path appended to it."""
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -74,8 +91,8 @@ def _start(cmd: list[str], so: str):
 
 
 def _finish(job, what: str) -> str:
-    """Wait for a started build and move its output into place; returns
-    the compiler's output."""
+    """Wait for a started build and move its output into place (an atomic
+    rename); returns the compiler's output."""
     proc, tmp, so = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -93,30 +110,34 @@ def load_library() -> types.SimpleNamespace:
     with _lock:
         if _libs is not None:
             return _libs
-        headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-        targets, jobs = {}, []
-        for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
-            name = os.path.splitext(os.path.basename(src))[0]
-            digest = _digest([src, *headers], NVCC_FLAGS)
-            so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
-            targets[name] = so
-            if not os.path.exists(so):
-                jobs.append((name, _start([_nvcc(), *NVCC_FLAGS, src], so)))
-        logs = [f"[{name}]\n{_finish(job, f'nvcc {name}.cu')}"
-                for name, job in jobs]
-        build_log = "\n".join(logs)
-        libs = types.SimpleNamespace(
-            **{name: ctypes.CDLL(so) for name, so in targets.items()})
-        from grok_tpu_torch.ops import ht_decode, ht_encode, lane_gather, \
-            t1_decode, t1_encode
-        for mod in (ht_decode, ht_encode, lane_gather, t1_decode, t1_encode):
-            mod.bind(getattr(libs, mod.__name__.rsplit(".", 1)[1]))
-        ht_decode.bind_v1(libs.ht_decode_v1)
-        ht_encode.bind_v1(libs.ht_encode_v1)
-        t1_decode.bind_v1(libs.t1_decode_v1)
-        t1_encode.bind_v1(libs.t1_encode_v1)
-        _libs = libs
-        return libs
+        with _process_lock():
+            headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+            targets, jobs = {}, []
+            for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+                name = os.path.splitext(os.path.basename(src))[0]
+                digest = _digest([src, *headers], NVCC_FLAGS)
+                so = os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+                targets[name] = so
+                if not os.path.exists(so):
+                    jobs.append((name, _start([_nvcc(), *NVCC_FLAGS, src],
+                                              so)))
+            logs = [f"[{name}]\n{_finish(job, f'nvcc {name}.cu')}"
+                    for name, job in jobs]
+            build_log = "\n".join(logs)
+            libs = types.SimpleNamespace(
+                **{name: ctypes.CDLL(so) for name, so in targets.items()})
+            from grok_tpu_torch.ops import (ht_decode, ht_encode,
+                                            lane_gather, t1_decode,
+                                            t1_encode)
+            for mod in (ht_decode, ht_encode, lane_gather, t1_decode,
+                        t1_encode):
+                mod.bind(getattr(libs, mod.__name__.rsplit(".", 1)[1]))
+            ht_decode.bind_v1(libs.ht_decode_v1)
+            ht_encode.bind_v1(libs.ht_encode_v1)
+            t1_decode.bind_v1(libs.t1_decode_v1)
+            t1_encode.bind_v1(libs.t1_encode_v1)
+            _libs = libs
+            return libs
 
 
 def load_host_library() -> ctypes.CDLL:
@@ -125,11 +146,12 @@ def load_host_library() -> ctypes.CDLL:
     with _lock:
         if _host_lib is not None:
             return _host_lib
-        srcs = sorted(glob.glob(os.path.join(HOST_CSRC, "*.c")))
-        so = os.path.join(BUILD_DIR,
-                          f"libgrok_host_{_digest(srcs, CC_FLAGS)}.so")
-        if not os.path.exists(so):
-            cc = os.environ.get("CC") or shutil.which("cc") or "gcc"
-            _finish(_start([cc, *CC_FLAGS, *srcs], so), "host C build")
-        _host_lib = ctypes.CDLL(so)
-        return _host_lib
+        with _process_lock():
+            srcs = sorted(glob.glob(os.path.join(HOST_CSRC, "*.c")))
+            so = os.path.join(BUILD_DIR,
+                              f"libgrok_host_{_digest(srcs, CC_FLAGS)}.so")
+            if not os.path.exists(so):
+                cc = os.environ.get("CC") or shutil.which("cc") or "gcc"
+                _finish(_start([cc, *CC_FLAGS, *srcs], so), "host C build")
+            _host_lib = ctypes.CDLL(so)
+            return _host_lib

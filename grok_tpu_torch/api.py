@@ -33,6 +33,7 @@ from grok_tpu_torch.core.image import ColorSpace
 from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
                                         DecompressParams, MCTMode)
 from grok_tpu_torch.core.quant import StepSize, make_quantizer
+from grok_tpu_torch.parallel.sharding import check_mesh
 from grok_tpu_torch.pipeline.plan import _th_ovr_key
 from grok_tpu_torch.pipeline.serve import (GeneralRoute, StagedBatch,
                                            stage_serving_batch,
@@ -41,10 +42,19 @@ from grok_tpu_torch.pipeline.serve_enc import try_encode_serving_batch
 from grok_tpu_torch.pipeline.tile import decode_tile, stage_general
 
 
-def _params(dparams: DecompressParams | None) -> DecompressParams:
-    # permissive by default, like the JAX serving surfaces: the C scan
-    # validates framing, the kernel decodes payloads without validation
+def _params(dparams: DecompressParams | None,
+            dev: torch.device | None = None) -> DecompressParams:
+    """The decode's parameters: permissive by default, like the JAX
+    serving surfaces (the C scan validates framing, the kernel decodes
+    payloads without validation); subset decodes refused, and the mesh
+    held to the entry's device `dev`."""
     dp = dparams or DecompressParams()
+    if dp.tile_index is not None or dp.components is not None:
+        raise NotImplementedError("single-tile and component-subset "
+                                  "decodes (tile_index, components) are "
+                                  "not ported")
+    if dev is not None:
+        check_mesh(dp.mesh, dev)
     return replace(dp, strict=False) if dp.strict is None else dp
 
 
@@ -108,7 +118,7 @@ def stage_device_batch(streams: list[bytes],
     tile-part overrides and packed headers, and every stream the
     serving decode declines to the general route."""
     dev = _device(device)
-    dp = _params(dparams)
+    dp = _params(dparams, dev)
     if not streams:
         raise ValueError("no streams to stage")
     first_cs = jp2.locate_codestream(streams[0], permissive=not dp.strict)
@@ -143,9 +153,9 @@ def decompress_device_batch(streams: list[bytes],
     tensors.  Returns N lists of per-component int32 tensors on
     `device`.  What the served batch declines (GeneralRoute: multi-tile
     streams, different main headers, tile-part COD/QCD, refined HT
-    blocks, Part-1 mode switches, layered HT-mixed streams) decodes
-    stream by stream through decompress_device, as the JAX package's
-    batch decode does."""
+    blocks, Part-1 mode switches, layered HT-mixed streams, a decode over
+    a device mesh) decodes stream by stream through decompress_device, as
+    the JAX package's batch decode does."""
     if not streams:
         return []
     try:
@@ -183,39 +193,65 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
     several, full-image canvases at dp.reduce, each tile pasted at its
     place.  With dp.window, a tile that misses the window is not decoded
     (its region stays 0), and every sample inside the window equals the
-    whole decode's."""
+    whole decode's.  With dp.mesh (a parallel/sharding.py Mesh whose
+    first device is `device`, else ValueError), each tile is decoded by
+    the general route with its default-style Part-1 lanes and its
+    synthesis levels sharded over the mesh, as grok_tpu.decompress with a
+    mesh decodes it; the planes are the unsharded decode's.  Single-tile
+    and component-subset decodes (dp.tile_index, dp.components) raise
+    NotImplementedError."""
     dev = _device(device)
-    dp = _params(dparams)
+    dp = _params(dparams, dev)
     cs, hdr, by_tile, tile_body = _tiles(data, dp)
     tiles = sorted(by_tile)
     if len(tiles) == 1:
         return _decode_tile_on(cs, hdr, tiles[0], *tile_body(tiles[0]), dp,
                                dev)
-    g = hdr.siz.normalized()
-    scale = 1 << dp.reduce if dp.reduce else 1
-    origins, out = [], []
-    for ci in hdr.comps:
-        x0, y0 = -(-g.xosiz // ci.dx), -(-g.yosiz // ci.dy)
-        x1, y1 = -(-g.xsiz // ci.dx), -(-g.ysiz // ci.dy)
-        rx0, ry0 = -(-x0 // scale), -(-y0 // scale)
-        rx1, ry1 = -(-x1 // scale), -(-y1 // scale)
-        origins.append((rx0, ry0))
-        out.append(torch.zeros((ry1 - ry0, rx1 - rx0), dtype=torch.int32,
-                               device=dev))
-    for t in tiles:
-        rect = hdr.siz.tile_rect(t)
-        if dp.window is not None and rect.intersect(Rect(*dp.window)).empty:
-            continue
+    canvas = _Canvas(hdr, dp, dev)
+    for t in _window_tiles(hdr, tiles, dp):
         th, body = tile_body(t)
-        comps = _decode_tile_on(cs, hdr, t, th, body, dp, dev)
+        canvas.paste(t, th, _decode_tile_on(cs, hdr, t, th, body, dp, dev))
+    return canvas.planes
+
+
+def _window_tiles(hdr, tiles: list, dp: DecompressParams) -> list:
+    """The tiles a decode decodes: all, or those that meet dp.window."""
+    if dp.window is None:
+        return list(tiles)
+    win = Rect(*dp.window)
+    return [t for t in tiles if not hdr.siz.tile_rect(t).intersect(win).empty]
+
+
+class _Canvas:
+    """Full-image component planes at dp.reduce on `dev`, zero where no
+    tile was pasted."""
+
+    def __init__(self, hdr, dp: DecompressParams, dev: torch.device):
+        self.hdr, self.reduce = hdr, dp.reduce
+        g = hdr.siz.normalized()
+        scale = 1 << dp.reduce if dp.reduce else 1
+        self.origins, self.planes = [], []
+        for ci in hdr.comps:
+            x0, y0 = -(-g.xosiz // ci.dx), -(-g.yosiz // ci.dy)
+            x1, y1 = -(-g.xsiz // ci.dx), -(-g.ysiz // ci.dy)
+            rx0, ry0 = -(-x0 // scale), -(-y0 // scale)
+            rx1, ry1 = -(-x1 // scale), -(-y1 // scale)
+            self.origins.append((rx0, ry0))
+            self.planes.append(torch.zeros((ry1 - ry0, rx1 - rx0),
+                                           dtype=torch.int32, device=dev))
+
+    def paste(self, t: int, th, comps: list) -> None:
+        """Tile t's component planes (its tile header th) at their
+        place."""
+        hdr = self.hdr
+        rect = hdr.siz.tile_rect(t)
         for c, ci in enumerate(hdr.comps):
             nl = hdr.style_for(c, th.coc, th.cod).num_resolutions - 1
-            s = 1 << (min(dp.reduce, nl) if dp.reduce else 0)
+            s = 1 << (min(self.reduce, nl) if self.reduce else 0)
             r = rect.ceil_scale(ci.dx, ci.dy).ceil_scale(s, s)
-            ox, oy = origins[c]
-            out[c][r.y0 - oy:r.y1 - oy, r.x0 - ox:r.x1 - ox] = \
-                comps[c][:r.h, :r.w]
-    return out
+            ox, oy = self.origins[c]
+            self.planes[c][r.y0 - oy:r.y1 - oy, r.x0 - ox:r.x1 - ox] = \
+                comps[c][:r.h, :r.w].to(self.planes[c].device)
 
 
 def _tiles(data: bytes, dp: DecompressParams) -> tuple:
@@ -243,7 +279,7 @@ def stage_general_device(data: bytes,
     decodes it, as decompress_device does for a stream the serving
     decode declines."""
     dev = _device(device)
-    dp = _params(dparams)
+    dp = _params(dparams, dev)
     cs, hdr, by_tile, tile_body = _tiles(data, dp)
     if len(by_tile) != 1:
         raise NotImplementedError("stage_general_device stages single-tile "
@@ -416,7 +452,12 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     with non-default precincts, progression-order changes (POC), PLT,
     TLM, PLM, PPM and quality targets where params ask for them, any
     Part-1 mode switches, ROI (params.roi_comp, roi_shift and roi_rect)
-    and a custom or AUTO_RD MCT, as grok_tpu.compress writes it."""
+    and a custom or AUTO_RD MCT, as grok_tpu.compress writes it.  With
+    params.mesh (a parallel/sharding.py Mesh whose first device is
+    `device`, else ValueError) the forward DWT levels, the default-style
+    Part-1 lanes and the PCRD slope bracket are sharded over the mesh,
+    as grok_tpu.compress_device shards them; the bytes are the
+    unsharded encode's."""
     params = params or CompressParams(ht=True)
     if not arrays_list:
         return []
@@ -430,6 +471,7 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
             raise ValueError(f"a component tensor is on {a.device}, but "
                              f"the encode was asked to run on {want}")
     dev = _device(device)
+    check_mesh(params.mesh, dev)
     frames = [[_on_device(a, dev) for a in f] for f in frames]
     shapes = {tuple(tuple(c.shape) for c in f) for f in frames}
     devs = {c.device for f in frames for c in f}
@@ -483,41 +525,17 @@ def _encode_frames(frames: list, params: CompressParams, prec: int,
                                   "ported")
     comps = [torch.stack([f[ci] for f in frames])
              for ci in range(len(comp_shapes))]
-    x0, y0 = origin
-    per_tile = []
-    for t in range(hdr.siz.num_tiles):
-        r = hdr.siz.tile_rect(t)
-        if hdr.siz.num_tiles == 1:
-            tc = comps
-        else:
-            tc = [c[:, r.y0 - y0:r.y1 - y0, r.x0 - x0:r.x1 - x0].contiguous()
-                  for c in comps]
-        per_tile.append(try_encode_serving_batch(tc, hdr, params, t))
+    per_tile = [try_encode_serving_batch(_tile_samples(comps, hdr, t,
+                                                       origin),
+                                         hdr, params, t)
+                for t in range(hdr.siz.num_tiles)]
     out = []
     for fi in range(len(frames)):
         tps, tlm, plm, ppm = [], [], [], []
         for t, results in enumerate(per_tile):
             res = results[fi]
             ppm.append(res.headers)
-            # the packet sequence split across tile-parts at packet
-            # boundaries, as grok_tpu.compress splits it: the tile-header
-            # markers (the HT-mixed bitmap COM, then the PLT) in part 0
-            nparts = max(1, min(params.max_tile_parts,
-                                len(res.packets) or 1))
-            per = -(-len(res.packets) // nparts) if nparts > 1 else None
-            for pi in range(nparts):
-                if per is None:
-                    lens, body = res.packet_lens, res.body
-                else:
-                    lens = res.packet_lens[pi * per:(pi + 1) * per]
-                    body = b"".join(res.packets[pi * per:(pi + 1) * per])
-                seg = j2k.write_plt(lens, zplt=pi) if params.write_plt \
-                    else b""
-                if pi == 0:
-                    seg = res.com + seg
-                psot = 12 + len(seg) + 2 + len(body)
-                tp = j2k.write_sot(t, psot, pi, nparts) + seg + \
-                    struct.pack(">H", j2k.SOD) + body
+            for tp, lens in _tile_parts(t, res, params):
                 tps.append(tp)
                 tlm.append((t, len(tp)))
                 plm.append(list(lens))
@@ -533,6 +551,41 @@ def _encode_frames(frames: list, params: CompressParams, prec: int,
                 color_space=ColorSpace.GRAY if len(comp_shapes) == 1
                 else ColorSpace.SRGB)
         out.append(stream)
+    return out
+
+
+def _tile_samples(comps: list, hdr: MainHeader, t: int,
+                  origin: tuple[int, int]) -> list:
+    """Tile t's samples of (N, h, w) component stacks of an image at
+    `origin` on the canvas."""
+    if hdr.siz.num_tiles == 1:
+        return comps
+    r = hdr.siz.tile_rect(t)
+    x0, y0 = origin
+    return [c[:, r.y0 - y0:r.y1 - y0, r.x0 - x0:r.x1 - x0].contiguous()
+            for c in comps]
+
+
+def _tile_parts(t: int, res, params: CompressParams) -> list:
+    """Tile t's tile-parts as (bytes, their packet lengths): the packet
+    sequence split across up to params.max_tile_parts parts at packet
+    boundaries, as grok_tpu.compress splits it, the tile-header markers
+    (the HT-mixed bitmap COM, then the PLT) in part 0."""
+    nparts = max(1, min(params.max_tile_parts, len(res.packets) or 1))
+    per = -(-len(res.packets) // nparts) if nparts > 1 else None
+    out = []
+    for pi in range(nparts):
+        if per is None:
+            lens, body = res.packet_lens, res.body
+        else:
+            lens = res.packet_lens[pi * per:(pi + 1) * per]
+            body = b"".join(res.packets[pi * per:(pi + 1) * per])
+        seg = j2k.write_plt(lens, zplt=pi) if params.write_plt else b""
+        if pi == 0:
+            seg = res.com + seg
+        psot = 12 + len(seg) + 2 + len(body)
+        out.append((j2k.write_sot(t, psot, pi, nparts) + seg
+                    + struct.pack(">H", j2k.SOD) + body, lens))
     return out
 
 

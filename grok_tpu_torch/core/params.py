@@ -1,11 +1,17 @@
 """Compression / decompression parameter surfaces of the port.
 
 The port's copy of grok_tpu/core/params.py, with the fields the port's
-entry points read.  Fields for routes the port has not ported yet (ROI,
-POC, PPM, quality targets, several layers or byte targets on Part-1 or
-HT-mixed encodes) stay, so that such a request is refused by name rather
-than ignored; the JAX package's execution switches (`backend`, `mesh`,
-`keep_device`) and host post-processing options have no counterpart.
+entry points read.  `mesh` is the counterpart of the JAX package's
+execution switch of that name: a parallel/sharding.py Mesh of PyTorch
+devices (one process drives them all) over which an encode shards its
+forward DWT levels by rows, its default-style Part-1 lanes (K5) and the
+PCRD slope bracket, and a decode its default-style Part-1 lanes (K3) and
+its synthesis levels; its first device must be the entry point's
+device.  `tile_index` and `components` are kept so that the
+single-stream subset decodes, which the port does not take, are refused
+by name rather than ignored.  The JAX package's other execution switches
+(`backend`, `keep_device`) and host post-processing options have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -106,6 +112,10 @@ class CompressParams:
     ht_mixed: bool = False      # HT and Part-1 code-blocks mixed per block
     # container
     jp2: bool = False           # wrap codestream in JP2 boxes
+    # parallel/sharding.py Mesh (axis "tiles"): shard the forward DWT
+    # rows, the default-style Part-1 encode lanes and the PCRD slope
+    # bracket over its devices; the bytes equal the unsharded encode's
+    mesh: object = None
 
     def validate(self):
         if not (1 <= self.num_resolutions <= 33):
@@ -138,7 +148,12 @@ class CompressParams:
 class DecompressParams:
     reduce: int = 0                 # resolution reduction (discard levels)
     max_layers: int = 0             # 0 -> all layers
+    tile_index: int | None = None   # a single tile: not taken (refused)
     window: tuple[int, int, int, int] | None = None   # canvas-coord region
+    components: list[int] | None = None   # a component subset: not taken
     strict: bool | None = None      # None: the serving surfaces' default,
                                     # permissive (the C scan validates
                                     # framing, not per-pass payloads)
+    mesh: object = None             # parallel/sharding.py Mesh: decode the
+                                    # default-style Part-1 lanes and the
+                                    # synthesis levels sharded over it

@@ -16,6 +16,8 @@ codewords, RESET, VSC and SEGSYM.
     lane's state in shared memory, a persistent grid that takes the
     lanes longest first), a CPU tensor runs `t1_decode_lanes_ref`.  There
     is no fallback from one to the other.
+  - `t1_decode_lanes_sharded` splits the lanes over a device mesh: one
+    t1_decode_lanes call per shard, on the shard's device.
   - `t1_decode_lanes_v1` launches the first design, csrc/t1_decode_v1.cu
     (one thread per lane), kept as the full-lane oracle and the speed
     yardstick of the kernel on the card (chip_smoke.py and the
@@ -545,6 +547,32 @@ def t1_decode_lanes(body, start, npass, nbps, orient, w, h, style, ptbl,
 
 
 t1_decode_lanes.launches = 0
+
+
+def t1_decode_lanes_sharded(body, start, npass, nbps, orient, w, h, style,
+                            ptbl, W: int, H: int, *, mesh):
+    """t1_decode_lanes with the lanes split over a device mesh
+    (parallel/sharding.py Mesh): the lanes in mesh.size contiguous shares
+    (uneven where NL is not a multiple), each decoded by one
+    t1_decode_lanes call on its shard's device (K3 on a card, the plain
+    version on a CPU shard; the body copied to each device), the outputs
+    back in lane order on the mesh's first device.  The arguments are
+    t1_decode_lanes', on any device; a shard's failed launch raises."""
+    from grok_tpu_torch.parallel.sharding import on_device
+    lanes = (start, npass, nbps, orient, w, h, style, ptbl)
+    outs = []
+    for d, idx in zip(mesh.devices, torch.tensor_split(
+            torch.arange(start.shape[0]), mesh.size)):
+        if not idx.numel():
+            continue
+        lo, hi = int(idx[0]), int(idx[-1]) + 1
+        with on_device(d):
+            got = t1_decode_lanes(body.to(d), *(t[lo:hi].to(d).contiguous()
+                                                for t in lanes), W, H)
+        outs.append(got.to(mesh.first, non_blocking=True))
+    if not outs:
+        return torch.empty((0, H, W), dtype=torch.int32, device=mesh.first)
+    return torch.cat(outs)
 
 
 def t1_decode_lanes_v1(body, start, npass, nbps, orient, w, h, style, ptbl,

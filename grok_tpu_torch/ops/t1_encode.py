@@ -24,6 +24,8 @@ blocks on the host with its C coder).
     lanes longest first; a lane over 64 wide codes each stripe in chunks
     of 64 columns), a CPU tensor runs `t1_encode_lanes_ref`.  There is no
     fallback from one to the other.
+  - `t1_encode_lanes_sharded` splits the lanes over a device mesh: one
+    t1_encode_lanes call per shard, on the shard's device.
   - `t1_encode_lanes_v1` launches the first design, csrc/t1_encode_v1.cu
     (one thread per lane, default style only), kept as the full-lane
     oracle and the speed yardstick of the kernel on the card
@@ -542,6 +544,32 @@ def t1_encode_lanes(mneg, orient, numbps, w, h, L: int, R: int,
 
 
 t1_encode_lanes.launches = 0
+
+
+def t1_encode_lanes_sharded(mneg, orient, numbps, w, h, L: int, R: int,
+                            style=None, *, mesh):
+    """t1_encode_lanes with the lanes split over a device mesh
+    (parallel/sharding.py Mesh): the lanes in mesh.size contiguous shares
+    (uneven where NL is not a multiple), each coded by one
+    t1_encode_lanes call on its shard's device (K5 on a card, the plain
+    version on a CPU shard), the four outputs back in lane order on the
+    mesh's first device.  A shard's failed launch raises."""
+    from grok_tpu_torch.parallel.sharding import on_device
+    lanes = (mneg, orient, numbps, w, h)
+    outs = []
+    for d, idx in zip(mesh.devices, torch.tensor_split(
+            torch.arange(mneg.shape[0]), mesh.size)):
+        if not idx.numel():
+            continue
+        lo, hi = int(idx[0]), int(idx[-1]) + 1
+        with on_device(d):
+            got = t1_encode_lanes(
+                *(t[lo:hi].to(d).contiguous() for t in lanes), L, R,
+                None if style is None else style[lo:hi].to(d).contiguous())
+        outs.append([t.to(mesh.first, non_blocking=True) for t in got])
+    if not outs:
+        return _outputs(mneg[:0].to(mesh.first), L, R)
+    return tuple(torch.cat(ts) for ts in zip(*outs))
 
 
 def t1_encode_lanes_v1(mneg, orient, numbps, w, h, L: int, R: int):

@@ -32,12 +32,15 @@ bucket layout, table version) and cached by the caller.  The general
 decode route (pipeline/tile.py decode_tile) runs its own block decodes
 (K1/K2 per bucket from its own staging, K3 from `stage_mq_lanes`: its
 Part-1 lanes with their own segment tables) and hands their outputs to
-steps 3-5 (`synthesize`).
+steps 3-5 (`synthesize`); with a device mesh, its default-style Part-1
+lanes are decoded by one K3 launch per shard and every synthesis level
+is row-sharded (parallel/sharding.py).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -45,7 +48,9 @@ import torch
 from grok_tpu_torch.core.geometry import BAND_LL, Rect
 from grok_tpu_torch.ops import dwt, mct
 from grok_tpu_torch.ops.ht_decode import MARK_I64, ht_decode_lanes
-from grok_tpu_torch.ops.t1_decode import t1_decode_lanes
+from grok_tpu_torch.ops.t1_decode import (t1_decode_lanes,
+                                          t1_decode_lanes_sharded)
+from grok_tpu_torch.parallel.sharding import inv_2d_level_sharded
 
 # per-lane meta columns of the uploaded meta array: the HT lane (K1) and
 # the Part-1 lane (K3) of the same block
@@ -316,17 +321,23 @@ class DecodeProgram:
         return (body, start, npass, nbps, ori[pos], w[pos], h[pos], style,
                 ptbl)
 
-    def decode_mq(self, args: tuple, pos: torch.Tensor | None = None) -> list:
+    def decode_mq(self, args: tuple, pos: torch.Tensor | None = None,
+                  mesh=None, shard: torch.Tensor | None = None) -> list:
         """K3 over Part-1 lanes, one launch per group of mq_groups: args
         are stage_mq's (every lane, in meta order; pos None) or
         stage_mq_lanes' (pos: (n,) int64 on the device, each lane's index
-        in meta order).  Returns per bucket its lanes' (n, H, W) int32
-        samples, zeros on the lanes not given; None for a bucket none of
-        whose group's lanes was given."""
+        in meta order).  With a device mesh (parallel/sharding.py Mesh),
+        the lanes that shard (True in shard, (n,) bool on the device: the
+        default-style single-segment ones) are decoded with their K3
+        launches split over the mesh, one per shard, and the others on
+        the first device, as the JAX package's mesh decode shards them.
+        Returns per bucket its lanes' (n, H, W) int32 samples, zeros on
+        the lanes not given; None for a bucket none of whose group's lanes
+        was given."""
         total = self.lane_bucket.shape[0]
         outs = [None] * len(self.buckets)
         for W, H, bis in self.mq_groups:
-            sub, at = args, pos
+            sub, at, sh = args, pos, shard
             if len(self.mq_groups) > 1:
                 owner = self.lane_bucket if pos is None \
                     else self.lane_bucket[pos]
@@ -334,10 +345,11 @@ class DecodeProgram:
                     bis, device=owner.device)))[:, 0]
                 if not k.numel():
                     continue
-                sub = (args[0],) + tuple(t.index_select(0, k)
-                                         for t in args[1:])
+                sub = _lanes(args, k)
                 at = k if pos is None else pos[k]
-            got = t1_decode_lanes(*sub, W, H)
+                sh = None if shard is None else shard[k]
+            got = t1_decode_lanes(*sub, W, H) if mesh is None \
+                else _decode_mq_meshed(sub, W, H, mesh, sh)
             if at is None:
                 full = got
             else:
@@ -379,15 +391,19 @@ class DecodeProgram:
                 *a, self.buckets[bi].W, self.buckets[bi].H, i64=True)[0])
         return planes if wide is None else self.synthesize(wide)
 
-    def synthesize(self, outs: list, mct_round: bool = False) -> list:
+    def synthesize(self, outs: list, mct_round: bool = False,
+                   mesh=None) -> list:
         """Steps 3-5 from the block decodes: outs[bi] is bucket bi's
         (N * blocks, H, W) int32 signed mag2 with the half-bit, in lane
         order (int64 after redecode_marked: only the dequantization then
         runs in int64).  mct_round: under a custom MCT, round the reversible
         components to the nearest integer instead of truncating them
         toward zero (the JAX package rounds them where its C block
-        decoder takes the tile, a tile without HT blocks).  Returns N
-        lists of per-component int32 planes."""
+        decoder takes the tile, a tile without HT blocks).  mesh: a
+        parallel/sharding.py Mesh whose first device is the program's:
+        every synthesis level row-sharded over it (inv_2d_level_sharded,
+        equal to the unsharded level).  Returns N lists of per-component
+        int32 planes."""
         m = torch.cat([o.reshape(-1) for o in outs])[self.src]
 
         # 3. ROI Maxshift, dequantize + place (signed mag2 carries the
@@ -417,6 +433,8 @@ class DecodeProgram:
             return flat[pos:pos + N * bh * bw].view(N, bh, bw)
 
         # 4. inverse DWT per component, all N streams at once
+        level = dwt.inv_2d_level if mesh is None else partial(
+            inv_2d_level_sharded, mesh=mesh)
         outs = []
         for ci, cs in enumerate(self.comps_sig):
             (rect_t, numres, r_lim, _prec, _sgnd, irrev, _bands) = cs
@@ -425,9 +443,8 @@ class DecodeProgram:
             nl = numres - 1
             for r in range(1, r_lim):
                 s = 1 << (nl - r)
-                cur = dwt.inv_2d_level(cur, band(ci, r, 1), band(ci, r, 2),
-                                       band(ci, r, 3),
-                                       rect.ceil_scale(s, s), irrev)
+                cur = level(cur, band(ci, r, 1), band(ci, r, 2),
+                            band(ci, r, 3), rect.ceil_scale(s, s), irrev)
             outs.append(cur)
 
         # 5. inverse MCT + DC unshift/clip
@@ -448,6 +465,28 @@ class DecodeProgram:
             final.append(mct.dc_shift_inv(arr.to(torch.int32), prec, sgnd))
         return [[final[ci][si] for ci in range(len(final))]
                 for si in range(N)]
+
+
+def _lanes(args: tuple, k: torch.Tensor) -> tuple:
+    """K3's arguments of the lanes k (the body stays whole)."""
+    return (args[0],) + tuple(t.index_select(0, k) for t in args[1:])
+
+
+def _decode_mq_meshed(args: tuple, W: int, H: int, mesh,
+                      shard: torch.Tensor) -> torch.Tensor:
+    """K3 over one group's lanes with a mesh: the sharded lanes through
+    t1_decode_lanes_sharded (one launch per shard), the rest (styled or
+    several segments) through one launch on the first device."""
+    k = torch.nonzero(shard)[:, 0]
+    if k.numel() == shard.numel():
+        return t1_decode_lanes_sharded(*args, W, H, mesh=mesh)
+    out = torch.zeros((shard.numel(), H, W), dtype=torch.int32,
+                      device=shard.device)
+    if k.numel():
+        out[k] = t1_decode_lanes_sharded(*_lanes(args, k), W, H, mesh=mesh)
+    rest = torch.nonzero(~shard)[:, 0]
+    out[rest] = t1_decode_lanes(*_lanes(args, rest), W, H)
+    return out
 
 
 def redecode_marked(outs: list, ht: list, decode_i64) -> list | None:

@@ -47,7 +47,8 @@ class ServePlan:
     bucket_dims: list                 # bucket id -> (Wpad, Hpad)
     sig_tail: list                    # per block: (ci, r, orient, yoff,
     #                                   xoff, bh, bw, delta, irrev)
-    coder: str                        # "ht", "mq" or "mixed"
+    coder: str                        # "ht", "mq", "mixed" or "split"
+    #                                   (components mixing HT and Part-1)
     rok: np.ndarray                   # block contributes at this reduce
     comps_sig: tuple
     mct_mode: int
@@ -78,15 +79,18 @@ def _pow2_at_least(v: int, lo: int = 4, hi: int = 1024) -> int:
     return p
 
 
-def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
+def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan:
     geo = TileGeometry.build(hdr, t, th)
     if th is not None and th.ht_mixed_bitmap() is not None:
         # HT MIXED sets: per-block HT/MQ routing by the per-stream COM
-        # bitmap; T2 parses with the default single-segment rule
-        if not all(cs.cblk_style == CBLK_HT for cs in geo.styles):
-            return None
+        # bitmap; T2 parses with the Part-1 segmentation rule of the
+        # style without its HT bit
         coder = "mixed"
-    elif all(cs.cblk_style == CBLK_HT for cs in geo.styles):
+    elif all(cs.cblk_style & CBLK_HT for cs in geo.styles):
+        # HT code-blocks, with or without Part-1 mode-switch bits beside
+        # the HT bit: an HT pass ends its segment whatever the other bits
+        # say (t2/packet.py max_seg_passes), and the HT block decoder
+        # reads none of them, as the JAX package's decoders do not
         coder = "ht"
     elif not any(cs.cblk_style & CBLK_HT for cs in geo.styles):
         # Part-1 blocks of any mode switches: the T2 contexts segment
@@ -94,7 +98,9 @@ def _build_plan(hdr, t: int, th, reduce: int) -> ServePlan | None:
         # only, the general route every style (K3's segment table)
         coder = "mq"
     else:
-        return None
+        # components mixing HT and Part-1 code-blocks (a COC): each block
+        # by its component's style, on the general route
+        coder = "split"
 
     seg_mask = ~CBLK_HT if coder == "mixed" else -1
     ctxs = geo.make_contexts(seg_mask)
@@ -227,8 +233,7 @@ def _th_ovr_key(th) -> tuple:
                  for v in (th.cod, th.coc, th.qcd, th.qcc, th.rgn, th.pocs))
 
 
-def _plan_for(cs: bytes, hdr, t: int, th,
-              reduce: int = 0) -> ServePlan | None:
+def _plan_for(cs: bytes, hdr, t: int, th, reduce: int = 0) -> ServePlan:
     # the coder choice depends on the TILE-PART COM bitmap (mixed vs
     # ht), which varies per stream under one main header — fold its
     # presence into the key; per-tile COD/QCD overrides key the same way
@@ -236,11 +241,11 @@ def _plan_for(cs: bytes, hdr, t: int, th,
     key = (bytes(cs[:hdr.main_header_end]), t, reduce, mixed,
            _th_ovr_key(th))
     plan = _PLANS.get(key)
-    if plan is None and key not in _PLANS:
+    if plan is None:
         plan = _build_plan(hdr, t, th, reduce)
         if len(_PLANS) >= _PLANS_MAX:
             _PLANS.pop(next(iter(_PLANS)))   # evict the oldest entry
-        _PLANS[key] = plan             # None cached too: don't re-derive
+        _PLANS[key] = plan
     return plan
 
 

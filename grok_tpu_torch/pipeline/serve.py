@@ -13,7 +13,9 @@ meta array are uploaded from pinned host memory, and a DecodeProgram
 (pipeline/device.py), cached on the plan per table version, does the
 rest on the device.
 
-Scope: one tile of HT cleanup-only, Part-1 default-style (one codeword
+Scope: one tile of HT cleanup-only (whatever Part-1 mode-switch bits
+the style carries beside the HT bit: the HT decoder reads none of them),
+Part-1 default-style (one codeword
 segment per block, any number of layers) or single-layer HT-mixed
 code-blocks of any legal size (sides up to 1024, at most 4096 samples),
 all streams of a batch under one main header and the same tile overrides
@@ -24,16 +26,17 @@ zeros, plan.py window_mask), with the ROI Maxshift undone on the device.
 A strict decode (dp.strict) of Part-1 blocks is served as a permissive
 one, as the JAX package serves it (its strict Tier-2 parse raises where
 the C parse declines, on the general route).  Refined HT blocks, Part-1
-mode switches and multi-segment blocks, layered HT-mixed streams, packed
-packet headers (PPM/PPT), a custom MCT, streams the C Tier-2 parse
-declines (cut short, or corrupt) and strict decodes of HT or HT-mixed
-blocks raise GeneralRoute, which the entry points answer with the
-general device route (pipeline/tile.py decode_tile, kernels K1, K2 and
-K3, with the Python Tier-2 parse where the C one declines, and the
-scalar decoder's exceptions on a strict decode), as the JAX package's
-serving decode declines them to its decode_tile.  Anything else (HT
-code-blocks with mode switches) raises NotImplementedError naming the
-route: a quiet host decode would hide the device.
+mode switches and multi-segment blocks, layered HT-mixed streams or
+HT-mixed sets with mode switches, components mixing HT and Part-1
+code-blocks, packed packet headers (PPM/PPT), a custom MCT, streams the
+C Tier-2 parse declines (cut short, or corrupt), strict decodes of HT or
+HT-mixed blocks and decodes over a device mesh (dp.mesh) raise
+GeneralRoute, which the entry points answer with the general device
+route (pipeline/tile.py decode_tile, kernels K1, K2 and K3, with the
+Python Tier-2 parse where the C one declines, the scalar decoder's
+exceptions on a strict decode, and the mesh's sharded K3 launches and
+synthesis levels), as the JAX package's serving decode declines them to
+its decode_tile.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import numpy as np
 import torch
 
 from grok_tpu_torch import native
+from grok_tpu_torch.core.params import CBLK_HT
 from grok_tpu_torch.ops.ht_decode import MAX_STREAM, _quant_len
 from grok_tpu_torch.pipeline.plan import (_plan_for, _th_ovr_key,
                                           window_mask)
@@ -62,8 +66,9 @@ class GeneralRoute(NotImplementedError):
     """The serving decode declines a stream that the general device route
     (pipeline/tile.py decode_tile) decodes: HT refinement passes, Part-1
     mode switches, several codeword segments per block, layered HT-mixed
-    streams, packed packet headers, a custom MCT, packets the C Tier-2
-    parse declines; or a batch that the batch entry takes stream by
+    streams, components mixing HT and Part-1 blocks, packed packet
+    headers, a custom MCT, packets the C Tier-2 parse declines, a decode
+    over a device mesh; or a batch that the batch entry takes stream by
     stream (several tiles, different main headers, tile-part
     overrides).  The entry points catch this class only; every other
     decline stays a NotImplementedError."""
@@ -214,6 +219,10 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                         device, ths=None) -> StagedBatch:
     """Host staging of N same-geometry tile bodies and their upload."""
     device = torch.device(device)
+    if dp.mesh is not None:
+        # as grok_tpu/pipeline/serve.py declines a mesh: the general
+        # route shards the Part-1 lanes and the synthesis levels
+        raise GeneralRoute("a decode over a device mesh")
     if hdr.ppm is not None or any(
             q is not None and q.ppt is not None for q in (ths or [th])):
         raise GeneralRoute("PPM/PPT packed packet headers")
@@ -222,9 +231,10 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         raise _unsupported("general path",
                            "batch streams with different tile overrides")
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
-    if plan is None:
-        raise _unsupported("general path", "HT code-blocks with mode "
-                           "switches")
+    if plan.coder == "split":
+        raise GeneralRoute("components mixing HT and Part-1 code-blocks")
+    if plan.coder == "mixed" and (plan.style != CBLK_HT).any():
+        raise GeneralRoute("an HT-mixed set with Part-1 mode switches")
     if dp.strict and plan.coder != "mq":
         # the scalar decoder's checks: on the general route, which reads
         # each HT lane's error code back

@@ -52,6 +52,15 @@ encodes); Mb <= 24.  Anything else (HT code-blocks with Part-1 mode
 switches, Mb > 24) raises NotImplementedError naming the route: the
 port has no host encoder to fall back to.  Reversible streams are
 byte-identical to the JAX package's encoders.
+
+With params.mesh (a parallel/sharding.py Mesh whose first device is the
+frames' device), every forward DWT level is split by rows across the
+mesh with halo exchange, the default-style Part-1 lanes are coded by
+one K5 launch per shard, and the byte targets' PCRD bracket comes from
+the mesh's slope collective, as the JAX package's mesh encode shards
+them; HT lanes (K4, K4r), styled Part-1 lanes and the refinement's
+trial decodes run on the first device.  The bytes equal the unsharded
+encode's.
 """
 
 from __future__ import annotations
@@ -70,7 +79,9 @@ from grok_tpu_torch.core.quant import band_level, band_norm
 from grok_tpu_torch.ops import dwt, mct
 from grok_tpu_torch.ops.ht_encode import (_bitlen, _cap_bytes,
                                           ht_encode_lanes, refine_caps)
-from grok_tpu_torch.ops.t1_encode import pass_records, t1_encode_lanes
+from grok_tpu_torch.ops.t1_encode import (pass_records, t1_encode_lanes,
+                                          t1_encode_lanes_sharded)
+from grok_tpu_torch.parallel.sharding import fwd_multilevel_sharded
 from grok_tpu_torch.pipeline.plan import _pow2_at_least
 from grok_tpu_torch.pipeline.tile import (TileGeometry, band_window,
                                           canon_block_indices,
@@ -242,10 +253,14 @@ def _plan_for(hdr, t: int) -> EncPlan:
     return plan
 
 
-def _stage_bands(comps: list, plan: EncPlan, roi_rect=None) -> dict:
+def _stage_bands(comps: list, plan: EncPlan, roi_rect=None,
+                 mesh=None) -> dict:
     """DC shift + MCT + forward DWT + quantization of (N, h, w) component
     stacks, then the ROI's Maxshift upshift -> {(ci, r, orient): (N, bh,
-    bw) int32 (mag << 1) | neg}."""
+    bw) int32 (mag << 1) | neg}.  mesh: every forward DWT level split by
+    rows across the mesh's devices (parallel/sharding.py
+    fwd_multilevel_sharded, equal to the unsharded levels), the bands
+    back on the first device."""
     outs = []
     for ci, csig in enumerate(plan.comps_sig):
         (_rect, _numres, prec, sgnd, _irrev, _bands) = csig
@@ -265,8 +280,11 @@ def _stage_bands(comps: list, plan: EncPlan, roi_rect=None) -> dict:
     for ci, csig in enumerate(plan.comps_sig):
         (rect_t, numres, _prec, _sgnd, irrev, bands) = csig
         f64 = plan.mct_mode == 3
+        dtype = torch.float64 if f64 else None
         blist = dwt.fwd_multilevel(outs[ci], Rect(*rect_t), numres, irrev,
-                                   torch.float64 if f64 else None)
+                                   dtype) if mesh is None else \
+            fwd_multilevel_sharded(outs[ci], Rect(*rect_t), numres, irrev,
+                                   mesh, dtype)
         for (r, orient, delta) in bands:
             arr = blist[0] if r == 0 else blist[r][orient - 1]
             if irrev and f64:
@@ -392,7 +410,7 @@ def stage_encode_lanes(comps: list, hdr, params, t: int = 0):
     N = int(comps[0].shape[0])
     device = comps[0].device
     order, src, wv, hv = _lane_index(plan, N, device)
-    band_mneg = _stage_bands(comps, plan, params.roi_rect)
+    band_mneg = _stage_bands(comps, plan, params.roi_rect, params.mesh)
     flat = torch.cat([band_mneg[k].reshape(-1) for k in order]
                      + [band_mneg[order[0]].new_zeros(1)])
     NL = N * len(plan.blocks)
@@ -611,20 +629,52 @@ def _mq_dist_stats(mneg, sigtype, numbps, R: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def _k5(plan: EncPlan, ins: tuple, L: int, R: int, sty, mesh) -> tuple:
+    """K5 over the lanes ins (mneg, orient, numbps, w, h) in the styles
+    sty (None: the default style).  With a mesh, the default-style lanes
+    are coded by one launch per shard (ops/t1_encode.py
+    t1_encode_lanes_sharded) and the styled lanes by one launch on the
+    first device, as the JAX package's mesh encode shards only the
+    default-style blocks; the outputs in lane order."""
+    if mesh is None:
+        return t1_encode_lanes(*ins, L, R, sty)
+    if sty is None:
+        return t1_encode_lanes_sharded(*ins, L, R, mesh=mesh)
+    default = np.tile(plan.lane_style == 0, ins[0].shape[0]
+                      // len(plan.blocks))
+    if not default.any():
+        return t1_encode_lanes(*ins, L, R, sty)
+    dev = ins[0].device
+    dk = torch.from_numpy(np.nonzero(default)[0]).to(dev)
+    sk = torch.from_numpy(np.nonzero(~default)[0]).to(dev)
+    got = t1_encode_lanes_sharded(*(t.index_select(0, dk) for t in ins), L,
+                                  R, mesh=mesh)
+    res = tuple(t.new_zeros((default.size,) + t.shape[1:]) for t in got)
+    for r, g in zip(res, got):
+        r[dk] = g
+    if sk.numel():
+        for r, g in zip(res, t1_encode_lanes(
+                *(t.index_select(0, sk) for t in ins), L, R,
+                sty.index_select(0, sk))):
+            r[sk] = g
+    return res
+
+
 def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False,
-               styled: bool = True) -> list:
+               styled: bool = True, mesh=None) -> list:
     """K5 over the staged lanes: one EncodedBlock per lane (frame-major),
     its segments, rates and termination flags as the JAX package's C
     coder logs them (ops/t1_encode.py pass_records), in the blocks'
     code-block styles (styled False: the default style, an HT-mixed
     set's Part-1 coding).  want_dist: each pass's exact distortion too
-    (the PCRD finish), downloaded with the stats."""
+    (the PCRD finish), downloaded with the stats.  mesh: K5 sharded over
+    it for the default-style lanes (_k5)."""
     mneg, ori, nb, wv, hv = mq_lane_inputs(plan, lanes)
     sty = mq_lane_styles(plan, lanes) if styled else None
     NL = mneg.shape[0]
     L, R = plan.mq_caps
-    out, lens, rates, sigtype = t1_encode_lanes(mneg, ori, nb, wv, hv, L, R,
-                                                sty)
+    out, lens, rates, sigtype = _k5(plan, (mneg, ori, nb, wv, hv), L, R,
+                                    sty, mesh)
 
     # one download of the stats: length, numbps, rate rows and the
     # distortion sums
@@ -705,12 +755,13 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
     want_dist = targeted(params)
     targets = _layer_targets(hdr, plan.geo, params)
+    mesh = params.mesh
     finish = dict(quality_targets=quality_targets_for_tile(hdr, plan.geo,
                                                            params),
                   pocs=hdr.pocs, split_headers=bool(params.write_ppm),
-                  device=lanes[0].device)
+                  device=lanes[0].device, mesh=mesh)
     if plan.coder == "mq":
-        encs = _encode_mq(plan, lanes, want_dist)
+        encs = _encode_mq(plan, lanes, want_dist, mesh=mesh)
     else:
         encs = _encode_ht(plan, lanes, int(params.ht_planes or 0),
                           want_dist)
@@ -730,7 +781,7 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
     # default style; the smaller codeword wins per block, HT on ties, and
     # a Part-1 winner's job gets style 0 (grok_tpu/pipeline/tile.py
     # encode_tile), so the refinement touches exactly those blocks
-    encs_mq = _encode_mq(plan, lanes, want_dist, styled=False)
+    encs_mq = _encode_mq(plan, lanes, want_dist, styled=False, mesh=mesh)
     canon = _canon(plan)
     nbytes = (len(canon) + 7) // 8
     results = []

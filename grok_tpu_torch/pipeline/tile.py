@@ -12,9 +12,10 @@ POC-ordered packets and PPM's split headers by the Python packet
 encoder, t2/packet.py), and `decode_tile`, the
 general device decode route for the streams the serving decode declines
 (refined HT blocks, Part-1 mode switches, layered HT-mixed streams,
-packed packet headers, a custom MCT, packets cut short or corrupt,
-strict decodes of HT blocks), with kernels K1, K2 and K3, whole or in a
-window, for code-blocks of any legal size.
+components mixing HT and Part-1 blocks, packed packet headers, a custom
+MCT, packets cut short or corrupt, strict decodes of HT blocks, decodes
+over a device mesh), with kernels K1, K2 and K3, whole or in a window,
+for code-blocks of any legal size.
 
 Reference parity: [grok: src/lib/core/tile/TileProcessor.cpp ::
 compressTile] — behavior normative per ISO 15444-1.
@@ -248,7 +249,8 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
                        seg_style_mask: int = -1, *, device,
                        quality_targets: list | None = None,
                        pocs: list | None = None,
-                       split_headers: bool = False) -> TileEncodeResult:
+                       split_headers: bool = False,
+                       mesh=None) -> TileEncodeResult:
     """Rate allocation + Tier-2 emission over already-coded blocks.
 
     ejobs need key (c, r, p, band_i, cblk_i), mb and, for the PCRD
@@ -275,7 +277,11 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
     are their bodies alone.
     seg_style_mask: AND-mask on the Tier-2 segmentation style (HT-mixed
     sets emit with ~CBLK_HT); the emitter chunks each block's codeword by
-    its passes' termination flags."""
+    its passes' termination flags.
+    mesh: the encode's device mesh (parallel/sharding.py Mesh): the byte
+    targets' bisection bracket comes from its slope collective
+    (pcrd_slope_bounds_sharded), as the JAX package's mesh encode takes
+    it; it equals the bracket computed on the host."""
     num_layers = geo.cod.num_layers
     trivial = quality_targets is None and num_layers == 1 and (
         not layer_targets or all(t is None for t in layer_targets))
@@ -412,8 +418,13 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
         layer_cum = allocate_layers_quality(hulls, num_layers, conv,
                                             totals, dists_list)
     else:
+        bounds = None
+        if mesh is not None:
+            from grok_tpu_torch.parallel.sharding import \
+                pcrd_slope_bounds_sharded
+            bounds = pcrd_slope_bounds_sharded(hulls, mesh)
         layer_cum = allocate_layers(hulls, num_layers, layer_targets or [],
-                                    simulate, totals,
+                                    simulate, totals, slope_bounds=bounds,
                                     pass_rates=rate_tables)
     changes, trials = _refine_truncations(ejobs, encs, layer_cum, device)
     if prep is not None:
@@ -492,6 +503,11 @@ class GeneralStaged:
     #                           each lane's block (meta order), each
     #                           lane's host error code), the device's
     #                           codes read back after the block decodes
+    mesh: object = None       # dp.mesh: K3 sharded over it for the lanes
+    #                           of mq_shard, and the synthesis levels
+    mq_shard: object = None   # (n,) bool on the device: the Part-1 lanes
+    #                           (mq's order) that shard (default style,
+    #                           one segment)
 
     def run(self) -> list:
         import torch
@@ -499,7 +515,7 @@ class GeneralStaged:
         from grok_tpu_torch.ops.ht_decode import MARK_I64, decode_ht_blocks
         from grok_tpu_torch.pipeline.device import redecode_marked
         prog = self.program
-        mq = prog.decode_mq(self.mq, self.mq_pos) \
+        mq = prog.decode_mq(self.mq, self.mq_pos, self.mesh, self.mq_shard) \
             if self.mq is not None else [None] * len(prog.buckets)
         outs, errs, ht = [], [], []
         for bi, b in enumerate(prog.buckets):
@@ -524,13 +540,13 @@ class GeneralStaged:
             dev[dev == MARK_I64] = 0             # decoded, not an error
             raise_first_ht_error(job_idx, blocks,
                                  np.where(codes != 0, codes, dev))
-        planes = prog.synthesize(outs, self.mct_round)
+        planes = prog.synthesize(outs, self.mct_round, self.mesh)
         wide = redecode_marked(
             outs, ht, lambda bi, a, rf: decode_ht_blocks(
                 *a, rf, prog.buckets[bi].W, prog.buckets[bi].H,
                 i64=True)[0])
         if wide is not None:
-            planes = prog.synthesize(wide, self.mct_round)
+            planes = prog.synthesize(wide, self.mct_round, self.mesh)
         return planes[0]
 
 
@@ -580,9 +596,22 @@ def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     codes, read back once).  Part-1 blocks decode unchecked, as the JAX
     package's do.
 
-    Raises NotImplementedError naming the route for HT code-blocks with
-    mode switches and Part-1 blocks outside 1..109 passes or 0..30
-    magnitude planes."""
+    HT code-blocks whose style carries Part-1 mode-switch bits beside the
+    HT bit decode as HT blocks (one pass a segment; the HT decoder reads
+    none of the other bits), as the JAX package decodes them; components
+    mixing HT and Part-1 blocks decode each block by its component's
+    style.
+
+    With dp.mesh (a parallel/sharding.py Mesh whose first device is
+    `device`), the default-style single-segment Part-1 lanes are decoded
+    by one K3 launch per shard of the mesh, the other lanes (HT, styled
+    Part-1) on `device`, and every synthesis level is split by rows
+    across the mesh with halo exchange (the JAX package's mesh branch of
+    decode_tile); the planes equal the unsharded decode's and end on
+    `device`.
+
+    Raises NotImplementedError naming the route for Part-1 blocks
+    outside 1..109 passes or 0..30 magnitude planes."""
     return stage_general(cs, hdr, t, th, body, dp, device=device).run()
 
 
@@ -608,9 +637,6 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     th = th or TileHeader()
     route = "general decode route"
     plan = _plan_for(cs, hdr, t, th, int(dp.reduce or 0))
-    if plan is None:
-        raise _general_unsupported(route, "HT code-blocks with mode "
-                                   "switches")
     bitmap = None
     if plan.coder == "mixed":
         # the stream's bitmap routes each block (a block past its end is
@@ -653,7 +679,8 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
             is_ht = ci >> 3 < bitmap.size and bool(
                 (bitmap[ci >> 3] >> (ci & 7)) & 1)
         else:
-            is_ht = plan.coder == "ht"
+            # by the block's style: its component's COD or COC
+            is_ht = bool(plan.style[b] & CBLK_HT)
         if is_ht:
             n_ht += 1
             if numbps <= 0 or seg_lens[0] > len(data):
@@ -817,4 +844,9 @@ def stage_general(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
         staged.mq_pos = torch.from_numpy(mq_pos).to(device)
         staged.mq = prog.stage_mq_lanes(body_d, up[2], up[3],
                                         staged.mq_pos)
+    if dp.mesh is not None:
+        staged.mesh = dp.mesh
+        if mq:
+            staged.mq_shard = torch.from_numpy(np.asarray(
+                [x[5] == 0 and len(x[2]) <= 1 for x in mq])).to(device)
     return staged

@@ -9,7 +9,10 @@ from ones it does, on the CPU and on the card alike:
     moved into the first tile-part header of every tile, where they mean
     what they meant in the main header;
   - `cut`, `flip`: a stream cut to a share of its bytes, and a stream
-    with bytes inverted at an offset.
+    with bytes inverted at an offset;
+  - `or_cod_style`, `with_coc`: the COD's code-block style OR'd with
+    mode-switch bits (HT code-blocks with Part-1 switches beside the HT
+    bit), and a main-header COC giving one component its own style.
 
 Each edit rewrites Psot of the tile-parts it grows and the main header's
 TLM, so the result parses as a whole stream.
@@ -124,3 +127,34 @@ def flip(data: bytes, offset: int, n: int = 4) -> bytes:
     """The stream with n bytes inverted from `offset` on."""
     mid = bytes(b ^ 0xFF for b in data[offset:offset + n])
     return data[:offset] + mid + data[offset + n:]
+
+
+def or_cod_style(data: bytes, bits: int) -> bytes:
+    """The stream with its main-header COD code-block style OR'd with
+    `bits` (SPcod byte 4: the segment's 13th byte)."""
+    main, parts, tail = _split(data)
+    out = []
+    for m, seg in main:
+        if m == j2k.COD:
+            seg = bytearray(seg)
+            seg[12] |= bits
+            seg = bytes(seg)
+        out.append((m, seg))
+    return _join(out, parts, tail)
+
+
+def with_coc(data: bytes, comp: int, style: int) -> bytes:
+    """The stream with a main-header COC after its COD for component
+    `comp` (fewer than 257 components): the COD's decomposition levels,
+    code-block size and filter, code-block style `style`, default
+    precincts."""
+    main, parts, tail = _split(data)
+    out = []
+    for m, seg in main:
+        out.append((m, seg))
+        if m == j2k.COD:
+            sp = bytearray(seg[9:14])   # levels, xcb, ycb, style, filter
+            sp[3] = style
+            out.append((j2k.COC, struct.pack(">HHBB", j2k.COC, 4 + len(sp),
+                                             comp, 0) + bytes(sp)))
+    return _join(out, parts, tail)

@@ -669,3 +669,57 @@ def test_general_route_on_committed_streams_on_card(card):
             torch.cuda.synchronize()
             assert D3.t1_decode_lanes.launches == n0 + 1, name
             assert SV.plane_hash(out) == hashes[k], (name, k)
+
+
+def test_sharded_part1_kernels_match_unsharded(card):
+    """K5 and K3 with their lanes split over a mesh of four virtual
+    shards of the card: one launch a shard, outputs in lane order equal
+    to one unsharded launch's."""
+    from grok_tpu_torch.parallel import Mesh
+    mesh = Mesh((card,) * 4)
+    ins = [t.to(card) for t in _mq_lanes(9, 50, 64, 12)]   # 50 = 13+13+12+12
+    L, R = 64 * 64 * 4 + 64, 3 * 12 - 2
+    before = E5.t1_encode_lanes.launches
+    got = E5.t1_encode_lanes_sharded(*ins, L, R, mesh=mesh)
+    torch.cuda.synchronize()
+    assert E5.t1_encode_lanes.launches == before + 4
+    ref = E5.t1_encode_lanes(*ins, L, R)
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], ref[1:]))
+    lens = ref[1]
+    for j in range(lens.shape[0]):
+        assert torch.equal(got[0][j, :1 + int(lens[j])],
+                           ref[0][j, :1 + int(lens[j])]), j
+    body = torch.cat([ref[0][j, 1:1 + int(lens[j])]
+                      for j in range(lens.shape[0])]
+                     + [ref[0].new_zeros(1)])
+    start = (torch.cumsum(lens, 0) - lens).int()
+    zero = torch.zeros_like(lens)
+    ptbl = torch.stack([zero, lens, zero], 1)[:, None].contiguous()
+    args = (body, start, (3 * ins[2] - 2).clamp(min=0).int(), ins[2],
+            ins[1], ins[3], ins[4], zero, ptbl)
+    before = D3.t1_decode_lanes.launches
+    dec = D3.t1_decode_lanes_sharded(*args, 64, 64, mesh=mesh)
+    torch.cuda.synchronize()
+    assert D3.t1_decode_lanes.launches == before + 4
+    assert torch.equal(dec, D3.t1_decode_lanes(*args, 64, 64))
+
+
+def test_meshed_giant_tile_round_trip_on_card(card):
+    """A (G)-shaped frame cut to 1024 x 1024 in one tile (Part-1 lossless
+    5/3, 6 resolutions, 64 x 64 blocks) encoded and decoded over a mesh of
+    four virtual shards of the card: the bytes equal the unmeshed
+    encode's, the decode is the frame, K5 and K3 launch once a shard."""
+    from grok_tpu_torch.core.params import DecompressParams as PDP
+    from grok_tpu_torch.parallel import Mesh
+    mesh = Mesh((card,) * 4)
+    img = synthetic_image(1024, 1024, 1, seed=77)
+    src = torch.from_numpy(img).to(card)
+    e0 = E5.t1_encode_lanes.launches
+    meshed = api.compress_device(src, PCP(mesh=mesh), device=card)
+    assert E5.t1_encode_lanes.launches == e0 + 4
+    assert meshed == api.compress_device(src, PCP(), device=card)
+    d0 = D3.t1_decode_lanes.launches
+    out = api.decompress_device(meshed, PDP(mesh=mesh), device=card)[0]
+    torch.cuda.synchronize()
+    assert D3.t1_decode_lanes.launches == d0 + 4
+    assert np.array_equal(out.cpu().numpy(), img)

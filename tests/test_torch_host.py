@@ -677,3 +677,21 @@ def test_port_sources_import_no_jax_and_no_jax_package():
                     bad.append(f"{os.path.relpath(path, REPO)}:"
                                f"{node.lineno} {n}")
     assert not bad, bad
+
+
+def test_port_sources_scanned_include_the_mesh_modules():
+    """The import scan above reads the scale-out modules too."""
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    assert {f"grok_tpu_torch/parallel/{m}.py" for m in
+            ("__init__", "sharding", "distributed", "entry")} <= scanned
+
+
+@pytest.mark.parametrize("shape", [(64, 32), (9, 5), (16, 1), (2, 3)])
+def test_reference_inv53_vertical_equal(shape):
+    """The port's copy of the sharded lifting's NumPy oracle against its
+    original."""
+    from grok_tpu.parallel.sharding import reference_inv53_vertical as jref
+    from grok_tpu_torch.parallel.sharding import \
+        reference_inv53_vertical as pref
+    y = np.random.default_rng(7).integers(-500, 500, shape).astype(np.int32)
+    assert np.array_equal(pref(y), jref(y))
