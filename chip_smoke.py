@@ -253,7 +253,7 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                8-bit gray frame in one tile, Part-1 lossless 5/3, 6
                resolutions, 64x64 blocks (16,384 lanes), and (G-97) its
                4096x4096 crop in 9/7 at 20:1 and 8:1 in 2 layers (the
-               PCRD slope collective), each encoded and decoded through
+               PCRD bisection), each encoded and decoded through
                compress_device / decompress_device without a mesh and
                over Mesh(("cuda:0",) * 4) (and every visible card where
                there are several; on one card, printed as not run): the
@@ -262,8 +262,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                unmeshed), a warm-up and 3 calls each, best and median;
                each shard's K5 and K3 launch of (G) timed with its bound;
                the finest 8192x8192 synthesis level sharded and
-               unsharded, timed and equal; then dryrun_multichip(4) on
-               virtual shards.
+               unsharded, timed and equal (grok_tpu_torch/tools/
+               mesh_probe.py giant_tile and finest_level); the PCRD slope
+               collective over the 4 shards equal to the host's bracket;
+               then dryrun_multichip(4) on virtual shards.
   28. C-dist  — two worker processes on cuda:0 over Gloo (an ephemeral
                127.0.0.1 port, a timeout on every wait):
                compress_distributed and decompress_distributed of (C)
@@ -2625,29 +2627,8 @@ def main() -> int:
     # ---- 27. the mesh: the giant tile (G) and its 9/7 crop (G-97) --------
     from grok_tpu_torch.parallel import Mesh, sharding
     from grok_tpu_torch.parallel.entry import dryrun_multichip
-    from grok_tpu_torch.ops import dwt
+    from grok_tpu_torch.tools import mesh_probe
     t_g = time.perf_counter()
-
-    @contextlib.contextmanager
-    def recorded(mod, fn_name):
-        """mod.fn_name wrapped to keep the arguments of every call (the
-        sharded wrappers call their module's kernel wrapper per shard).
-        The wrapper counts its launches on the name it is bound to, so
-        the spy carries the count while it stands in and hands it back."""
-        calls = []
-        real = getattr(mod, fn_name)
-
-        def spy(*a, **k):
-            calls.append(a)
-            return real(*a, **k)
-        spy.launches = real.launches
-        setattr(mod, fn_name, spy)
-        try:
-            yield calls
-        finally:
-            setattr(mod, fn_name, real)
-            real.launches = spy.launches
-
     t0 = time.perf_counter()
     g_img = synthetic_image(G_SIDE, G_SIDE, 1, seed=27)
     g_src = torch.from_numpy(g_img).to(dev)
@@ -2667,107 +2648,65 @@ def main() -> int:
                                 num_layers=2, rates=[20.0, 8.0]))}
     sharded = {}
     for name, (src, params) in g_cases.items():
-        npx = src.shape[0] * src.shape[1]
-        enc, dec = {}, {}
-        for key, m in meshes.items():
-            p = replace(params, mesh=m)
-            nsh = m.size if m is not None else 1
-            times = []
-            counts_zero()
-            with recorded(t1_encode, "t1_encode_lanes") as k5_calls:
-                for _ in range(G_REPS + 1):
-                    out, dt = timed(lambda: api.compress_device(
-                        src, p, device=dev))
-                    times.append(dt)
-                    if key in enc and out != enc[key]:
-                        _fail(f"encode {name} ({key}): reps gave different "
-                              f"bytes")
-                    enc[key] = out
-            got = counts()
-            if got["K5"] != nsh * (G_REPS + 1):
-                _fail(f"encode {name} ({key}): {got['K5']} K5 launches in "
-                      f"{G_REPS + 1} calls, not {nsh} a call")
-            print(f"encode {name} ({key}): best {min(times[1:]) * 1e3:.3f} "
-                  f"ms, median {float(np.median(times[1:])) * 1e3:.3f} ms "
-                  f"of {G_REPS} calls, {npx / 1e6 / min(times[1:]):.2f} "
-                  f"MP/s; {len(enc[key])} bytes; K5 {got['K5']} launches "
-                  f"({nsh} a call), K3 {got['K3']} [{card}]", flush=True)
-            if enc[key] != enc["unmeshed"]:
-                _fail(f"encode {name}: the bytes over {key} differ from the "
-                      f"unmeshed encode's")
-            times = []
-            counts_zero()
-            with recorded(t1_decode, "t1_decode_lanes") as k3_calls:
-                for _ in range(G_REPS + 1):
-                    out, dt = timed(lambda: api.decompress_device(
-                        enc[key], api.DecompressParams(mesh=m), device=dev))
-                    times.append(dt)
-                    dec[key] = out[0]
-            got = counts()
-            if got["K3"] != nsh * (G_REPS + 1):
-                _fail(f"decode {name} ({key}): {got['K3']} K3 launches in "
-                      f"{G_REPS + 1} calls, not {nsh} a call")
-            print(f"decode {name} ({key}): best {min(times[1:]) * 1e3:.3f} "
-                  f"ms, median {float(np.median(times[1:])) * 1e3:.3f} ms "
-                  f"of {G_REPS} calls, {npx / 1e6 / min(times[1:]):.2f} "
-                  f"MP/s; K3 {got['K3']} launches ({nsh} a call) [{card}]",
-                  flush=True)
-            if not torch.equal(dec[key], dec["unmeshed"]):
-                _fail(f"decode {name}: the planes over {key} differ from "
-                      f"the unmeshed decode's")
-            if name == "G" and key == "4 virtual shards":
-                # each shard's launch of the first (warm-up) call, timed
-                shards = {"K5": k5_calls[:nsh], "K3": k3_calls[:nsh]}
-                for kern, calls in shards.items():
-                    row_ = {"cell": "G", "shards": nsh, "lanes": [],
-                            "ms": [], "bound_ms": [],
-                            "launches": nsh * (G_REPS + 1)}
-                    for a in calls:
-                        if kern == "K5":
-                            fn = (lambda a=a: t1_encode.t1_encode_lanes(*a))
-                            nb = _k5_bytes(a[:5], fn()[1], tables)
-                        else:
-                            fn = (lambda a=a: t1_decode.t1_decode_lanes(*a))
-                            nb = _k3_bytes(a[:9], tables)
-                        row_["lanes"].append(int(a[1].shape[0]))
-                        row_["ms"].append(kernel_ms(dev, fn, reps=3))
-                        row_["bound_ms"].append(nb / HBM_BYTES_PER_S * 1e3)
-                    sharded[kern] = row_
-                    print(f"{kern} {name} per shard: lanes {row_['lanes']}, "
-                          f"{[round(x, 4) for x in row_['ms']]} ms, bound "
-                          f"{[round(x, 4) for x in row_['bound_ms']]} ms "
-                          f"[{card}]", flush=True)
-            del k3_calls, k5_calls
+        try:
+            got = mesh_probe.giant_tile(
+                name, src, params, meshes, dev, G_REPS, f"[{card}]",
+                record="4 virtual shards" if name == "G" else None)
+        except RuntimeError as e:
+            _fail(str(e))
         if name == "G":
-            if not np.array_equal(dec["unmeshed"].cpu().numpy(), g_img):
+            # each shard's launch of the first (warm-up) call, timed
+            nsh = meshes["4 virtual shards"].size
+            rec = got["4 virtual shards"]
+            for kern in ("K5", "K3"):
+                row_ = {"cell": "G", "shards": nsh, "lanes": [], "ms": [],
+                        "bound_ms": [], "launches": nsh * (G_REPS + 1)}
+                for a in rec["k5_calls" if kern == "K5" else "k3_calls"]:
+                    if kern == "K5":
+                        fn = (lambda a=a: t1_encode.t1_encode_lanes(*a))
+                        nb = _k5_bytes(a[:5], fn()[1], tables)
+                    else:
+                        fn = (lambda a=a: t1_decode.t1_decode_lanes(*a))
+                        nb = _k3_bytes(a[:9], tables)
+                    row_["lanes"].append(int(a[1].shape[0]))
+                    row_["ms"].append(kernel_ms(dev, fn, reps=3))
+                    row_["bound_ms"].append(nb / HBM_BYTES_PER_S * 1e3)
+                sharded[kern] = row_
+                print(f"{kern} {name} per shard: lanes {row_['lanes']}, "
+                      f"{[round(x, 4) for x in row_['ms']]} ms, bound "
+                      f"{[round(x, 4) for x in row_['bound_ms']]} ms "
+                      f"[{card}]", flush=True)
+            if not np.array_equal(got["unmeshed"]["planes"].cpu().numpy(),
+                                  g_img):
                 _fail("decode G: the planes differ from the source")
             print("decode G: meshed and unmeshed bit-exact to the source",
                   flush=True)
         else:
             ref = src.cpu().numpy().astype(np.float64)
-            mse = np.mean((dec["unmeshed"].cpu().numpy() - ref) ** 2)
+            mse = np.mean((got["unmeshed"]["planes"].cpu().numpy() - ref)
+                          ** 2)
             print(f"decode G-97: meshed equal to unmeshed, PSNR "
                   f"{10 * np.log10(255 ** 2 / mse):.2f} dB", flush=True)
-    # the finest synthesis level of (G), unsharded and over the 4 shards
-    x = g_src.to(torch.int32)
-    rect = Rect(0, 0, G_SIDE, G_SIDE)
-    fine = dwt.fwd_2d_level(x, rect, False)
-    lvl = {"unsharded": lambda: dwt.inv_2d_level(*fine, rect, False),
-           "4 virtual shards": lambda: sharding.inv_2d_level_sharded(
-               *fine, rect, False, meshes["4 virtual shards"])}
-    outs = {}
-    for key, fn in lvl.items():
-        outs[key] = fn()
-        ts = [timed(fn)[1] for _ in range(G_REPS)]
-        print(f"synthesis level {G_SIDE}x{G_SIDE} ({key}): best "
-              f"{min(ts) * 1e3:.3f} ms, median "
-              f"{float(np.median(ts)) * 1e3:.3f} ms of {G_REPS} [{card}]",
-              flush=True)
-    if not torch.equal(outs["unsharded"], outs["4 virtual shards"]) or \
-            not torch.equal(outs["unsharded"], x):
-        _fail("the sharded synthesis level differs from the unsharded one")
-    del x, fine, outs, g_src, dec
+        del got
+    # the finest synthesis level of (G), unsharded and over the meshes
+    try:
+        mesh_probe.finest_level(g_src, meshes, G_REPS, f"[{card}]")
+    except RuntimeError as e:
+        _fail(str(e))
+    del g_src
     torch.cuda.empty_cache()
+    from grok_tpu_torch.t2.rate import Hull
+    rng = np.random.default_rng(27)
+    slopes = [np.sort(rng.uniform(0.1, 900, int(rng.integers(1, 6))))[::-1]
+              for _ in range(4099)]
+    got = sharding.pcrd_slope_bounds_sharded(
+        [Hull(pass_idx=np.arange(len(x)), slopes=x) for x in slopes],
+        meshes["4 virtual shards"])
+    flat = np.concatenate(slopes)
+    if got != (flat.min() * 0.5, flat.max() * 2.0 + 1.0):
+        _fail(f"the PCRD slope collective gave {got}")
+    print(f"PCRD slope collective over 4 shards of {len(flat)} slopes: "
+          f"{got}, the host's bracket", flush=True)
     dry = dryrun_multichip(4)
     print(f"dryrun_multichip(4): every mesh path on {dry['mesh']}, the "
           f"global statistic {dry['dist']}", flush=True)

@@ -46,13 +46,9 @@ def _params(dparams: DecompressParams | None,
             dev: torch.device | None = None) -> DecompressParams:
     """The decode's parameters: permissive by default, like the JAX
     serving surfaces (the C scan validates framing, the kernel decodes
-    payloads without validation); subset decodes refused, and the mesh
-    held to the entry's device `dev`."""
+    payloads without validation), and the mesh held to the entry's
+    device `dev`."""
     dp = dparams or DecompressParams()
-    if dp.tile_index is not None or dp.components is not None:
-        raise NotImplementedError("single-tile and component-subset "
-                                  "decodes (tile_index, components) are "
-                                  "not ported")
     if dev is not None:
         check_mesh(dp.mesh, dev)
     return replace(dp, strict=False) if dp.strict is None else dp
@@ -197,9 +193,7 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
     first device is `device`, else ValueError), each tile is decoded by
     the general route with its default-style Part-1 lanes and its
     synthesis levels sharded over the mesh, as grok_tpu.decompress with a
-    mesh decodes it; the planes are the unsharded decode's.  Single-tile
-    and component-subset decodes (dp.tile_index, dp.components) raise
-    NotImplementedError."""
+    mesh decodes it; the planes are the unsharded decode's."""
     dev = _device(device)
     dp = _params(dparams, dev)
     cs, hdr, by_tile, tile_body = _tiles(data, dp)
@@ -425,10 +419,39 @@ def _frame_components(arrays) -> list:
     return [arrays]
 
 
-def _on_device(a, dev: torch.device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(torch.int32)
-    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+def _frames_on(arrays_list, params: CompressParams,
+               device) -> tuple[list, torch.device]:
+    """An encode's frames as lists of int32 component tensors on its
+    device, and that device: tensors must already lie on `device` (an
+    index left out is the current card), numpy arrays are uploaded; the
+    mesh is held to the device, and the frames must share their
+    component shapes.  ValueError otherwise."""
+    frames = [_frame_components(f) for f in arrays_list]
+    tensors = [a for f in frames for a in f if isinstance(a, torch.Tensor)]
+
+    def refuse(a, want):
+        raise ValueError(f"a component tensor is on {a.device}, but the "
+                         f"encode was asked to run on {want}")
+    want = torch.device(device)
+    for a in tensors:
+        # the type is checked before the card is, so a mismatch raises
+        # with or without a card
+        if a.device.type != want.type:
+            refuse(a, want)
+    dev = _device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    for a in tensors:
+        if a.device != dev:
+            refuse(a, dev)
+    check_mesh(params.mesh, dev)
+    frames = [[a.to(torch.int32) if isinstance(a, torch.Tensor) else
+               torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+               for a in f] for f in frames]
+    if len({tuple(tuple(c.shape) for c in f) for f in frames}) != 1:
+        raise ValueError("an encode's frames must share their component "
+                         "shapes")
+    return frames, dev
 
 
 def compress_device_batch(arrays_list, params: CompressParams | None = None,
@@ -454,30 +477,14 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     Part-1 mode switches, ROI (params.roi_comp, roi_shift and roi_rect)
     and a custom or AUTO_RD MCT, as grok_tpu.compress writes it.  With
     params.mesh (a parallel/sharding.py Mesh whose first device is
-    `device`, else ValueError) the forward DWT levels, the default-style
-    Part-1 lanes and the PCRD slope bracket are sharded over the mesh,
-    as grok_tpu.compress_device shards them; the bytes are the
-    unsharded encode's."""
+    `device`, else ValueError) the forward DWT levels and the
+    default-style Part-1 lanes are sharded over the mesh, as
+    grok_tpu.compress_device shards them; the bytes are the unsharded
+    encode's."""
     params = params or CompressParams(ht=True)
     if not arrays_list:
         return []
-    frames = [_frame_components(f) for f in arrays_list]
-    want = torch.device(device)
-    for a in (a for f in frames for a in f if isinstance(a, torch.Tensor)):
-        # checked before the card is, so a mismatch raises with or
-        # without a card
-        if a.device.type != want.type or (
-                want.index is not None and a.device.index != want.index):
-            raise ValueError(f"a component tensor is on {a.device}, but "
-                             f"the encode was asked to run on {want}")
-    dev = _device(device)
-    check_mesh(params.mesh, dev)
-    frames = [[_on_device(a, dev) for a in f] for f in frames]
-    shapes = {tuple(tuple(c.shape) for c in f) for f in frames}
-    devs = {c.device for f in frames for c in f}
-    if len(shapes) != 1 or len(devs) != 1:
-        raise ValueError("compress_device_batch: frames must share their "
-                         "component shapes and device")
+    frames, dev = _frames_on(arrays_list, params, device)
     if params.mct == MCTMode.AUTO_RD and len(frames[0]) >= 3:
         return _auto_rd(frames, params, prec, sgnd, dev, origin)
     return _encode_frames(frames, params, prec, sgnd, origin)

@@ -4,14 +4,13 @@ The port's copy of grok_tpu/core/params.py, with the fields the port's
 entry points read.  `mesh` is the counterpart of the JAX package's
 execution switch of that name: a parallel/sharding.py Mesh of PyTorch
 devices (one process drives them all) over which an encode shards its
-forward DWT levels by rows, its default-style Part-1 lanes (K5) and the
-PCRD slope bracket, and a decode its default-style Part-1 lanes (K3) and
-its synthesis levels; its first device must be the entry point's
-device.  `tile_index` and `components` are kept so that the
-single-stream subset decodes, which the port does not take, are refused
-by name rather than ignored.  The JAX package's other execution switches
-(`backend`, `keep_device`) and host post-processing options have no
-counterpart.
+forward DWT levels by rows and its default-style Part-1 lanes (K5), and
+a decode its default-style Part-1 lanes (K3) and its synthesis levels;
+its first device must be the entry point's device.  The JAX package's
+other execution switches (`backend`, `keep_device`), its single-tile and
+component-subset decodes (`tile_index`, `components`) and its host
+post-processing options have no counterpart: such a field is refused
+by the constructor (TypeError) rather than ignored.
 """
 
 from __future__ import annotations
@@ -113,8 +112,8 @@ class CompressParams:
     # container
     jp2: bool = False           # wrap codestream in JP2 boxes
     # parallel/sharding.py Mesh (axis "tiles"): shard the forward DWT
-    # rows, the default-style Part-1 encode lanes and the PCRD slope
-    # bracket over its devices; the bytes equal the unsharded encode's
+    # rows and the default-style Part-1 encode lanes over its devices;
+    # the bytes equal the unsharded encode's
     mesh: object = None
 
     def validate(self):
@@ -148,9 +147,7 @@ class CompressParams:
 class DecompressParams:
     reduce: int = 0                 # resolution reduction (discard levels)
     max_layers: int = 0             # 0 -> all layers
-    tile_index: int | None = None   # a single tile: not taken (refused)
     window: tuple[int, int, int, int] | None = None   # canvas-coord region
-    components: list[int] | None = None   # a component subset: not taken
     strict: bool | None = None      # None: the serving surfaces' default,
                                     # permissive (the C scan validates
                                     # framing, not per-pass payloads)

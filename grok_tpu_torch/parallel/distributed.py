@@ -116,8 +116,9 @@ def compress_distributed(arrays, params=None, prec: int = 8,
                          sgnd: bool = False, *, device="cuda",
                          origin: tuple[int, int] = (0, 0)) -> bytes | None:
     """Process-sharded encode of one frame (every process passes the whole
-    frame, as api.compress_device takes it): process p encodes the tiles
-    t with t % n == p on `device`; the tile-parts gather to process 0,
+    frame, as api.compress_device takes it: tensors on `device`, else
+    ValueError, numpy arrays uploaded): process p encodes the tiles t
+    with t % n == p on `device`; the tile-parts gather to process 0,
     which returns the codestream, byte-identical to api.compress_device;
     the others return None.
 
@@ -131,7 +132,6 @@ def compress_distributed(arrays, params=None, prec: int = 8,
     from grok_tpu_torch import api
     from grok_tpu_torch.codestream import j2k
     from grok_tpu_torch.core.params import CompressParams, MCTMode
-    from grok_tpu_torch.parallel.sharding import check_mesh
     from grok_tpu_torch.pipeline.serve_enc import try_encode_serving_batch
 
     params = params or CompressParams(ht=True)
@@ -149,14 +149,13 @@ def compress_distributed(arrays, params=None, prec: int = 8,
                          "compress_distributed ignores both and writes "
                          "another stream than grok_tpu.compress): use "
                          "compress_device")
-    comps = api._frame_components(arrays)
-    if params.mct == MCTMode.AUTO_RD and len(comps) >= 3:
+    if params.mct == MCTMode.AUTO_RD and \
+            len(api._frame_components(arrays)) >= 3:
         raise ValueError("distributed encode: MCTMode.AUTO_RD chooses "
                          "between two whole-frame encodes: use "
                          "compress_device")
-    dev = api._device(device)
-    check_mesh(params.mesh, dev)
-    comps = [api._on_device(a, dev)[None] for a in comps]
+    (comps,), _dev = api._frames_on([arrays], params, device)
+    comps = [c[None] for c in comps]
     if len({tuple(c.shape) for c in comps}) != 1:
         raise NotImplementedError("encode of subsampled components is not "
                                   "ported")
@@ -192,19 +191,13 @@ def decompress_distributed(data: bytes, dparams=None, *,
     gather to process 0 as bytes.  Process 0 returns what
     api.decompress_device returns (a one-tile stream's planes, or
     full-image canvases on `device` with the tiles outside a window left
-    at 0); the others return None.  Single-tile and component-subset
-    decodes (tile_index, components) are refused with ValueError, as the
-    JAX function refuses them."""
+    at 0); the others return None.  The JAX function's refused
+    single-tile and component-subset decodes have no field in the port's
+    DecompressParams."""
     from grok_tpu_torch import api
-    from grok_tpu_torch.core.params import DecompressParams
 
-    dp = dparams or DecompressParams()
-    if dp.tile_index is not None or dp.components is not None:
-        raise ValueError("distributed decode: tile and component subsets "
-                         "are single-stream features: use "
-                         "decompress_device")
     dev = api._device(device)
-    dp = api._params(dp, dev)
+    dp = api._params(dparams, dev)
     cs, hdr, by_tile, tile_body = api._tiles(data, dp)
     tiles = sorted(by_tile)
     if len(tiles) > 1:

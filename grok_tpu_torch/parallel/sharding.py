@@ -17,7 +17,9 @@ Two strategies, as in the JAX package:
    ops/t1_decode.py t1_decode_lanes_sharded / ops/t1_encode.py
    t1_encode_lanes_sharded: kernel K3 or K5 launched once per shard, on
    the shard's device, over its share of the lanes).  The global PCRD
-   statistic reduces on the first device (`pcrd_slope_bounds_sharded`).
+   statistic reduces on the first device (`pcrd_slope_bounds_sharded`;
+   the encode does not call it, since its hulls are on the host, where
+   t2/rate.py allocate_layers computes the same bracket).
 
 2. Giant-tile spatial sharding (`make_inv_2d_level_sharded`,
    `make_fwd_2d_level_sharded` and their wrappers): one DWT level's rows

@@ -55,10 +55,11 @@ byte-identical to the JAX package's encoders.
 
 With params.mesh (a parallel/sharding.py Mesh whose first device is the
 frames' device), every forward DWT level is split by rows across the
-mesh with halo exchange, the default-style Part-1 lanes are coded by
-one K5 launch per shard, and the byte targets' PCRD bracket comes from
-the mesh's slope collective, as the JAX package's mesh encode shards
-them; HT lanes (K4, K4r), styled Part-1 lanes and the refinement's
+mesh with halo exchange and the default-style Part-1 lanes are coded
+by one K5 launch per shard, as the JAX package's mesh encode shards
+them (the PCRD slope bracket, which the JAX package reduces over the
+mesh, comes from the hulls on the host here: the port's hulls live
+there); HT lanes (K4, K4r), styled Part-1 lanes and the refinement's
 trial decodes run on the first device.  The bytes equal the unsharded
 encode's.
 """
@@ -759,7 +760,7 @@ def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
     finish = dict(quality_targets=quality_targets_for_tile(hdr, plan.geo,
                                                            params),
                   pocs=hdr.pocs, split_headers=bool(params.write_ppm),
-                  device=lanes[0].device, mesh=mesh)
+                  device=lanes[0].device)
     if plan.coder == "mq":
         encs = _encode_mq(plan, lanes, want_dist, mesh=mesh)
     else:

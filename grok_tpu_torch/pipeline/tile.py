@@ -249,8 +249,7 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
                        seg_style_mask: int = -1, *, device,
                        quality_targets: list | None = None,
                        pocs: list | None = None,
-                       split_headers: bool = False,
-                       mesh=None) -> TileEncodeResult:
+                       split_headers: bool = False) -> TileEncodeResult:
     """Rate allocation + Tier-2 emission over already-coded blocks.
 
     ejobs need key (c, r, p, band_i, cblk_i), mb and, for the PCRD
@@ -277,11 +276,7 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
     are their bodies alone.
     seg_style_mask: AND-mask on the Tier-2 segmentation style (HT-mixed
     sets emit with ~CBLK_HT); the emitter chunks each block's codeword by
-    its passes' termination flags.
-    mesh: the encode's device mesh (parallel/sharding.py Mesh): the byte
-    targets' bisection bracket comes from its slope collective
-    (pcrd_slope_bounds_sharded), as the JAX package's mesh encode takes
-    it; it equals the bracket computed on the host."""
+    its passes' termination flags."""
     num_layers = geo.cod.num_layers
     trivial = quality_targets is None and num_layers == 1 and (
         not layer_targets or all(t is None for t in layer_targets))
@@ -418,13 +413,8 @@ def finish_tile_encode(geo: TileGeometry, ejobs: list[dict], encs: list,
         layer_cum = allocate_layers_quality(hulls, num_layers, conv,
                                             totals, dists_list)
     else:
-        bounds = None
-        if mesh is not None:
-            from grok_tpu_torch.parallel.sharding import \
-                pcrd_slope_bounds_sharded
-            bounds = pcrd_slope_bounds_sharded(hulls, mesh)
         layer_cum = allocate_layers(hulls, num_layers, layer_targets or [],
-                                    simulate, totals, slope_bounds=bounds,
+                                    simulate, totals,
                                     pass_rates=rate_tables)
     changes, trials = _refine_truncations(ejobs, encs, layer_cum, device)
     if prep is not None:

@@ -126,7 +126,6 @@ def _cum_lookup(mat: np.ndarray, cum: np.ndarray) -> float:
 def allocate_layers(hulls: list[Hull], num_layers: int,
                     targets: list[float | None], simulate,
                     total_passes: list[int] | None = None,
-                    slope_bounds: tuple[float, float] | None = None,
                     pass_rates: list | None = None) -> list[list[int]]:
     """Assign cumulative pass counts per layer for every block.
 
@@ -145,10 +144,6 @@ def allocate_layers(hulls: list[Hull], num_layers: int,
     layer to a handful of emissions — the scaling fix for multi-tile /
     gigapixel allocation (SURVEY §2 row 13).
 
-    slope_bounds: the bisection bracket (smin, smax) where the caller
-    reduced it itself (parallel/sharding.py pcrd_slope_bounds_sharded, the
-    mesh encode's collective); it equals the one computed here.
-
     Returns layer_cum[block][layer].
     """
     nb = len(hulls)
@@ -163,14 +158,11 @@ def allocate_layers(hulls: list[Hull], num_layers: int,
     def body_bytes(cum) -> float:
         return _cum_lookup(rates_mat, np.asarray(cum, np.int64))
 
-    if slope_bounds is not None:
-        smin, smax = slope_bounds
-    else:
-        all_slopes = np.concatenate(
-            [h.slopes for h in hulls if len(h.slopes)]) \
-            if any(len(h.slopes) for h in hulls) else np.array([1.0])
-        smin = float(all_slopes.min()) * 0.5
-        smax = float(all_slopes.max()) * 2.0 + 1.0
+    all_slopes = np.concatenate(
+        [h.slopes for h in hulls if len(h.slopes)]) \
+        if any(len(h.slopes) for h in hulls) else np.array([1.0])
+    smin = float(all_slopes.min()) * 0.5
+    smax = float(all_slopes.max()) * 2.0 + 1.0
 
     for l in range(num_layers):
         tgt = targets[l] if l < len(targets) else None

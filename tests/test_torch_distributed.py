@@ -6,9 +6,10 @@ grok_tpu.compress / decompress at the parameters of
 tests/test_distributed.py (its tiling and resolutions; the frames coded
 in HT blocks, and Part-1 in 8x8 blocks, where the plain versions' cost on
 the CPU stays small), the refusals (ht_mixed and ht_planes too, which the
-JAX function ignores), and a real two-process Gloo run of subprocess
-workers that import no JAX; and the build's cross-process lock, two
-processes building one scratch build directory cold."""
+JAX function ignores, and a tensor on another device than asked), and a
+real two-process Gloo run of subprocess workers that import no JAX; and
+the build's cross-process lock, two processes building one scratch build
+directory cold."""
 
 import os
 import socket
@@ -85,6 +86,23 @@ def test_compress_distributed_refuses_auto_rd():
                              PCP(mct=MCTMode.AUTO_RD), device="cpu")
 
 
+@pytest.mark.parametrize("device", ["cuda", "cuda:0", "meta"])
+def test_compress_distributed_tensor_on_another_device_raises(device):
+    # as compress_device_batch: a tensor is never encoded where it lies
+    # in place of the asked device, with or without a card
+    frame = torch.zeros((16, 16), dtype=torch.int32)
+    with pytest.raises(ValueError, match="asked to run on"):
+        compress_distributed(frame, PCP(ht=True), device=device)
+
+
+def test_compress_distributed_tensor_input_matches():
+    img = synthetic_image(96, 80, 1, seed=4)
+    kw = dict(TILED, ht=True)
+    got = compress_distributed(torch.from_numpy(img.astype(np.int32)),
+                               PCP(**kw), device="cpu")
+    assert got == api.compress_device(img, PCP(**kw), device="cpu")
+
+
 @pytest.fixture(scope="module")
 def rgb_stream():
     img = synthetic_image(160, 128, 3, seed=2)
@@ -120,12 +138,12 @@ def test_decompress_distributed_window_matches(win):
 
 
 def test_decompress_distributed_rejects_subset_modes():
-    cs = compress(synthetic_image(64, 64, 1, seed=1),
-                  JCP(num_resolutions=2, ht=True))
-    with pytest.raises(ValueError):
-        decompress_distributed(cs, PDP(tile_index=0), device="cpu")
-    with pytest.raises(ValueError):
-        decompress_distributed(cs, PDP(components=[0]), device="cpu")
+    # the JAX function's refused subset decodes have no field in the
+    # port's parameters: they are refused before any decode starts
+    with pytest.raises(TypeError):
+        PDP(tile_index=0)
+    with pytest.raises(TypeError):
+        PDP(components=[0])
 
 
 _WORKER = textwrap.dedent("""

@@ -292,9 +292,9 @@ def test_public_api_mesh_decode(jmesh, monkeypatch, shape, kw):
     dict(num_resolutions=3, ht=True)])
 def test_sharded_encode_byte_identical(monkeypatch, kw):
     """compress_device(mesh=...) at test_parallel.py's parameters (and in
-    HT, whose lanes stay on the first device): forward DWT rows, K5 lanes
-    (one call a shard) and the PCRD bracket sharded; bytes equal to the
-    unmeshed port and to grok_tpu.compress."""
+    HT, whose lanes stay on the first device): forward DWT rows and K5
+    lanes (one call a shard) sharded; bytes equal to the unmeshed port
+    and to grok_tpu.compress."""
     img = synthetic_image(160, 140, 1, seed=21)
     host = api.compress_device(img, PCP(**kw, **BLK), device="cpu")
     calls = _count(monkeypatch, t1_encode, "t1_encode_lanes")
@@ -340,8 +340,8 @@ def test_mesh_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="visible"):
             ps.tile_mesh(device="cuda")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        api.decompress_device(cs, PDP(tile_index=0), device="cpu")
+    with pytest.raises(TypeError):
+        PDP(tile_index=0)
 
 
 def test_entry_and_dryrun_multichip():
@@ -351,3 +351,24 @@ def test_entry_and_dryrun_multichip():
     assert coefs.abs().max() > 0 and torch.equal(coefs, back)
     got = dryrun_multichip(2, device="cpu")
     assert got["mesh"] == ["cpu", "cpu"] and np.isfinite(got["dist"])
+
+
+def test_mesh_probe_measurement_on_cpu():
+    """tools/mesh_probe.py's giant_tile and finest_level (the measurement
+    chip_smoke.py's phase 27 runs) at a small size on CPU shards: the
+    meshed bytes and planes equal the unmeshed ones, one K5 and one K3
+    call a shard is kept for the recorded mesh."""
+    from grok_tpu_torch.tools import mesh_probe
+    img = synthetic_image(48, 40, 1, seed=27)
+    src = torch.from_numpy(img)
+    meshes = {"unmeshed": None, "2 shards": Mesh(("cpu",) * 2)}
+    got = mesh_probe.giant_tile("G", src, PCP(num_resolutions=2, **BLK),
+                                meshes, "cpu", reps=1, record="2 shards")
+    assert got["2 shards"]["bytes"] == got["unmeshed"]["bytes"] == \
+        compress(img, JCP(num_resolutions=2, **BLK))
+    assert np.array_equal(got["2 shards"]["planes"].numpy(), img)
+    assert len(got["2 shards"]["k5_calls"]) == 2
+    assert len(got["2 shards"]["k3_calls"]) == 2
+    assert not got["unmeshed"]["k5_calls"]
+    times = mesh_probe.finest_level(src, meshes, reps=1)
+    assert set(times) == set(meshes)
