@@ -274,6 +274,38 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                and the source; best of 3 calls after a warm-up against
                the single process's.
 
+  29. X, D24  — mixed filters and encodes past 24 planes: (X) the
+               committed 1080p RGB streams of grok_tpu_torch/util/
+               mixed_vectors.npz (component 1 on the 9/7, 0 and 2 on the
+               5/3, Part-1 and HT at 24:1) decoded served and on the
+               general route, whole and in a 512x512 window, the 5/3
+               planes to their committed hashes, the 9/7 plane within 1
+               of the JAX package's decode, a warm-up and 2 calls each;
+               (D24) a 1920x1080 24-bit gray frame (the seed's frame
+               spread to 24 bits, with a 256x512 region of full-range
+               noise) encoded on the card lossless in HT and Part-1
+               (decoded back bit for bit) and in HT, Part-1 and refined HT
+               in 3 layers at 40:1, 10:1, 4:1 (every layer prefix within
+               its budget, PSNR rising), a warm-up and 2 calls each; the
+               warm-up's own K4 and K4r launches held, on their largest
+               lane past 24 planes and the 15 smallest, against the plain
+               versions, and every launch timed with its bound; 64x64
+               crops of the noise (16x16 blocks; HT on the 5/3 and on
+               the 9/7, whose transforms run in float64 past 24 planes)
+               equal to the plain versions' CPU encode, the crop's K5
+               launch held on its largest lane past 24 planes and the 15
+               smallest (the plain K5 takes minutes on a 64x64 lane of 27
+               planes).
+  30. C-stream — (C) written tile by tile by codec.py Compressor to a
+               temporary file: equal to compress_device_batch, and again
+               after a stop at 4 tiles and a resume; Decompressor's tiles
+               equal to the decompress_device canvas, whole and in a
+               1024x1024 window, decompress() the source.
+  31. CLI     — grok_tpu_torch.cli compress -> dump -> decompress through
+               main(argv) on a 1920x1080 PPM (HT) and a 1920x1080 24-bit
+               PGX (Part-1, JP2) in a temporary folder: the decoded file
+               equal to the source.
+
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
 nothing of the JAX package is imported: a finder installed first refuses
@@ -2779,6 +2811,363 @@ def main() -> int:
     print(f"multi-process phase: {time.perf_counter() - t_mp:.1f} s",
           flush=True)
 
+    # ---- 29. mixed filters and encodes past 24 planes ---------------------
+    from grok_tpu_torch.util import mixed_vectors
+    t_hp = time.perf_counter()
+    # (X) the committed mixed-filter streams: component 1 on the 9/7,
+    # components 0 and 2 on the 5/3, decoded served and on the general
+    # route, whole and in a 512x512 window
+    wx0, wy0, wx1, wy1 = mixed_vectors.WINDOW
+    REPS_HP = 2
+    for name, (data, sha, sha_win, irrev) in mixed_vectors.load().items():
+        kern = "K1" if name == "ht" else "K3"
+        want97 = torch.from_numpy(irrev.astype(np.int64)).to(dev)
+        for route in ("served", "general"):
+            for win in (None, mixed_vectors.WINDOW):
+                dp = DP(window=win)
+
+                def decode(dp=dp, route=route):
+                    if route == "served":
+                        return api.decompress_device(data, dp, device=dev)
+                    return api.stage_general_device(data, dp,
+                                                    device=dev).run()
+                counts_zero()
+                times = []
+                for _rep in range(REPS_HP + 1):     # a warm-up first
+                    out, dt = timed(decode)
+                    times.append(dt)
+                dt = min(times[1:])
+                got = counts()
+                need(f"X-{name} {route} decode", got, [kern],
+                     ["K4", "K4r", "K5"] + v1s)
+                planes = [p.cpu().numpy() for p in out]
+                p97 = out[mixed_vectors.IRREV_COMP].long()
+                if win is None:
+                    ok = mixed_vectors.exact_hashes(planes)[0] == sha
+                    e97 = int((p97 - want97).abs().max())
+                else:
+                    ok = mixed_vectors.exact_hashes(planes)[1] == sha_win
+                    e97 = int((p97[wy0:wy1, wx0:wx1]
+                               - want97[wy0:wy1, wx0:wx1]).abs().max())
+                if not ok or e97 > 1:
+                    _fail(f"X-{name} {route} {'window' if win else 'whole'}"
+                          f": 5/3 planes equal {ok}, 9/7 plane within "
+                          f"{e97}")
+                print(f"decode X-{name} {route} "
+                      f"{'512x512 window' if win else 'whole'}: the 5/3 "
+                      f"planes equal the committed hash, the 9/7 plane "
+                      f"within {e97}; best of {REPS_HP} {dt * 1e3:.3f} ms, "
+                      f"{kern} {got[kern] / (REPS_HP + 1):g} a decode "
+                      f"[{card}]", flush=True)
+
+    # (D24) a 1920x1080 24-bit gray frame: lossless HT and Part-1, and HT,
+    # Part-1 and refined HT in 3 layers at 40:1, 10:1, 4:1
+    # the seed's 8-bit frame spread to 24 bits, its low byte noise, and a
+    # 256x512 region of full-range noise whose high-pass magnitudes pass
+    # 2^24 (lanes of 25 and more planes)
+    rng24 = np.random.default_rng(24)
+    deep_img = (synthetic_image(1080, 1920, 1, seed=24).astype(np.int64)
+                * 65793).astype(np.int32)
+    deep_img ^= rng24.integers(0, 256, deep_img.shape, dtype=np.int32)
+    deep_img[:256, :512] = rng24.integers(0, 1 << 24, (256, 512),
+                                          dtype=np.int32)
+    deep = upload(deep_img[..., None])
+    deep_rec = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "launches": 0,
+                    "lanes": 0, "plain_lanes": 0} for k in ("K4", "K4r",
+                                                            "K5")}
+    lay3 = dict(num_layers=3, rates=[40.0, 10.0, 4.0])
+    d24 = {"ht": CompressParams(ht=True, num_resolutions=6),
+           "p1": CompressParams(num_resolutions=6),
+           "ht_lay": CompressParams(ht=True, num_resolutions=6, **lay3),
+           "p1_lay": CompressParams(num_resolutions=6, **lay3),
+           "ref_lay": CompressParams(ht=True, ht_planes=2,
+                                     num_resolutions=6, **lay3)}
+    for name, params in d24.items():
+        counts_zero()
+        times, out, calls = [], None, []
+        for rep in range(REPS_HP + 1):
+            with (enc_recorded() if rep == 0 else
+                  contextlib.nullcontext()) as rec:
+                s, dt = timed(lambda: api.compress_device(
+                    deep, params, prec=24, device=dev))
+            if rep == 0:
+                calls = rec
+            times.append(dt)
+            if out is not None and s != out:
+                _fail(f"encode D24 {name}: reps gave different bytes")
+            out = s
+        got = counts()
+        kern = "K4r" if params.ht_planes else "K4" if params.ht else "K5"
+        need(f"D24 {name} encode", got, [kern], ["K1", "K2"] + v1s)
+        mb = max(serve_enc._plan_for(api._build_main_header(
+            1080, 1920, 1, 24, False, params), 0).lane_mb)
+        if params.rates:
+            hdr24 = api._build_main_header(1080, 1920, 1, 24, False, params)
+            res, = serve_enc.try_encode_serving_batch(
+                [deep[0][None]], hdr24, params)
+            if not out.endswith(res.body + b"\xff\xd9"):
+                _fail(f"encode D24 {name}: the tile body differs from the "
+                      f"API stream's")
+            targets = layer_targets_for_tile(
+                layer_budget_consts(hdr24, params), hdr24.siz.tile_rect(0),
+                params)
+            per = len(res.packet_lens) // 3
+            prefix = [int(sum(res.packet_lens[:per * (k + 1)]))
+                      for k in range(3)]
+            if any(p > t for p, t in zip(prefix, targets)):
+                _fail(f"encode D24 {name}: layer prefixes {prefix} over "
+                      f"the budgets {targets}")
+            dec = [api.decompress_device(out, DP(max_layers=k), device=dev)
+                   [0].double() for k in (1, 3)]
+            ref = deep[0].double()
+            snr = [10 * np.log10(float(((1 << 24) - 1) ** 2
+                                       / ((d - ref) ** 2).mean()))
+                   for d in dec]
+            if not snr[0] < snr[1]:
+                _fail(f"decode D24 {name}: PSNR {snr} does not rise")
+            budgets = [round(t, 1) for t in targets]
+            what = (f"layer prefixes {prefix} within {budgets}; PSNR at 1 "
+                    f"and 3 layers {snr[0]:.2f}, {snr[1]:.2f} dB")
+        else:
+            back = api.decompress_device(out, device=dev)[0]
+            if not torch.equal(back, deep[0]):
+                _fail(f"decode D24 {name}: not the source")
+            what = "decoded back to the source bit for bit"
+        print(f"encode D24 {name}: {len(out)} bytes, Mb up to {mb}; "
+              f"{what}; best of {REPS_HP}: {min(times[1:]) * 1e3:.3f} "
+              f"ms/call; {kern} {got[kern] / (REPS_HP + 1):g} a call "
+              f"[{card}]", flush=True)
+        # the warm-up's own launches, on their lanes past 24 planes (K5's
+        # are held below, on the 64x64 crop: its plain version takes
+        # minutes on a 64x64 lane of 27 planes)
+        for kn, a, res_ in calls:
+            if kn == "K5":
+                ins, (L, R) = a[:5], a[5:7]
+                keep = ins[2] > 24
+                sel, ok, p_ms = torch.zeros(0), True, 0.0
+                nb = _k5_bytes(ins, res_[1], tables)
+
+                def launch(ins=ins, L=L, R=R):
+                    return t1_encode.t1_encode_lanes(*ins, L, R)
+            else:
+                lanes, caps = a[:5], tuple(a[5:8])
+                H, W = lanes[0].shape[1:]
+                mag = (lanes[0] >> 1).amax((1, 2)).long()
+                keep = (lanes[4] == 1) & (mag >= (1 << 24))
+                sel = held_lanes(keep, lanes[2], lanes[3], mag)
+                sub = tuple(t.index_select(0, sel) for t in lanes)
+                refine = kn == "K4r"
+
+                def plain(sub=sub, caps=caps, refine=refine, W=W, H=H):
+                    st, bt = ht_encode.ht_encode_lanes_ref(*sub, *caps)
+                    if not refine:
+                        return st, bt
+                    sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(
+                        *sub, *ht_encode.refine_caps(W, H))
+                    return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
+                ref, p_ms = _plain_ms(torch, plain)
+                allc = caps + (ht_encode.refine_caps(W, H) if refine else ())
+                ok = hw_validate.ht_encodes_equal(
+                    (res_[0].index_select(0, sel), res_[1][:, sel])
+                    + tuple(t.index_select(0, sel) for t in res_[2:]), ref,
+                    allc[:-1])
+                nb = (_k4r_bytes if refine else _k4_bytes)(lanes, res_[1],
+                                                           lut_e)
+
+                def launch(lanes=lanes, caps=caps, refine=refine):
+                    return ht_encode.ht_encode_lanes(*lanes, *caps,
+                                                     refine=refine)
+            if not bool(keep.any()):
+                _fail(f"D24 {name}: no {kn} lane past 24 planes")
+            if not ok:
+                {"K4": k4, "K4r": k4r, "K5": k5}[kn]["err"] = 1
+                _fail(f"{kn} disagrees with its plain version on the lanes "
+                      f"past 24 planes of D24 {name}")
+            k_ms = kernel_ms(dev, launch)
+            r = deep_rec[kn]
+            r["ms"] += k_ms
+            r["plain_ms"] += p_ms
+            r["bytes"] += nb
+            r["launches"] += 1
+            r["lanes"] += int(a[0].shape[0])
+            r["plain_lanes"] += int(sel.numel())
+            held = (f"{sel.numel()} of them (the largest and the 15 "
+                    f"smallest) equal to the plain version, plain "
+                    f"{p_ms:.1f} ms" if sel.numel() else
+                    "held on the 64x64 crop below")
+            print(f"{kn} D24 {name}: the main path's {a[0].shape[0]} lanes, "
+                  f"{int(keep.sum())} past 24 planes, {held}; the launch "
+                  f"{k_ms:.4f} ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                  f"({nb} bytes) [{card}]", flush=True)
+    # a 64x64 crop of the noise (16x16 blocks): the card's encodes equal
+    # the plain versions' on the CPU, and its K5 launch's largest lane past
+    # 24 planes and 15 smallest equal to the plain version
+    crop = np.ascontiguousarray(deep_img[:64, :64])
+    d24["ht97"] = CompressParams(ht=True, irreversible=True)   # in float64
+    for name in ("ht", "ht97", "p1_lay", "ref_lay"):
+        p = replace(d24[name], num_resolutions=3, cblk_w_exp=4, cblk_h_exp=4)
+        with enc_recorded() as calls:
+            on_card = api.compress_device(crop, p, prec=24, device=dev)
+        if on_card != api.compress_device(crop, p, prec=24, device="cpu"):
+            _fail(f"D24 {name}: the card's 64x64 encode differs from the "
+                  f"plain versions' on the CPU")
+        for kn, a, res_ in calls:
+            if kn != "K5":
+                continue
+            ins, (L, R) = a[:5], a[5:7]
+            keep = ins[2] > 24
+            sel = held_lanes(keep, ins[3], ins[4], ins[2])
+            sub = tuple(t.index_select(0, sel) for t in ins)
+            ref, p_ms = _plain_ms(torch, lambda: t1_encode
+                                  .t1_encode_lanes_ref(*sub, L, R))
+            if not bool(keep.any()) or not hw_validate.encodes_equal(
+                    tuple(t.index_select(0, sel) for t in res_), ref):
+                k5["err"] = 1
+                _fail("K5 disagrees with its plain version on the crop's "
+                      "lanes past 24 planes (or it has none)")
+            deep_rec["K5"]["plain_ms"] += p_ms
+            deep_rec["K5"]["plain_lanes"] += int(sel.numel())
+            print(f"K5 D24 crop {name}: {sel.numel()} of the launch's "
+                  f"{a[0].shape[0]} lanes ({int(keep.sum())} past 24 planes;"
+                  f" the largest of those and the 15 smallest) equal to the "
+                  f"plain version, plain {p_ms:.1f} ms [{card}]", flush=True)
+    for kn, r in deep_rec.items():
+        if not r["launches"] or not r["plain_lanes"]:
+            _fail(f"no {kn} launch past 24 planes was held against its "
+                  f"plain version")
+    print(f"D24: 64x64 crops in HT (5/3 and 9/7), layered Part-1 and "
+          f"layered refined HT equal to the CPU encode byte for byte",
+          flush=True)
+    print(f"mixed-filter and high-precision phase: "
+          f"{time.perf_counter() - t_hp:.1f} s", flush=True)
+
+    # ---- 30. streaming: Compressor and Decompressor on (C) ----------------
+    import tempfile
+    from grok_tpu_torch.codec import Compressor, Decompressor
+    t_st = time.perf_counter()
+    pc = CompressParams(ht=True, num_resolutions=6, tile_w=1024,
+                        tile_h=1024, write_tlm=True)
+    uhd_dev = upload(uhd)
+    want_c = api.compress_device_batch([uhd_dev], pc, device=dev)[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        def stream_to(path, tiles, resume=False):
+            enc = Compressor(path, width=3840, height=2160, numcomps=3,
+                             params=pc, resume=resume, device=dev)
+            for t in tiles:
+                r = enc._hdr.siz.tile_rect(t)
+                enc.write_tile(t, [c[r.y0:r.y1, r.x0:r.x1] for c in uhd_dev])
+            return enc
+        counts_zero()
+        (enc, dt) = timed(lambda: stream_to(os.path.join(tmp, "c.j2k"),
+                                            range(12)))
+        enc.finish()
+        got = counts()
+        with open(os.path.join(tmp, "c.j2k"), "rb") as f:
+            if f.read() != want_c:
+                _fail("C-stream: Compressor's bytes differ from "
+                      "compress_device_batch's")
+        if got["K4"] != 12:
+            _fail(f"C-stream: {got['K4']} K4 launches for 12 tiles")
+        part = stream_to(os.path.join(tmp, "r.j2k"), range(4))
+        part._fh.close()
+        enc2 = stream_to(os.path.join(tmp, "r.j2k"), range(12), resume=True)
+        enc2.finish()
+        with open(os.path.join(tmp, "r.j2k"), "rb") as f:
+            if f.read() != want_c:
+                _fail("C-stream: the resumed stream differs")
+        print(f"C-stream: Compressor wrote (C) tile by tile in "
+              f"{dt * 1e3:.3f} ms (12 K4 launches), equal to "
+              f"compress_device_batch, and equal again after a stop at 4 "
+              f"tiles and a resume [{card}]", flush=True)
+        path = os.path.join(tmp, "c.j2k")
+        canvas = api.decompress_device(want_c, device=dev)
+        with Decompressor(path, device=dev) as dec:
+            counts_zero()
+            for t in range(dec.num_tiles):
+                r = dec._hdr.siz.tile_rect(t)
+                tl = dec.decompress_tile(t)
+                if not all(torch.equal(a[:r.h, :r.w],
+                                       c[r.y0:r.y1, r.x0:r.x1])
+                           for a, c in zip(tl, canvas)):
+                    _fail(f"C-stream: Decompressor's tile {t} differs from "
+                          f"the decompress_device canvas")
+            n_tiles = counts()["K1"]
+            img, dt = timed(dec.decompress)
+            if not np.array_equal(img.to_array(), uhd):
+                _fail("C-stream: Decompressor.decompress is not the source")
+        win = (1000, 700, 2024, 1724)
+        wcanvas = api.decompress_device(want_c, DP(window=win), device=dev)
+        with Decompressor(path, DP(window=win), device=dev) as dec:
+            for t in (0, 1, 4, 5):
+                r = dec._hdr.siz.tile_rect(t)
+                tl = dec.decompress_tile(t)
+                x0, y0 = max(r.x0, win[0]), max(r.y0, win[1])
+                x1, y1 = min(r.x1, win[2]), min(r.y1, win[3])
+                if not all(torch.equal(
+                        a[y0 - r.y0:y1 - r.y0, x0 - r.x0:x1 - r.x0],
+                        c[y0:y1, x0:x1]) for a, c in zip(tl, wcanvas)):
+                    _fail(f"C-stream: windowed tile {t} differs")
+            wimg = dec.decompress()
+            if not np.array_equal(wimg.to_array(),
+                                  uhd[win[1]:win[3], win[0]:win[2]]):
+                _fail("C-stream: the windowed Image is not the source's "
+                      "region")
+        print(f"C-stream: Decompressor's 12 tiles ({n_tiles} K1 launches) "
+              f"equal the decompress_device canvas, tiles 0, 1, 4, 5 inside "
+              f"the {win} window too; decompress() the source in "
+              f"{dt * 1e3:.3f} ms, the window's region [{card}]",
+              flush=True)
+    print(f"streaming phase: {time.perf_counter() - t_st:.1f} s", flush=True)
+
+    # ---- 31. the CLI tools: compress -> dump -> decompress -----------------
+    import io
+    from grok_tpu_torch.cli import compress as cli_c
+    from grok_tpu_torch.cli import decompress as cli_d
+    from grok_tpu_torch.cli import dump as cli_dump
+    from grok_tpu_torch.util import imageio
+    t_cli = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm, pgx = os.path.join(tmp, "b.ppm"), os.path.join(tmp, "d.pgx")
+        with open(ppm, "wb") as f:
+            f.write(b"P6\n1920 1080\n255\n"
+                    + rgb[0].astype(np.uint8).tobytes())
+        with open(pgx, "wb") as f:
+            f.write(b"PG ML +24 1920 1080\n" + deep_img.astype(">u4")
+                    .tobytes())
+        for src, enc_name, flags, out_name in (
+                (ppm, "b.j2k", ["-HT"], "b_out.ppm"),
+                (pgx, "d.jp2", [], "d_out.pgx")):
+            j = os.path.join(tmp, enc_name)
+            o = os.path.join(tmp, out_name)
+            counts_zero()
+            t0 = time.perf_counter()
+            if cli_c.main(["-i", src, "-o", j] + flags) != 0:
+                _fail(f"CLI compress {src} failed")
+            t1 = time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = cli_dump.main(["-i", j])
+            if rc != 0 or "Main header:" not in text.getvalue():
+                _fail(f"CLI dump {enc_name} failed")
+            t2 = time.perf_counter()
+            if cli_d.main(["-i", j, "-o", o]) != 0:
+                _fail(f"CLI decompress {enc_name} failed")
+            t3 = time.perf_counter()
+            got = counts()
+            if not any(got[k] for k in ("K4", "K5")) or \
+                    not any(got[k] for k in ("K1", "K3")):
+                _fail(f"CLI {enc_name}: the tools launched no kernel: {got}")
+            back = imageio.read_image(o).to_array()
+            want_a = imageio.read_image(src).to_array()
+            if not np.array_equal(back, want_a):
+                _fail(f"CLI {enc_name}: the decoded file is not the source")
+            print(f"CLI {os.path.basename(src)}: compress -> {enc_name} "
+                  f"({os.path.getsize(j)} bytes) {(t1 - t0) * 1e3:.1f} ms, "
+                  f"dump {(t2 - t1) * 1e3:.1f} ms, decompress -> {out_name} "
+                  f"{(t3 - t2) * 1e3:.1f} ms, equal to the source; "
+                  f"launches {got} [{card}]", flush=True)
+    print(f"CLI phase: {time.perf_counter() - t_cli:.1f} s", flush=True)
+
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -2803,6 +3192,12 @@ def main() -> int:
             r["wide"] = shapes
         if kern in sharded:         # phase 27: (G)'s launches per shard
             r["sharded"] = sharded[kern]
+        if kern in deep_rec:        # phase 29: lanes past 24 planes
+            d = deep_rec[kern]
+            r["deep"] = {"ms": d["ms"], "plain_ms": d["plain_ms"],
+                         "bound_ms": d["bytes"] / HBM_BYTES_PER_S * 1e3,
+                         "launches": d["launches"], "lanes": d["lanes"],
+                         "plain_lanes": d["plain_lanes"]}
         if kern == "K5":            # phase 25: the styled launches
             r["styled"] = {
                 "ms": k5s["ms"], "default_ms": k5s["default_ms"],

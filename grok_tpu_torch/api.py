@@ -18,7 +18,7 @@ raise NotImplementedError instead of falling back to a host codec.
 from __future__ import annotations
 
 import struct
-from dataclasses import replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from grok_tpu_torch.pipeline.serve import (GeneralRoute, StagedBatch,
                                            try_decode_serving_batch)
 from grok_tpu_torch.pipeline.serve_enc import try_encode_serving_batch
 from grok_tpu_torch.pipeline.tile import decode_tile, stage_general
+from grok_tpu_torch.util.trace import trace
 
 
 def _params(dparams: DecompressParams | None,
@@ -165,12 +166,14 @@ def decompress_device_batch(streams: list[bytes],
 def _decode_tile_on(cs, hdr, t: int, th, body: bytes, dp,
                     dev: torch.device) -> list:
     """Per-component tensors of one tile: served, or on GeneralRoute
-    decoded by the general device route."""
-    try:
-        return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
-                                        device=dev)[0]
-    except GeneralRoute:
-        return decode_tile(cs, hdr, t, th, body, dp, device=dev)
+    decoded by the general device route (a host span "tile_decode" when
+    util/trace.py is on)."""
+    with trace("tile_decode", tile=t):
+        try:
+            return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
+                                            device=dev)[0]
+        except GeneralRoute:
+            return decode_tile(cs, hdr, t, th, body, dp, device=dev)
 
 
 def decompress_device(data: bytes, dparams: DecompressParams | None = None,
@@ -263,6 +266,85 @@ def _tiles(data: bytes, dp: DecompressParams) -> tuple:
     ppm, plm = _main_header_packets(hdr, parts)
     return cs, hdr, by_tile, \
         lambda t: _tile_body(cs, hdr, by_tile[t], ppm, plm)
+
+
+@dataclass
+class HeaderInfo:
+    """grk_header_info analog (grok_tpu/api.py `HeaderInfo`)."""
+
+    width: int
+    height: int
+    x0: int
+    y0: int
+    numcomps: int
+    prec: list[int]
+    sgnd: list[bool]
+    subsampling: list[tuple[int, int]]
+    num_tiles: int
+    tile_size: tuple[int, int]
+    num_resolutions: int
+    num_layers: int
+    prog_order: int
+    irreversible: bool
+    mct: int
+    cblk_size: tuple[int, int]
+    color_space: ColorSpace = ColorSpace.UNSPECIFIED
+    comments: list[bytes] = field(default_factory=list)
+    is_jp2: bool = False
+    rsiz: int = 0
+
+
+def _locate_codestream_span(data, permissive: bool = False) -> tuple:
+    """(codestream start, end, JP2 meta or None) without copying, as
+    grok_tpu/api.py `_locate_codestream_span`: a mapped source keeps its
+    codestream as a view."""
+    if jp2.is_jp2(data):
+        return jp2.parse_jp2(data, permissive)
+    if jp2.is_j2k(data):
+        return 0, len(data), None
+    raise j2k.CodestreamError("not a JPEG 2000 codestream or JP2 file")
+
+
+def read_header(data) -> HeaderInfo:
+    """The stream's HeaderInfo: main header and JP2 boxes only, no pixel
+    work."""
+    s, e, meta = _locate_codestream_span(data)
+    cs = data if (s, e) == (0, len(data)) else memoryview(data)[s:e]
+    return _header_info_from(j2k.read_main_header(cs), meta)
+
+
+def _header_info_from(hdr, meta) -> HeaderInfo:
+    """HeaderInfo from a parsed MainHeader and JP2 meta (or None), as
+    grok_tpu/api.py `_header_info_from` builds it."""
+    g = hdr.siz.normalized()
+    color = ColorSpace.UNSPECIFIED
+    if meta is not None:
+        color = meta.color_space
+    elif hdr.numcomps == 1:
+        color = ColorSpace.GRAY
+    elif hdr.numcomps == 3 and hdr.cod.mct:
+        color = ColorSpace.SRGB
+    return HeaderInfo(
+        width=g.xsiz - g.xosiz, height=g.ysiz - g.yosiz,
+        x0=g.xosiz, y0=g.yosiz,
+        numcomps=hdr.numcomps,
+        prec=[c.prec for c in hdr.comps],
+        sgnd=[c.sgnd for c in hdr.comps],
+        subsampling=[(c.dx, c.dy) for c in hdr.comps],
+        num_tiles=hdr.siz.num_tiles,
+        tile_size=(g.xtsiz, g.ytsiz),
+        num_resolutions=hdr.cod.comp.num_resolutions,
+        num_layers=hdr.cod.num_layers,
+        prog_order=int(hdr.cod.prog_order),
+        irreversible=hdr.cod.comp.irreversible,
+        mct=hdr.cod.mct,
+        cblk_size=(1 << hdr.cod.comp.cblk_w_exp,
+                   1 << hdr.cod.comp.cblk_h_exp),
+        color_space=color,
+        comments=[c for (_r, c) in hdr.comments],
+        is_jp2=meta is not None,
+        rsiz=hdr.rsiz,
+    )
 
 
 def stage_general_device(data: bytes,

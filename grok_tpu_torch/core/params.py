@@ -6,11 +6,16 @@ execution switch of that name: a parallel/sharding.py Mesh of PyTorch
 devices (one process drives them all) over which an encode shards its
 forward DWT levels by rows and its default-style Part-1 lanes (K5), and
 a decode its default-style Part-1 lanes (K3) and its synthesis levels;
-its first device must be the entry point's device.  The JAX package's
-other execution switches (`backend`, `keep_device`), its single-tile and
-component-subset decodes (`tile_index`, `components`) and its host
-post-processing options have no counterpart: such a field is refused
-by the constructor (TypeError) rather than ignored.
+its first device must be the entry point's device.  The host
+post-processing options (`force_rgb`, `upsample`, `apply_icc`) apply
+where the port returns a host Image (codec.py Decompressor.decompress,
+the CLI tools; pipeline/postproc.py); the device entry points return the
+decoded planes and ignore them.  The JAX package's other execution
+switches (`backend`, `keep_device`) and its single-tile and
+component-subset decodes (`tile_index`, `components`: the port decodes
+one tile through codec.py Decompressor.decompress_tile) have no
+counterpart: such a field is refused by the constructor (TypeError)
+rather than ignored.
 """
 
 from __future__ import annotations
@@ -154,3 +159,6 @@ class DecompressParams:
     mesh: object = None             # parallel/sharding.py Mesh: decode the
                                     # default-style Part-1 lanes and the
                                     # synthesis levels sharded over it
+    force_rgb: bool = False         # host Image post-processing
+    upsample: bool = False          # (pipeline/postproc.py)
+    apply_icc: bool = False

@@ -69,9 +69,10 @@ import torch
 from grok_tpu_torch.ops.ht_encode import lane_dims_ok, stripe_order
 from grok_tpu_torch.t1ht import tables as _t
 
-# Longest per-lane clean sub-stream the serving path stages (bytes):
-# dense 64x64 lossless streams are ~8 KB.
-MAX_STREAM = 256 * 32 - 8
+# Longest per-lane clean sub-stream the decode routes stage (bytes): a
+# legal code-block's 4096 samples of at most 40 MagSgn bits each (U <=
+# U_MAX; dense 64x64 lossless 8-bit streams are ~8 KB, 27-bit ones ~16 KB).
+MAX_STREAM = 4096 * 40 // 8
 
 # the lane error codes: the scalar decoder's "bad VLC
 # code" and "bad exponent bound"

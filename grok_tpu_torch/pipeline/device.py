@@ -195,11 +195,13 @@ class DecodeProgram:
         self.N = N
         self.buckets = buckets
         self.device = device
-        irrevs = {bool(cs[5]) for cs in comps_sig}
-        if len(irrevs) != 1:
-            raise NotImplementedError(
-                "serving decode: components mixing 5/3 and 9/7")
-        self.irrev = irrevs.pop()
+        # the filter of each component (5/3 or 9/7): a 9/7 component's
+        # bands dequantize to float32, a 5/3 component's to int32
+        self.irrevs = tuple(bool(cs[5]) for cs in comps_sig)
+        if mct_mode == 1 and any(self.irrevs[:3]):
+            # the JAX package's inverse RCT shifts its three planes, which
+            # numpy refuses on a 9/7 plane
+            raise TypeError("inverse RCT over a 9/7 component")
 
         # band layout in one flat buffer: component by component, band
         # by band, each band an (N, bh, bw) block of all N streams
@@ -212,7 +214,8 @@ class DecodeProgram:
                 pos += N * bh * bw
         self.total = pos
 
-        srcs, tgts, scales, whs, oris, shifts = [], [], [], [], [], []
+        srcs, tgts, scales, irrs, whs, oris, shifts = ([], [], [], [], [],
+                                                       [], [])
         self.lane_base = []       # first lane of each bucket in the meta
         lanes = 0
         src_base = 0              # offset of the bucket in the cat output
@@ -236,11 +239,12 @@ class DecodeProgram:
                    + (yoff[j] + y) * BW[j] + xoff[j] + x)
             srcs.append(np.broadcast_to(src, inside.shape)[inside])
             tgts.append(np.broadcast_to(tgt, inside.shape)[inside])
-            if self.irrev:
-                half_delta = np.array([t[7] * 0.5 for t in b.blocks],
-                                      np.float32)
-                scales.append(np.broadcast_to(half_delta[j],
-                                              inside.shape)[inside])
+            half_delta = np.array([t[7] * 0.5 if t[8] else 0.0
+                                   for t in b.blocks], np.float32)
+            scales.append(np.broadcast_to(half_delta[j],
+                                          inside.shape)[inside])
+            irr = np.array([bool(t[8]) for t in b.blocks])
+            irrs.append(np.broadcast_to(irr[j], inside.shape)[inside])
             if any(roi):
                 sh = np.array([roi[t[0]] for t in b.blocks], np.int64)
                 shifts.append(np.broadcast_to(sh[j], inside.shape)[inside])
@@ -253,10 +257,23 @@ class DecodeProgram:
             return torch.as_tensor(np.ascontiguousarray(a),
                                    dtype=dtype).to(device)
 
-        self.src = dev_t(np.concatenate(srcs), torch.int64)
-        self.tgt = dev_t(np.concatenate(tgts), torch.int64)
-        self.scale = (dev_t(np.concatenate(scales), torch.float32)
-                      if self.irrev else None)
+        src, tgt = np.concatenate(srcs), np.concatenate(tgts)
+        scale, irr = np.concatenate(scales), np.concatenate(irrs)
+        # the placement per filter: (9/7, the placed samples' positions
+        # in src order or None for all, their targets, the 9/7 half
+        # steps or None)
+        self.src = dev_t(src, torch.int64)
+        self.place = []
+        for irrev in (False, True):
+            sel = np.nonzero(irr == irrev)[0]
+            if not len(sel):
+                continue
+            whole = len(sel) == len(irr)
+            self.place.append((
+                irrev, None if whole else dev_t(sel, torch.int64),
+                dev_t(tgt if whole else tgt[sel], torch.int64),
+                dev_t(scale if whole else scale[sel], torch.float32)
+                if irrev else None))
         # per placed sample, its component's ROI shift (None: no ROI);
         # shifts past 62 leave every int32 magnitude as it is
         self.roi = (dev_t(np.minimum(np.concatenate(shifts), 62),
@@ -407,29 +424,41 @@ class DecodeProgram:
         m = torch.cat([o.reshape(-1) for o in outs])[self.src]
 
         # 3. ROI Maxshift, dequantize + place (signed mag2 carries the
-        # half-bit, as the threshold of the Maxshift expects)
+        # half-bit, as the threshold of the Maxshift expects), each
+        # filter's samples into a flat buffer of its own dtype
         m2 = m.abs()
         if self.roi is not None:
             big = m2.to(torch.int64) >= (1 << self.roi)
             m2 = torch.where(big, m2 >> self.roi.to(torch.int32), m2)
-        if self.irrev:
-            sign = torch.where(m < 0, -1.0, 1.0)
-            vals = sign * m2.to(torch.float32) * self.scale
-            flat = torch.zeros(self.total, dtype=torch.float32,
-                               device=self.device)
-        else:
-            vals = torch.where(m < 0, -(m2 >> 1), m2 >> 1)
-            flat = torch.zeros(self.total, dtype=torch.int32,
-                               device=self.device)
-        # int64 planes (redecode_marked): each coefficient sign * (mag2 >>
-        # 1) in int64, then wrapped to int32, as the JAX package's host
-        # decode places its int64 band arrays in int32 synthesis buffers
-        flat[self.tgt] = vals.to(flat.dtype)
+        flats = {}
+        for irrev, sel, tgt, scale in self.place:
+            ms, m2s = (m, m2) if sel is None else (m[sel], m2[sel])
+            if irrev:
+                sign = torch.where(ms < 0, -1.0, 1.0)
+                vals = sign * m2s.to(torch.float32) * scale
+                flat = torch.zeros(self.total, dtype=torch.float32,
+                                   device=self.device)
+            else:
+                vals = torch.where(ms < 0, -(m2s >> 1), m2s >> 1)
+                flat = torch.zeros(self.total, dtype=torch.int32,
+                                   device=self.device)
+            # int64 planes (redecode_marked): each coefficient sign *
+            # (mag2 >> 1) in int64, then wrapped to int32, as the JAX
+            # package's host decode places its int64 band arrays in int32
+            # synthesis buffers
+            flat[tgt] = vals.to(flat.dtype)
+            flats[irrev] = flat
 
         N = self.N
 
         def band(ci, r, orient):
             pos, bh, bw = self.band_at[(ci, r, orient)]
+            flat = flats.get(self.irrevs[ci])
+            if flat is None:    # a component without code-blocks
+                flat = flats[not self.irrevs[ci]].new_zeros(
+                    self.total, dtype=torch.float32 if self.irrevs[ci]
+                    else torch.int32)
+                flats[self.irrevs[ci]] = flat
             return flat[pos:pos + N * bh * bw].view(N, bh, bw)
 
         # 4. inverse DWT per component, all N streams at once
@@ -450,17 +479,23 @@ class DecodeProgram:
         # 5. inverse MCT + DC unshift/clip
         if self.custom_inv is not None:
             outs = mct.custom_mct(outs, self.custom_inv)
+        elif self.mct_mode == 2 and len(outs) >= 3:
+            # ICT (component 0 on 9/7): a 5/3 plane among the three goes
+            # in as float32
+            outs[0], outs[1], outs[2] = mct.ict_inv(
+                *(o.to(torch.float32) for o in outs[:3]))
         elif self.mct_mode and len(outs) >= 3:
-            inv = mct.ict_inv if self.mct_mode == 2 else mct.rct_inv
-            outs[0], outs[1], outs[2] = inv(outs[0], outs[1], outs[2])
+            outs[0], outs[1], outs[2] = mct.rct_inv(outs[0], outs[1],
+                                                    outs[2])
         final = []
         for ci, cs in enumerate(self.comps_sig):
             (_rect, _numres, _r_lim, prec, sgnd, irrev, _bands) = cs
             arr = outs[ci]
-            if irrev or (self.mct_mode == 2 and ci < 3) or (
-                    self.custom_inv is not None and mct_round):
+            if irrev or (self.custom_inv is not None and mct_round):
                 arr = torch.round(arr)
-            elif self.custom_inv is not None:
+            elif arr.is_floating_point():
+                # a 5/3 plane through the ICT or a custom MCT: truncated
+                # toward zero, as the JAX package casts it
                 arr = torch.trunc(arr)
             final.append(mct.dc_shift_inv(arr.to(torch.int32), prec, sgnd))
         return [[final[ci][si] for ci in range(len(final))]

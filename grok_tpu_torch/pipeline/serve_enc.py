@@ -9,7 +9,8 @@ tile go through one device pass —
   1. DC shift, RCT/ICT or a custom MCT, forward DWT and quantization to
      mneg = (magnitude << 1) | sign, on (N, h, w) stacks of all frames
      (ops/mct.py, ops/dwt.py; 9/7 quantizes in f32 as the JAX device
-     path does, in float64 after a custom MCT as its host path does),
+     path does, in float64 after a custom MCT or past 24 magnitude
+     planes as its host path does),
      and the ROI's Maxshift upshift inside each band's window;
   2. every code-block of every frame gathered into one lane of an
      (NL, H, W) tensor, frame-major (one gather over index tensors built
@@ -48,9 +49,11 @@ stream's tiles and splits them into tile-parts, api.py
 compress_device_batch); any precincts, progression-order changes and
 PPM's split packet headers (the Tier-2 finish, pipeline/tile.py); ROI
 and a custom MCT (AUTO_RD is the entry point's choice between two
-encodes); Mb <= 24.  Anything else (HT code-blocks with Part-1 mode
-switches, Mb > 24) raises NotImplementedError naming the route: the
-port has no host encoder to fall back to.  Reversible streams are
+encodes); every precision the reference encodes (up to 27 bits: block
+magnitudes below 2^30, the distortion sums split into exact int64
+halves).  Anything else (HT code-blocks with Part-1 mode switches,
+components mixing 5/3 and 9/7) raises NotImplementedError naming the
+route: the port has no host encoder to fall back to.  Reversible streams are
 byte-identical to the JAX package's encoders.
 
 With params.mesh (a parallel/sharding.py Mesh whose first device is the
@@ -105,7 +108,7 @@ def _unsupported(route: str, why: str) -> NotImplementedError:
         f"{route} is not ported ({why}); the PyTorch port encodes "
         f"HT, Part-1 (any mode switches) and HT-mixed streams (tiled, "
         f"layered and rate-targeted too, HT refined too, with ROI and "
-        f"any MCT) of unsubsampled components with Mb <= 24")
+        f"any MCT) of unsubsampled components up to 27 bits")
 
 
 @dataclass
@@ -193,9 +196,6 @@ def _build_plan(hdr, t: int) -> EncPlan:
                           tuple(bands_sig)))
     if not blocks:
         raise _unsupported("general encode", "the tile has no code-blocks")
-    if mbmax > 24:
-        raise _unsupported("general encode", f"Mb = {mbmax} > 24 magnitude "
-                           f"planes")
     # the lanes' bucket: the blocks' nominal power-of-two size (code-blocks
     # of any legal shape, sides up to 1024, at most 4096 samples)
     W, H = _pow2_at_least(W, lo=1), _pow2_at_least(H, lo=1)
@@ -207,7 +207,8 @@ def _build_plan(hdr, t: int) -> EncPlan:
     # per-lane stream capacities: MagSgn <= Mb + 1 bits per sample; MEL
     # <= 2 significance events + 1 initial-pair event of <= 6 bits per
     # quad pair (9 bits/quad); VLC <= 7-bit codeword + 8-bit UVLC per
-    # quad (Mb <= 24 keeps u below the UVLC escape)
+    # quad (magnitudes below 2^30 keep U <= 31, so u stays below the
+    # UVLC escape at 36)
     nq = ((W + 1) // 2) * ((H + 1) // 2)
     caps = (_cap_bytes(W * H * (mbmax + 2) // 8 + 16),
             _cap_bytes(nq * 9 // 8 + 16), _cap_bytes(nq * 15 // 8 + 16))
@@ -266,6 +267,10 @@ def _stage_bands(comps: list, plan: EncPlan, roi_rect=None,
     for ci, csig in enumerate(plan.comps_sig):
         (_rect, _numres, prec, sgnd, _irrev, _bands) = csig
         outs.append(mct.dc_shift_fwd(comps[ci].to(torch.int32), prec, sgnd))
+    # past 24 magnitude planes the JAX package encodes on the host, in
+    # float64; float32 holds only 24-bit integers, so the irreversible
+    # transforms and quantization run in float64 there as well
+    f64 = plan.mct_mode == 3 or int(plan.lane_mb.max()) > 24
     if plan.mct_mode == 3:
         # a custom MCT, in float64 (and so the 9/7 lifting and the
         # quantization after it), as the JAX package's host encode
@@ -274,13 +279,13 @@ def _stage_bands(comps: list, plan: EncPlan, roi_rect=None,
             device=outs[0].device))
     elif plan.mct_mode and len(outs) >= 3:
         if plan.mct_mode == 2:
-            outs[:3] = mct.ict_fwd(*(o.to(torch.float32) for o in outs[:3]))
+            ft = torch.float64 if f64 else torch.float32
+            outs[:3] = mct.ict_fwd(*(o.to(ft) for o in outs[:3]))
         else:
             outs[:3] = mct.rct_fwd(*outs[:3])
     band_mag, band_neg = {}, {}
     for ci, csig in enumerate(plan.comps_sig):
         (rect_t, numres, _prec, _sgnd, irrev, bands) = csig
-        f64 = plan.mct_mode == 3
         dtype = torch.float64 if f64 else None
         blist = dwt.fwd_multilevel(outs[ci], Rect(*rect_t), numres, irrev,
                                    dtype) if mesh is None else \
@@ -472,21 +477,61 @@ def _compact(buf: torch.Tensor, first: torch.Tensor, cnt: torch.Tensor,
     return buf.reshape(-1)[first[seg] + jj - (end - cnt)[seg]].cpu().numpy()
 
 
+def _sq_sums(x: torch.Tensor) -> torch.Tensor:
+    """Exact sums of squares along dim 1 of (NL, n) non-negative int64
+    values below 2^32, n <= 4096, as three int64 rows (hh, hl, ll) with
+    sum x^2 = hh * 2^32 + hl * 2^17 + ll: x split into 16-bit halves,
+    every product below 2^32 and every row's sum below 2^44 (the JAX
+    package's encode splits its magnitudes into 12- and 13-bit halves
+    likewise, grok_tpu/pipeline/serve_enc.py `_build_encode_fn`)."""
+    hi, lo = x >> 16, x & 0xFFFF
+    return torch.stack([(hi * hi).sum(1), (hi * lo).sum(1),
+                        (lo * lo).sum(1)])
+
+
+def _exact_sums(rows: np.ndarray) -> np.ndarray:
+    """(3k, NL) int64 rows of _sq_sums triples -> the k sums per lane,
+    exact: int64 where each fits below 2^62, else Python ints (an object
+    array)."""
+    hh, hl, ll = rows[0::3], rows[1::3], rows[2::3]
+    if not hh.size or hh.max() < (1 << 29):
+        return (hh << 32) + (hl << 17) + ll
+    hh, hl, ll = (a.astype(object) for a in (hh, hl, ll))
+    return (hh << 32) + (hl << 17) + ll
+
+
+def _distortions(s: np.ndarray) -> np.ndarray:
+    """Per-pass distortions sum m^2 - 0.25 E_t (float64, (k - 1, NL))
+    from _exact_sums' (k, NL) sums [sum m^2, E_1, ...]: in float64 as the
+    JAX package rebuilds them where the sums are int64 (exact while
+    they stay below 2^53, the reference's own scope), else the correctly
+    rounded value of the exact rational (4 sum m^2 - E_t) / 4, so that
+    the PCRD finish (t2/rate.py) never sees a wrapped or twice-rounded
+    sum."""
+    if s.dtype != object:
+        d = s.astype(np.float64)
+        return d[0][None] - 0.25 * d[1:]
+    return ((4 * s[0][None] - s[1:]) / 4).astype(np.float64)
+
+
 def _dist_stats(mneg, p, ns) -> torch.Tensor:
-    """Exact per-lane distortion sums, in int64, for the PCRD finish
-    (grok_tpu/pipeline/serve_enc.py `_build_encode_fn`'s model, summed
-    whole instead of in 12- and 13-bit halves): row 0 = sum m^2; then
-    without ns the count of significant samples, with ns the residuals
-    E_x = sum (2m - 2 rec_x)^2 in half-sample units after the cleanup,
+    """Exact per-lane distortion sums for the PCRD finish
+    (grok_tpu/pipeline/serve_enc.py `_build_encode_fn`'s model), each as
+    a _sq_sums triple of int64 rows: sum m^2; then without ns the count
+    of significant samples (as (0, 0, count)), with ns the residuals E_x
+    = sum (2m - 2 rec_x)^2 in half-sample units after the cleanup,
     SigProp and MagRef passes (rec of t1ht/scalar.py ht_encode_block,
-    the SigProp reconstruction from the kernel's ns).  Sums stay below
-    2^63 for Mb <= 24 and 64 x 64 blocks."""
+    the SigProp reconstruction from the kernel's ns).  Exact at every
+    precision the encode takes (magnitudes below 2^31, blocks of at most
+    4096 samples); _exact_sums recombines them on the host."""
     NL = mneg.shape[0]
     mag = (mneg >> 1).reshape(NL, -1).to(torch.int64)
-    rows = [(mag * mag).sum(1)]
+    rows = [_sq_sums(mag)]
     if ns is None:
-        rows.append((mag > 0).sum(1))
-        return torch.stack(rows)
+        cnt = (mag > 0).sum(1)
+        rows.append(torch.stack([torch.zeros_like(cnt),
+                                 torch.zeros_like(cnt), cnt]))
+        return torch.cat(rows)
     pl = p.to(torch.int64)[:, None]
     M = mag << 1
     vq = mag >> pl
@@ -497,8 +542,8 @@ def _dist_stats(mneg, p, ns) -> torch.Tensor:
     rec_mr = torch.where(sig, ((mag >> bp) << (bp + 1)) + (1 << bp),
                          rec_sp)
     for rec in (rec_p, rec_sp, rec_mr):
-        rows.append(((M - rec) ** 2).sum(1))
-    return torch.stack(rows)
+        rows.append(_sq_sums((M - rec).abs()))
+    return torch.cat(rows)
 
 
 def _encode_ht(plan: EncPlan, lanes: tuple, P: int, want_dist: bool) -> list:
@@ -533,9 +578,7 @@ def _encode_ht(plan: EncPlan, lanes: tuple, P: int, want_dist: bool) -> list:
     numbps = np.frexp(mx_h.astype(np.float64))[1]      # bit length
     coded = numbps > 0
     if want_dist:
-        # f64 exactly as the JAX package rebuilds it: sum m^2 - 0.25 * E
-        d = stats[nst + 1:].astype(np.float64)
-        dist = d[0][None] - 0.25 * d[1:]               # (1 or 3, NL)
+        dist = _distortions(_exact_sums(stats[nst + 1:]))  # (1 or 3, NL)
     cnt = ((bits_h + 7) >> 3) * coded                  # (nst, NL) bytes
     cnt_l = cnt.T.reshape(-1)                          # lane-major
     offs = (np.cumsum(cnt_l) - cnt_l).reshape(NL, nst).T
@@ -592,9 +635,8 @@ def _encode_ht(plan: EncPlan, lanes: tuple, P: int, want_dist: bool) -> list:
 
 
 def _mq_dist_stats(mneg, sigtype, numbps, R: int) -> torch.Tensor:
-    """Exact per-pass distortion sums of Part-1 lanes, in int64, for the
-    PCRD finish (grok_tpu/pipeline/serve_enc.py `_mq_dstat`'s model,
-    summed whole instead of in 12- and 13-bit halves): row 0 = sum m^2,
+    """Exact per-pass distortion sums of Part-1 lanes for the PCRD finish
+    (grok_tpu/pipeline/serve_enc.py `_mq_dstat`'s model): row 0 = sum m^2,
     then row 1 + r = E_r = sum (2m - 2 rec_r)^2 in half-sample units
     after pass row r of the watermark layout (row 0 the cleanup at the MSB
     plane; rows 3j-2, 3j-1, 3j SPP, MRP and CLN at plane index j), with
@@ -604,16 +646,16 @@ def _mq_dist_stats(mneg, sigtype, numbps, R: int) -> torch.Tensor:
     there yet).  K5's sigtype says whether a sample that becomes
     significant at its MSB plane does so in the SPP or the cleanup.  Rows
     past a lane's 3 numbps - 2 passes are not meaningful; the host reads
-    only the lane's own.  One row is summed at a time (no (R, NL, H*W)
-    temporary); the sums stay below 2^63 for Mb <= 24 and 64 x 64
-    blocks."""
+    only the lane's own.  Each row is a _sq_sums triple (exact at every
+    precision the encode takes), one pass row summed at a time (no (R,
+    NL, H*W) temporary)."""
     NL = mneg.shape[0]
     mg = (mneg >> 1).reshape(NL, -1).to(torch.int64)
     M = mg << 1
     msb = _bitlen(mg) - 1                            # -1 where m = 0
     st_spp = sigtype.reshape(NL, -1) == SIG_SPP
     nb = numbps.to(torch.int64)[:, None]
-    rows = [(mg * mg).sum(1)]
+    rows = [_sq_sums(mg)]
     for r in range(R):
         j = 0 if r == 0 else (r + 2) // 3
         pt = 2 if r == 0 else r - (3 * j - 2)        # 0 SPP, 1 MRP, 2 CLN
@@ -626,8 +668,8 @@ def _mq_dist_stats(mneg, sigtype, numbps, R: int) -> torch.Tensor:
             if pt == 0:
                 g = torch.where(msb == bp, bp, bp + 1)
         rec2 = torch.where(signow, ((mg >> g) << (g + 1)) + (1 << g), 0)
-        rows.append(((M - rec2) ** 2).sum(1))
-    return torch.stack(rows)
+        rows.append(_sq_sums((M - rec2).abs()))
+    return torch.cat(rows)
 
 
 def _k5(plan: EncPlan, ins: tuple, L: int, R: int, sty, mesh) -> tuple:
@@ -686,9 +728,7 @@ def _encode_mq(plan: EncPlan, lanes: tuple, want_dist: bool = False,
     lens_h = stats[:, 0]
     nb_h = stats[:, 1]
     if want_dist:
-        # f64 exactly as the JAX package rebuilds it: sum m^2 - 0.25 * E_t
-        d = stats[:, 2 + R:].astype(np.float64)
-        dist = d[:, :1] - 0.25 * d[:, 1:]                # (NL, R)
+        dist = _distortions(_exact_sums(stats[:, 2 + R:].T)).T  # (NL, R)
     if (lens_h < 0).any():
         raise RuntimeError("Part-1 encode: a codeword exceeded its "
                            "capacity (samples beyond the signalled "
@@ -745,17 +785,21 @@ def _layer_targets(hdr, geo, params) -> list:
                                   geo.rect, params)
 
 
-def try_encode_serving_batch(comps: list, hdr, params, t: int = 0) -> list:
+def try_encode_serving_batch(comps: list, hdr, params, t: int = 0,
+                             targets: list | None = None) -> list:
     """Encode N frames of tile t: comps[ci] is an (N, h, w) integer
-    tensor on the device, the tile's samples.  Returns N
-    TileEncodeResults; raises NotImplementedError outside the served
-    scope."""
+    tensor on the device, the tile's samples.  targets: the tile's
+    cumulative layer byte budgets (None: the whole-stream rule of the
+    JAX package's encoders; codec.py Compressor passes its own).
+    Returns N TileEncodeResults; raises NotImplementedError outside the
+    served scope."""
     plan, lanes = stage_encode_lanes(comps, hdr, params, t)
     B = len(plan.blocks)
     N = lanes[0].shape[0] // B
     mixed = bool(params.ht_mixed) and plan.coder == "ht"
     want_dist = targeted(params)
-    targets = _layer_targets(hdr, plan.geo, params)
+    if targets is None:
+        targets = _layer_targets(hdr, plan.geo, params)
     mesh = params.mesh
     finish = dict(quality_targets=quality_targets_for_tile(hdr, plan.geo,
                                                            params),

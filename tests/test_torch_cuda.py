@@ -723,3 +723,59 @@ def test_meshed_giant_tile_round_trip_on_card(card):
     torch.cuda.synchronize()
     assert D3.t1_decode_lanes.launches == d0 + 4
     assert np.array_equal(out.cpu().numpy(), img)
+
+
+def test_mixed_filter_vectors_on_card(card):
+    """The committed 1080p streams with component 1 on the 9/7 decode on
+    the card, served and on the general route: the 5/3 planes to their
+    committed hashes, the 9/7 plane within 1 of the JAX package's."""
+    from grok_tpu_torch.util import mixed_vectors as MV
+    for name, (data, sha, _sha_win, irrev) in MV.load().items():
+        for out in (api.decompress_device(data, device=card),
+                    api.stage_general_device(data, device=card).run()):
+            planes = [p.cpu().numpy() for p in out]
+            assert MV.exact_hashes(planes)[0] == sha, name
+            e = np.abs(planes[MV.IRREV_COMP].astype(np.int64)
+                       - irrev.astype(np.int64)).max()
+            assert e <= 1, (name, e)
+
+
+@pytest.mark.parametrize("mb", [25, 30])
+def test_encoders_past_24_planes_match_plain_versions(card, mb):
+    """K4, K4r and K5 on lanes of mb magnitude planes (log-uniform
+    exponents, the top sample 2^mb - 1) equal their plain versions."""
+    rng = np.random.default_rng(mb)
+    n, side = 24, 32
+    mneg = np.zeros((n, side, side), np.int32)
+    dims = []
+    for i in range(n):
+        w, h = int(rng.integers(1, side + 1)), int(rng.integers(1, side + 1))
+        mag = np.minimum(np.exp2(rng.uniform(0, mb, (h, w))).astype(np.int64),
+                         (1 << mb) - 1)
+        mag[rng.random((h, w)) < 0.25] = 0
+        mag[0, 0] = (1 << mb) - 1
+        mneg[i, :h, :w] = (mag << 1) | (rng.random((h, w)) < 0.5)
+        dims.append((w, h))
+
+    def col(v):
+        return torch.tensor(list(v), dtype=torch.int32)
+    lanes = (torch.from_numpy(mneg), col(i % 4 for i in range(n)),
+             col(d[0] for d in dims), col(d[1] for d in dims), col([1] * n))
+    caps = (E._cap_bytes(side * side * (mb + 2) // 8 + 16),
+            E._cap_bytes(256 * 9 // 8 + 16), E._cap_bytes(256 * 15 // 8 + 16))
+    rcaps = E.refine_caps(side, side)
+    on = tuple(t.to(card) for t in lanes)
+    st, bt = E.ht_encode_lanes(*on, *caps)
+    rs, rb = E.ht_encode_lanes_ref(*lanes, *caps)
+    assert torch.equal(bt.cpu(), rb) and (rb >= 0).all()
+    assert torch.equal(E.clear_unused(st.cpu(), bt.cpu(), *caps[:-1]),
+                       E.clear_unused(rs, rb, *caps[:-1]))
+    st, bt, ns = E.ht_encode_lanes(*on, *caps, refine=True)
+    sp, mr, rrb, rns = E.ht_refine_lanes_ref(*lanes, *rcaps)
+    assert torch.equal(bt.cpu()[3:], rrb) and torch.equal(ns.cpu(), rns)
+    ins = (lanes[0], lanes[1], col([mb] * n), lanes[2], lanes[3])
+    L, R = E._cap_bytes(side * side * (mb + 1) // 2 + 64), 3 * mb - 2
+    got = E5.t1_encode_lanes(*(t.to(card) for t in ins), L, R)
+    ref = E5.t1_encode_lanes_ref(*ins, L, R)
+    from grok_tpu_torch.tools.hw_validate import encodes_equal
+    assert encodes_equal(tuple(t.cpu() for t in got), ref)

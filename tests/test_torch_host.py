@@ -695,3 +695,138 @@ def test_reference_inv53_vertical_equal(shape):
         reference_inv53_vertical as pref
     y = np.random.default_rng(7).integers(-500, 500, shape).astype(np.int32)
     assert np.array_equal(pref(y), jref(y))
+
+
+def test_port_sources_scanned_include_the_object_api_and_the_tools():
+    """The import scan reads the object API, the CLI tools and the host
+    copies they bring."""
+    scanned = {os.path.relpath(p, REPO) for p in _sources()}
+    assert {"grok_tpu_torch/codec.py", "grok_tpu_torch/cli/compress.py",
+            "grok_tpu_torch/cli/decompress.py", "grok_tpu_torch/cli/dump.py",
+            "grok_tpu_torch/pipeline/postproc.py",
+            "grok_tpu_torch/util/imageio.py", "grok_tpu_torch/util/msg.py",
+            "grok_tpu_torch/util/trace.py"} <= scanned
+
+
+def test_jp2_metadata_and_header_info_equal(streams):
+    """The JP2 boxes' parse (JP2Meta, palette, cmap, cdef, colr/ICC,
+    resolution) and read_header's HeaderInfo, against the originals."""
+    import struct
+
+    from grok_tpu.api import read_header as jread_header
+    from grok_tpu_torch.api import read_header as pread_header
+    ihdr = jjp2._box(b"ihdr", struct.pack(">IIHBBBB", 8, 8, 1, 7, 7, 0, 0))
+    icc = jjp2._box(b"colr", struct.pack(">BBB", 2, 0, 0) + b"ICCDATA")
+    pclr = jjp2._box(b"pclr", struct.pack(">HB", 2, 3) + bytes([7, 7, 7])
+                     + bytes(range(6)))
+    cmap = jjp2._box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, c)
+                                       for c in range(3)))
+    cdef = jjp2._box(b"cdef", struct.pack(">H", 1)
+                     + struct.pack(">HHH", 0, 0, 1))
+    res = jjp2._box(b"res ", jjp2._box(b"resc", jjp2._res_payload(
+        (2834.0, 2835.0))))
+    jp2h = jjp2._box(b"jp2h", ihdr + icc + pclr + cmap + cdef + res)
+    ftyp = jjp2._box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+    wrapped = [jjp2.JP2_SIGNATURE + ftyp + jp2h
+               + jjp2._box(b"jp2c", streams[0])]
+    wrapped += [s for s in streams if jjp2.is_jp2(s)]
+    for data in wrapped:
+        js, je, jm = jjp2.parse_jp2(data)
+        ps, pe, pm = pjp2.parse_jp2(data)
+        assert (ps, pe) == (js, je)
+        assert repr(pm) == repr(jm)
+    for data in streams + wrapped:
+        assert repr(pread_header(data)) == repr(jread_header(data))
+    kw = dict(width=33, height=17, numcomps=3, prec=12, icc_profile=b"icc",
+              capture_resolution=(2834.0, 2835.0),
+              per_comp_prec=[(12, False), (8, False), (8, True)])
+    assert pjp2.wrap_jp2(b"cs", **kw) == jjp2.wrap_jp2(b"cs", **kw)
+
+
+def test_postprocess_and_image_model_equal():
+    """palette, cdef, upsample, force-RGB over the copied Image model,
+    against grok_tpu/pipeline/postproc.py on the same inputs."""
+    from grok_tpu.core import image as jimage
+    from grok_tpu.pipeline import postproc as jpost
+    from grok_tpu_torch.core import image as pimage
+    from grok_tpu_torch.pipeline import postproc as ppost
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 256, (12, 10)).astype(np.int32)
+    c = rng.integers(0, 4, (6, 5)).astype(np.int32)
+
+    def build(im):
+        return im.Image(components=[
+            im.Component(data=y.copy(), prec=8),
+            im.Component(data=c.copy(), dx=2, dy=2, prec=8),
+            im.Component(data=c.copy(), dx=2, dy=2, prec=8)],
+            color_space=im.ColorSpace.UNSPECIFIED)
+
+    def meta(jp):
+        return jp.JP2Meta(
+            palette=jp.PaletteBox(entries=[[9, 8], [7, 6], [5, 4], [3, 2]],
+                                  bit_depths=[8, 8], sgnd=[False, False]),
+            cmap=[jp.ComponentMapping(0, 0, 0), jp.ComponentMapping(1, 1, 0),
+                  jp.ComponentMapping(2, 1, 1)],
+            cdef=[jp.ChannelDef(0, 0, 3), jp.ChannelDef(1, 0, 2),
+                  jp.ChannelDef(2, 0, 1)])
+
+    class DP:
+        upsample = force_rgb = True
+        apply_icc = False
+    got = ppost.postprocess(build(pimage), meta(pjp2), DP())
+    want = jpost.postprocess(build(jimage), meta(jjp2), DP())
+    assert repr(got) == repr(want)
+    gray = [im.Image.from_array(y) for im in (pimage, jimage)]
+    assert repr(ppost.force_rgb(gray[0])) == repr(jpost.force_rgb(gray[1]))
+
+
+def test_imageio_msg_and_trace_copies_equal(tmp_path):
+    """The format readers and writers (PGX, PNM, PAM, raw) on each
+    other's files, the message handlers and the tracer's blob."""
+    from grok_tpu.core.image import Image as JImage
+    from grok_tpu.util import imageio as jio
+    from grok_tpu.util import trace as jtrace
+    from grok_tpu_torch.util import imageio as pio
+    from grok_tpu_torch.util import msg as pmsg
+    from grok_tpu_torch.util import trace as ptrace
+    rng = np.random.default_rng(6)
+    cases = {"a.pgx": JImage.from_array(rng.integers(0, 1 << 20, (5, 7)),
+                                        prec=20),
+             "a.ppm": JImage.from_array(rng.integers(0, 256, (5, 7, 3))),
+             "a.pgm": JImage.from_array(rng.integers(0, 4096, (5, 7)),
+                                        prec=12),
+             "a.pam": JImage.from_array(rng.integers(0, 256, (4, 6, 4)))}
+    for name, img in cases.items():
+        jio.write_image(str(tmp_path / ("j" + name)), img)
+        pimg = pio.read_image(str(tmp_path / ("j" + name)))
+        assert repr(pimg) == repr(jio.read_image(str(tmp_path
+                                                     / ("j" + name))))
+        pio.write_image(str(tmp_path / ("p" + name)), pimg)
+        assert (tmp_path / ("p" + name)).read_bytes() == \
+            (tmp_path / ("j" + name)).read_bytes()
+    img = cases["a.pgx"]
+    jio.write_raw(str(tmp_path / "j.raw"), img)
+    pio.write_raw(str(tmp_path / "p.raw"), pio.read_raw(
+        str(tmp_path / "j.raw"), 7, 5, 1, 20))
+    assert (tmp_path / "p.raw").read_bytes() == \
+        (tmp_path / "j.raw").read_bytes()
+    got = []
+    pmsg.set_msg_handlers(warning=got.append)
+    try:
+        pmsg.warn("w")
+    finally:
+        pmsg.set_msg_handlers()
+    assert got == ["w"]
+    blobs = []
+    for tr in (ptrace, jtrace):
+        tr.enable()
+        try:
+            with tr.trace("a", x=1):
+                pass
+            tr.count("n", 2)
+            blob = tr.collect()
+        finally:
+            tr.enable(False)
+        blobs.append((sorted(blob["stages"]), blob["counters"],
+                      blob["stages"]["a"]["calls"]))
+    assert blobs[0] == blobs[1]

@@ -187,5 +187,6 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_stream_helpers():
     assert H._quant_len(1) == 256
     assert H._quant_len(248) == 256 and H._quant_len(249) == 512
-    assert H.MAX_STREAM == 256 * 32 - 8
+    # a 4096-sample block of 40-bit MagSgn fields (U up to U_MAX)
+    assert H.MAX_STREAM == 4096 * H.U_MAX // 8
 

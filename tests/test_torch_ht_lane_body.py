@@ -158,11 +158,12 @@ def _lanes(blocks, W, H, p, valid=None):
             _col(valid if valid is not None else [1] * len(blocks)))
 
 
-def _caps(W: int, H: int) -> tuple:
-    """Stream capacities no seeded lane overflows (the serving rule at 24
+def _caps(W: int, H: int, mb: int = 24) -> tuple:
+    """Stream capacities no seeded lane overflows (the serving rule at mb
     planes), then the refinement streams'."""
     nq = ((W + 1) // 2) * ((H + 1) // 2)
-    return (E._cap_bytes(W * H * 26 // 8 + 16), E._cap_bytes(nq * 9 // 8 + 16),
+    return (E._cap_bytes(W * H * (mb + 2) // 8 + 16),
+            E._cap_bytes(nq * 9 // 8 + 16),
             E._cap_bytes(nq * 15 // 8 + 16)) + E.refine_caps(W, H)
 
 
@@ -294,9 +295,56 @@ def test_lane_bodies_match_scalar_coder(lib):
     cleanup streams of ht_encode_block, the clean SigProp and MagRef
     streams of _encode_sigprop and _encode_magref, and new_sig as ns."""
     blocks = _seeded(6, 6, 32, False)[3:] + _chains(32, 8, 1)[:3]
-    p = [1, 2, 3, 1, 1, 1]
-    lanes = _lanes(blocks, 32, 32, p)
-    caps = _caps(32, 32)
+    _against_scalar(lib, blocks, [1, 2, 3, 1, 1, 1], 32, 32, _caps(32, 32))
+
+
+def _deep(seed: int, n: int, W: int, H: int, mb: int) -> list:
+    """n blocks of up to W x H (the first W x H) whose magnitudes reach
+    mb bits: log-uniform exponents up to mb, a quarter of the samples
+    zero, the top sample 2^mb - 1."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        w = W if i == 0 else int(rng.integers(1, W + 1))
+        h = H if i == 0 else int(rng.integers(1, H + 1))
+        mag = np.exp2(rng.uniform(0, mb, (h, w))).astype(np.int64)
+        mag = np.minimum(mag, (1 << mb) - 1)
+        mag[rng.random((h, w)) < 0.25] = 0
+        mag[0, 0] = (1 << mb) - 1
+        out.append((mag, rng.random((h, w)) < 0.5))
+    return out
+
+
+@pytest.mark.parametrize("mb", [25, 26, 27, 28, 29, 30])
+def test_lane_bodies_match_scalar_coder_past_24_planes(lib, mb):
+    """Lanes of 25 to 30 magnitude planes (the encodes of 25- to 27-bit
+    samples with their guard bits and band gains), K4 and K4r, against
+    the plain versions and grok_tpu.t1ht.scalar: MagSgn fields up to 31
+    bits, exponent bounds up to 31."""
+    blocks = _deep(mb, 4, 16, 16, mb)
+    p = [0, 1, 3, mb - 2]
+    lanes = _lanes(blocks, 16, 16, p)
+    caps = _caps(16, 16, mb)
+    _check(lib, lanes, caps[:3], False)
+    _check(lib, lanes, caps, True)
+    _against_scalar(lib, blocks, p, 16, 16, caps)
+
+
+def test_wide_lane_bodies_past_24_planes(lib):
+    """The wide design on 30-plane lanes, K4 and K4r, against the plain
+    versions."""
+    blocks = _deep(7, 3, 128, 8, 30)
+    lanes = _lanes(blocks, 128, 8, [0, 2, 29])
+    caps = _caps(128, 8, 30)
+    _check(lib, lanes, caps[:3], False)
+    _check(lib, lanes, caps, True)
+
+
+def _against_scalar(lib, blocks: list, p: list, W: int, H: int,
+                    caps: tuple) -> None:
+    """The K4r lane body on blocks in W x H lanes at cleanup planes p
+    equal to the scalar coder's clean streams and new significance."""
+    lanes = _lanes(blocks, W, H, p)
     streams, bits, ns = host_encode(lib, lanes, caps, True)
     starts = np.cumsum((0,) + caps)
     clean = [_scalar_clean(m, n & (m > 0), j % 4, p[j])
@@ -308,9 +356,12 @@ def test_lane_bodies_match_scalar_coder(lib):
             h, w = mag.shape
             neg = neg & (mag > 0)
             sig = (mag >> p[j]) > 0
-            sp, new_sig = scalar._encode_sigprop(mag, neg, sig, p[j] - 1, w,
-                                                 h)
-            mr = scalar._encode_magref(mag, sig, p[j] - 1, w, h)
+            if p[j] > 0:
+                sp, new_sig = scalar._encode_sigprop(mag, neg, sig, p[j] - 1,
+                                                     w, h)
+                mr = scalar._encode_magref(mag, sig, p[j] - 1, w, h)
+            else:                    # a cleanup-only lane
+                sp, mr, new_sig = (b"", 0), (b"", 0), np.zeros_like(sig)
             want = list(clean[j]) + [sp, mr]
             for s, (b, n) in enumerate(want):
                 assert int(bits[s, j]) == n, (j, s)

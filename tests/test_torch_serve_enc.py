@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from grok_tpu import CompressParams as JCP  # noqa: E402
+from grok_tpu import Image  # noqa: E402
 from grok_tpu import compress, decompress, native  # noqa: E402
 from grok_tpu import api as japi  # noqa: E402
 from grok_tpu.core.params import MCTMode as JMCT  # noqa: E402
@@ -117,14 +118,16 @@ def test_out_of_scope_parameters_raise(rgb):
         assert api.compress_device(part, PCP(**dict(CP, **kw)),
                                    device="cpu") == \
             compress(part, JCP(**dict(CP, **jkw)))
-    # what stays out: subsampled components, and Mb over 24
+    # what stays out: subsampled components
     with pytest.raises(NotImplementedError, match="subsampled"):
         api.compress_device([rgb[:, :, 0], rgb[::2, ::2, 1],
                              rgb[::2, ::2, 2]], PCP(**CP), device="cpu")
-    with pytest.raises(NotImplementedError, match=r"Mb = \d+ > 24"):
-        api.compress_device(rgb.astype(np.int32) << 15,
-                            PCP(**CP, num_guard_bits=3), prec=23,
-                            device="cpu")
+    # Mb over 24 encodes as the reference does
+    deep = rgb.astype(np.int32) << 15
+    assert api.compress_device(deep, PCP(**CP, num_guard_bits=3), prec=23,
+                               device="cpu") == \
+        compress(Image.from_array(deep, prec=23),
+                 JCP(**CP, num_guard_bits=3))
 
 
 def test_no_cpu_fallback_for_a_cuda_device(gray):

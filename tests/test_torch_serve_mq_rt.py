@@ -63,8 +63,9 @@ def _lanes(seed, n, side, maxnb):
 
 @pytest.mark.parametrize("seed, side, maxnb", [(1, 13, 16), (2, 20, 9)])
 def test_pass_distortions_equal_the_jax_packages(seed, side, maxnb):
-    """Row 0 minus a quarter of row 1 + t, in f64, equals
-    _pass_distortions at every pass t of every lane, exactly."""
+    """Sum 0 minus a quarter of sum 1 + t (the split rows recombined), in
+    f64, equals _pass_distortions at every pass t of every lane,
+    exactly."""
     n = 12
     mneg, dims, mags = _lanes(seed, n, side, maxnb)
     nb = [int(m.max()).bit_length() for m in mags]
@@ -78,8 +79,8 @@ def test_pass_distortions_equal_the_jax_packages(seed, side, maxnb):
     _out, _lens, _rates, sigtype = t1_encode.t1_encode_lanes(
         *ins, side * side * 8 + 64, R)
     d = serve_enc._mq_dist_stats(ins[0], sigtype, ins[2], R).numpy()
-    assert d.shape == (R + 1, n) and d.dtype == np.int64
-    dist = d[0].astype(np.float64)[None] - 0.25 * d[1:].astype(np.float64)
+    assert d.shape == (3 * (R + 1), n) and d.dtype == np.int64
+    dist = serve_enc._distortions(serve_enc._exact_sums(d))
     for j, ((w, h), mag) in enumerate(zip(dims, mags)):
         want = _pass_distortions(mag, sigtype[j, :h, :w].numpy(), nb[j])
         got = dist[:len(want), j]
