@@ -286,7 +286,7 @@ def _stage_bands(comps: list, plan: EncPlan, roi_rect=None,
     band_mag, band_neg = {}, {}
     for ci, csig in enumerate(plan.comps_sig):
         (rect_t, numres, _prec, _sgnd, irrev, bands) = csig
-        dtype = torch.float64 if f64 else None
+        dtype = torch.float64 if f64 and irrev else None
         blist = dwt.fwd_multilevel(outs[ci], Rect(*rect_t), numres, irrev,
                                    dtype) if mesh is None else \
             fwd_multilevel_sharded(outs[ci], Rect(*rect_t), numres, irrev,

@@ -745,7 +745,7 @@ def test_encoders_past_24_planes_match_plain_versions(card, mb):
     """K4, K4r and K5 on lanes of mb magnitude planes (log-uniform
     exponents, the top sample 2^mb - 1) equal their plain versions."""
     rng = np.random.default_rng(mb)
-    n, side = 24, 32
+    n, side = 12, 16        # the plain K5 steps every pass of every plane
     mneg = np.zeros((n, side, side), np.int32)
     dims = []
     for i in range(n):
@@ -761,8 +761,9 @@ def test_encoders_past_24_planes_match_plain_versions(card, mb):
         return torch.tensor(list(v), dtype=torch.int32)
     lanes = (torch.from_numpy(mneg), col(i % 4 for i in range(n)),
              col(d[0] for d in dims), col(d[1] for d in dims), col([1] * n))
+    nq = (side // 2) ** 2
     caps = (E._cap_bytes(side * side * (mb + 2) // 8 + 16),
-            E._cap_bytes(256 * 9 // 8 + 16), E._cap_bytes(256 * 15 // 8 + 16))
+            E._cap_bytes(nq * 9 // 8 + 16), E._cap_bytes(nq * 15 // 8 + 16))
     rcaps = E.refine_caps(side, side)
     on = tuple(t.to(card) for t in lanes)
     st, bt = E.ht_encode_lanes(*on, *caps)
