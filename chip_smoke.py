@@ -87,13 +87,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                lengths, used bytes, watermark rows and sigtype; the two
                designs timed in turns (v1, v2, v2, v1) on all lanes and on
                the compared lanes, the plain version on the compared
-               lanes; for (B1), the launch of the slowest lane alone
-               (largest nbps * w * h) against all lanes, and the bound
-               of all lanes.
+               lanes (on the host's CPU, in a worker process beside the
+               card's work, checked before the kernels line); for (B1),
+               the launch of the slowest lane alone (largest nbps * w * h)
+               against all lanes, and the bound of all lanes.
   9. K3      — the Part-1 decoder against its first design on every staged
                lane of the decode path's (A1) and (B1) blocks and against
-               its plain version on the same lanes as phase 8: bit-exact;
-               timed as phase 8 (the slowest lane by npass * w * h),
+               its plain version on the same lanes as phase 8 (on the
+               host's CPU, as there): bit-exact; timed as phase 8 (the
+               slowest lane by npass * w * h),
                with the bound of all (B1) lanes.
  10. K5->K3  — 64 synthetic lanes of 1x1 to 64x64 (h not a multiple of
                4, w = 1, all-zero lanes, up to 16 planes) encoded by K5
@@ -127,13 +129,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
  15. P1      — the per-lane gather through the hardware-validation tool
                (grok_tpu_torch/tools/hw_validate.py run_gather_probe) at
                64 and 65536 rows of 128 lanes: equal to its plain version
-               and to torch.take_along_dim; kernel, plain, library and
-               bound times.
+               and to torch.take_along_dim; P1 and take_along_dim timed
+               in turns (P1, library, library, P1) with their spread, the
+               plain version once; the bound counts x and idx read once
+               and out written once, 12 bytes an element.
  16. K3 trial — K3 on the refinement's trial-decode lanes of (A1-t)'s
                first frame (32x32 blocks, so every lane whole) against its
-               first design and its plain version: bit-exact; the two
-               designs timed in turns on all lanes and on the slowest lane
-               alone, the plain version once.
+               first design and its plain version (on the host's CPU, as
+               phase 8): bit-exact; the two designs timed in turns on all
+               lanes and on the slowest lane alone, the plain version
+               once.
  17. tool    — the tool's serve_mq_enc_rt: the 512x512 Part-1 encode at
                4:1 and in 3 layers at 16:1, 4:1 and 1:1, every rep the
                same bytes, a 128x96 encode equal to the CPU encode.
@@ -305,6 +310,27 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                main(argv) on a 1920x1080 PPM (HT) and a 1920x1080 24-bit
                PGX (Part-1, JP2) in a temporary folder: the decoded file
                equal to the source.
+  32. subsampled — grok_tpu_torch.compress of the frames of
+               grok_tpu_torch/util/sub_vectors.py on the card: (Y422) the
+               (B) frame in BT.709 10-bit Y'CbCr 4:2:2, HT lossless and
+               Part-1 9/7 at 8:1; (Y420) 8-bit 4:2:0, Part-1 lossless and
+               HT in 3 layers at 40:1, 10:1, 4:1; (RGBD) (B)'s RGB beside
+               a 16-bit signed plane, HT and Part-1 lossless; (C420) the
+               (C) frame in 4:2:0 at (1, 1) on the canvas, HT lossless in
+               1024x1024 tiles.  Each a warm-up and 3 timed calls (the
+               host split of the last), every call the same bytes, the
+               launches per encode; lossless ones decoded back to the
+               source and, where untargeted, equal to the committed
+               SHA-256 of grok_tpu.compress's bytes; lossy ones with the
+               warm-up's K4, K5 and K3 trial-decode launches held on their
+               largest lane and the 15 smallest against the plain
+               versions (K5's and K3's on the host's CPU, in phase 8's
+               worker processes beside the card's work), every layer prefix
+               within its budget and a 32x32 crop encoded
+               and decoded on the card equal to the plain versions' on
+               the CPU (the decode within 1); (C420) decoded in a
+               1024x1024 window, and written by Compressor tile by tile
+               to compress's bytes.
 
 The last three lines of stdout are the card's name and power limit, a
 JSON line of per-kernel results, and the JSON result line.  No JAX and
@@ -1250,6 +1276,23 @@ def main() -> int:
 
     tables = t1_decode.lut_on(dev)
 
+    # the plain K5 and K3 on (A1), (B1) and the trial-decode lanes run on
+    # the host's CPU, in worker processes beside the card's work; each is
+    # checked (its err and plain_ms taken) before the kernels line
+    import concurrent.futures
+    import multiprocessing
+    host_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
+    host_checks = []
+
+    def on_host(fn, args, check):
+        """fn(*args) (hw_validate.plain_encode_ms or plain_decode_ms) on
+        CPU copies of the tensors, in a host worker; check(ref, p_ms)
+        when the checks are collected."""
+        host_checks.append((host_pool.submit(fn, *(
+            a.cpu() if isinstance(a, torch.Tensor) else a for a in args)),
+            check))
+
     # ---- 8. K5 vs its plain version ---------------------------------------
     k5 = {"ms": 0.0, "plain_ms": 0.0, "prev_ms": 0.0, "err": 0, "bytes": 0}
     for name in paths["Part-1"]:
@@ -1287,36 +1330,41 @@ def main() -> int:
         nl = ins[0].shape[0]
         Hs, Ws = ins[0].shape[1:]
         got = t1_encode.t1_encode_lanes(*ins, L, R)
-        ref, p_ms = _plain_ms(torch, lambda: t1_encode.t1_encode_lanes_ref(
-            *ins, L, R))
         lens = got[1]
-        col = torch.arange(L, device=dev)[None]
-        used = col <= lens.long()[:, None]          # sentinel + codeword
-        err = max(int((got[1] - ref[1]).abs().max()),
-                  int((torch.where(used, got[0].int(), 0)
-                       - torch.where(used, ref[0].int(), 0)).abs().max()),
-                  int((got[2] - ref[2]).abs().max()),
-                  int((got[3].int() - ref[3].int()).abs().max()))
-        k5["err"] = max(k5["err"], err)
+        if (lens < 0).any():
+            _fail(f"K5 gave a negative length on {name}")
         sizes = sorted({(int(a), int(b)) for a, b in zip(ins[3], ins[4])})
-        print(f"K5 {name}: {nl} of {nl_all} lanes ({Ws}x{Hs}; w x h "
-              f"{sizes[:6]}{' ...' if len(sizes) > 6 else ''}) vs the "
-              f"plain version: max_abs_err {err}", flush=True)
-        if err or (lens < 0).any():
-            _fail(f"K5 disagrees with its plain version on {name}")
+
+        def check_k5(ref, p_ms, name=name, got=tuple(t.cpu() for t in got),
+                     L=L, what=f"{nl} of {nl_all} lanes ({Ws}x{Hs}; w x h "
+                     f"{sizes[:6]}{' ...' if len(sizes) > 6 else ''})"):
+            used = torch.arange(L)[None] <= got[1].long()[:, None]
+            err = max(int((got[1] - ref[1]).abs().max()),
+                      int((torch.where(used, got[0].int(), 0)
+                           - torch.where(used, ref[0].int(), 0))
+                          .abs().max()),
+                      int((got[2] - ref[2]).abs().max()),
+                      int((got[3].int() - ref[3].int()).abs().max()))
+            k5["err"] = max(k5["err"], err)
+            k5["plain_ms"] += p_ms
+            print(f"K5 {name}: {what} vs the plain version (on the host "
+                  f"CPU, {p_ms:.1f} ms): max_abs_err {err} [{card}]",
+                  flush=True)
+            if err:
+                _fail(f"K5 disagrees with its plain version on {name}")
+        on_host(hw_validate.plain_encode_ms, tuple(ins) + (L, R), check_k5)
         prev_ms, k_ms = turns_ms(
             dev, lambda: t1_encode.t1_encode_lanes_v1(*ins, L, R),
             lambda: t1_encode.t1_encode_lanes(*ins, L, R))
         nbytes = _k5_bytes(ins, lens, tables)
         k5["ms"] += k_ms
         k5["prev_ms"] += prev_ms
-        k5["plain_ms"] += p_ms
         k5["bytes"] += nbytes
         print(f"K5 {name}: 1 launch per encode, kernel {full_ms:.4f} ms on "
               f"all {nl_all} lanes; on the {nl} compared lanes kernel "
               f"{k_ms:.4f} ms (v1 {prev_ms:.4f} ms), bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
-              f"plain version {p_ms:.1f} ms [{card}]", flush=True)
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes) "
+              f"[{card}]", flush=True)
 
     # ---- 9. K3 vs its plain version ---------------------------------------
     k3 = {"ms": 0.0, "plain_ms": 0.0, "prev_ms": 0.0, "err": 0, "bytes": 0}
@@ -1353,27 +1401,31 @@ def main() -> int:
             W, H = int(lanes[5].max()), EDGE_H
         nl = lanes[1].shape[0]
         got = t1_decode.t1_decode_lanes(*lanes, W, H)
-        ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
-            *lanes, W, H))
-        err = int((got.long() - ref.long()).abs().max())
-        k3["err"] = max(k3["err"], err)
-        print(f"K3 {name}: {nl} of {nl_all} lanes ({W}x{H}) vs the plain "
-              f"version: max_abs_err {err}", flush=True)
-        if err:
-            _fail(f"K3 disagrees with its plain version on {name}")
+
+        def check_k3(ref, p_ms, name=name, got=got.cpu(),
+                     what=f"{nl} of {nl_all} lanes ({W}x{H})"):
+            err = int((got.long() - ref.long()).abs().max())
+            k3["err"] = max(k3["err"], err)
+            k3["plain_ms"] += p_ms
+            print(f"K3 {name}: {what} vs the plain version (on the host "
+                  f"CPU, {p_ms:.1f} ms): max_abs_err {err} [{card}]",
+                  flush=True)
+            if err:
+                _fail(f"K3 disagrees with its plain version on {name}")
+        on_host(hw_validate.plain_decode_ms, tuple(lanes) + (W, H),
+                check_k3)
         prev_ms, k_ms = turns_ms(
             dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
             lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
         nb = _k3_bytes(lanes, tables)
         k3["ms"] += k_ms
         k3["prev_ms"] += prev_ms
-        k3["plain_ms"] += p_ms
         k3["bytes"] += nb
         print(f"K3 {name}: 1 launch per decode, kernel {full_ms:.4f} ms on "
               f"all {nl_all} lanes; on the {nl} compared lanes kernel "
               f"{k_ms:.4f} ms (v1 {prev_ms:.4f} ms), bound "
-              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
-              f"version {p_ms:.1f} ms [{card}]", flush=True)
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) [{card}]",
+              flush=True)
 
     # ---- 10. K5 -> K3 round trip ------------------------------------------
     _mq_roundtrip(torch, dev, t1_encode, t1_decode, hw_validate)
@@ -1533,15 +1585,24 @@ def main() -> int:
     # the probe's own launches count (run_gather_probe reads the counter
     # around its checked call), not the timing windows'
     p1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0,
-          "bytes": 0}
+          "bytes": 0, "spread_ms": 0.0}
     p1_launches = 0
     for rows in hw_validate.GATHER_ROWS:
         r = hw_validate.run_gather_probe(dev, rows=rows)
         if not r["ok"]:
             _fail(f"P1 disagrees with its plain version or take_along_dim "
                   f"at {rows} rows")
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "spread_ms"):
             p1[key] += r[key]
+        # P1 and take_along_dim in turns (P1, library, library, P1)
+        verdict = ("P1 loses beyond the spread"
+                   if r["ms"] - r["library_ms"] > r["spread_ms"] else
+                   "P1 within the spread or ahead")
+        print(f"P1 {rows} rows: P1 {r['ms']:.4f} ms, take_along_dim "
+              f"{r['library_ms']:.4f} ms, spread {r['spread_ms']:.4f} ms "
+              f"({verdict}); bound {r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f}"
+              f" ms ({r['bytes']} bytes: x, idx and out once each) "
+              f"[{card}]", flush=True)
         p1["bytes"] += r["bytes"]
         p1_launches += r["launches"]
     print(f"P1 launches: {p1_launches}", flush=True)
@@ -1567,16 +1628,21 @@ def main() -> int:
     got = t1_decode.t1_decode_lanes(*lanes, W, H)
     if not torch.equal(got, t1_decode.t1_decode_lanes_v1(*lanes, W, H)):
         _fail("K3 differs from its first design on the trial-decode lanes")
-    ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
-        *lanes, W, H))
-    err = int((got.long() - ref.long()).abs().max())
-    k3["err"] = max(k3["err"], err)
     nl = lanes[1].shape[0]
-    print(f"K3 trial decodes A1-t frame 0: {nl} lanes of {len(cands)} "
-          f"candidate blocks ({W}x{H}) vs the plain version: max_abs_err "
-          f"{err}", flush=True)
-    if err:
-        _fail("K3 disagrees with its plain version on the trial-decode lanes")
+
+    def check_trial(ref, p_ms, got=got.cpu(),
+                    what=f"{nl} lanes of {len(cands)} candidate blocks "
+                    f"({W}x{H})"):
+        err = int((got.long() - ref.long()).abs().max())
+        k3["err"] = max(k3["err"], err)
+        print(f"K3 trial decodes A1-t frame 0: {what} vs the plain version "
+              f"(on the host CPU, {p_ms:.1f} ms): max_abs_err {err} "
+              f"[{card}]", flush=True)
+        if err:
+            _fail("K3 disagrees with its plain version on the trial-decode "
+                  "lanes")
+    on_host(hw_validate.plain_decode_ms, tuple(lanes) + (W, H),
+            check_trial)
     v1_ms, k_ms = turns_ms(
         dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
         lambda: t1_decode.t1_decode_lanes(*lanes, W, H))
@@ -1595,8 +1661,8 @@ def main() -> int:
     print(f"K3 trial decodes A1-t frame 0: every lane equal to v1 bit for "
           f"bit; 1 launch per frame, kernel {k_ms:.4f} ms, v1 {v1_ms:.4f} "
           f"ms, in turns ({v1_ms / k_ms:.2f}x), bound "
-          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain version "
-          f"{p_ms:.1f} ms [{card}]", flush=True)
+          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) [{card}]",
+          flush=True)
 
     # ---- 17. the tool's rate-targeted Part-1 serving check ----------------
     r = hw_validate.run_serve_mq_enc_rt(dev)
@@ -2542,9 +2608,6 @@ def main() -> int:
           flush=True)
 
     # ---- 25. mode switches, layered HT-mixed, ROI, custom MCT (E-ms) ------
-    import concurrent.futures
-    import multiprocessing
-
     from grok_tpu_torch.core.params import MCTMode
     t_ms = time.perf_counter()
     modes = enc_vectors.load_modes()
@@ -2555,78 +2618,74 @@ def main() -> int:
     ms_need = {"ms_3f": ["K5"], "ms_byp": ["K5", "K3"],
                "mix_lay": ["K4", "K5", "K3"], "roi": ["K5"]}
     held = []
-    # the held lanes' plain versions run on the host's CPU, one process
-    # each, beside the card's work
-    with concurrent.futures.ProcessPoolExecutor(
-            max_workers=3,
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        for name in enc_vectors.MODE_NAMES:
-            params = CompressParams(**enc_vectors.params(name, Poc,
-                                                         ProgOrder))
-            s, calls, got = encode_cell(f"E-ms {name}", frames["B"][0],
-                                        params, record=True)
-            need(f"E-ms {name} encode", got, ms_need[name],
-                 ["K4r", "K1", "K2"] + v1s)
-            if not enc_vectors.matches(name, s, modes):
-                _fail(f"E-ms {name}: the card's stream differs from the "
-                      f"committed one")
-            print(f"E-ms {name}: equal to the committed stream"
-                  f"{' (its SHA-256)' if name in enc_vectors.HASHED else ''}"
-                  f" [{card}]", flush=True)
-            for kern, a, res in calls:
-                if kern != "K5" or len(a) < 8 or a[7] is None:
-                    continue
-                ins, (L, R), sty = a[:5], a[5:7], a[7]
-                sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
-                sub = tuple(t.index_select(0, sel).cpu()
-                            for t in ins + (sty,))
-                held.append((name, pool.submit(
-                    hw_validate.plain_encode_ms, *sub[:5], L, R, sub[5]),
-                    tuple(t.index_select(0, sel).cpu() for t in res)))
-                d_ms, s_ms = turns_ms(
-                    dev, lambda: t1_encode.t1_encode_lanes(*ins, L, R),
-                    lambda: t1_encode.t1_encode_lanes(*ins, L, R, sty))
-                nb = _k5_bytes(ins, res[1], tables) + _nbytes(sty)
-                nl = int(ins[0].shape[0])
-                k5s["ms"] += s_ms
-                k5s["default_ms"] += d_ms
-                k5s["bytes"] += nb
-                k5s["launches"] += 1
-                k5s["lanes"] += nl
-                k5s["plain_lanes"] += int(sel.numel())
-                print(f"K5 E-ms {name} styled launch (style "
-                      f"{sorted(set(sty.tolist()))}): {nl} lanes "
-                      f"{s_ms:.4f} ms; the same lanes in the default style "
-                      f"{d_ms:.4f} ms, in turns; bound "
-                      f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
-                      f"[{card}]", flush=True)
-        # a custom MCT: the same bytes every rep, and the card's encode of
-        # a small input equal to the plain versions' on the CPU
-        cm_p = CompressParams(ht=True, irreversible=True, num_resolutions=6,
-                              mct=MCTMode.CUSTOM,
-                              custom_mct=[[0.5, 0.3, 0.2],
-                                          [-0.2, 0.5, -0.3],
-                                          [0.1, -0.4, 0.3]])
-        s, _c, got = encode_cell("E-ms custom", frames["B"][0], cm_p)
-        need("E-ms custom encode", got, ["K4"], ["K4r", "K5"] + v1s)
-        cm_small = replace(cm_p, num_resolutions=3, cblk_w_exp=5,
-                           cblk_h_exp=5)
-        if api.compress_device(small_rgb, cm_small, device=dev) != \
-                api.compress_device(small_rgb, cm_small, device="cpu"):
-            _fail("E-ms custom: the card's encode of 64x96 RGB differs from "
-                  "the plain versions' on the CPU")
-        print(f"E-ms custom: {len(s)} bytes, the same every rep; 64x96 RGB "
-              f"byte-identical to the CPU encode through the plain versions "
-              f"[{card}]", flush=True)
-        for name, fut, got_sub in held:
-            ref, p_ms = fut.result()
-            if not hw_validate.encodes_equal(got_sub, ref):
-                _fail(f"K5 disagrees with its plain version on the styled "
-                      f"lanes of E-ms {name}")
-            k5s["plain_ms"] += p_ms
-            print(f"K5 E-ms {name}: the main path's largest styled lane and "
-                  f"{got_sub[1].numel() - 1} smallest equal to the plain "
-                  f"version (on the host CPU, {p_ms:.1f} ms)", flush=True)
+    # the held lanes' plain versions run in the host pool (phase 8)
+    for name in enc_vectors.MODE_NAMES:
+        params = CompressParams(**enc_vectors.params(name, Poc,
+                                                     ProgOrder))
+        s, calls, got = encode_cell(f"E-ms {name}", frames["B"][0],
+                                    params, record=True)
+        need(f"E-ms {name} encode", got, ms_need[name],
+             ["K4r", "K1", "K2"] + v1s)
+        if not enc_vectors.matches(name, s, modes):
+            _fail(f"E-ms {name}: the card's stream differs from the "
+                  f"committed one")
+        print(f"E-ms {name}: equal to the committed stream"
+              f"{' (its SHA-256)' if name in enc_vectors.HASHED else ''}"
+              f" [{card}]", flush=True)
+        for kern, a, res in calls:
+            if kern != "K5" or len(a) < 8 or a[7] is None:
+                continue
+            ins, (L, R), sty = a[:5], a[5:7], a[7]
+            sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
+            sub = tuple(t.index_select(0, sel).cpu()
+                        for t in ins + (sty,))
+            held.append((name, host_pool.submit(
+                hw_validate.plain_encode_ms, *sub[:5], L, R, sub[5]),
+                tuple(t.index_select(0, sel).cpu() for t in res)))
+            d_ms, s_ms = turns_ms(
+                dev, lambda: t1_encode.t1_encode_lanes(*ins, L, R),
+                lambda: t1_encode.t1_encode_lanes(*ins, L, R, sty))
+            nb = _k5_bytes(ins, res[1], tables) + _nbytes(sty)
+            nl = int(ins[0].shape[0])
+            k5s["ms"] += s_ms
+            k5s["default_ms"] += d_ms
+            k5s["bytes"] += nb
+            k5s["launches"] += 1
+            k5s["lanes"] += nl
+            k5s["plain_lanes"] += int(sel.numel())
+            print(f"K5 E-ms {name} styled launch (style "
+                  f"{sorted(set(sty.tolist()))}): {nl} lanes "
+                  f"{s_ms:.4f} ms; the same lanes in the default style "
+                  f"{d_ms:.4f} ms, in turns; bound "
+                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
+                  f"[{card}]", flush=True)
+    # a custom MCT: the same bytes every rep, and the card's encode of
+    # a small input equal to the plain versions' on the CPU
+    cm_p = CompressParams(ht=True, irreversible=True, num_resolutions=6,
+                          mct=MCTMode.CUSTOM,
+                          custom_mct=[[0.5, 0.3, 0.2],
+                                      [-0.2, 0.5, -0.3],
+                                      [0.1, -0.4, 0.3]])
+    s, _c, got = encode_cell("E-ms custom", frames["B"][0], cm_p)
+    need("E-ms custom encode", got, ["K4"], ["K4r", "K5"] + v1s)
+    cm_small = replace(cm_p, num_resolutions=3, cblk_w_exp=5,
+                       cblk_h_exp=5)
+    if api.compress_device(small_rgb, cm_small, device=dev) != \
+            api.compress_device(small_rgb, cm_small, device="cpu"):
+        _fail("E-ms custom: the card's encode of 64x96 RGB differs from "
+              "the plain versions' on the CPU")
+    print(f"E-ms custom: {len(s)} bytes, the same every rep; 64x96 RGB "
+          f"byte-identical to the CPU encode through the plain versions "
+          f"[{card}]", flush=True)
+    for name, fut, got_sub in held:
+        ref, p_ms = fut.result()
+        if not hw_validate.encodes_equal(got_sub, ref):
+            _fail(f"K5 disagrees with its plain version on the styled "
+                  f"lanes of E-ms {name}")
+        k5s["plain_ms"] += p_ms
+        print(f"K5 E-ms {name}: the main path's largest styled lane and "
+              f"{got_sub[1].numel() - 1} smallest equal to the plain "
+              f"version (on the host CPU, {p_ms:.1f} ms)", flush=True)
     if not k5s["launches"]:
         _fail("no styled K5 launch was held against its plain version")
     print(f"mode-switch phase: {time.perf_counter() - t_ms:.1f} s",
@@ -3168,6 +3227,244 @@ def main() -> int:
                   f"launches {got} [{card}]", flush=True)
     print(f"CLI phase: {time.perf_counter() - t_cli:.1f} s", flush=True)
 
+    # ---- 32. subsampled and mixed-precision encodes (Y422, Y420, RGBD,
+    # C420) --------------------------------------------------------------
+    from grok_tpu_torch.core.image import Component, Image
+    from grok_tpu_torch.util import sub_vectors
+    t_sub = time.perf_counter()
+    REPS_SUB = 3
+
+    def on_card(img):
+        """The Image with its samples uploaded (the encode keeps them on
+        the card)."""
+        return Image(components=[Component(
+            data=torch.from_numpy(np.ascontiguousarray(c.data)).to(dev),
+            dx=c.dx, dy=c.dy, prec=c.prec, sgnd=c.sgnd)
+            for c in img.components], x0=img.x0, y0=img.y0, x1=img.x1,
+            y1=img.y1, color_space=img.color_space)
+
+    def comp_region(img, c, x0, y0, x1, y1):
+        """(rows, cols) slices of component c's plane for the canvas
+        region [x0, x1) x [y0, y1)."""
+        ci = img.components[c]
+        ox, oy = -(-img.x0 // ci.dx), -(-img.y0 // ci.dy)
+        return (slice(-(-y0 // ci.dy) - oy, -(-y1 // ci.dy) - oy),
+                slice(-(-x0 // ci.dx) - ox, -(-x1 // ci.dx) - ox))
+
+    def crop(img, side):
+        """The image's side x side region at its canvas origin."""
+        x1, y1 = img.x0 + side, img.y0 + side
+        return Image(components=[Component(
+            data=np.ascontiguousarray(c.data[comp_region(
+                img, i, img.x0, img.y0, x1, y1)]),
+            dx=c.dx, dy=c.dy, prec=c.prec, sgnd=c.sgnd)
+            for i, c in enumerate(img.components)],
+            x0=img.x0, y0=img.y0, x1=x1, y1=y1)
+
+    sub_held = []
+    sub_imgs = {}
+    for name, (kind, kw) in sub_vectors.WORKLOADS.items():
+        if kind not in sub_imgs:
+            host_img = sub_vectors.image(kind)
+            sub_imgs[kind] = (host_img, on_card(host_img))
+        host_img, img = sub_imgs[kind]
+        params = CompressParams(**kw)
+        lossless = not params.irreversible and not params.rates
+        counts_zero()
+        times, out, split, calls = [], None, None, []
+        for rep in range(REPS_SUB + 1):       # a warm-up first
+            # a lossy warm-up's block coder and trial-decode launches are
+            # recorded and held below
+            with (enc_recorded() if rep == 0 and not lossless else
+                  contextlib.nullcontext()) as rec_e, \
+                    (recorded() if rep == 0 and not lossless else
+                     contextlib.nullcontext()) as rec_d:
+                split = _host_split(serve_enc, tile, lambda: timed(
+                    lambda: api.compress(img, params, device=dev)))
+            if rep == 0 and not lossless:
+                calls = rec_e + [c for c in rec_d if c[0] == "K3"]
+            s, dt = split["call"]
+            times.append(dt)
+            if out is not None and s != out:
+                _fail(f"encode {name}: reps gave different bytes")
+            out = s
+        got = counts()
+        kern = "K4" if params.ht else "K5"
+        need(f"{name} encode", got, [kern], ["K4r", "K1", "K2"] + v1s)
+        held = []
+        for kn, a, res_ in calls:
+            # the main path's launches at 1080p: the largest lane and the
+            # 15 smallest against the plain version
+            # (K5's and K3's plain versions on the host's CPU, one process
+            # each, beside the card's work: checked after the last frame)
+            if kn == "K5":
+                ins, (L, R) = a[:5], a[5:7]
+                sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
+                sub_held.append((name, kn, sel.numel(), ins[0].shape[0],
+                                host_pool.submit(hw_validate.plain_encode_ms,
+                                            *(t.index_select(0, sel).cpu()
+                                              for t in ins), L, R),
+                                tuple(t.index_select(0, sel).cpu()
+                                      for t in res_)))
+                continue
+            if kn == "K3":
+                W, H = a[9], a[10]
+                lanes = a[:9]
+                sel = held_lanes(lanes[2] > 0, lanes[5], lanes[6],
+                                 lanes[2])
+                sub_held.append((name, kn, sel.numel(), lanes[1].shape[0],
+                                host_pool.submit(hw_validate.plain_decode_ms,
+                                            lanes[0].cpu(),
+                                            *(t.index_select(0, sel).cpu()
+                                              for t in lanes[1:]), W, H),
+                                res_[sel].cpu()))
+                continue
+            lanes, caps = a[:5], tuple(a[5:8])
+            sel = held_lanes(lanes[4] == 1, lanes[2], lanes[3],
+                             (lanes[0] >> 1).amax((1, 2)))
+            sub = tuple(t.index_select(0, sel) for t in lanes)
+            ref, p_ms = _plain_ms(torch, lambda: ht_encode
+                                  .ht_encode_lanes_ref(*sub, *caps))
+            if not hw_validate.ht_encodes_equal(
+                    (res_[0].index_select(0, sel), res_[1][:, sel]), ref,
+                    caps[:-1]):
+                k4["err"] = 1
+                _fail(f"K4 disagrees with its plain version on the lanes "
+                      f"of {name}")
+            held.append(f"K4 {sel.numel()} of {lanes[0].shape[0]} "
+                        f"lanes equal to the plain version (plain "
+                        f"{p_ms:.1f} ms)")
+        if not lossless and not any(c[0] == kern for c in calls):
+            _fail(f"encode {name}: no {kern} launch was held against its "
+                  f"plain version")
+        if lossless:
+            back, dec_s = timed(lambda: api.decompress_device(out,
+                                                              device=dev))
+            if not all(torch.equal(b, c.data) for b, c in
+                       zip(back, img.components)):
+                _fail(f"decode {name}: not the source")
+            what = "decoded back to the source bit for bit"
+        else:
+            # each layer prefix within its budget (the tile's own encode
+            # gives the packet lengths), and a 32x32 crop encoded and
+            # decoded on the card equal to the plain versions' on the CPU
+            hdr = api._image_header(img, params)
+            res, = serve_enc.try_encode_serving_batch(
+                [c.data[None] for c in img.components], hdr, params)
+            if not out.endswith(res.body + b"\xff\xd9"):
+                _fail(f"encode {name}: the tile body differs from the "
+                      f"API stream's")
+            targets = layer_targets_for_tile(
+                layer_budget_consts(hdr, params), hdr.siz.tile_rect(0),
+                params)
+            nl = params.num_layers
+            per = len(res.packet_lens) // nl
+            prefix = [int(sum(res.packet_lens[:per * (k + 1)]))
+                      for k in range(nl)]
+            if any(p > t for p, t in zip(prefix, targets)):
+                _fail(f"encode {name}: layer prefixes {prefix} over the "
+                      f"budgets {targets}")
+            back, dec_s = timed(lambda: api.decompress_device(out,
+                                                              device=dev))
+            peak = [(1 << c.prec) - 1 for c in img.components]
+            psnr = [10 * np.log10(pk ** 2 / max(float(
+                ((b.double() - c.data.double()) ** 2).mean()), 1e-12))
+                for pk, b, c in zip(peak, back, img.components)]
+            small = crop(host_img, 32)
+            cp = replace(params, num_resolutions=3, cblk_w_exp=4,
+                         cblk_h_exp=4)
+            on_c = api.compress(on_card(small), cp, device=dev)
+            if on_c != api.compress(small, cp, device="cpu"):
+                _fail(f"{name}: the card's 32x32 crop encode differs from "
+                      f"the plain versions' on the CPU")
+            e = max(int((a.cpu().long() - b.long()).abs().max())
+                    for a, b in zip(api.decompress_device(on_c,
+                                                          device=dev),
+                                    api.decompress_device(on_c,
+                                                          device="cpu")))
+            if e > 1:
+                _fail(f"{name}: the card's decode of the crop differs by "
+                      f"{e} from the plain versions'")
+            what = (f"the main path's launches held on the largest lane "
+                    f"and the 15 smallest: {'; '.join(held)}; layer "
+                    f"prefixes {prefix} within "
+                    f"{[round(t, 1) for t in targets]}; PSNR by component "
+                    f"{', '.join(f'{v:.2f}' for v in psnr)} dB; the 32x32 "
+                    f"crop's stream equal to the CPU encode, its decode "
+                    f"within {e}")
+        if name in sub_vectors.HASHES:
+            if sub_vectors.sha256(out) != sub_vectors.HASHES[name]:
+                _fail(f"encode {name}: not grok_tpu.compress's bytes (the "
+                      f"committed hash)")
+            what += "; grok_tpu.compress's bytes (the committed hash)"
+        best, med = min(times[1:]), float(np.median(times[1:]))
+        print(f"encode {name}: {len(out)} bytes; best of {REPS_SUB} "
+              f"{best * 1e3:.3f} ms/call (median {med * 1e3:.3f}); the "
+              f"last "
+              f"call's C wire assembly {split['assemble'] * 1e3:.3f} ms, "
+              f"Tier-2 finish {split['finish'] * 1e3:.3f} ms (truncation "
+              f"refinement {split['refine'] * 1e3:.3f} ms); launches per "
+              f"encode K4 {got['K4'] / (REPS_SUB + 1):g}, K5 "
+              f"{got['K5'] / (REPS_SUB + 1):g}, K3 "
+              f"{got['K3'] / (REPS_SUB + 1):g}; the first decode (its "
+              f"plan "
+              f"built) {dec_s * 1e3:.3f} ms; {what} [{card}]", flush=True)
+        if kind != "c420":
+            continue
+        # C420: a 1024x1024 window of the decode, and Compressor tile by
+        # tile
+        win = (1000, 700, 2024, 1724)
+        wplanes, wdt = timed(lambda: api.decompress_device(
+            out, DP(window=win), device=dev))
+        for c, (wp, comp) in enumerate(zip(wplanes, img.components)):
+            rs = comp_region(img, c, *win)
+            if not torch.equal(wp[rs], comp.data[rs]):
+                _fail(f"C420: component {c} differs inside the window")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "c420.j2k")
+
+            def stream():
+                enc = Compressor(path, width=img.w, height=img.h,
+                                 numcomps=3, x0=img.x0, y0=img.y0,
+                                 subsampling=[(c.dx, c.dy) for c in
+                                              img.components],
+                                 params=params, device=dev)
+                for t in range(enc.num_tiles):
+                    r = enc._hdr.siz.tile_rect(t)
+                    enc.write_tile(t, [comp.data[comp_region(
+                        img, c, r.x0, r.y0, r.x1, r.y1)]
+                        for c, comp in enumerate(img.components)])
+                enc.finish()
+            counts_zero()
+            _none, sdt = timed(stream)
+            n_k4 = counts()["K4"]
+            with open(path, "rb") as f:
+                if f.read() != out:
+                    _fail("C420: Compressor's bytes differ from "
+                          "compress's")
+        print(f"C420: a {win} window decoded in {wdt * 1e3:.3f} ms, equal "
+              f"to the source inside it; Compressor wrote the tiles in "
+              f"{sdt * 1e3:.3f} ms ({n_k4} K4 launches), compress's bytes "
+              f"[{card}]", flush=True)
+    for name, kn, n_sel, nl, fut, got_sub in sub_held:
+        ref, p_ms = fut.result()
+        if not (hw_validate.encodes_equal(got_sub, ref) if kn == "K5"
+                else torch.equal(got_sub, ref)):
+            (k5 if kn == "K5" else k3)["err"] = 1
+            _fail(f"{kn} disagrees with its plain version on the lanes "
+                  f"of {name}")
+        print(f"{kn} {name}: {n_sel} of the main path's {nl} lanes (the "
+              f"largest and the 15 smallest) equal to the plain version "
+              f"(on the host CPU, {p_ms:.1f} ms) [{card}]", flush=True)
+    print(f"subsampled phase: {time.perf_counter() - t_sub:.1f} s",
+          flush=True)
+
+    t_hc = time.perf_counter()
+    for fut, check in host_checks:
+        check(*fut.result())
+    host_pool.shutdown()
+    print(f"host-CPU plain checks of phases 8, 9 and 16: waited "
+          f"{time.perf_counter() - t_hc:.1f} s for them", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
     print(card, flush=True)
@@ -3221,8 +3518,11 @@ def main() -> int:
         row("ht_refine_encode", "ht_encode.cu",
             "grok_tpu/ops/pallas_ht_enc.py:722",
             enc_counts["HT-refined"]["K4r"], k4r),
-        row("lane_gather", "lane_gather.cu", "tools/hw_validate.py:383",
-            p1_launches, p1, p1["library_ms"])]}), flush=True)
+        dict(row("lane_gather", "lane_gather.cu", "tools/hw_validate.py:383",
+                 p1_launches, p1, p1["library_ms"]),
+             bound_note="x and idx read once, out written once: 12 bytes "
+             "an element", spread_ms=p1["spread_ms"],
+             rows=hw_validate.GATHER_ROWS)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,7 +1,10 @@
-"""Public device surface of the PyTorch port: serving decode and encode.
+"""Public surface of the PyTorch port: the device decode and encode, and
+the top-level compress / decompress.
 
-Mirrors grok_tpu/api.py `decompress_device[_batch]` and
-`compress_device[_batch]` for the served shapes, single-tile and tiled
+Mirrors grok_tpu/api.py `decompress_device[_batch]`,
+`compress_device[_batch]`, `compress` (an Image whose components have
+their own precision, signedness and subsampling) and `decompress` (to a
+host Image, through codec.py Decompressor), single-tile and tiled
 (encodes in one or more tile-parts per tile, with precincts, POC, PLT,
 TLM, PLM, PPM and quality layers), decodes whole or in a window, of intact, cut
 or corrupt streams, with packed headers, ROI, tile overrides or a
@@ -29,7 +32,7 @@ from grok_tpu_torch.codestream.j2k import (CodingStyle, CodingStyleComp,
                                            TileHeader)
 from grok_tpu_torch.codestream.profiles import validate_profile
 from grok_tpu_torch.core.geometry import Rect, SizGrid
-from grok_tpu_torch.core.image import ColorSpace
+from grok_tpu_torch.core.image import ColorSpace, Component, Image
 from grok_tpu_torch.core.params import (CBLK_HT, CompressParams,
                                         DecompressParams, MCTMode)
 from grok_tpu_torch.core.quant import StepSize, make_quantizer
@@ -372,19 +375,46 @@ def stage_general_device(data: bytes,
 def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
                        params: CompressParams,
                        origin: tuple[int, int] = (0, 0)) -> MainHeader:
-    """grok_tpu/api.py `_build_main_header` for an image at `origin` (x0,
-    y0) on the canvas whose components share one precision, without
-    subsampling."""
+    """The main header of an h x w image at `origin` (x0, y0) on the
+    canvas whose components share one precision, without subsampling
+    (compress_device's frames)."""
+    x0, y0 = origin
+    return _main_header((x0, y0, x0 + w, y0 + h),
+                        [CompInfo(prec=prec, sgnd=bool(sgnd), dx=1, dy=1)
+                         for _ in range(ncomps)], params)
+
+
+def _image_header(image: Image, params: CompressParams) -> MainHeader:
+    """The main header of an Image: its canvas and each component's
+    precision, signedness and subsampling (its samples unused)."""
+    return _main_header((image.x0, image.y0, image.x1, image.y1),
+                        [CompInfo(prec=c.prec, sgnd=bool(c.sgnd), dx=c.dx,
+                                  dy=c.dy) for c in image.components],
+                        params)
+
+
+def _main_header(canvas: tuple[int, int, int, int], comps: list,
+                 params: CompressParams) -> MainHeader:
+    """grok_tpu/api.py `_build_main_header`: the canvas (x0, y0, x1, y1),
+    each component's CompInfo (precision, signedness and subsampling),
+    the MCT where the first three components share their subsampling,
+    one quantizer per component (a QCC where it differs from the QCD) and
+    the ROI's raised exponents on its component."""
     params.validate()
-    if prec > 27:
-        # int32 coefficient pipeline: RCT (+1 bit), DWT band gain (+2
-        # bits) and the sign-magnitude shift must fit 31 bits
-        raise ValueError(
-            f"component precision {prec} exceeds the supported "
-            "27-bit bound for the int32 coefficient pipeline")
+    x0, y0, x1, y1 = canvas
+    for c in comps:
+        if c.prec > 27:
+            # int32 coefficient pipeline: RCT (+1 bit), DWT band gain (+2
+            # bits) and the sign-magnitude shift must fit 31 bits
+            raise ValueError(
+                f"component precision {c.prec} exceeds the supported "
+                "27-bit bound for the int32 coefficient pipeline")
+        if not (1 <= c.prec and 1 <= c.dx <= 255 and 1 <= c.dy <= 255):
+            raise ValueError(f"component precision {c.prec} or subsampling "
+                             f"({c.dx}, {c.dy}) outside SIZ's range")
     # the Rsiz profile's constraints, checked where grok_tpu.compress
     # checks them: before any route of the encode is chosen
-    errs = validate_profile(params, w, h, ncomps,
+    errs = validate_profile(params, x1 - x0, y1 - y0, len(comps),
                             frame_rate=params.frame_rate,
                             mainlevel=params.mainlevel,
                             sublevel=params.sublevel)
@@ -392,19 +422,20 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
         raise ValueError("profile violations: " + "; ".join(errs))
     mct_mode = params.mct
     if mct_mode is None:
-        mct_mode = MCTMode.RCT_OR_ICT if ncomps >= 3 else MCTMode.NONE
+        mct_mode = MCTMode.RCT_OR_ICT if len(comps) >= 3 else MCTMode.NONE
     if mct_mode == MCTMode.CUSTOM:
         if params.custom_mct is None:
             raise ValueError("MCTMode.CUSTOM requires custom_mct matrix")
         if not params.irreversible:
             raise ValueError("custom MCT requires the irreversible path")
-    x0, y0 = origin
-    siz = SizGrid(xsiz=x0 + w, ysiz=y0 + h, xosiz=x0, yosiz=y0,
+        if len({(c.dx, c.dy) for c in comps}) != 1:
+            raise ValueError("a custom MCT needs components of one "
+                             "subsampling")
+    siz = SizGrid(xsiz=x1, ysiz=y1, xosiz=x0, yosiz=y0,
                   xtsiz=params.tile_w, ytsiz=params.tile_h,
                   xtosiz=params.tile_off_x, ytosiz=params.tile_off_y)
-    comps = [CompInfo(prec=prec, sgnd=sgnd, dx=1, dy=1)
-             for _ in range(ncomps)]
-    use_mct = 1 if mct_mode == MCTMode.RCT_OR_ICT and ncomps >= 3 else 0
+    use_mct = 1 if (mct_mode == MCTMode.RCT_OR_ICT and len(comps) >= 3
+                    and len({(c.dx, c.dy) for c in comps[:3]}) == 1) else 0
     prec_exps = None
     if params.prec_w_exps:
         prec_exps = list(zip(params.prec_w_exps, params.prec_h_exps))
@@ -429,11 +460,12 @@ def _build_main_header(h: int, w: int, ncomps: int, prec: int, sgnd: bool,
     if mct_mode == MCTMode.CUSTOM:
         hdr.custom_mct = np.asarray(params.custom_mct, dtype=float)
         hdr.rsiz |= 0x8000 | 0x0100      # Part-2 extended + MCT extension
-    q = make_quantizer(params.num_resolutions, prec, params.irreversible,
-                       params.num_guard_bits, params.quant_step,
-                       derived=not params.quant_style_expounded
-                       and params.irreversible)
-    for c in range(ncomps):
+    for c, ci in enumerate(comps):
+        q = make_quantizer(params.num_resolutions, ci.prec,
+                           params.irreversible, params.num_guard_bits,
+                           params.quant_step,
+                           derived=not params.quant_style_expounded
+                           and params.irreversible)
         steps = q.steps if q.style != 1 else q.steps[:1]
         if (c == params.roi_comp and params.roi_shift > 0
                 and not params.irreversible):
@@ -492,8 +524,14 @@ def _main_header_bytes(hdr: MainHeader, params: CompressParams,
     return bytes(out)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
 def _frame_components(arrays) -> list:
-    """One frame as a list of (h, w) component arrays or tensors."""
+    """One frame as a list of component arrays or tensors: a list as it
+    is, an (h, w, c) array split along its last axis, an (h, w) array as
+    one component."""
     if isinstance(arrays, (list, tuple)):
         return list(arrays)
     if arrays.ndim == 3:
@@ -536,6 +574,46 @@ def _frames_on(arrays_list, params: CompressParams,
     return frames, dev
 
 
+def _uniform_image(frame: list, prec: int, sgnd: bool,
+                   origin: tuple[int, int]) -> Image:
+    """The Image grok_tpu.compress_device builds around one frame of
+    unsubsampled components of one precision (GRAY or SRGB), at
+    `origin` on the canvas; components of differing shapes raise
+    ValueError (compress takes subsampled ones as an Image)."""
+    shapes = {tuple(c.shape) for c in frame}
+    if len(shapes) != 1 or len(next(iter(shapes))) != 2:
+        raise ValueError(
+            f"compress_device takes (h, w) components of one shape, got "
+            f"{sorted(shapes)}: encode subsampled components with "
+            f"compress(Image) and each component's dx, dy")
+    h, w = frame[0].shape
+    x0, y0 = origin
+    return Image(components=[Component(data=c, prec=prec, sgnd=sgnd)
+                             for c in frame],
+                 x0=x0, y0=y0, x1=x0 + w, y1=y0 + h,
+                 color_space=ColorSpace.GRAY if len(frame) == 1
+                 else ColorSpace.SRGB)
+
+
+def _check_components(image: Image, frame: list) -> None:
+    """Each component's samples must cover its grid on the image's canvas
+    exactly: ceil(x1 / dx) - ceil(x0 / dx) columns and likewise rows
+    (ValueError otherwise; grok_tpu.compress writes such a component
+    into a stream its own decode refuses)."""
+    if len(frame) != len(image.components):
+        raise ValueError(f"{len(frame)} component arrays for an image of "
+                         f"{len(image.components)} components")
+    for c, (ci, a) in enumerate(zip(image.components, frame)):
+        want = (_cdiv(image.y1, ci.dy) - _cdiv(image.y0, ci.dy),
+                _cdiv(image.x1, ci.dx) - _cdiv(image.x0, ci.dx))
+        if tuple(a.shape) != want:
+            raise ValueError(
+                f"component {c} holds {tuple(a.shape)} samples; with "
+                f"subsampling ({ci.dx}, {ci.dy}) on the canvas "
+                f"[{image.x0}, {image.x1}) x [{image.y0}, {image.y1}) it "
+                f"needs {want}")
+
+
 def compress_device_batch(arrays_list, params: CompressParams | None = None,
                           prec: int = 8, sgnd: bool = False, *,
                           device="cuda",
@@ -544,7 +622,10 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     device encode — the encode mirror of decompress_device_batch.
 
     arrays_list: one entry per frame, each a list of (h, w) component
-    arrays, or a single (h, w) / (h, w, c) array.  Torch tensors stay on
+    arrays of one shape, or a single (h, w) / (h, w, c) array (as the
+    JAX package's signature takes them: one precision, no subsampling;
+    components of differing shapes raise ValueError, compress takes
+    them as an Image).  Torch tensors stay on
     their device, which must be `device` (else ValueError); numpy arrays
     are uploaded to `device`.  origin: the image's (x0, y0) on the
     canvas, as grok_tpu's Image x0 and y0.  Tile by tile
@@ -567,13 +648,25 @@ def compress_device_batch(arrays_list, params: CompressParams | None = None,
     if not arrays_list:
         return []
     frames, dev = _frames_on(arrays_list, params, device)
+    image = _uniform_image(frames[0], prec, sgnd, origin)
+    return _encode_image_frames(frames, image, params, dev)
+
+
+def _encode_image_frames(frames: list, image: Image,
+                         params: CompressParams,
+                         dev: torch.device) -> list[bytes]:
+    """N frames of device tensors laid out as `image` (its canvas, each
+    component's precision, signedness and subsampling, its colour space
+    and JP2 metadata; its samples unused) to N codestreams: the R-D
+    choice of the colour transform for MCTMode.AUTO_RD, else one
+    encode."""
     if params.mct == MCTMode.AUTO_RD and len(frames[0]) >= 3:
-        return _auto_rd(frames, params, prec, sgnd, dev, origin)
-    return _encode_frames(frames, params, prec, sgnd, origin)
+        return _auto_rd(frames, image, params, dev)
+    return _encode_frames(frames, image, params)
 
 
-def _auto_rd(frames: list, params: CompressParams, prec: int, sgnd: bool,
-             dev: torch.device, origin: tuple[int, int]) -> list[bytes]:
+def _auto_rd(frames: list, image: Image, params: CompressParams,
+             dev: torch.device) -> list[bytes]:
     """The R-D choice of the colour transform, as grok_tpu/api.py
     `compress` makes it for MCTMode.AUTO_RD: every frame encoded with
     and without it; a lossless encode keeps the shorter stream, a lossy
@@ -582,8 +675,7 @@ def _auto_rd(frames: list, params: CompressParams, prec: int, sgnd: bool,
     tie)."""
     lossless = not params.irreversible and not params.rates \
         and not params.quality
-    cands = [_encode_frames(frames, replace(params, mct=m), prec, sgnd,
-                            origin)
+    cands = [_encode_frames(frames, image, replace(params, mct=m))
              for m in (MCTMode.RCT_OR_ICT, MCTMode.NONE)]
     out = []
     for fi, f in enumerate(frames):
@@ -602,20 +694,14 @@ def _auto_rd(frames: list, params: CompressParams, prec: int, sgnd: bool,
     return out
 
 
-def _encode_frames(frames: list, params: CompressParams, prec: int,
-                   sgnd: bool, origin: tuple[int, int]) -> list[bytes]:
-    """compress_device_batch for frames of same-shaped device tensors."""
-    comp_shapes = tuple(tuple(c.shape) for c in frames[0])
-    h, w = comp_shapes[0][:2]
-    hdr = _build_main_header(h, w, len(comp_shapes), prec, sgnd, params,
-                             origin)
-    if len(set(comp_shapes)) != 1 or len(comp_shapes[0]) != 2:
-        raise NotImplementedError("encode of subsampled components is not "
-                                  "ported")
+def _encode_frames(frames: list, image: Image,
+                   params: CompressParams) -> list[bytes]:
+    """One encode of N frames laid out as `image` (_encode_image_frames)."""
+    hdr = _image_header(image, params)
+    _check_components(image, frames[0])
     comps = [torch.stack([f[ci] for f in frames])
-             for ci in range(len(comp_shapes))]
-    per_tile = [try_encode_serving_batch(_tile_samples(comps, hdr, t,
-                                                       origin),
+             for ci in range(len(frames[0]))]
+    per_tile = [try_encode_serving_batch(_tile_samples(comps, hdr, t),
                                          hdr, params, t)
                 for t in range(hdr.siz.num_tiles)]
     out = []
@@ -634,25 +720,33 @@ def _encode_frames(frames: list, params: CompressParams, prec: int,
                                 plm if params.write_plm else None)
         stream = mh + b"".join(tps) + struct.pack(">H", j2k.EOC)
         if params.jp2:
+            c0 = image.components[0]
             stream = jp2.wrap_jp2(
-                stream, width=w, height=h, numcomps=len(comp_shapes),
-                prec=prec, sgnd=sgnd,
-                color_space=ColorSpace.GRAY if len(comp_shapes) == 1
-                else ColorSpace.SRGB)
+                stream, width=image.w, height=image.h,
+                numcomps=len(image.components), prec=c0.prec, sgnd=c0.sgnd,
+                color_space=image.color_space,
+                icc_profile=image.icc_profile,
+                capture_resolution=image.capture_resolution,
+                per_comp_prec=[(c.prec, c.sgnd) for c in image.components])
         out.append(stream)
     return out
 
 
-def _tile_samples(comps: list, hdr: MainHeader, t: int,
-                  origin: tuple[int, int]) -> list:
-    """Tile t's samples of (N, h, w) component stacks of an image at
-    `origin` on the canvas."""
-    if hdr.siz.num_tiles == 1:
+def _tile_samples(comps: list, hdr: MainHeader, t: int) -> list:
+    """Tile t's samples of (N, h, w) component stacks: each component
+    sliced by its own tile-component rect (the tile rect ceil-divided by
+    its dx, dy), relative to its grid's origin on the canvas."""
+    g = hdr.siz
+    if g.num_tiles == 1:
         return comps
-    r = hdr.siz.tile_rect(t)
-    x0, y0 = origin
-    return [c[:, r.y0 - y0:r.y1 - y0, r.x0 - x0:r.x1 - x0].contiguous()
-            for c in comps]
+    r = g.tile_rect(t)
+    out = []
+    for c, ci in zip(comps, hdr.comps):
+        cr = r.ceil_scale(ci.dx, ci.dy)
+        gx0, gy0 = -(-g.xosiz // ci.dx), -(-g.yosiz // ci.dy)
+        out.append(c[:, cr.y0 - gy0:cr.y1 - gy0,
+                     cr.x0 - gx0:cr.x1 - gx0].contiguous())
+    return out
 
 
 def _tile_parts(t: int, res, params: CompressParams) -> list:
@@ -681,7 +775,57 @@ def _tile_parts(t: int, res, params: CompressParams) -> list:
 def compress_device(arrays, params: CompressParams | None = None,
                     prec: int = 8, sgnd: bool = False, *,
                     device="cuda", origin: tuple[int, int] = (0, 0)) -> bytes:
-    """Encode one frame (a list of (h, w) component arrays, or one
-    (h, w) / (h, w, c) array) to a codestream on the device."""
+    """Encode one frame (a list of (h, w) component arrays of one shape,
+    or one (h, w) / (h, w, c) array) to a codestream on the device."""
     return compress_device_batch([arrays], params, prec, sgnd,
                                  device=device, origin=origin)[0]
+
+
+def _as_image(image_or_array) -> Image:
+    """An Image as it is; an (h, w) or (h, w, c) numpy array or tensor as
+    grok_tpu's Image.from_array builds it (8-bit unsigned, GRAY or SRGB),
+    a tensor's samples left on its device."""
+    if isinstance(image_or_array, Image):
+        return image_or_array
+    if not isinstance(image_or_array, torch.Tensor):
+        return Image.from_array(np.asarray(image_or_array))
+    return _uniform_image(_frame_components(image_or_array), 8, False,
+                          (0, 0))
+
+
+def compress(image_or_array, params: CompressParams | None = None, *,
+             device="cuda") -> bytes:
+    """Encode an Image (or an (h, w) / (h, w, c) array) to a J2K
+    codestream or a JP2 file on `device`, as grok_tpu.compress writes it
+    (grok_tpu/api.py `compress`): each component with its own precision,
+    signedness and subsampling (dx, dy), the colour transform where the
+    first three components share their subsampling, a QCC where a
+    component's quantization differs; AUTO_RD's R-D choice (the lossy
+    candidates decoded by decompress_device on the same device); with
+    params.jp2 the image's colour space, ICC profile, capture resolution
+    and, where the precisions differ, the BPCC box.  The components'
+    samples are numpy arrays (uploaded) or tensors, which must lie on
+    `device` (else ValueError), each covering its grid on the image's
+    canvas exactly: ceil(x1 / dx) - ceil(x0 / dx) columns and likewise
+    rows (else ValueError).  Everything else as compress_device_batch:
+    tiles, layers and rate targets, precincts, POC, the markers, mode
+    switches, HT-mixed and refined HT, ROI and params.mesh."""
+    params = params or CompressParams()
+    image = _as_image(image_or_array)
+    (frame,), dev = _frames_on([[c.data for c in image.components]],
+                               params, device)
+    return _encode_image_frames([frame], image, params, dev)[0]
+
+
+def decompress(data, dparams: DecompressParams | None = None, *,
+               device="cuda", tile_index: int | None = None,
+               components: list | None = None) -> Image:
+    """Decode a J2K codestream or JP2 file to a host Image, as
+    grok_tpu.decompress does (strict unless dparams.strict is False):
+    codec.py Decompressor(...).decompress() on `device`.  tile_index:
+    only that tile (the rest of the image zero) and components: only
+    those, as grok_tpu's DecompressParams tile_index and components give
+    them (the port's DecompressParams has no such fields)."""
+    from grok_tpu_torch.codec import Decompressor
+    with Decompressor(data, dparams, cache_tiles=0, device=device) as dec:
+        return dec.decompress(tile=tile_index, components=components)

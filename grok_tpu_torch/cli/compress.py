@@ -3,9 +3,10 @@
 The port's copy of grok_tpu/cli/compress.py, with its flags and output
 files, except that `--device` (cuda by default; cpu runs the kernels'
 plain versions) takes the place of `-B/--backend`.  Each image is read on
-the host, uploaded and encoded on the device by api.compress_device; a
-.jp2/.jph output is wrapped as grok_tpu.compress wraps it (the image's
-colour space, ICC profile and capture resolution):
+the host, uploaded and encoded on the device by api.compress, as
+grok_tpu.compress encodes it (each component's precision, signedness and
+subsampling; a .jp2/.jph output with the image's colour space, ICC
+profile, capture resolution and, for mixed precisions, its BPCC box):
 
     python -m grok_tpu_torch.cli.compress -i in.ppm -o out.j2k
 
@@ -20,10 +21,7 @@ import os
 import sys
 import time
 
-from dataclasses import replace
-
-from grok_tpu_torch.api import compress_device
-from grok_tpu_torch.codestream import jp2
+from grok_tpu_torch.api import compress
 from grok_tpu_torch.core.params import CompressParams, MCTMode, ProgOrder
 from grok_tpu_torch.util.imageio import read_image
 
@@ -128,32 +126,6 @@ def params_from_args(a) -> CompressParams:
     return params
 
 
-def compress(img, params: CompressParams, device: str = "cuda") -> bytes:
-    """grok_tpu.compress of a host Image, on `device`: the components'
-    samples encoded by api.compress_device (one precision and
-    signedness for all, as the port's encode takes them), the JP2 boxes
-    as grok_tpu.compress writes them."""
-    comps = img.components
-    if len({(c.prec, c.sgnd) for c in comps}) != 1:
-        raise NotImplementedError("encode of components of different "
-                                  "precisions is not ported")
-    if any((c.dx, c.dy) != (1, 1) for c in comps):
-        raise NotImplementedError("encode of subsampled components is not "
-                                  "ported")
-    c0 = comps[0]
-    stream = compress_device([c.data for c in comps],
-                             replace(params, jp2=False), c0.prec, c0.sgnd,
-                             device=device, origin=(img.x0, img.y0))
-    if not params.jp2:
-        return stream
-    return jp2.wrap_jp2(
-        stream, width=img.w, height=img.h, numcomps=len(comps),
-        prec=c0.prec, sgnd=c0.sgnd, color_space=img.color_space,
-        icc_profile=img.icc_profile,
-        capture_resolution=img.capture_resolution,
-        per_comp_prec=[(c.prec, c.sgnd) for c in comps])
-
-
 def encode_one(in_path: str, out_path: str, params: CompressParams,
                verbose: bool, raw_format: str | None = None,
                device: str = "cuda") -> int:
@@ -173,7 +145,7 @@ def encode_one(in_path: str, out_path: str, params: CompressParams,
         img = read_image(in_path)
     params.jp2 = out_path.lower().endswith((".jp2", ".jph"))
     t0 = time.perf_counter()
-    data = compress(img, params, device)
+    data = compress(img, params, device=device)
     dt = time.perf_counter() - t0
     with open(out_path, "wb") as f:
         f.write(data)

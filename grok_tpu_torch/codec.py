@@ -237,8 +237,9 @@ class Compressor:
     budget less the written main header, shared by tile area).  Refused
     as the JAX object refuses them: PPM, PLM, AUTO_RD, several
     tile-parts a tile, an ROI rectangle, fixed-quality targets and JP2
-    (ValueError); subsampled components raise NotImplementedError, as
-    the port's encode does.
+    (ValueError).  subsampling: each component's (dx, dy), one precision
+    and signedness for all, as the JAX object takes them; write_tile then
+    takes each component's (comp_h, comp_w) samples of the tile.
     """
 
     def __init__(self, path, *, width: int, height: int, numcomps: int = 1,
@@ -263,15 +264,18 @@ class Compressor:
         if self.params.jp2:
             raise ValueError("JP2 boxes need the stream length: wrap the "
                              "finished file with jp2.wrap_jp2")
-        if any(tuple(s) != (1, 1) for s in subsampling or ()):
-            raise NotImplementedError("encode of subsampled components is "
-                                      "not ported")
         self.device = device
-        self._hdr = api._build_main_header(height, width, numcomps, prec,
-                                           sgnd, self.params, (x0, y0))
+        sub = subsampling or [(1, 1)] * numcomps
+        if len(sub) != numcomps:
+            raise ValueError(f"{len(sub)} subsampling factors for "
+                             f"{numcomps} components")
+        self._hdr = api._main_header(
+            (x0, y0, x0 + width, y0 + height),
+            [j2k.CompInfo(prec=prec, sgnd=bool(sgnd), dx=dx, dy=dy)
+             for dx, dy in sub],
+            self.params)
         siz = self._hdr.siz
         self.num_tiles = siz.num_tiles
-        self._origin = (x0, y0)
         self._raw_bytes = sum((siz.xsiz - siz.xosiz) * (siz.ysiz - siz.yosiz)
                               * c.prec / 8.0 / (c.dx * c.dy)
                               for c in self._hdr.comps)
@@ -330,27 +334,28 @@ class Compressor:
 
     def write_tile(self, t: int, data) -> None:
         """Encode and append tile t.  data: the tile's samples, one (h, w)
-        or (h, w, numcomps) array or a per-component list of (h, w)
-        arrays, covering the tile's region of the image (larger arrays
-        are cropped); torch tensors must lie on the Compressor's device,
-        numpy arrays are uploaded to it."""
+        or (h, w, numcomps) array, or a per-component list of (comp_h,
+        comp_w) arrays (subsampled layouts: the tile's rect ceil-divided
+        by each component's dx, dy), covering the tile's region of the
+        image (larger arrays are cropped); torch tensors must lie on the
+        Compressor's device, numpy arrays are uploaded to it."""
         if self._finished:
             raise ValueError("finish() already called")
         if not (0 <= t < self.num_tiles):
             raise ValueError(f"tile {t} out of range")
         if t in self._done:
             return                           # resumed: already on disk
-        (frame,), _dev = api._frames_on([data], self.params, self.device)
-        if len(frame) != len(self._hdr.comps):
+        (comps,), _dev = api._frames_on([data], self.params, self.device)
+        if len(comps) != len(self._hdr.comps):
             raise ValueError(f"expected {len(self._hdr.comps)} components")
         rect = self._hdr.siz.tile_rect(t)
-        comps = []
-        for c, arr in enumerate(frame):
-            if arr.shape[0] < rect.h or arr.shape[1] < rect.w:
+        for c, (arr, ci) in enumerate(zip(comps, self._hdr.comps)):
+            cr = rect.ceil_scale(ci.dx, ci.dy)
+            if arr.dim() != 2 or arr.shape[0] < cr.h or arr.shape[1] < cr.w:
                 raise ValueError(
-                    f"tile {t} comp {c}: need {rect.h}x{rect.w} samples, "
-                    f"got {arr.shape[0]}x{arr.shape[1]}")
-            comps.append(arr[None, :rect.h, :rect.w].contiguous())
+                    f"tile {t} comp {c}: need {cr.h}x{cr.w} samples, "
+                    f"got {'x'.join(map(str, arr.shape))}")
+            comps[c] = arr[None, :cr.h, :cr.w].contiguous()
         res, = try_encode_serving_batch(comps, self._hdr, self.params, t,
                                         targets=self._targets(rect))
         (tp, _lens), = api._tile_parts(t, res, self.params)

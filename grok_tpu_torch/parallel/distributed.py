@@ -14,9 +14,10 @@ in a single process too.
   - `gather_bytes_to_host0` gathers one byte blob per process: two
     all-gathers of CPU tensors, the lengths first;
   - `compress_distributed`: process p encodes the tiles t with t % n == p
-    with the port's tile encode on its device; process 0 assembles the
-    main header, TLM and EOC, byte-identical to api.compress_device at
-    every parameter it accepts;
+    of an Image (subsampled components too) or an array with the port's
+    tile encode on its device; process 0 assembles the main header, TLM
+    and EOC, byte-identical to api.compress at every parameter it
+    accepts;
   - `decompress_distributed`: process p decodes its tiles through the
     port's tile decode on its device; the int32 planes gather to process
     0 as bytes, which returns what api.decompress_device returns.
@@ -112,15 +113,15 @@ def _records(blobs: list[bytes]):
             pos += ln
 
 
-def compress_distributed(arrays, params=None, prec: int = 8,
-                         sgnd: bool = False, *, device="cuda",
-                         origin: tuple[int, int] = (0, 0)) -> bytes | None:
-    """Process-sharded encode of one frame (every process passes the whole
-    frame, as api.compress_device takes it: tensors on `device`, else
-    ValueError, numpy arrays uploaded): process p encodes the tiles t
-    with t % n == p on `device`; the tile-parts gather to process 0,
-    which returns the codestream, byte-identical to api.compress_device;
-    the others return None.
+def compress_distributed(image_or_array, params=None, *,
+                         device="cuda") -> bytes | None:
+    """Process-sharded encode of one frame; every process passes the whole
+    frame, an Image or an (h, w) / (h, w, c) array as api.compress takes
+    it (each component with its own precision, signedness and
+    subsampling).  Tensors must lie on `device` (else ValueError), numpy
+    arrays are uploaded.  Process p encodes the tiles t with t % n == p
+    on `device`; the tile-parts gather to process 0, which returns the
+    codestream, byte-identical to api.compress; the others return None.
 
     Refused (ValueError), as grok_tpu/parallel/distributed.py refuses
     them: a JP2 wrapper, PPM, PLM, an ROI rectangle, fixed-quality
@@ -149,24 +150,21 @@ def compress_distributed(arrays, params=None, prec: int = 8,
                          "compress_distributed ignores both and writes "
                          "another stream than grok_tpu.compress): use "
                          "compress_device")
-    if params.mct == MCTMode.AUTO_RD and \
-            len(api._frame_components(arrays)) >= 3:
+    image = api._as_image(image_or_array)
+    if params.mct == MCTMode.AUTO_RD and len(image.components) >= 3:
         raise ValueError("distributed encode: MCTMode.AUTO_RD chooses "
                          "between two whole-frame encodes: use "
                          "compress_device")
-    (comps,), _dev = api._frames_on([arrays], params, device)
-    comps = [c[None] for c in comps]
-    if len({tuple(c.shape) for c in comps}) != 1:
-        raise NotImplementedError("encode of subsampled components is not "
-                                  "ported")
-    h, w = comps[0].shape[1:]
-    hdr = api._build_main_header(h, w, len(comps), prec, sgnd, params,
-                                 origin)
+    (frame,), _dev = api._frames_on([[c.data for c in image.components]],
+                                    params, device)
+    hdr = api._image_header(image, params)
+    api._check_components(image, frame)
+    comps = [c[None] for c in frame]
     rank, n = rank_and_size()
     local = bytearray()
     for t in range(rank, hdr.siz.num_tiles, n):
         res = try_encode_serving_batch(
-            api._tile_samples(comps, hdr, t, origin), hdr, params, t)[0]
+            api._tile_samples(comps, hdr, t), hdr, params, t)[0]
         (tp, _lens), = api._tile_parts(t, res, params)
         local += struct.pack(">II", t, len(tp)) + tp
     gathered = gather_bytes_to_host0(bytes(local))

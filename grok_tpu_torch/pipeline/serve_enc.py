@@ -108,7 +108,8 @@ def _unsupported(route: str, why: str) -> NotImplementedError:
         f"{route} is not ported ({why}); the PyTorch port encodes "
         f"HT, Part-1 (any mode switches) and HT-mixed streams (tiled, "
         f"layered and rate-targeted too, HT refined too, with ROI and "
-        f"any MCT) of unsubsampled components up to 27 bits")
+        f"any MCT) of components of any subsampling, precision (up to "
+        f"27 bits) and signedness")
 
 
 @dataclass

@@ -171,10 +171,22 @@ def encodes_equal(got, ref) -> bool:
 def plain_encode_ms(*args) -> tuple:
     """(t1_encode_lanes_ref(*args), its wall ms) for CPU tensors, on one
     thread: the plain version of a K5 launch's held lanes, run in a
-    worker process beside the card's work (chip_smoke.py phase 25)."""
+    worker process beside the card's work (chip_smoke.py phases 8, 25
+    and 32)."""
     torch.set_num_threads(1)
     t0 = time.perf_counter()
     out = t1_encode.t1_encode_lanes_ref(*args)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def plain_decode_ms(*args) -> tuple:
+    """(t1_decode_lanes_ref(*args), its wall ms) for CPU tensors, on one
+    thread: the plain version of a K3 launch's held lanes, run in a
+    worker process beside the card's work (chip_smoke.py phases 9, 16
+    and 32)."""
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = t1_decode.t1_decode_lanes_ref(*args)
     return out, (time.perf_counter() - t0) * 1e3
 
 
@@ -204,9 +216,12 @@ def _report(res: dict, text: str) -> dict:
 def run_gather_probe(device, rows: int = 64, L: int = 128) -> dict:
     """P1 on the JAX probe's own inputs (x = arange, idx drawn by
     default_rng(0)): the kernel against its plain version, the library
-    call torch.take_along_dim and numpy's take_along_axis; kernel, plain
-    and library times, and on a card the bytes bound (x and idx read
-    once, out written once)."""
+    call torch.take_along_dim and numpy's take_along_axis; the plain
+    version's time, and the kernel's and the library call's timed in
+    turns (P1, library, library, P1: `ms`, `library_ms` the mean of each
+    one's two windows, `spread_ms` the larger gap between a call's two
+    windows); on a card the bytes bound (x and idx read once, out written
+    once: 12 bytes an element)."""
     device = torch.device(device)
     x = np.arange(rows * L, dtype=np.int32).reshape(rows, L)
     idx = np.random.default_rng(0).integers(0, rows, (rows, L),
@@ -222,23 +237,32 @@ def run_gather_probe(device, rows: int = 64, L: int = 128) -> dict:
                             torch.take_along_dim(xd, ix64, dim=0),
                             torch.from_numpy(want).to(device)))
     nbytes = 3 * rows * L * 4
+
+    def p1():
+        return lane_gather.lane_gather(xd, ixd)
+
+    def lib():
+        return torch.take_along_dim(xd, ix64, dim=0)
+    w = [kernel_ms(device, f) for f in (p1, lib, lib, p1)]
     res = dict(check="gather_probe", device=str(device), rows=rows, L=L,
                ok=err == 0, max_abs_err=err, launches=launches,
-               ms=kernel_ms(device, lambda: lane_gather.lane_gather(xd,
-                                                                    ixd)),
+               ms=(w[0] + w[3]) / 2, library_ms=(w[1] + w[2]) / 2,
+               spread_ms=max(abs(w[0] - w[3]), abs(w[1] - w[2])),
                plain_ms=kernel_ms(device, lambda: lane_gather
                                   .lane_gather_ref(xd, ixd)),
-               library_ms=kernel_ms(device, lambda: torch.take_along_dim(
-                   xd, ix64, dim=0)),
                bytes=nbytes,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3
                if device.type == "cuda" else None)
     bound = f", bound {res['bound_ms']:.4f} ms ({nbytes} bytes)" \
         if res["bound_ms"] is not None else ""
     return _report(res, f"rows={rows} L={L}: max_abs_err {err} against the "
-                   f"plain version, take_along_dim and numpy; kernel "
-                   f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-                   f"take_along_dim {res['library_ms']:.4f} ms{bound}")
+                   f"plain version, take_along_dim and numpy; in turns "
+                   f"(P1, library, library, P1) "
+                   f"{', '.join(f'{v:.4f}' for v in w)} ms: kernel "
+                   f"{res['ms']:.4f} ms, take_along_dim "
+                   f"{res['library_ms']:.4f} ms, spread "
+                   f"{res['spread_ms']:.4f} ms; plain "
+                   f"{res['plain_ms']:.4f} ms{bound}")
 
 
 # ---------------------------------------------------------------------------

@@ -166,10 +166,22 @@ def test_compressor_refuses_what_the_jax_object_refuses(tmp_path):
         with pytest.raises(ValueError):
             grok_tpu_torch.Compressor(x, width=64, height=64,
                                       params=PCP(**kw), device="cpu")
-    with pytest.raises(NotImplementedError, match="subsampled"):
-        grok_tpu_torch.Compressor(x, width=64, height=64, numcomps=3,
-                                  subsampling=[(1, 1), (2, 2), (2, 2)],
-                                  device="cpu")
+    # subsampled components are written, as compress writes them
+    sub = [(1, 1), (2, 2), (2, 2)]
+    rng = np.random.default_rng(4)
+    planes = [rng.integers(0, 256, (64 // dy, 64 // dx), dtype=np.int32)
+              for dx, dy in sub]
+    enc = grok_tpu_torch.Compressor(x, width=64, height=64, numcomps=3,
+                                    subsampling=sub, params=PCP(ht=True),
+                                    device="cpu")
+    enc.write_tile(0, planes)
+    enc.finish()
+    img = grok_tpu_torch.Image([grok_tpu_torch.Component(data=p, dx=dx,
+                                                         dy=dy)
+                                for p, (dx, dy) in zip(planes, sub)],
+                               x1=64, y1=64)
+    assert open(x, "rb").read() == grok_tpu_torch.compress(
+        img, PCP(ht=True), device="cpu")
     enc = grok_tpu_torch.Compressor(x, width=64, height=64, device="cpu")
     with pytest.raises(ValueError, match="not written"):
         enc.finish()

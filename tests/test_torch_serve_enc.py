@@ -14,11 +14,14 @@ torch.set_num_threads(1)
 
 from grok_tpu import CompressParams as JCP  # noqa: E402
 from grok_tpu import Image  # noqa: E402
+from grok_tpu.core.image import Component as JComp  # noqa: E402
 from grok_tpu import compress, decompress, native  # noqa: E402
 from grok_tpu import api as japi  # noqa: E402
 from grok_tpu.core.params import MCTMode as JMCT  # noqa: E402
 from grok_tpu.util.oracle import synthetic_image  # noqa: E402
 from grok_tpu_torch import api  # noqa: E402
+from grok_tpu_torch.core.image import Component as PComp  # noqa: E402
+from grok_tpu_torch.core.image import Image as PImage  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams as PCP  # noqa: E402
 from grok_tpu_torch.core.params import MCTMode, Poc, ProgOrder  # noqa: E402
 from grok_tpu_torch.ops import ht_encode  # noqa: E402
@@ -118,10 +121,19 @@ def test_out_of_scope_parameters_raise(rgb):
         assert api.compress_device(part, PCP(**dict(CP, **kw)),
                                    device="cpu") == \
             compress(part, JCP(**dict(CP, **jkw)))
-    # what stays out: subsampled components
-    with pytest.raises(NotImplementedError, match="subsampled"):
-        api.compress_device([rgb[:, :, 0], rgb[::2, ::2, 1],
-                             rgb[::2, ::2, 2]], PCP(**CP), device="cpu")
+    # subsampled components: as a 4:2:0 Image, compress writes the
+    # reference's bytes; compress_device (the JAX package's signature,
+    # one shape for every component) refuses planes of differing shapes
+    planes = [rgb[:, :, 0], rgb[::2, ::2, 1], rgb[::2, ::2, 2]]
+    sub = [(1, 1), (2, 2), (2, 2)]
+    pimg = PImage([PComp(data=p, dx=dx, dy=dy)
+                   for p, (dx, dy) in zip(planes, sub)], x1=96, y1=64)
+    jimg = Image([JComp(data=p, dx=dx, dy=dy)
+                  for p, (dx, dy) in zip(planes, sub)], x1=96, y1=64)
+    assert api.compress(pimg, PCP(**CP), device="cpu") == \
+        compress(jimg, JCP(**CP))
+    with pytest.raises(ValueError, match="one shape"):
+        api.compress_device(planes, PCP(**CP), device="cpu")
     # Mb over 24 encodes as the reference does
     deep = rgb.astype(np.int32) << 15
     assert api.compress_device(deep, PCP(**CP, num_guard_bits=3), prec=23,
