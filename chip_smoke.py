@@ -62,7 +62,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                code-block, the full-lane oracle) and against its plain
                version on every lane of (A) and (B): byte-identical used
                stream bytes and bit counts; the two designs timed in
-               turns (v1, v2, v2, v1), the plain version once; for (B),
+               turns (v1, v2, v2, v1), the plain version once (on the
+               host's CPU, in a worker process beside the card's work,
+               as every plain comparison from here on: checked before
+               the kernels line); for (B),
                the launch of the slowest lane alone (largest w * h, then
                most stream bits) against all lanes.
   6. K4->K1  — 64 synthetic lanes of 1x1 to 64x64 encoded by K4,
@@ -74,9 +77,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                against its first design (ht_decode_lanes_v1, one thread
                per code-block, the full-lane oracle) and its plain
                version: bit-exact; the two designs timed in turns per
-               bucket (its lane count printed), the plain version once;
-               for (B), the slowest lane alone (largest w * h, then most
-               MagSgn bytes) against its bucket's launch.
+               bucket (its lane count printed), the plain version once
+               (on the host's CPU); for (B), the slowest lane alone
+               (largest w * h, then most MagSgn bytes) against its
+               bucket's launch.
   8. K5      — the Part-1 encoder (one warp per code-block) against its
                first design (t1_encode_lanes_v1, one thread per
                code-block, the full-lane oracle) on every lane of (A1)
@@ -111,14 +115,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                rows as in phase 8): byte-identical used bytes of all five
                streams, bit counts and SigProp significance maps; the two
                designs timed in turns on the compared lanes, the plain
-               version once.
+               version once (on the host's CPU).
  13. K2      — the refined HT decoder against its first design and its
                plain version on the general route's staged lanes: every
                refined lane of (A-r)'s first frame and of the full-layer
                (B-r) decode, and every lane (K1 and K2) of (B-r)'s
                bottom-edge buckets (H <= EDGE_H); bit-exact; the two
                designs timed in turns on each refined launch (its lane
-               count printed), the plain version once.
+               count printed), the plain version once (on the host's
+               CPU).
  14. K4r->K2 — 64 synthetic lanes of 1x1 to 64x64 (w = 1, h not a
                multiple of 4, all-zero lanes) at cleanup planes 1..3
                encoded by K4r, wire-assembled, raw-stuffed, scanned and
@@ -128,11 +133,17 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                every SigProp sample at its plane-(p - 1) value.
  15. P1      — the per-lane gather through the hardware-validation tool
                (grok_tpu_torch/tools/hw_validate.py run_gather_probe) at
-               64 and 65536 rows of 128 lanes: equal to its plain version
-               and to torch.take_along_dim; P1 and take_along_dim timed
-               in turns (P1, library, library, P1) with their spread, the
+               64 and 65536 rows of 128 lanes: equal to its plain
+               version, its first design (lane_gather_v1, one thread an
+               element) and torch.take_along_dim; P1 timed in turns with
+               take_along_dim (P1, library, library, P1) and with its
+               first design (v1, P1, P1, v1), with their spreads, the
                plain version once; the bound counts x and idx read once
-               and out written once, 12 bytes an element.
+               and out written once, 12 bytes an element; then
+               run_gather_shapes: P1 against its plain version, v1 and
+               numpy at 1, 63 and 65 rows of 1, 3, 4, 5, 127, 128 and
+               129 lanes, with indices in range, out of range (0 there)
+               and on unaligned views (the kernel's scalar form).
  16. K3 trial — K3 on the refinement's trial-decode lanes of (A1-t)'s
                first frame (32x32 blocks, so every lane whole) against its
                first design and its plain version (on the host's CPU, as
@@ -265,6 +276,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
                same bytes and planes meshed and unmeshed, (G) the source
                bit for bit, K5 and K3 launched once a shard (once a call
                unmeshed), a warm-up and 3 calls each, best and median;
+               every decode on the serving route, the meshed ones too
+               (each decode's route printed, the phase failing where one
+               leaves it), the meshed decode's best beside the unmeshed
+               one's;
                each shard's K5 and K3 launch of (G) timed with its bound;
                the finest 8192x8192 synthesis level sharded and
                unsharded, timed and equal (grok_tpu_torch/tools/
@@ -353,6 +368,7 @@ import numpy as np
 
 REPS = 5                 # end-to-end reps after a warm-up; best reported
 REPS_DMG = 3             # the same for phase 22's 13 decodes
+HOST_WORKERS = 4         # host processes for the plain versions
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 EDGE_H = 8               # (B1), (B-r) lanes held against the plain versions
 G_SIDE = 8192            # phase 27's giant tile (G)
@@ -418,8 +434,13 @@ class _Refuse(importlib.abc.MetaPathFinder):
         return None
 
 
+_POOLS = []     # the host worker pools: a failure drops their queued work
+
+
 def _fail(msg: str):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    for pool in _POOLS:
+        pool.shutdown(wait=False, cancel_futures=True)
     sys.exit(1)
 
 
@@ -490,14 +511,6 @@ def _k3_bytes(lanes, tables) -> int:
     nl = w.shape[0]
     return used + 28 * nl + _nbytes(ptbl) + _nbytes(*tables) \
         + 4 * int((w.long() * h.long()).sum())
-
-
-def _plain_ms(torch, fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _host_split(serve_enc, tile, call) -> dict:
@@ -814,9 +827,9 @@ def main() -> int:
                 "HT-refined": ["K4r"], "Part-1 targeted": ["K5", "K3"]}
     dec_need = {"HT": ["K1"], "Part-1": ["K3"], "HT-mixed": ["K1", "K3"],
                 "HT-refined": ["K2"], "Part-1 targeted": ["K3"]}
-    # the first designs (K1v1, K2v1, K3v1, K4v1, K4rv1, K5v1) are the
+    # the first designs (K1v1, K2v1, K3v1, K4v1, K4rv1, K5v1, P1v1) are the
     # oracle only
-    v1s = ["K1v1", "K2v1", "K3v1", "K4v1", "K4rv1", "K5v1"]
+    v1s = ["K1v1", "K2v1", "K3v1", "K4v1", "K4rv1", "K5v1", "P1v1"]
     absent = {p: ["K4r", "K2"] + v1s for p in paths}
     absent["HT-refined"] = ["K4", "K5"] + v1s
     absent["Part-1 targeted"] = ["K1", "K2", "K4", "K4r"] + v1s
@@ -1152,6 +1165,30 @@ def main() -> int:
               f"{host['refine'] * 1e3:.3f} ms), whole call "
               f"{host['call'] * 1e3:.3f} ms [{card}]", flush=True)
 
+    # the plain versions of the kernels' held lanes (phases 5, 7-9, 12,
+    # 13, 16, 21-25, 29 and 32) run on the host's CPU, in worker processes
+    # beside the card's work; each is checked (its err and plain_ms
+    # taken) before the kernels line
+    import concurrent.futures
+    import multiprocessing
+    host_pool = concurrent.futures.ProcessPoolExecutor(
+        max_workers=HOST_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"))
+    _POOLS.append(host_pool)
+    host_checks = []
+
+    def to_cpu(a):
+        if isinstance(a, torch.Tensor):
+            return a.cpu()
+        return tuple(to_cpu(x) for x in a) if isinstance(a, tuple) else a
+
+    def on_host(ref_fn, args, check):
+        """The plain version ref_fn(*args) on CPU copies of the tensors,
+        timed in a host worker (hw_validate.plain_ms); check(ref, p_ms)
+        when the checks are collected."""
+        host_checks.append((host_pool.submit(
+            hw_validate.plain_ms, ref_fn, *to_cpu(tuple(args))), check))
+
     # ---- 5. K4 vs its first design and its plain version -----------------
     k4 = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
     for name in paths["HT"]:
@@ -1162,31 +1199,36 @@ def main() -> int:
         if not hw_validate.ht_encodes_equal(
                 got, ht_encode.ht_encode_lanes_v1(*lanes, *caps), caps[:2]):
             _fail(f"K4 differs from its first design on {name}")
-        ref, p_ms = _plain_ms(torch, lambda: ht_encode.ht_encode_lanes_ref(
-            *lanes, *caps))
-        # only each stream's first ceil(bits / 8) bytes are defined
-        used = ht_encode.clear_unused(*got, *caps[:2])
-        err = max(int((used.int() - ref[0].int()).abs().max()),
-                  int((got[1] - ref[1]).abs().max()))
-        k4["err"] = max(k4["err"], err)
+
+        def check_k4(ref, p_ms, name=name, got=to_cpu(got), caps=caps,
+                     what=f"{nl} lanes ({plan.W}x{plan.H})"):
+            # only each stream's first ceil(bits / 8) bytes are defined
+            used = ht_encode.clear_unused(*got, *caps[:2])
+            err = max(int((used.int() - ref[0].int()).abs().max()),
+                      int((got[1] - ref[1]).abs().max()))
+            k4["err"] = max(k4["err"], err)
+            k4["plain_ms"] += p_ms
+            print(f"K4 {name}: {what} vs the plain version (on the host "
+                  f"CPU, {p_ms:.1f} ms): max_abs_err {err} [{card}]",
+                  flush=True)
+            if err:
+                _fail(f"K4 disagrees with its plain version on {name}")
+        on_host(ht_encode.ht_encode_lanes_ref, tuple(lanes) + caps,
+                check_k4)
         print(f"K4 {name}: {nl} lanes ({plan.W}x{plan.H}) equal to v1 bit for "
-              f"bit; vs the plain version: max_abs_err {err}", flush=True)
-        if err:
-            _fail(f"K4 disagrees with its plain version on {name}")
+              f"bit", flush=True)
         v1_ms, k_ms = turns_ms(
             dev, lambda: ht_encode.ht_encode_lanes_v1(*lanes, *caps),
             lambda: ht_encode.ht_encode_lanes(*lanes, *caps))
         nbytes = _k4_bytes(lanes, got[1], ht_encode._lut_on(dev))
         k4["ms"] += k_ms
         k4["prev_ms"] += v1_ms
-        k4["plain_ms"] += p_ms
         k4["bytes"] += nbytes
         print(f"K4 {name}: 1 launch per encode, {nl} lanes, kernel "
               f"{k_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
               f"({v1_ms / k_ms:.2f}x), bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
-              f"plain version {p_ms:.1f} ms on the same lanes [{card}]",
-              flush=True)
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes) "
+              f"[{card}]", flush=True)
         if name == "B":
             nbits = got[1].long().clamp(min=0).sum(0)
             est = lanes[2].long() * lanes[3] * (1 << 24) + nbits
@@ -1209,7 +1251,7 @@ def main() -> int:
     for name in paths["HT"]:
         staged = api.stage_device_batch(streams[name], device=dev)
         prog = staged.program
-        k_ms = v1_ms = p_ms = 0.0
+        k_ms = v1_ms = 0.0
         nb0 = k1["bytes"]
         slow = None              # (w * h << 24 | MagSgn bytes, lanes, ...)
         for bi, b in enumerate(prog.buckets):
@@ -1223,15 +1265,20 @@ def main() -> int:
                       f"{b.W}x{b.H})")
             if bool(codes.any()):
                 _fail(f"K1 flagged a lane of the intact {name}")
-            (ref, _c), dt = _plain_ms(
-                torch, lambda: ht_decode.ht_decode_lanes_ref(*lanes, b.W,
-                                                             b.H))
-            p_ms += dt
-            err = int((got.long() - ref.long()).abs().max())
-            k1["err"] = max(k1["err"], err)
-            if err:
-                _fail(f"K1 disagrees with its plain version ({name} "
-                      f"{b.W}x{b.H}: max abs err {err})")
+
+            def check_k1(ref, dt, name=name, got=got.cpu(),
+                         what=f"bucket {b.W}x{b.H}: {nl} lanes"):
+                err = int((got.long() - ref[0].long()).abs().max())
+                k1["err"] = max(k1["err"], err)
+                k1["plain_ms"] += dt
+                print(f"K1 {name} {what} vs the plain version (on the host "
+                      f"CPU, {dt:.1f} ms): max_abs_err {err} [{card}]",
+                      flush=True)
+                if err:
+                    _fail(f"K1 disagrees with its plain version ({name} "
+                          f"{what}: max abs err {err})")
+            on_host(ht_decode.ht_decode_lanes_ref,
+                    tuple(lanes) + (b.W, b.H), check_k1)
             a_ms, b_ms = turns_ms(
                 dev, lambda: ht_decode.ht_decode_lanes_v1(*lanes, b.W, b.H),
                 lambda: ht_decode.ht_decode_lanes(*lanes, b.W, b.H))
@@ -1241,11 +1288,10 @@ def main() -> int:
             nb = _k1_bytes(meta, lanes, ht_decode._lut_on(dev))
             k1["bytes"] += nb
             print(f"K1 {name} bucket {b.W}x{b.H}: {nl} lanes equal to v1 bit "
-                  f"for bit, max_abs_err {err} against the plain version; v2 "
-                  f"{b_ms:.4f} ms, v1 {a_ms:.4f} ms, in turns "
+                  f"for bit; v2 {b_ms:.4f} ms, v1 {a_ms:.4f} ms, in turns "
                   f"({a_ms / b_ms:.2f}x), bound "
-                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
-                  f"version {dt:.1f} ms [{card}]", flush=True)
+                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
+                  f"[{card}]", flush=True)
             if name == "B":
                 est = torch.where(lanes[6] == 1, lanes[4].long() * lanes[5]
                                   * (1 << 24) + meta[:, 1].long(), -1)
@@ -1254,13 +1300,12 @@ def main() -> int:
                     slow = (int(est[j]), lanes, j, b, b_ms)
         k1["ms"] += k_ms
         k1["prev_ms"] += v1_ms
-        k1["plain_ms"] += p_ms
         nb = k1["bytes"] - nb0
         print(f"K1 {name}: {len(prog.buckets)} launches per decode, v2 "
               f"{k_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
               f"({v1_ms / k_ms:.2f}x), bound "
-              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
-              f"version {p_ms:.1f} ms [{card}]", flush=True)
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) [{card}]",
+              flush=True)
         if slow is not None:
             est, lanes, j, b, b_ms = slow
             nl = lanes[0].shape[0]
@@ -1275,23 +1320,6 @@ def main() -> int:
                   f"[{card}]", flush=True)
 
     tables = t1_decode.lut_on(dev)
-
-    # the plain K5 and K3 on (A1), (B1) and the trial-decode lanes run on
-    # the host's CPU, in worker processes beside the card's work; each is
-    # checked (its err and plain_ms taken) before the kernels line
-    import concurrent.futures
-    import multiprocessing
-    host_pool = concurrent.futures.ProcessPoolExecutor(
-        max_workers=3, mp_context=multiprocessing.get_context("spawn"))
-    host_checks = []
-
-    def on_host(fn, args, check):
-        """fn(*args) (hw_validate.plain_encode_ms or plain_decode_ms) on
-        CPU copies of the tensors, in a host worker; check(ref, p_ms)
-        when the checks are collected."""
-        host_checks.append((host_pool.submit(fn, *(
-            a.cpu() if isinstance(a, torch.Tensor) else a for a in args)),
-            check))
 
     # ---- 8. K5 vs its plain version ---------------------------------------
     k5 = {"ms": 0.0, "plain_ms": 0.0, "prev_ms": 0.0, "err": 0, "bytes": 0}
@@ -1352,7 +1380,7 @@ def main() -> int:
                   flush=True)
             if err:
                 _fail(f"K5 disagrees with its plain version on {name}")
-        on_host(hw_validate.plain_encode_ms, tuple(ins) + (L, R), check_k5)
+        on_host(t1_encode.t1_encode_lanes_ref, tuple(ins) + (L, R), check_k5)
         prev_ms, k_ms = turns_ms(
             dev, lambda: t1_encode.t1_encode_lanes_v1(*ins, L, R),
             lambda: t1_encode.t1_encode_lanes(*ins, L, R))
@@ -1412,7 +1440,7 @@ def main() -> int:
                   flush=True)
             if err:
                 _fail(f"K3 disagrees with its plain version on {name}")
-        on_host(hw_validate.plain_decode_ms, tuple(lanes) + (W, H),
+        on_host(t1_decode.t1_decode_lanes_ref, tuple(lanes) + (W, H),
                 check_k3)
         prev_ms, k_ms = turns_ms(
             dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
@@ -1477,24 +1505,26 @@ def main() -> int:
         Hs, Ws = lanes[0].shape[1:]
         allcaps = caps + ht_encode.refine_caps(Ws, Hs)
         got = ht_encode.ht_encode_lanes(*lanes, *caps, refine=True)
-
-        def plain():
-            st, bt = ht_encode.ht_encode_lanes_ref(*lanes, *caps)
-            sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(*lanes,
-                                                           *allcaps[3:])
-            return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
-        ref, p_ms = _plain_ms(torch, plain)
-        used = ht_encode.clear_unused(got[0], got[1], *allcaps[:-1])
-        err = max(int((used.int() - ref[0].int()).abs().max()),
-                  int((got[1] - ref[1]).abs().max()),
-                  int((got[2].int() - ref[2].int()).abs().max()))
-        k4r["err"] = max(k4r["err"], err)
+        if (got[1] < 0).any():
+            _fail(f"K4r: a stream of {name} exceeded its capacity")
         nref = int((lanes[1] > 0).sum())
-        print(f"K4r {name}: {nl} of {nl_all} lanes ({Ws}x{Hs}, {nref} with "
-              f"a cleanup plane above 0) vs the plain version: max_abs_err "
-              f"{err}", flush=True)
-        if err or (got[1] < 0).any():
-            _fail(f"K4r disagrees with its plain version on {name}")
+
+        def check_k4r(ref, p_ms, name=name, got=to_cpu(got), allcaps=allcaps,
+                      what=f"{nl} of {nl_all} lanes ({Ws}x{Hs}, {nref} "
+                      f"with a cleanup plane above 0)"):
+            used = ht_encode.clear_unused(got[0], got[1], *allcaps[:-1])
+            err = max(int((used.int() - ref[0].int()).abs().max()),
+                      int((got[1] - ref[1]).abs().max()),
+                      int((got[2].int() - ref[2].int()).abs().max()))
+            k4r["err"] = max(k4r["err"], err)
+            k4r["plain_ms"] += p_ms
+            print(f"K4r {name}: {what} vs the plain version (on the host "
+                  f"CPU, {p_ms:.1f} ms): max_abs_err {err} [{card}]",
+                  flush=True)
+            if err:
+                _fail(f"K4r disagrees with its plain version on {name}")
+        on_host(hw_validate.ht_refine_encode_ref,
+                (tuple(lanes), caps, allcaps[3:]), check_k4r)
         v1_ms, k_ms = turns_ms(
             dev, lambda: ht_encode.ht_encode_lanes_v1(*lanes, *caps,
                                                       refine=True),
@@ -1502,19 +1532,18 @@ def main() -> int:
         nbytes = _k4r_bytes(lanes, got[1], ht_encode._lut_on(dev))
         k4r["ms"] += k_ms
         k4r["prev_ms"] += v1_ms
-        k4r["plain_ms"] += p_ms
         k4r["bytes"] += nbytes
         print(f"K4r {name}: 1 launch per encode, kernel {full_ms:.4f} ms on "
               f"all {nl_all} lanes; on the {nl} compared lanes kernel "
               f"{k_ms:.4f} ms (v1 {v1_ms:.4f} ms), bound "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes), "
-              f"plain version {p_ms:.1f} ms [{card}]", flush=True)
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms ({nbytes} bytes) "
+              f"[{card}]", flush=True)
 
     # ---- 13. K2 vs its first design and its plain version ----------------
     k2 = {"ms": 0.0, "prev_ms": 0.0, "plain_ms": 0.0, "err": 0, "bytes": 0}
     for name in refined:
         staged = api.stage_general_device(streams[name][0], device=dev)
-        k_ms = v1_ms = p_ms = 0.0
+        k_ms = v1_ms = 0.0
         nb0, nk2 = k2["bytes"], 0
         for bi, b in enumerate(staged.program.buckets):
             la = staged.lanes[bi]
@@ -1542,18 +1571,25 @@ def main() -> int:
                           f"{b.W}x{b.H} {what})")
                 if bool(codes.any()):
                     _fail(f"K2 flagged a lane of the intact {name}")
-                (ref, _c), dt = _plain_ms(torch, lambda: ht_decode
-                                          .ht_decode_lanes_ref(*args))
-                err = int((got.long() - ref.long()).abs().max())
-                k2["err"] = max(k2["err"], err)
+
+                def check_k2(ref, dt, name=name, got=got.cpu(),
+                             refined=what == "refined",
+                             what=f"bucket {b.W}x{b.H} {what} lanes "
+                             f"{idx.numel()}"):
+                    err = int((got.long() - ref[0].long()).abs().max())
+                    k2["err"] = max(k2["err"], err)
+                    if refined:
+                        k2["plain_ms"] += dt
+                    print(f"K2 {name} {what} vs the plain version (on the "
+                          f"host CPU, {dt:.1f} ms): max_abs_err {err} "
+                          f"[{card}]", flush=True)
+                    if err:
+                        _fail(f"K2 disagrees with its plain version ({name} "
+                              f"{what})")
+                on_host(ht_decode.ht_decode_lanes_ref, args, check_k2)
                 print(f"K2 {name} bucket {b.W}x{b.H} {what} lanes "
-                      f"{idx.numel()}: equal to v1 bit for bit, max_abs_err "
-                      f"{err} against the plain version", flush=True)
-                if err:
-                    _fail(f"K2 disagrees with its plain version ({name} "
-                          f"{b.W}x{b.H} {what})")
+                      f"{idx.numel()}: equal to v1 bit for bit", flush=True)
                 if what == "refined":
-                    p_ms += dt
                     nk2 += 1
                     a_ms, b_ms = turns_ms(
                         dev, lambda: ht_decode.ht_decode_lanes_v1(*args),
@@ -1565,17 +1601,16 @@ def main() -> int:
                     print(f"K2 {name} bucket {b.W}x{b.H}: {idx.numel()} "
                           f"refined lanes, v2 {b_ms:.4f} ms, v1 {a_ms:.4f} "
                           f"ms, in turns ({a_ms / b_ms:.2f}x), bound "
-                          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), "
-                          f"plain version {dt:.1f} ms [{card}]", flush=True)
+                          f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
+                          f"[{card}]", flush=True)
         k2["ms"] += k_ms
         k2["prev_ms"] += v1_ms
-        k2["plain_ms"] += p_ms
         nb = k2["bytes"] - nb0
         print(f"K2 {name}: {nk2} launches per decode (first frame), v2 "
               f"{k_ms:.4f} ms, v1 {v1_ms:.4f} ms, in turns "
               f"({v1_ms / k_ms:.2f}x), bound "
-              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes), plain "
-              f"version {p_ms:.1f} ms [{card}]", flush=True)
+              f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) [{card}]",
+              flush=True)
 
     # ---- 14. K4r -> K2 round trip ------------------------------------------
     _refine_roundtrip(torch, dev, (ht_encode, ht_decode, native,
@@ -1585,27 +1620,46 @@ def main() -> int:
     # the probe's own launches count (run_gather_probe reads the counter
     # around its checked call), not the timing windows'
     p1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "err": 0,
-          "bytes": 0, "spread_ms": 0.0}
-    p1_launches = 0
+          "bytes": 0, "spread_ms": 0.0, "prev_ms": 0.0,
+          "prev_spread_ms": 0.0}
+    p1_launches = p1v1_launches = 0
     for rows in hw_validate.GATHER_ROWS:
         r = hw_validate.run_gather_probe(dev, rows=rows)
         if not r["ok"]:
-            _fail(f"P1 disagrees with its plain version or take_along_dim "
-                  f"at {rows} rows")
-        for key in ("ms", "plain_ms", "library_ms", "spread_ms"):
+            _fail(f"P1 disagrees with its plain version, its first design "
+                  f"or take_along_dim at {rows} rows")
+        for key in ("ms", "plain_ms", "library_ms", "spread_ms", "prev_ms",
+                    "prev_spread_ms"):
             p1[key] += r[key]
-        # P1 and take_along_dim in turns (P1, library, library, P1)
+        # P1 and take_along_dim in turns (P1, library, library, P1), and
+        # v1 and P1 (v1, P1, P1, v1)
         verdict = ("P1 loses beyond the spread"
                    if r["ms"] - r["library_ms"] > r["spread_ms"] else
                    "P1 within the spread or ahead")
+        ahead = r["prev_ms"] - r["prev_turn_ms"] > r["prev_spread_ms"]
         print(f"P1 {rows} rows: P1 {r['ms']:.4f} ms, take_along_dim "
               f"{r['library_ms']:.4f} ms, spread {r['spread_ms']:.4f} ms "
-              f"({verdict}); bound {r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f}"
-              f" ms ({r['bytes']} bytes: x, idx and out once each) "
-              f"[{card}]", flush=True)
+              f"({verdict}); v1 {r['prev_ms']:.4f} ms, P1 "
+              f"{r['prev_turn_ms']:.4f} ms, spread "
+              f"{r['prev_spread_ms']:.4f} ms (P1 "
+              f"{'ahead of v1 beyond' if ahead else 'not ahead of v1 beyond'}"
+              f" the spread, {r['prev_ms'] / r['prev_turn_ms']:.2f}x); bound "
+              f"{r['bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms ({r['bytes']} "
+              f"bytes: x, idx and out once each, "
+              f"{r['bytes'] / HBM_BYTES_PER_S * 1e3 / r['ms'] * 100:.1f}% "
+              f"of it) [{card}]", flush=True)
+        if rows == max(hw_validate.GATHER_ROWS) and not ahead:
+            _fail(f"P1 is not faster than its first design beyond the "
+                  f"spread at {rows} rows")
         p1["bytes"] += r["bytes"]
         p1_launches += r["launches"]
-    print(f"P1 launches: {p1_launches}", flush=True)
+        p1v1_launches += r["launches_v1"]
+    r = hw_validate.run_gather_shapes(dev)
+    if not r["ok"]:
+        _fail(f"P1 disagrees with its plain version, its first design or "
+              f"numpy on the awkward shapes {r['failed']}")
+    print(f"P1 launches: {p1_launches} (probe), {r['launches']} (awkward "
+          f"shapes); v1 {p1v1_launches} (probe)", flush=True)
     if not p1_launches:
         _fail("the gather probe never launched P1")
 
@@ -1641,7 +1695,7 @@ def main() -> int:
         if err:
             _fail("K3 disagrees with its plain version on the trial-decode "
                   "lanes")
-    on_host(hw_validate.plain_decode_ms, tuple(lanes) + (W, H),
+    on_host(t1_decode.t1_decode_lanes_ref, tuple(lanes) + (W, H),
             check_trial)
     v1_ms, k_ms = turns_ms(
         dev, lambda: t1_decode.t1_decode_lanes_v1(*lanes, W, H),
@@ -1927,19 +1981,24 @@ def main() -> int:
         edge = (lanes[0],) + _select(lanes[1:], lanes[6] <= He)
         We, nle = int(edge[5].max()), edge[1].shape[0]
         got = t1_decode.t1_decode_lanes(*edge, We, He)
-        ref, p_ms = _plain_ms(torch, lambda: t1_decode.t1_decode_lanes_ref(
-            *edge, We, He))
-        err = int((got.long() - ref.long()).abs().max())
-        k3["err"] = max(k3["err"], err)
+
+        def check_m(ref, p_ms, name=name, got=got.cpu(),
+                    what=f"{nle} bottom-edge lanes ({We}x{He})"):
+            err = int((got.long() - ref.long()).abs().max())
+            k3["err"] = max(k3["err"], err)
+            print(f"K3 M {name}: {what} vs the plain version (on the host "
+                  f"CPU, {p_ms:.1f} ms): max_abs_err {err} [{card}]",
+                  flush=True)
+            if err:
+                _fail(f"K3 disagrees with its plain version on M {name}")
+        on_host(t1_decode.t1_decode_lanes_ref, tuple(edge) + (We, He),
+                check_m)
         e_v1, e_ms = turns_ms(
             dev, lambda: t1_decode.t1_decode_lanes_v1(*edge, We, He),
             lambda: t1_decode.t1_decode_lanes(*edge, We, He))
-        print(f"K3 M {name}: {nle} bottom-edge lanes ({We}x{He}) vs the "
-              f"plain version: max_abs_err {err}; v2 {e_ms:.4f} ms, v1 "
-              f"{e_v1:.4f} ms in turns, plain version {p_ms:.1f} ms "
-              f"[{card}]", flush=True)
-        if err:
-            _fail(f"K3 disagrees with its plain version on M {name}")
+        print(f"K3 M {name}: {nle} bottom-edge lanes ({We}x{He}): v2 "
+              f"{e_ms:.4f} ms, v1 {e_v1:.4f} ms in turns [{card}]",
+              flush=True)
     print(f"tiled, window and general-route phases: "
           f"{time.perf_counter() - t_new:.1f} s", flush=True)
 
@@ -2046,17 +2105,22 @@ def main() -> int:
                                                 mq_lanes[6] <= He)
                 We = int(edge[5].max())
                 got = t1_decode.t1_decode_lanes(*edge, We, He)
-                ref, p_ms = _plain_ms(torch, lambda: t1_decode
-                                      .t1_decode_lanes_ref(*edge, We, He))
-                err = int((got.long() - ref.long()).abs().max())
-                k3["err"] = max(k3["err"], err)
-                print(f"K3 {row_name}: {edge[1].shape[0]} of "
-                      f"{mq_lanes[1].shape[0]} lanes ({We}x{He}) vs the "
-                      f"plain version: max_abs_err {err}, plain version "
-                      f"{p_ms:.1f} ms [{card}]", flush=True)
-                if err:
-                    _fail(f"K3 disagrees with its plain version on "
-                          f"{row_name}")
+
+                def check_row_k3(ref, p_ms, row_name=row_name,
+                                 got=got.cpu(),
+                                 what=f"{edge[1].shape[0]} of "
+                                 f"{mq_lanes[1].shape[0]} lanes "
+                                 f"({We}x{He})"):
+                    err = int((got.long() - ref.long()).abs().max())
+                    k3["err"] = max(k3["err"], err)
+                    print(f"K3 {row_name}: {what} vs the plain version (on "
+                          f"the host CPU, {p_ms:.1f} ms): max_abs_err {err} "
+                          f"[{card}]", flush=True)
+                    if err:
+                        _fail(f"K3 disagrees with its plain version on "
+                              f"{row_name}")
+                on_host(t1_decode.t1_decode_lanes_ref, tuple(edge) + (We, He),
+                        check_row_k3)
             # K1: the flattest bucket in full (every lane of it), and the
             # zero lanes' buckets
             zero_b = set()
@@ -2072,11 +2136,6 @@ def main() -> int:
                 if bi != flat and bi not in zero_b:
                     continue
                 got, _codes = ht_decode.ht_decode_lanes(*la, b.W, b.H)
-                (ref, _c), p_ms = _plain_ms(
-                    torch, lambda: ht_decode.ht_decode_lanes_ref(*la, b.W,
-                                                                 b.H))
-                err = int((got.long() - ref.long()).abs().max())
-                k1["err"] = max(k1["err"], err)
                 msg = ""
                 if bi in zero_b:
                     lo = prog.lane_base[bi]
@@ -2088,13 +2147,21 @@ def main() -> int:
                               f"non-zero sample")
                     zero_seen += len(zs)
                     msg = f"; {len(zs)} zeroed lanes (valid 0) all zero"
-                print(f"K1 {row_name} bucket {b.W}x{b.H}: {got.shape[0]} "
-                      f"lanes vs the plain version: max_abs_err {err}, "
-                      f"plain version {p_ms:.1f} ms{msg} [{card}]",
-                      flush=True)
-                if err:
-                    _fail(f"K1 disagrees with its plain version on "
-                          f"{row_name}")
+
+                def check_row_k1(ref, p_ms, row_name=row_name,
+                                 got=got.cpu(),
+                                 what=f"bucket {b.W}x{b.H}: {got.shape[0]} "
+                                 f"lanes", msg=msg):
+                    err = int((got.long() - ref[0].long()).abs().max())
+                    k1["err"] = max(k1["err"], err)
+                    print(f"K1 {row_name} {what} vs the plain version (on "
+                          f"the host CPU, {p_ms:.1f} ms): max_abs_err "
+                          f"{err}{msg} [{card}]", flush=True)
+                    if err:
+                        _fail(f"K1 disagrees with its plain version on "
+                              f"{row_name}")
+                on_host(ht_decode.ht_decode_lanes_ref,
+                        tuple(la) + (b.W, b.H), check_row_k1)
     if not zero_seen:
         _fail("no cut HT block reached K1 as a zeroed lane (T-h)")
     print(f"damaged, packed-header and ROI phase: "
@@ -2226,22 +2293,25 @@ def main() -> int:
                 sel = held_lanes(lanes[2] > 0, lanes[5], lanes[6], lanes[2])
                 sub = (lanes[0],) + tuple(t.index_select(0, sel)
                                           for t in lanes[1:])
-                ref, p_ms = _plain_ms(torch, lambda: t1_decode
-                                      .t1_decode_lanes_ref(*sub, W, H))
-                e = int((res[sel].long() - ref.long()).abs().max())
-                k3["err"] = max(k3["err"], e)
-                if e:
-                    _fail(f"K3 disagrees with its plain version on the "
-                          f"wide lanes of {case} ({W}x{H})")
-                r = wide_rec("K3", W, H)
-                r["plain_ms"] += p_ms
-                r["plain_lanes"] += int(sel.numel())
-                print(f"K3 {case} ({W}x{H} lanes): {sel.numel()} of the "
-                      f"main path's {lanes[1].shape[0]} lanes (the largest "
-                      f"{int(sub[5][-1])}x{int(sub[6][-1])}, "
-                      f"{int(sub[2][-1])} passes) equal to the plain "
-                      f"version, plain version {p_ms:.1f} ms [{card}]",
-                      flush=True)
+                wide_rec("K3", W, H)["plain_lanes"] += int(sel.numel())
+
+                def check_wide_k3(ref, p_ms, case=case, W=W, H=H,
+                                  got=res[sel].cpu(),
+                                  what=f"{sel.numel()} of the main path's "
+                                  f"{lanes[1].shape[0]} lanes (the largest "
+                                  f"{int(sub[5][-1])}x{int(sub[6][-1])}, "
+                                  f"{int(sub[2][-1])} passes)"):
+                    e = int((got.long() - ref.long()).abs().max())
+                    k3["err"] = max(k3["err"], e)
+                    if e:
+                        _fail(f"K3 disagrees with its plain version on the "
+                              f"wide lanes of {case} ({W}x{H})")
+                    wide_rec("K3", W, H)["plain_ms"] += p_ms
+                    print(f"K3 {case} ({W}x{H} lanes): {what} equal to the "
+                          f"plain version (on the host CPU, {p_ms:.1f} ms) "
+                          f"[{card}]", flush=True)
+                on_host(t1_decode.t1_decode_lanes_ref, sub + (W, H),
+                        check_wide_k3)
                 continue
             W, H = a[7], a[8]
             lanes, more = a[:7], a[9:]
@@ -2277,30 +2347,34 @@ def main() -> int:
                                                   lanes[5], -lanes[3])))
             for what, sel in checks:
                 sub = tuple(t.index_select(0, sel) for t in lanes + more)
-                (ref, rerr), p_ms = _plain_ms(torch, lambda: ht_decode
-                                              .ht_decode_lanes_ref(
-                                                  *sub[:7], W, H, *sub[7:]))
-                e = int((got_k[sel].long() - ref.long()).abs().max())
-                kd["err"] = max(kd["err"], e)
-                if e or not torch.equal(err[sel], rerr):
-                    _fail(f"{kern} disagrees with its plain version on the "
-                          f"{what} lanes of {case} ({W}x{H})")
                 if what == "wide":
-                    r = wide_rec(kern, W, H)
-                    r["plain_ms"] += p_ms
-                    r["plain_lanes"] += int(sel.numel())
-                    print(f"{kern} {case} wide bucket {W}x{H}: {sel.numel()}"
-                          f" of the main path's {lanes[0].shape[0]} lanes "
-                          f"(the largest {int(sub[4][-1])}x{int(sub[5][-1])}"
-                          f") equal to the plain version, error codes "
-                          f"included, plain version {p_ms:.1f} ms [{card}]",
-                          flush=True)
+                    wide_rec(kern, W, H)["plain_lanes"] += int(sel.numel())
+                    note = (f"{kern} {case} wide bucket {W}x{H}: "
+                            f"{sel.numel()} of the main path's "
+                            f"{lanes[0].shape[0]} lanes (the largest "
+                            f"{int(sub[4][-1])}x{int(sub[5][-1])}) equal to "
+                            f"the plain version, error codes included")
                 else:
-                    print(f"{kern} {case} bucket {W}x{H}: {nerr} lanes "
-                          f"flagged (codes {sorted(set(err[bad].tolist()))})"
-                          f", all zero; {sel.numel()} equal to the plain "
-                          f"version, error codes included [{card}]",
-                          flush=True)
+                    note = (f"{kern} {case} bucket {W}x{H}: {nerr} lanes "
+                            f"flagged (codes "
+                            f"{sorted(set(err[bad].tolist()))}), all zero; "
+                            f"{sel.numel()} equal to the plain version, "
+                            f"error codes included")
+
+                def check_ht(ref, p_ms, kern=kern, kd=kd, case=case, W=W,
+                             H=H, what=what, note=note,
+                             got=got_k[sel].cpu(), codes=err[sel].cpu()):
+                    e = int((got.long() - ref[0].long()).abs().max())
+                    kd["err"] = max(kd["err"], e)
+                    if e or not torch.equal(codes, ref[1]):
+                        _fail(f"{kern} disagrees with its plain version on "
+                              f"the {what} lanes of {case} ({W}x{H})")
+                    if what == "wide":
+                        wide_rec(kern, W, H)["plain_ms"] += p_ms
+                    print(f"{note} (on the host CPU, {p_ms:.1f} ms) "
+                          f"[{card}]", flush=True)
+                on_host(ht_decode.ht_decode_lanes_ref,
+                        sub[:7] + (W, H) + sub[7:], check_ht)
         # the wide launches timed (after the counted run; each bound from
         # the staged meta of its bucket)
         for s in stage_tiles(data, dp):
@@ -2547,34 +2621,27 @@ def main() -> int:
                 ins, (L, R) = a[:5], a[5:7]
                 sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
                 sub = tuple(t.index_select(0, sel) for t in ins)
-                ref, p_ms = _plain_ms(torch, lambda: t1_encode
-                                      .t1_encode_lanes_ref(*sub, L, R))
-                ok = hw_validate.encodes_equal(
-                    tuple(t.index_select(0, sel) for t in res), ref)
+                got_sel = tuple(t.index_select(0, sel) for t in res)
                 kd, nb = k5, _k5_bytes(ins, res[1], tables)
+                plain = (t1_encode.t1_encode_lanes_ref, sub + (L, R))
 
                 def launch(ins=ins, L=L, R=R):
                     return t1_encode.t1_encode_lanes(*ins, L, R)
+
+                def same(ref, got=to_cpu(got_sel)):
+                    return hw_validate.encodes_equal(got, ref)
             else:
                 lanes, caps = a[:5], tuple(a[5:8])
                 sel = held_lanes(lanes[4] == 1, lanes[2], lanes[3],
                                  (lanes[0] >> 1).amax((1, 2)))
                 sub = tuple(t.index_select(0, sel) for t in lanes)
                 refine = kern == "K4r"
-
-                def plain():
-                    st, bt = ht_encode.ht_encode_lanes_ref(*sub, *caps)
-                    if not refine:
-                        return st, bt
-                    sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(
-                        *sub, *ht_encode.refine_caps(W, H))
-                    return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
-                ref, p_ms = _plain_ms(torch, plain)
                 allc = caps + (ht_encode.refine_caps(W, H) if refine else ())
-                ok = hw_validate.ht_encodes_equal(
-                    (res[0].index_select(0, sel), res[1][:, sel])
-                    + tuple(t.index_select(0, sel) for t in res[2:]), ref,
-                    allc[:-1])
+                got_sel = (res[0].index_select(0, sel), res[1][:, sel]) \
+                    + tuple(t.index_select(0, sel) for t in res[2:])
+                plain = ((hw_validate.ht_refine_encode_ref,
+                          (sub, caps, allc[3:])) if refine else
+                         (ht_encode.ht_encode_lanes_ref, sub + caps))
                 kd = k4r if refine else k4
                 nb = (_k4r_bytes if refine else _k4_bytes)(lanes, res[1],
                                                            lut_e)
@@ -2582,24 +2649,36 @@ def main() -> int:
                 def launch(lanes=lanes, caps=caps, refine=refine):
                     return ht_encode.ht_encode_lanes(*lanes, *caps,
                                                      refine=refine)
-            if not ok:
-                kd["err"] = max(kd["err"], 1)
-                _fail(f"{kern} disagrees with its plain version on the wide "
-                      f"lanes of E-w {name} ({W}x{H})")
+
+                def same(ref, got=to_cpu(got_sel), allc=allc):
+                    return hw_validate.ht_encodes_equal(got, ref, allc[:-1])
+
+            def check_ew(ref, p_ms, kern=kern, kd=kd, same=same, W=W, H=H,
+                         name=name,
+                         what=f"{sel.numel()} of the main path's "
+                         f"{a[0].shape[0]} lanes (the largest first of the "
+                         f"held)"):
+                if not same(ref):
+                    kd["err"] = max(kd["err"], 1)
+                    _fail(f"{kern} disagrees with its plain version on the "
+                          f"wide lanes of E-w {name} ({W}x{H})")
+                wide_rec(kern, W, H)["plain_ms"] += p_ms
+                print(f"{kern} E-w {name} wide bucket {W}x{H}: {what} equal "
+                      f"to the plain version (on the host CPU, {p_ms:.1f} "
+                      f"ms) [{card}]", flush=True)
+            on_host(plain[0], plain[1], check_ew)
             k_ms = kernel_ms(dev, launch)
             r = wide_rec(kern, W, H)
             r["ms"] += k_ms
-            r["plain_ms"] += p_ms
             r["bytes"] += nb
             r["launches"] += 1
             r["lanes"] += int(a[0].shape[0])
             r["plain_lanes"] += int(sel.numel())
             print(f"{kern} E-w {name} wide bucket {W}x{H}: {sel.numel()} of "
-                  f"the main path's {a[0].shape[0]} lanes (the largest "
-                  f"first of the held) equal to the plain version, plain "
-                  f"version {p_ms:.1f} ms; the launch {k_ms:.4f} ms, bound "
-                  f"{nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} bytes) "
-                  f"[{card}]", flush=True)
+                  f"the main path's {a[0].shape[0]} lanes held against the "
+                  f"plain version on the host CPU; the launch {k_ms:.4f} "
+                  f"ms, bound {nb / HBM_BYTES_PER_S * 1e3:.4f} ms ({nb} "
+                  f"bytes) [{card}]", flush=True)
     for kern in ("K4", "K4r", "K5"):
         if not any(k == kern for k, _sh in wide):
             _fail(f"no wide {kern} launch of the general encode was held "
@@ -2617,8 +2696,7 @@ def main() -> int:
            "launches": 0, "lanes": 0, "plain_lanes": 0}
     ms_need = {"ms_3f": ["K5"], "ms_byp": ["K5", "K3"],
                "mix_lay": ["K4", "K5", "K3"], "roi": ["K5"]}
-    held = []
-    # the held lanes' plain versions run in the host pool (phase 8)
+    # the held lanes' plain versions run in the host pool (phase 5)
     for name in enc_vectors.MODE_NAMES:
         params = CompressParams(**enc_vectors.params(name, Poc,
                                                      ProgOrder))
@@ -2637,11 +2715,20 @@ def main() -> int:
                 continue
             ins, (L, R), sty = a[:5], a[5:7], a[7]
             sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
-            sub = tuple(t.index_select(0, sel).cpu()
-                        for t in ins + (sty,))
-            held.append((name, host_pool.submit(
-                hw_validate.plain_encode_ms, *sub[:5], L, R, sub[5]),
-                tuple(t.index_select(0, sel).cpu() for t in res)))
+            sub = tuple(t.index_select(0, sel) for t in ins + (sty,))
+
+            def check_styled(ref, p_ms, name=name, got_sub=to_cpu(tuple(
+                    t.index_select(0, sel) for t in res))):
+                if not hw_validate.encodes_equal(got_sub, ref):
+                    _fail(f"K5 disagrees with its plain version on the "
+                          f"styled lanes of E-ms {name}")
+                k5s["plain_ms"] += p_ms
+                print(f"K5 E-ms {name}: the main path's largest styled lane "
+                      f"and {got_sub[1].numel() - 1} smallest equal to the "
+                      f"plain version (on the host CPU, {p_ms:.1f} ms)",
+                      flush=True)
+            on_host(t1_encode.t1_encode_lanes_ref, sub[:5] + (L, R, sub[5]),
+                    check_styled)
             d_ms, s_ms = turns_ms(
                 dev, lambda: t1_encode.t1_encode_lanes(*ins, L, R),
                 lambda: t1_encode.t1_encode_lanes(*ins, L, R, sty))
@@ -2677,15 +2764,6 @@ def main() -> int:
     print(f"E-ms custom: {len(s)} bytes, the same every rep; 64x96 RGB "
           f"byte-identical to the CPU encode through the plain versions "
           f"[{card}]", flush=True)
-    for name, fut, got_sub in held:
-        ref, p_ms = fut.result()
-        if not hw_validate.encodes_equal(got_sub, ref):
-            _fail(f"K5 disagrees with its plain version on the styled "
-                  f"lanes of E-ms {name}")
-        k5s["plain_ms"] += p_ms
-        print(f"K5 E-ms {name}: the main path's largest styled lane and "
-              f"{got_sub[1].numel() - 1} smallest equal to the plain "
-              f"version (on the host CPU, {p_ms:.1f} ms)", flush=True)
     if not k5s["launches"]:
         _fail("no styled K5 launch was held against its plain version")
     print(f"mode-switch phase: {time.perf_counter() - t_ms:.1f} s",
@@ -2745,6 +2823,13 @@ def main() -> int:
                 record="4 virtual shards" if name == "G" else None)
         except RuntimeError as e:
             _fail(str(e))
+        un = min(got["unmeshed"]["dec_s"])
+        for key in list(meshes)[1:]:
+            print(f"decode {name} ({key}): route {got[key]['route']}, best "
+                  f"{min(got[key]['dec_s']) * 1e3:.3f} ms against "
+                  f"{un * 1e3:.3f} ms unmeshed "
+                  f"({min(got[key]['dec_s']) / un:.2f}x) [{card}]",
+                  flush=True)
         if name == "G":
             # each shard's launch of the first (warm-up) call, timed
             nsh = meshes["4 virtual shards"].size
@@ -3003,7 +3088,7 @@ def main() -> int:
             if kn == "K5":
                 ins, (L, R) = a[:5], a[5:7]
                 keep = ins[2] > 24
-                sel, ok, p_ms = torch.zeros(0), True, 0.0
+                sel = torch.zeros(0)
                 nb = _k5_bytes(ins, res_[1], tables)
 
                 def launch(ins=ins, L=L, R=R):
@@ -3016,20 +3101,31 @@ def main() -> int:
                 sel = held_lanes(keep, lanes[2], lanes[3], mag)
                 sub = tuple(t.index_select(0, sel) for t in lanes)
                 refine = kn == "K4r"
-
-                def plain(sub=sub, caps=caps, refine=refine, W=W, H=H):
-                    st, bt = ht_encode.ht_encode_lanes_ref(*sub, *caps)
-                    if not refine:
-                        return st, bt
-                    sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(
-                        *sub, *ht_encode.refine_caps(W, H))
-                    return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
-                ref, p_ms = _plain_ms(torch, plain)
                 allc = caps + (ht_encode.refine_caps(W, H) if refine else ())
-                ok = hw_validate.ht_encodes_equal(
-                    (res_[0].index_select(0, sel), res_[1][:, sel])
-                    + tuple(t.index_select(0, sel) for t in res_[2:]), ref,
-                    allc[:-1])
+
+                def check_deep(ref, p_ms, kn=kn, name=name, allc=allc,
+                               got=to_cpu((res_[0].index_select(0, sel),
+                                        res_[1][:, sel])
+                                       + tuple(t.index_select(0, sel)
+                                               for t in res_[2:])),
+                               what=f"{sel.numel()} of the main path's "
+                               f"{a[0].shape[0]} lanes past 24 planes (the "
+                               f"largest and the 15 smallest)"):
+                    if not hw_validate.ht_encodes_equal(got, ref,
+                                                        allc[:-1]):
+                        {"K4": k4, "K4r": k4r}[kn]["err"] = 1
+                        _fail(f"{kn} disagrees with its plain version on the "
+                              f"lanes past 24 planes of D24 {name}")
+                    deep_rec[kn]["plain_ms"] += p_ms
+                    print(f"{kn} D24 {name}: {what} equal to the plain "
+                          f"version (on the host CPU, {p_ms:.1f} ms) "
+                          f"[{card}]", flush=True)
+                if refine:
+                    on_host(hw_validate.ht_refine_encode_ref,
+                            (sub, caps, allc[3:]), check_deep)
+                else:
+                    on_host(ht_encode.ht_encode_lanes_ref, sub + caps,
+                            check_deep)
                 nb = (_k4r_bytes if refine else _k4_bytes)(lanes, res_[1],
                                                            lut_e)
 
@@ -3038,21 +3134,16 @@ def main() -> int:
                                                      refine=refine)
             if not bool(keep.any()):
                 _fail(f"D24 {name}: no {kn} lane past 24 planes")
-            if not ok:
-                {"K4": k4, "K4r": k4r, "K5": k5}[kn]["err"] = 1
-                _fail(f"{kn} disagrees with its plain version on the lanes "
-                      f"past 24 planes of D24 {name}")
             k_ms = kernel_ms(dev, launch)
             r = deep_rec[kn]
             r["ms"] += k_ms
-            r["plain_ms"] += p_ms
             r["bytes"] += nb
             r["launches"] += 1
             r["lanes"] += int(a[0].shape[0])
             r["plain_lanes"] += int(sel.numel())
             held = (f"{sel.numel()} of them (the largest and the 15 "
-                    f"smallest) equal to the plain version, plain "
-                    f"{p_ms:.1f} ms" if sel.numel() else
+                    f"smallest) held against the plain version on the host "
+                    f"CPU" if sel.numel() else
                     "held on the 64x64 crop below")
             print(f"{kn} D24 {name}: the main path's {a[0].shape[0]} lanes, "
                   f"{int(keep.sum())} past 24 planes, {held}; the launch "
@@ -3077,19 +3168,24 @@ def main() -> int:
             keep = ins[2] > 24
             sel = held_lanes(keep, ins[3], ins[4], ins[2])
             sub = tuple(t.index_select(0, sel) for t in ins)
-            ref, p_ms = _plain_ms(torch, lambda: t1_encode
-                                  .t1_encode_lanes_ref(*sub, L, R))
-            if not bool(keep.any()) or not hw_validate.encodes_equal(
-                    tuple(t.index_select(0, sel) for t in res_), ref):
-                k5["err"] = 1
-                _fail("K5 disagrees with its plain version on the crop's "
-                      "lanes past 24 planes (or it has none)")
-            deep_rec["K5"]["plain_ms"] += p_ms
+            if not bool(keep.any()):
+                _fail("K5: the crop has no lane past 24 planes")
             deep_rec["K5"]["plain_lanes"] += int(sel.numel())
-            print(f"K5 D24 crop {name}: {sel.numel()} of the launch's "
-                  f"{a[0].shape[0]} lanes ({int(keep.sum())} past 24 planes;"
-                  f" the largest of those and the 15 smallest) equal to the "
-                  f"plain version, plain {p_ms:.1f} ms [{card}]", flush=True)
+
+            def check_crop(ref, p_ms, name=name, got=to_cpu(tuple(
+                    t.index_select(0, sel) for t in res_)),
+                    what=f"{sel.numel()} of the launch's {a[0].shape[0]} "
+                    f"lanes ({int(keep.sum())} past 24 planes; the largest "
+                    f"of those and the 15 smallest)"):
+                if not hw_validate.encodes_equal(got, ref):
+                    k5["err"] = 1
+                    _fail("K5 disagrees with its plain version on the "
+                          "crop's lanes past 24 planes")
+                deep_rec["K5"]["plain_ms"] += p_ms
+                print(f"K5 D24 crop {name}: {what} equal to the plain "
+                      f"version (on the host CPU, {p_ms:.1f} ms) [{card}]",
+                      flush=True)
+            on_host(t1_encode.t1_encode_lanes_ref, sub + (L, R), check_crop)
     for kn, r in deep_rec.items():
         if not r["launches"] or not r["plain_lanes"]:
             _fail(f"no {kn} launch past 24 planes was held against its "
@@ -3301,9 +3397,11 @@ def main() -> int:
                 ins, (L, R) = a[:5], a[5:7]
                 sel = held_lanes(ins[2] > 0, ins[3], ins[4], ins[2])
                 sub_held.append((name, kn, sel.numel(), ins[0].shape[0],
-                                host_pool.submit(hw_validate.plain_encode_ms,
-                                            *(t.index_select(0, sel).cpu()
-                                              for t in ins), L, R),
+                                host_pool.submit(
+                                    hw_validate.plain_ms,
+                                    t1_encode.t1_encode_lanes_ref,
+                                    *(t.index_select(0, sel).cpu()
+                                      for t in ins), L, R),
                                 tuple(t.index_select(0, sel).cpu()
                                       for t in res_)))
                 continue
@@ -3313,27 +3411,33 @@ def main() -> int:
                 sel = held_lanes(lanes[2] > 0, lanes[5], lanes[6],
                                  lanes[2])
                 sub_held.append((name, kn, sel.numel(), lanes[1].shape[0],
-                                host_pool.submit(hw_validate.plain_decode_ms,
-                                            lanes[0].cpu(),
-                                            *(t.index_select(0, sel).cpu()
-                                              for t in lanes[1:]), W, H),
+                                host_pool.submit(
+                                    hw_validate.plain_ms,
+                                    t1_decode.t1_decode_lanes_ref,
+                                    lanes[0].cpu(),
+                                    *(t.index_select(0, sel).cpu()
+                                      for t in lanes[1:]), W, H),
                                 res_[sel].cpu()))
                 continue
             lanes, caps = a[:5], tuple(a[5:8])
             sel = held_lanes(lanes[4] == 1, lanes[2], lanes[3],
                              (lanes[0] >> 1).amax((1, 2)))
             sub = tuple(t.index_select(0, sel) for t in lanes)
-            ref, p_ms = _plain_ms(torch, lambda: ht_encode
-                                  .ht_encode_lanes_ref(*sub, *caps))
-            if not hw_validate.ht_encodes_equal(
-                    (res_[0].index_select(0, sel), res_[1][:, sel]), ref,
-                    caps[:-1]):
-                k4["err"] = 1
-                _fail(f"K4 disagrees with its plain version on the lanes "
-                      f"of {name}")
+
+            def check_sub_k4(ref, p_ms, name=name, caps=caps, got=to_cpu((
+                    res_[0].index_select(0, sel), res_[1][:, sel])),
+                    what=f"{sel.numel()} of {lanes[0].shape[0]} lanes"):
+                if not hw_validate.ht_encodes_equal(got, ref, caps[:-1]):
+                    k4["err"] = 1
+                    _fail(f"K4 disagrees with its plain version on the "
+                          f"lanes of {name}")
+                print(f"K4 {name}: {what} equal to the plain version (on "
+                      f"the host CPU, {p_ms:.1f} ms) [{card}]", flush=True)
+            on_host(ht_encode.ht_encode_lanes_ref, sub + caps,
+                    check_sub_k4)
             held.append(f"K4 {sel.numel()} of {lanes[0].shape[0]} "
-                        f"lanes equal to the plain version (plain "
-                        f"{p_ms:.1f} ms)")
+                        f"lanes held against the plain version on the "
+                        f"host CPU")
         if not lossless and not any(c[0] == kern for c in calls):
             _fail(f"encode {name}: no {kern} launch was held against its "
                   f"plain version")
@@ -3463,7 +3567,7 @@ def main() -> int:
     for fut, check in host_checks:
         check(*fut.result())
     host_pool.shutdown()
-    print(f"host-CPU plain checks of phases 8, 9 and 16: waited "
+    print(f"host-CPU plain checks of the phases before 32: waited "
           f"{time.perf_counter() - t_hc:.1f} s for them", flush=True)
     print(f"smoke: {time.perf_counter() - t_start:.1f} s after the imports",
           flush=True)
@@ -3522,6 +3626,15 @@ def main() -> int:
                  p1_launches, p1, p1["library_ms"]),
              bound_note="x and idx read once, out written once: 12 bytes "
              "an element", spread_ms=p1["spread_ms"],
+             prev_spread_ms=p1["prev_spread_ms"],
+             rows=hw_validate.GATHER_ROWS),
+        dict(row("lane_gather_v1", "lane_gather_v1.cu",
+                 "tools/hw_validate.py:383", p1v1_launches,
+                 {k: v for k, v in p1.items() if k != "prev_ms"}
+                 | {"ms": p1["prev_ms"]}, p1["library_ms"]),
+             bound_note="the first design of P1, the oracle of lane_gather: "
+             "ms in turns with it (v1, P1, P1, v1)",
+             spread_ms=p1["prev_spread_ms"],
              rows=hw_validate.GATHER_ROWS)]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,8 +104,8 @@ def _finish(job, what: str) -> str:
 def load_library() -> types.SimpleNamespace:
     """The kernels' libraries, one attribute per csrc/*.cu source
     (`.ht_decode`, `.ht_decode_v1`, `.ht_encode`, `.ht_encode_v1`,
-    `.lane_gather`, `.t1_decode`, `.t1_decode_v1`, `.t1_encode`,
-    `.t1_encode_v1`), built on first call."""
+    `.lane_gather`, `.lane_gather_v1`, `.t1_decode`, `.t1_decode_v1`,
+    `.t1_encode`, `.t1_encode_v1`), built on first call."""
     global _libs, build_log
     with _lock:
         if _libs is not None:
@@ -134,6 +134,7 @@ def load_library() -> types.SimpleNamespace:
                 mod.bind(getattr(libs, mod.__name__.rsplit(".", 1)[1]))
             ht_decode.bind_v1(libs.ht_decode_v1)
             ht_encode.bind_v1(libs.ht_encode_v1)
+            lane_gather.bind_v1(libs.lane_gather_v1)
             t1_decode.bind_v1(libs.t1_decode_v1)
             t1_encode.bind_v1(libs.t1_encode_v1)
             _libs = libs

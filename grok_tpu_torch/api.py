@@ -151,11 +151,12 @@ def decompress_device_batch(streams: list[bytes],
     All N streams' code-blocks share kernel launches, the N bodies go up
     as one digest, and every stream's inverse DWT/MCT runs on stacked
     tensors.  Returns N lists of per-component int32 tensors on
-    `device`.  What the served batch declines (GeneralRoute: multi-tile
-    streams, different main headers, tile-part COD/QCD, refined HT
-    blocks, Part-1 mode switches, layered HT-mixed streams, a decode over
-    a device mesh) decodes stream by stream through decompress_device, as
-    the JAX package's batch decode does."""
+    `device`.  With dp.mesh the batch is served over the mesh (K3's
+    lanes one launch per shard, the synthesis levels row-sharded).  What
+    the served batch declines (GeneralRoute: multi-tile streams,
+    different main headers, tile-part COD/QCD, refined HT blocks, Part-1
+    mode switches, layered HT-mixed streams) decodes stream by stream
+    through decompress_device, as the JAX package's batch decode does."""
     if not streams:
         return []
     try:
@@ -196,10 +197,12 @@ def decompress_device(data: bytes, dparams: DecompressParams | None = None,
     place.  With dp.window, a tile that misses the window is not decoded
     (its region stays 0), and every sample inside the window equals the
     whole decode's.  With dp.mesh (a parallel/sharding.py Mesh whose
-    first device is `device`, else ValueError), each tile is decoded by
-    the general route with its default-style Part-1 lanes and its
-    synthesis levels sharded over the mesh, as grok_tpu.decompress with a
-    mesh decodes it; the planes are the unsharded decode's."""
+    first device is `device`, else ValueError), each tile is decoded with
+    its default-style Part-1 lanes (one K3 launch per shard) and its
+    synthesis levels sharded over the mesh, on the serving route or,
+    where that declines the tile, on the general route, as
+    grok_tpu.decompress with a mesh decodes it; the planes are the
+    unsharded decode's."""
     dev = _device(device)
     dp = _params(dparams, dev)
     cs, hdr, by_tile, tile_body = _tiles(data, dp)

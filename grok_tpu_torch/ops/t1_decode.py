@@ -557,7 +557,11 @@ def t1_decode_lanes_sharded(body, start, npass, nbps, orient, w, h, style,
     t1_decode_lanes call on its shard's device (K3 on a card, the plain
     version on a CPU shard; the body copied to each device), the outputs
     back in lane order on the mesh's first device.  The arguments are
-    t1_decode_lanes', on any device; a shard's failed launch raises."""
+    t1_decode_lanes', on any device; a shard's failed launch raises.
+    Every shard's launch is issued before any output comes back: a copy
+    back to the first device makes its stream wait for that shard, and
+    the next shard's inputs are copied on that stream, so copying back
+    inside the loop would run the cards' launches one after another."""
     from grok_tpu_torch.parallel.sharding import on_device
     lanes = (start, npass, nbps, orient, w, h, style, ptbl)
     outs = []
@@ -567,12 +571,12 @@ def t1_decode_lanes_sharded(body, start, npass, nbps, orient, w, h, style,
             continue
         lo, hi = int(idx[0]), int(idx[-1]) + 1
         with on_device(d):
-            got = t1_decode_lanes(body.to(d), *(t[lo:hi].to(d).contiguous()
-                                                for t in lanes), W, H)
-        outs.append(got.to(mesh.first, non_blocking=True))
+            outs.append(t1_decode_lanes(
+                body.to(d), *(t[lo:hi].to(d).contiguous() for t in lanes),
+                W, H))
     if not outs:
         return torch.empty((0, H, W), dtype=torch.int32, device=mesh.first)
-    return torch.cat(outs)
+    return torch.cat([o.to(mesh.first, non_blocking=True) for o in outs])
 
 
 def t1_decode_lanes_v1(body, start, npass, nbps, orient, w, h, style, ptbl,

@@ -553,7 +553,9 @@ def t1_encode_lanes_sharded(mneg, orient, numbps, w, h, L: int, R: int,
     (uneven where NL is not a multiple), each coded by one
     t1_encode_lanes call on its shard's device (K5 on a card, the plain
     version on a CPU shard), the four outputs back in lane order on the
-    mesh's first device.  A shard's failed launch raises."""
+    mesh's first device.  A shard's failed launch raises.  Every shard's
+    launch is issued before any output comes back (as
+    t1_decode_lanes_sharded does), so that the cards code at once."""
     from grok_tpu_torch.parallel.sharding import on_device
     lanes = (mneg, orient, numbps, w, h)
     outs = []
@@ -563,13 +565,13 @@ def t1_encode_lanes_sharded(mneg, orient, numbps, w, h, L: int, R: int,
             continue
         lo, hi = int(idx[0]), int(idx[-1]) + 1
         with on_device(d):
-            got = t1_encode_lanes(
+            outs.append(t1_encode_lanes(
                 *(t[lo:hi].to(d).contiguous() for t in lanes), L, R,
-                None if style is None else style[lo:hi].to(d).contiguous())
-        outs.append([t.to(mesh.first, non_blocking=True) for t in got])
+                None if style is None else style[lo:hi].to(d).contiguous()))
     if not outs:
         return _outputs(mneg[:0].to(mesh.first), L, R)
-    return tuple(torch.cat(ts) for ts in zip(*outs))
+    return tuple(torch.cat([t.to(mesh.first, non_blocking=True) for t in ts])
+                 for ts in zip(*outs))
 
 
 def t1_encode_lanes_v1(mneg, orient, numbps, w, h, L: int, R: int):

@@ -32,9 +32,11 @@ bucket layout, table version) and cached by the caller.  The general
 decode route (pipeline/tile.py decode_tile) runs its own block decodes
 (K1/K2 per bucket from its own staging, K3 from `stage_mq_lanes`: its
 Part-1 lanes with their own segment tables) and hands their outputs to
-steps 3-5 (`synthesize`); with a device mesh, its default-style Part-1
-lanes are decoded by one K3 launch per shard and every synthesis level
-is row-sharded (parallel/sharding.py).
+steps 3-5 (`synthesize`).  With a device mesh, on either route, the
+default-style single-segment Part-1 lanes (every Part-1 lane the serving
+decode takes) are decoded by one K3 launch per shard and every synthesis
+level is row-sharded (parallel/sharding.py); the HT lanes stay on the
+first device.
 """
 
 from __future__ import annotations
@@ -345,7 +347,8 @@ class DecodeProgram:
         stage_mq_lanes' (pos: (n,) int64 on the device, each lane's index
         in meta order).  With a device mesh (parallel/sharding.py Mesh),
         the lanes that shard (True in shard, (n,) bool on the device: the
-        default-style single-segment ones) are decoded with their K3
+        default-style single-segment ones; shard None: every lane, as
+        the serving decode stages them) are decoded with their K3
         launches split over the mesh, one per shard, and the others on
         the first device, as the JAX package's mesh decode shards them.
         Returns per bucket its lanes' (n, H, W) int32 samples, zeros on
@@ -378,15 +381,18 @@ class DecodeProgram:
         return outs
 
     def run(self, body: torch.Tensor, meta: torch.Tensor,
-            dims: list) -> list:
+            dims: list, mesh=None) -> list:
         """body: uint8 digest and/or raw codewords; meta: (lanes,
         META_COLS) int32; dims: per bucket (Lms, Lsuf, Dm, any HT lane,
-        any Part-1 lane).  Returns N lists of per-component int32
-        planes."""
+        any Part-1 lane); mesh: a parallel/sharding.py Mesh whose first
+        device is the program's, over which K3's lanes (all default
+        style, one segment) and the synthesis levels are sharded, or
+        None.  Returns N lists of per-component int32 planes."""
         # 1-2. the block decodes: K3 over every Part-1 lane (once, or
-        # once per group of bucket shapes), K1 per bucket
+        # once per group of bucket shapes; with a mesh once per shard of
+        # each), K1 per bucket on the first device
         if any(d[4] for d in dims):
-            mq = self.decode_mq(self.stage_mq(body, meta))
+            mq = self.decode_mq(self.stage_mq(body, meta), mesh=mesh)
         ms2, ht = [], []
         for bi, b in enumerate(self.buckets):
             Lms, Lsuf, Dm, any_ht, any_mq = dims[bi]
@@ -401,12 +407,12 @@ class DecodeProgram:
             if any_mq:
                 out = out + mq[bi]
             ms2.append(out)
-        planes = self.synthesize(ms2)
+        planes = self.synthesize(ms2, mesh=mesh)
         wide = redecode_marked(
             ms2, [(bi, args, None, err) for bi, args, err in ht],
             lambda bi, a, _rf: ht_decode_lanes(
                 *a, self.buckets[bi].W, self.buckets[bi].H, i64=True)[0])
-        return planes if wide is None else self.synthesize(wide)
+        return planes if wide is None else self.synthesize(wide, mesh=mesh)
 
     def synthesize(self, outs: list, mct_round: bool = False,
                    mesh=None) -> list:
@@ -509,9 +515,12 @@ def _lanes(args: tuple, k: torch.Tensor) -> tuple:
 
 def _decode_mq_meshed(args: tuple, W: int, H: int, mesh,
                       shard: torch.Tensor) -> torch.Tensor:
-    """K3 over one group's lanes with a mesh: the sharded lanes through
-    t1_decode_lanes_sharded (one launch per shard), the rest (styled or
-    several segments) through one launch on the first device."""
+    """K3 over one group's lanes with a mesh: the sharded lanes (shard
+    None: all) through t1_decode_lanes_sharded (one launch per shard),
+    the rest (styled or several segments) through one launch on the
+    first device."""
+    if shard is None:
+        return t1_decode_lanes_sharded(*args, W, H, mesh=mesh)
     k = torch.nonzero(shard)[:, 0]
     if k.numel() == shard.numel():
         return t1_decode_lanes_sharded(*args, W, H, mesh=mesh)

@@ -25,18 +25,23 @@ each stream's chunks of later layers dropped), whole or in a window
 zeros, plan.py window_mask), with the ROI Maxshift undone on the device.
 A strict decode (dp.strict) of Part-1 blocks is served as a permissive
 one, as the JAX package serves it (its strict Tier-2 parse raises where
-the C parse declines, on the general route).  Refined HT blocks, Part-1
-mode switches and multi-segment blocks, layered HT-mixed streams or
-HT-mixed sets with mode switches, components mixing HT and Part-1
-code-blocks, packed packet headers (PPM/PPT), a custom MCT, streams the
-C Tier-2 parse declines (cut short, or corrupt), strict decodes of HT or
-HT-mixed blocks and decodes over a device mesh (dp.mesh) raise
-GeneralRoute, which the entry points answer with the general device
-route (pipeline/tile.py decode_tile, kernels K1, K2 and K3, with the
-Python Tier-2 parse where the C one declines, the scalar decoder's
-exceptions on a strict decode, and the mesh's sharded K3 launches and
-synthesis levels), as the JAX package's serving decode declines them to
-its decode_tile.
+the C parse declines, on the general route).  Over a device mesh
+(dp.mesh, a parallel/sharding.py Mesh whose first device is `device`)
+the batch is served too: K3's lanes are split into one launch per shard
+and every synthesis level is row-sharded with halo exchange, while the
+HT lanes stay on the first device (one K1 launch per bucket); the planes
+equal the unmeshed decode's.  Refined HT blocks, Part-1 mode switches
+and multi-segment blocks, layered HT-mixed streams or HT-mixed sets with
+mode switches, components mixing HT and Part-1 code-blocks, packed
+packet headers (PPM/PPT), a custom MCT, streams the C Tier-2 parse
+declines (cut short, or corrupt) and strict decodes of HT or HT-mixed
+blocks raise GeneralRoute, which the entry points answer with the
+general device route (pipeline/tile.py decode_tile, kernels K1, K2 and
+K3, with the Python Tier-2 parse where the C one declines, the scalar
+decoder's exceptions on a strict decode, and with a mesh its sharded K3
+launches and synthesis levels), as the JAX package's serving decode
+declines them to its decode_tile.  (The JAX package's serving decode
+also declines a mesh; the port serves it, with the same planes.)
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ import torch
 from grok_tpu_torch import native
 from grok_tpu_torch.core.params import CBLK_HT
 from grok_tpu_torch.ops.ht_decode import MAX_STREAM, _quant_len
+from grok_tpu_torch.parallel.sharding import check_mesh
 from grok_tpu_torch.pipeline.plan import (_plan_for, _th_ovr_key,
                                           window_mask)
 from grok_tpu_torch.t1ht import tables
@@ -67,10 +73,9 @@ class GeneralRoute(NotImplementedError):
     (pipeline/tile.py decode_tile) decodes: HT refinement passes, Part-1
     mode switches, several codeword segments per block, layered HT-mixed
     streams, components mixing HT and Part-1 blocks, packed packet
-    headers, a custom MCT, packets the C Tier-2 parse declines, a decode
-    over a device mesh; or a batch that the batch entry takes stream by
-    stream (several tiles, different main headers, tile-part
-    overrides).  The entry points catch this class only; every other
+    headers, a custom MCT, packets the C Tier-2 parse declines; or a
+    batch that the batch entry takes stream by stream (several tiles,
+    different main headers, tile-part overrides).  The entry points catch this class only; every other
     decline stays a NotImplementedError."""
 
     def __init__(self, why: str):
@@ -87,9 +92,10 @@ class StagedBatch:
     meta: torch.Tensor        # (lanes, META_COLS) int32
     dims: list                # per bucket (Lms, Lsuf, Dm, any HT lane,
     #                           any Part-1 lane)
+    mesh: object = None       # dp.mesh: K3 and the synthesis sharded
 
     def run(self) -> list:
-        return self.program.run(self.body, self.meta, self.dims)
+        return self.program.run(self.body, self.meta, self.dims, self.mesh)
 
 
 def _program(plan, N: int, device: torch.device) -> DecodeProgram:
@@ -219,10 +225,7 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                         device, ths=None) -> StagedBatch:
     """Host staging of N same-geometry tile bodies and their upload."""
     device = torch.device(device)
-    if dp.mesh is not None:
-        # as grok_tpu/pipeline/serve.py declines a mesh: the general
-        # route shards the Part-1 lanes and the synthesis levels
-        raise GeneralRoute("a decode over a device mesh")
+    check_mesh(dp.mesh, device)
     if hdr.ppm is not None or any(
             q is not None and q.ppt is not None for q in (ths or [th])):
         raise GeneralRoute("PPM/PPT packed packet headers")
@@ -386,7 +389,7 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
     meta_all = np.concatenate(metas)
     body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
-    return StagedBatch(prog, body_d, meta_d, dims)
+    return StagedBatch(prog, body_d, meta_d, dims, dp.mesh)
 
 
 def try_decode_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp,

@@ -13,8 +13,8 @@ encoder, t2/packet.py), and `decode_tile`, the
 general device decode route for the streams the serving decode declines
 (refined HT blocks, Part-1 mode switches, layered HT-mixed streams,
 components mixing HT and Part-1 blocks, packed packet headers, a custom
-MCT, packets cut short or corrupt, strict decodes of HT blocks, decodes
-over a device mesh), with kernels K1, K2 and K3, whole or in a window,
+MCT, packets cut short or corrupt, strict decodes of HT blocks), with or
+without a device mesh, with kernels K1, K2 and K3, whole or in a window,
 for code-blocks of any legal size.
 
 Reference parity: [grok: src/lib/core/tile/TileProcessor.cpp ::
@@ -593,12 +593,12 @@ def decode_tile(cs: bytes, hdr: MainHeader, t: int, th: TileHeader | None,
     style.
 
     With dp.mesh (a parallel/sharding.py Mesh whose first device is
-    `device`), the default-style single-segment Part-1 lanes are decoded
-    by one K3 launch per shard of the mesh, the other lanes (HT, styled
-    Part-1) on `device`, and every synthesis level is split by rows
-    across the mesh with halo exchange (the JAX package's mesh branch of
-    decode_tile); the planes equal the unsharded decode's and end on
-    `device`.
+    `device`; the meshed tiles the serving decode declines come here),
+    the default-style single-segment Part-1 lanes are decoded by one K3
+    launch per shard of the mesh, the other lanes (HT, styled Part-1) on
+    `device`, and every synthesis level is split by rows across the mesh
+    with halo exchange (the JAX package's mesh branch of decode_tile);
+    the planes equal the unsharded decode's and end on `device`.
 
     Raises NotImplementedError naming the route for Part-1 blocks
     outside 1..109 passes or 0..30 magnitude planes."""

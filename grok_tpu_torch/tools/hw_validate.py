@@ -5,11 +5,17 @@
 The counterpart of tools/hw_validate.py, with its check names, default
 shapes and synthetic content (the same default_rng seeds and draws; the
 blocks are coded by the port's own encoders).  With no check named, all
-nine run:
+ten run:
 
   gather_probe     P1, the per-lane gather (ops/lane_gather.py), at 64 and
-                   65536 rows of 128 lanes, against its plain version,
-                   torch.take_along_dim and numpy's take_along_axis;
+                   65536 rows of 128 lanes, against its plain version, its
+                   first design (lane_gather_v1), torch.take_along_dim and
+                   numpy's take_along_axis; timed in turns with the
+                   library call and with its first design;
+  gather_shapes    P1 against its plain version, its first design and
+                   numpy at 1, 63 and 65 rows of 1, 3, 4, 5, 127, 128 and
+                   129 lanes, with indices in range and out of range and
+                   on unaligned views;
   ht_dec, ht_enc   K1 and K4 on 1024 blocks of 32x32: K4 -> C assembly ->
                    C scan -> K1 gives back the source; both kernels
                    against their plain versions and their first designs
@@ -64,8 +70,8 @@ from grok_tpu_torch.pipeline.device import stage_bytes, unstuff_suffix
 from grok_tpu_torch.pipeline.serve import stage_dims
 from grok_tpu_torch.util.synth import synthetic_image
 
-CHECKS = ("gather_probe", "ht_dec", "ht_enc", "mq_dec", "mq_enc",
-          "serve_mq_enc", "serve_mq_enc_rt", "serve_mixed_enc",
+CHECKS = ("gather_probe", "gather_shapes", "ht_dec", "ht_enc", "mq_dec",
+          "mq_enc", "serve_mq_enc", "serve_mq_enc_rt", "serve_mixed_enc",
           "serve_mixed_dec")
 GATHER_ROWS = (64, 65536)
 EDGE_H = 8               # rows of the lanes held against the Part-1 plain
@@ -73,6 +79,7 @@ KERNEL_REPS = 20         # launches per kernel timing window
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 peak bandwidth
 # --device cpu: the plain versions at sizes a CPU run finishes in seconds
 SMALL = {"gather_probe": dict(rows=(64, 512)),
+         "gather_shapes": dict(),
          "ht_dec": dict(w=16, h=16, nblocks=16),
          "ht_enc": dict(w=16, h=16, nblocks=16),
          "mq_dec": dict(w=16, h=16, nblocks=4),
@@ -92,14 +99,15 @@ COUNTERS = {"K1": (ht_decode.ht_decode_lanes, "launches"),
             # K1/K2's int64 re-decode of lanes marked MARK_I64 (a corrupt
             # block's magnitudes past int32)
             "K12i64": (ht_decode.ht_decode_lanes, "i64_launches"),
-            # the first designs of K1, K2, K3, K4, K4r and K5: the oracle,
+            # the first designs of K1, K2, K3, K4, K4r, K5 and P1: the oracle,
             # on no serving path
             "K1v1": (ht_decode.ht_decode_lanes_v1, "launches"),
             "K2v1": (ht_decode.ht_decode_lanes_v1, "refine_launches"),
             "K3v1": (t1_decode.t1_decode_lanes_v1, "launches"),
             "K4v1": (ht_encode.ht_encode_lanes_v1, "launches"),
             "K4rv1": (ht_encode.ht_encode_lanes_v1, "refine_launches"),
-            "K5v1": (t1_encode.t1_encode_lanes_v1, "launches")}
+            "K5v1": (t1_encode.t1_encode_lanes_v1, "launches"),
+            "P1v1": (lane_gather.lane_gather_v1, "launches")}
 
 
 def card() -> str:
@@ -168,26 +176,25 @@ def encodes_equal(got, ref) -> bool:
             and torch.equal(got[2], ref[2]) and torch.equal(got[3], ref[3]))
 
 
-def plain_encode_ms(*args) -> tuple:
-    """(t1_encode_lanes_ref(*args), its wall ms) for CPU tensors, on one
-    thread: the plain version of a K5 launch's held lanes, run in a
-    worker process beside the card's work (chip_smoke.py phases 8, 25
-    and 32)."""
+def plain_ms(fn, *args) -> tuple:
+    """(fn(*args), its wall ms) for CPU tensors, on one thread: the plain
+    version `fn` of a kernel launch's held lanes (a module-level function,
+    such as t1_encode.t1_encode_lanes_ref), run in a worker process
+    beside the card's work (chip_smoke.py)."""
     torch.set_num_threads(1)
     t0 = time.perf_counter()
-    out = t1_encode.t1_encode_lanes_ref(*args)
+    out = fn(*args)
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def plain_decode_ms(*args) -> tuple:
-    """(t1_decode_lanes_ref(*args), its wall ms) for CPU tensors, on one
-    thread: the plain version of a K3 launch's held lanes, run in a
-    worker process beside the card's work (chip_smoke.py phases 9, 16
-    and 32)."""
-    torch.set_num_threads(1)
-    t0 = time.perf_counter()
-    out = t1_decode.t1_decode_lanes_ref(*args)
-    return out, (time.perf_counter() - t0) * 1e3
+def ht_refine_encode_ref(lanes: tuple, caps: tuple, rcaps: tuple) -> tuple:
+    """The plain K4r of a launch: ht_encode_lanes(*lanes, *caps,
+    refine=True)'s layout (the cleanup, SigProp and MagRef streams side
+    by side, their bit counts, ns) from ht_encode_lanes_ref and
+    ht_refine_lanes_ref (rcaps: ht_encode.refine_caps of the lanes)."""
+    st, bt = ht_encode.ht_encode_lanes_ref(*lanes, *caps)
+    sp, mr, rb, ns = ht_encode.ht_refine_lanes_ref(*lanes, *rcaps)
+    return torch.cat([st, sp, mr], 1), torch.cat([bt, rb]), ns
 
 
 def _call_ms(device: torch.device, fn):
@@ -215,12 +222,17 @@ def _report(res: dict, text: str) -> dict:
 
 def run_gather_probe(device, rows: int = 64, L: int = 128) -> dict:
     """P1 on the JAX probe's own inputs (x = arange, idx drawn by
-    default_rng(0)): the kernel against its plain version, the library
-    call torch.take_along_dim and numpy's take_along_axis; the plain
-    version's time, and the kernel's and the library call's timed in
-    turns (P1, library, library, P1: `ms`, `library_ms` the mean of each
-    one's two windows, `spread_ms` the larger gap between a call's two
-    windows); on a card the bytes bound (x and idx read once, out written
+    default_rng(0)): the kernel against its plain version, its first
+    design (lane_gather_v1), the library call torch.take_along_dim and
+    numpy's take_along_axis; the plain version's time, the kernel timed
+    in turns with the library call (P1, library, library, P1: `ms`,
+    `library_ms` the mean of each one's two windows, `spread_ms` the
+    larger gap between a call's two windows) and with its first design
+    (v1, P1, P1, v1: `prev_ms` v1's mean, `prev_turn_ms` P1's,
+    `prev_spread_ms` their spread); the kernel on two other index
+    patterns (`pattern_ms`: rows in order, the bytes alone; random rows
+    of a 1024-row slice of x that stays in L2, one sector request a
+    read); on a card the bytes bound (x and idx read once, out written
     once: 12 bytes an element)."""
     device = torch.device(device)
     x = np.arange(rows * L, dtype=np.int32).reshape(rows, L)
@@ -236,6 +248,9 @@ def run_gather_probe(device, rows: int = 64, L: int = 128) -> dict:
               for other in (lane_gather.lane_gather_ref(xd, ixd),
                             torch.take_along_dim(xd, ix64, dim=0),
                             torch.from_numpy(want).to(device)))
+    before = lane_gather.lane_gather_v1.launches
+    equal_v1 = torch.equal(got, lane_gather.lane_gather_v1(xd, ixd))
+    launches_v1 = lane_gather.lane_gather_v1.launches - before
     nbytes = 3 * rows * L * 4
 
     def p1():
@@ -243,11 +258,35 @@ def run_gather_probe(device, rows: int = 64, L: int = 128) -> dict:
 
     def lib():
         return torch.take_along_dim(xd, ix64, dim=0)
+
+    def v1():
+        return lane_gather.lane_gather_v1(xd, ixd)
     w = [kernel_ms(device, f) for f in (p1, lib, lib, p1)]
+    u = [kernel_ms(device, f) for f in (v1, p1, p1, v1)]
+    # what bounds it: the same launch on indices that read x in row
+    # order (coalesced, the bytes alone) and on random indices into the
+    # first 1024 rows (every x read still its own sector request, from a
+    # 1024-row slice that stays in L2)
+    hot = min(rows, 1024)
+    patterns = {
+        "in order": torch.arange(rows, dtype=torch.int32, device=device)
+        [:, None].expand(rows, L).contiguous(),
+        f"random in {hot} rows": torch.from_numpy(
+            np.random.default_rng(1).integers(0, hot, (rows, L),
+                                              dtype=np.int32)).to(device)}
+    pattern_ms = {k: kernel_ms(device, lambda i=i: lane_gather.lane_gather(
+        xd, i)) for k, i in patterns.items()}
     res = dict(check="gather_probe", device=str(device), rows=rows, L=L,
-               ok=err == 0, max_abs_err=err, launches=launches,
+               ok=err == 0 and equal_v1, max_abs_err=err,
+               equal_to_v1=equal_v1, launches=launches,
+               launches_v1=launches_v1,
                ms=(w[0] + w[3]) / 2, library_ms=(w[1] + w[2]) / 2,
                spread_ms=max(abs(w[0] - w[3]), abs(w[1] - w[2])),
+               prev_ms=(u[0] + u[3]) / 2, prev_turn_ms=(u[1] + u[2]) / 2,
+               prev_spread_ms=max(abs(u[0] - u[3]), abs(u[1] - u[2])),
+               pattern_ms=pattern_ms,
+               # each x read its own sector request: the rate they ran at
+               reads_per_s=rows * L / ((w[0] + w[3]) / 2 * 1e-3),
                plain_ms=kernel_ms(device, lambda: lane_gather
                                   .lane_gather_ref(xd, ixd)),
                bytes=nbytes,
@@ -255,14 +294,85 @@ def run_gather_probe(device, rows: int = 64, L: int = 128) -> dict:
                if device.type == "cuda" else None)
     bound = f", bound {res['bound_ms']:.4f} ms ({nbytes} bytes)" \
         if res["bound_ms"] is not None else ""
+    others = pattern_ms.items()
     return _report(res, f"rows={rows} L={L}: max_abs_err {err} against the "
-                   f"plain version, take_along_dim and numpy; in turns "
-                   f"(P1, library, library, P1) "
+                   f"plain version, take_along_dim and numpy, equal to "
+                   f"v1={equal_v1}; in turns (P1, library, library, P1) "
                    f"{', '.join(f'{v:.4f}' for v in w)} ms: kernel "
                    f"{res['ms']:.4f} ms, take_along_dim "
                    f"{res['library_ms']:.4f} ms, spread "
-                   f"{res['spread_ms']:.4f} ms; plain "
-                   f"{res['plain_ms']:.4f} ms{bound}")
+                   f"{res['spread_ms']:.4f} ms; in turns (v1, P1, P1, v1) "
+                   f"{', '.join(f'{v:.4f}' for v in u)} ms: v1 "
+                   f"{res['prev_ms']:.4f} ms, kernel "
+                   f"{res['prev_turn_ms']:.4f} ms, spread "
+                   f"{res['prev_spread_ms']:.4f} ms; kernel on other "
+                   f"indices: "
+                   f"{', '.join(f'{k} {v:.4f} ms' for k, v in others)}"
+                   f"; {rows * L} x reads at {res['reads_per_s'] / 1e9:.1f} "
+                   f"G/s; plain {res['plain_ms']:.4f} ms{bound}")
+
+
+# awkward shapes of P1: lane counts that are not a multiple of 4 (the
+# kernel's scalar form) or are, around a warp's 32 lane groups, and row
+# counts around the row tiles
+GATHER_SHAPES = tuple((rows, L) for rows in (1, 63, 65)
+                      for L in (1, 3, 4, 5, 127, 128, 129))
+
+
+def gather_cases(rows: int, L: int, seed: int, device) -> list:
+    """P1's inputs at (rows, L): (name, x, idx) with indices in range,
+    with indices out of range (-3 to rows + 2, 0 there), and as views
+    one element past a 16-byte boundary (the kernel's scalar form
+    whatever L is)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2**31, 2**31, (rows, L), dtype=np.int32)
+    idx = rng.integers(0, rows, (rows, L), dtype=np.int32)
+    oor = rng.integers(-3, rows + 3, (rows, L), dtype=np.int32)
+
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    def shifted(a):
+        buf = torch.zeros(a.size + 4, dtype=torch.int32, device=device)
+        v = buf[1:1 + a.size].view(a.shape)
+        v.copy_(t(a))
+        return v
+    return [("in range", t(x), t(idx)), ("out of range", t(x), t(oor)),
+            ("unaligned", shifted(x), shifted(idx))]
+
+
+def gather_want(x: torch.Tensor, idx: torch.Tensor) -> np.ndarray:
+    """numpy's take_along_axis, 0 where an index is out of range."""
+    xn, ixn = x.cpu().numpy(), idx.cpu().numpy()
+    inside = (ixn >= 0) & (ixn < xn.shape[0])
+    got = np.take_along_axis(xn, np.clip(ixn, 0, xn.shape[0] - 1), axis=0)
+    return np.where(inside, got, 0)
+
+
+def run_gather_shapes(device, shapes=GATHER_SHAPES) -> dict:
+    """P1 against its plain version, its first design and numpy on the
+    awkward shapes (gather_cases: in range, out of range, unaligned);
+    the kernel launched once a case on a card."""
+    device = torch.device(device)
+    bad, n = [], 0
+    before = lane_gather.lane_gather.launches
+    for k, (rows, L) in enumerate(shapes):
+        for what, x, idx in gather_cases(rows, L, 500 + k, device):
+            got = lane_gather.lane_gather(x, idx)
+            n += 1
+            if not (torch.equal(got, lane_gather.lane_gather_ref(x, idx))
+                    and torch.equal(got, lane_gather.lane_gather_v1(x, idx))
+                    and np.array_equal(got.cpu().numpy(),
+                                       gather_want(x, idx))):
+                bad.append((rows, L, what))
+    launches = lane_gather.lane_gather.launches - before
+    res = dict(check="gather_shapes", device=str(device), cases=n,
+               launches=launches, failed=bad,
+               ok=not bad and (device.type != "cuda" or launches == n))
+    return _report(res, f"{n} cases over {len(shapes)} shapes (rows x L), "
+                   f"in range, out of range and unaligned: equal to the "
+                   f"plain version, v1 and numpy except {bad}; P1 launched "
+                   f"{launches} times")
 
 
 # ---------------------------------------------------------------------------

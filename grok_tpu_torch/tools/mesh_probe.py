@@ -8,10 +8,11 @@ through compress_device / decompress_device unmeshed, over every visible
 card (`tile_mesh()`, one shard a card: the halos peer to peer) and over
 four virtual shards of card 0, a warm-up and 3 calls each (best and
 median); the bytes must agree and each decode equal the source, with K5
-and K3 launched once a shard.  Then the finest synthesis level the same
-three ways, and dryrun_multichip(4) on the visible cards.  Prints the
-cards' names and power limits first; exits non-zero where a result
-differs.
+and K3 launched once a shard and every decode served (the serving route,
+which takes the mesh; the route is printed).  Then the finest synthesis
+level the same three ways, and dryrun_multichip(4) on the visible
+cards.  Prints the cards' names and power limits first; exits non-zero
+where a result differs.
 
 `giant_tile` and `finest_level` are the measurement itself; chip_smoke.py's
 phase 27 calls them too, on one card.
@@ -58,8 +59,9 @@ def _best_median(ts: list) -> str:
 @contextlib.contextmanager
 def recorded(mod, fn_name: str, keep: int = 0):
     """mod.fn_name wrapped to count its calls (the sharded wrappers call
-    their module's kernel wrapper once a shard) and keep the arguments of
-    the first `keep`.  Yields [calls so far, kept argument tuples].  The
+    their module's kernel wrapper once a shard; api.py's decode_tile, the
+    tiles handed to the general route) and keep the arguments of the
+    first `keep`.  Yields [calls so far, kept argument tuples].  A kernel
     wrapper counts its launches on the name it is bound to, so the spy
     carries the count while it stands in and hands it back."""
     rec = [0, []]
@@ -70,13 +72,16 @@ def recorded(mod, fn_name: str, keep: int = 0):
         if len(rec[1]) < keep:
             rec[1].append(a)
         return real(*a, **k)
-    spy.launches = real.launches
+    counted = hasattr(real, "launches")
+    if counted:
+        spy.launches = real.launches
     setattr(mod, fn_name, spy)
     try:
         yield rec
     finally:
         setattr(mod, fn_name, real)
-        real.launches = spy.launches
+        if counted:
+            real.launches = spy.launches
 
 
 def _check_launches(what: str, kern: str, rec: list, launched: int,
@@ -105,13 +110,15 @@ def giant_tile(name: str, src: torch.Tensor, params: CompressParams,
     `meshes` (name -> Mesh, or None for the unmeshed route; the first
     entry is the reference): a warm-up and `reps` calls of
     compress_device and of decompress_device each, printed with best and
-    median and `tag`.  Raises RuntimeError where the reps' bytes differ,
-    where a mesh's bytes or planes differ from the reference's, or where
-    K5 (encode) or K3 (decode) launched other than once a shard a call.
-    record: a mesh whose K5 and K3 wrapper calls of the warm-up are kept
-    (their argument tuples).
+    median and `tag`.  Each decode's route is printed: "served"
+    (pipeline/serve.py, the mesh too) or "general" (pipeline/tile.py
+    decode_tile).  Raises RuntimeError where the reps' bytes differ,
+    where a mesh's bytes or planes differ from the reference's, where K5
+    (encode) or K3 (decode) launched other than once a shard a call, or
+    where a decode left the serving route.  record: a mesh whose K5 and
+    K3 wrapper calls of the warm-up are kept (their argument tuples).
 
-    Returns {mesh name: {"bytes", "planes", "enc_s", "dec_s",
+    Returns {mesh name: {"bytes", "planes", "enc_s", "dec_s", "route",
     "k5_calls", "k3_calls"}} (the times of the timed calls, in s)."""
     npx = src.shape[0] * src.shape[1]
     out, ref = {}, None
@@ -141,7 +148,8 @@ def giant_tile(name: str, src: torch.Tensor, params: CompressParams,
               f"{npx / 1e6 / min(ts):.2f} MP/s; {len(r['bytes'])} bytes; "
               f"K5 {k5_n} launches ({nsh} a call), K3 {k3_n} {tag}",
               flush=True)
-        with recorded(t1_decode, "t1_decode_lanes", keep) as k3:
+        with recorded(t1_decode, "t1_decode_lanes", keep) as k3, \
+                recorded(api, "decode_tile") as general:
             k3_0 = t1_decode.t1_decode_lanes.launches
             for _ in range(reps + 1):
                 planes, dt = _timed(lambda: api.decompress_device(
@@ -150,12 +158,16 @@ def giant_tile(name: str, src: torch.Tensor, params: CompressParams,
                 r["dec_s"].append(dt)
             k3_n = t1_decode.t1_decode_lanes.launches - k3_0
         r["k3_calls"] = k3[1]
+        r["route"] = "general" if general[0] else "served"
         _check_launches(f"decode {name} ({key})", "K3", k3, k3_n, m, reps,
                         device)
         ts = r["dec_s"] = r["dec_s"][1:]
         print(f"decode {name} ({key}): {_best_median(ts)} calls, "
               f"{npx / 1e6 / min(ts):.2f} MP/s; K3 {k3_n} launches ({nsh} a "
-              f"call) {tag}", flush=True)
+              f"call); route {r['route']} {tag}", flush=True)
+        if general[0]:
+            raise RuntimeError(f"decode {name} ({key}): {general[0]} tiles "
+                               f"of {reps + 1} calls left the serving route")
         ref = ref or r
         if r["bytes"] != ref["bytes"]:
             raise RuntimeError(f"encode {name}: the bytes over {key} differ "

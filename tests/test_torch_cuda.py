@@ -1,6 +1,6 @@
 """Card-only tests of the port: the HT, Part-1 and per-lane gather CUDA
 kernels (a kernel has no CPU mode) against their plain PyTorch versions,
-the redesigned coders' first designs, the scalar HT coder, the committed
+the redesigned kernels' first designs, the scalar HT coder, the committed
 Part-1 mode-switch vectors and torch.take_along_dim, on seeded and (HT
 decoders) corrupt lanes, and the serving decode and encode (targeted and
 layered Part-1 too) on the card against the source pixels, the host
@@ -31,6 +31,7 @@ from grok_tpu_torch.ops import t1_decode as D3  # noqa: E402
 from grok_tpu_torch.ops import t1_encode as E5  # noqa: E402
 from grok_tpu_torch.t1 import vectors  # noqa: E402
 from grok_tpu_torch.t1ht import tables as PT  # noqa: E402
+from grok_tpu_torch.tools import hw_validate  # noqa: E402
 from test_ht_tables_dropin import _synthetic_normative_tables  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -348,6 +349,26 @@ def test_lane_gather_matches_plain_version_and_library(card, rows, L):
     assert G.lane_gather.launches == before + 1
     assert torch.equal(got, G.lane_gather_ref(x, idx))
     assert torch.equal(got, torch.take_along_dim(x, idx.long(), dim=0))
+
+
+@pytest.mark.parametrize("rows, L", list(hw_validate.GATHER_SHAPES)
+                         + [(65536, 128)])
+def test_lane_gather_matches_first_design_on_awkward_shapes(card, rows, L):
+    """P1 (lane groups of 4 where L % 4 == 0 and the pointers are 16-byte
+    aligned, else its scalar form) against its plain version, its first
+    design and numpy: indices in range, out of range (0 there), and
+    unaligned views; one launch a call."""
+    for what, x, idx in hw_validate.gather_cases(rows, L, rows + L, card):
+        before = G.lane_gather.launches, G.lane_gather_v1.launches
+        got = G.lane_gather(x, idx)
+        old = G.lane_gather_v1(x, idx)
+        torch.cuda.synchronize()
+        assert (G.lane_gather.launches, G.lane_gather_v1.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(got, G.lane_gather_ref(x, idx)), what
+        assert torch.equal(got, old), what
+        assert np.array_equal(got.cpu().numpy(),
+                              hw_validate.gather_want(x, idx)), what
 
 
 @pytest.mark.parametrize("kw", [dict(rates=[4.0]),

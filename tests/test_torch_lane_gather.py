@@ -1,9 +1,11 @@
 """P1 of the port, the per-lane gather (grok_tpu_torch/ops/lane_gather.py):
 its plain version against numpy's and JAX's take_along_axis (the body of
 the Pallas probe in tools/hw_validate.py) on the probe's own inputs and
-on other shapes, the wrapper's refusals, and every check of the port's
-hardware-validation tool (grok_tpu_torch/tools/hw_validate.py) on the
-CPU at its small sizes."""
+on other shapes, awkward ones (lane counts off the kernel's 4-lane
+groups, row counts around its row tiles, indices out of range, unaligned
+views) included, the wrappers' refusals (the kernel and its first
+design), and every check of the port's hardware-validation tool
+(grok_tpu_torch/tools/hw_validate.py) on the CPU at its small sizes."""
 
 import numpy as np
 import pytest
@@ -49,11 +51,38 @@ def test_plain_version_matches_numpy_and_jax(make):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+AWKWARD = [(rows, L) for rows in (1, 63, 65) for L in (1, 3, 5, 127, 129)]
+
+
+@pytest.mark.parametrize("rows, L", AWKWARD)
+def test_plain_version_awkward_shapes(rows, L):
+    """The plain version (and lane_gather_v1's, on the CPU) at lane counts
+    off the kernel's 4-lane groups and row counts around its row tiles:
+    numpy's take_along_axis, on in-range indices and, on the kernel's
+    contract, 0 where an index is out of range; the tool's unaligned
+    views give the same."""
+    cases = hw_validate.gather_cases(rows, L, 7 * rows + L, "cpu")
+    for what, x, idx in cases:
+        got = G.lane_gather(x, idx)
+        want = hw_validate.gather_want(x, idx)
+        assert np.array_equal(got.numpy(), want), what
+        assert torch.equal(G.lane_gather_v1(x, idx), got), what
+    x, idx = cases[0][1].numpy(), cases[0][2].numpy()
+    assert np.array_equal(G.lane_gather(torch.from_numpy(x),
+                                        torch.from_numpy(idx)).numpy(),
+                          np.take_along_axis(x, idx, axis=0))
+    oor = cases[1][2].numpy()
+    assert ((oor < 0) | (oor >= rows)).any()
+    assert not G.lane_gather(cases[1][1], cases[1][2]).numpy()[
+        (oor < 0) | (oor >= rows)].any()
+
+
 def test_cpu_tensors_launch_no_kernel():
     x, idx = _probe_inputs(16)
-    before = G.lane_gather.launches
+    before = G.lane_gather.launches, G.lane_gather_v1.launches
     G.lane_gather(torch.from_numpy(x), torch.from_numpy(idx))
-    assert G.lane_gather.launches == before
+    G.lane_gather_v1(torch.from_numpy(x), torch.from_numpy(idx))
+    assert (G.lane_gather.launches, G.lane_gather_v1.launches) == before
 
 
 def test_wrapper_refusals():
@@ -70,8 +99,9 @@ def test_wrapper_refusals():
         (x.to("meta"), idx.to("meta"), "no lane gather kernel"),
     ]
     for a, b, what in bad:
-        with pytest.raises(ValueError, match=what):
-            G.lane_gather(a, b)
+        for fn in (G.lane_gather, G.lane_gather_v1):
+            with pytest.raises(ValueError, match=what):
+                fn(a, b)
 
 
 def test_tool_refuses_unknown_checks_and_a_missing_card(capsys):

@@ -259,31 +259,101 @@ def _count(monkeypatch, mod, name):
 
 
 BLK = dict(cblk_w_exp=3, cblk_h_exp=3)
+# the served streams: Part-1 in 1 layer (gray, RGB) and in 3, 9/7, HT,
+# HT-mixed, and a window (its "window" key is the decode's, not the
+# encode's)
 DECODE_CASES = [
     ((160, 140, 1, 1), dict(num_resolutions=3)),
     ((126, 155, 3, 2), dict(num_resolutions=3)),
     ((128, 128, 1, 3), dict(irreversible=True, quant_step=0.002)),
     ((96, 80, 1, 4), dict(num_resolutions=3, ht=True)),
+    ((80, 64, 1, 6), dict(num_resolutions=3, num_layers=3,
+                          rates=[24, 8, 0])),
+    ((64, 56, 1, 7), dict(num_resolutions=3, ht_mixed=True)),
+    ((80, 64, 1, 8), dict(num_resolutions=3, window=(13, 9, 51, 47))),
 ]
+
+
+def _general_calls(monkeypatch):
+    """The tiles handed to the general route (pipeline/tile.py
+    decode_tile, as api.py calls it), by tile index."""
+    calls = []
+    orig = api.decode_tile
+
+    def counted(*a, **k):
+        calls.append(a[2])
+        return orig(*a, **k)
+    monkeypatch.setattr(api, "decode_tile", counted)
+    return calls
 
 
 @pytest.mark.parametrize("shape,kw", DECODE_CASES)
 def test_public_api_mesh_decode(jmesh, monkeypatch, shape, kw):
     """decompress_device(mesh=...) on the streams of test_parallel.py's
-    test_public_api_mesh_decode (and an HT stream, whose lanes stay on
-    the first device): equal to the unmeshed port and to the JAX
-    package's mesh decode; K3 called once per shard."""
+    test_public_api_mesh_decode, a 3-layer Part-1 stream, an HT stream
+    (whose lanes stay on the first device), an HT-mixed stream and a
+    window: served (the general route is never entered), equal to the
+    unmeshed port and to the JAX package's mesh decode; K3 called once
+    per shard."""
     h, w, c, seed = shape
+    kw = dict(kw)
+    window = kw.pop("window", None)
     img = synthetic_image(h, w, c, seed=seed)
     cs = compress(img, JCP(**kw, **BLK))
-    ref = api.decompress_device(cs, device="cpu")
+    ref = api.decompress_device(cs, PDP(window=window), device="cpu")
+    general = _general_calls(monkeypatch)
     calls = _count(monkeypatch, t1_decode, "t1_decode_lanes")
-    got = api.decompress_device(cs, PDP(mesh=MESH), device="cpu")
+    got = api.decompress_device(cs, PDP(mesh=MESH, window=window),
+                                device="cpu")
+    assert not general
     assert all(torch.equal(a, b) for a, b in zip(ref, got))
     assert len(calls) == (0 if kw.get("ht") else 8)
-    want = decompress(cs, JDP(backend="jax", mesh=jmesh)).to_array()
+    want = decompress(cs, JDP(backend="jax", mesh=jmesh, window=window,
+                              strict=False)).to_array()
     arr = np.stack([g.numpy() for g in got], -1) if c > 1 else got[0].numpy()
+    if window is not None:
+        x0, y0, x1, y1 = window
+        arr = arr[y0:y1, x0:x1]
     assert np.array_equal(arr, want)
+
+
+def test_meshed_batch_decode_is_one_staged_batch(monkeypatch):
+    """decompress_device_batch(mesh=...) of 3 same-geometry Part-1
+    streams: one staged batch (nothing stream by stream), K3 once per
+    shard, planes equal to the unmeshed batch's."""
+    cp = JCP(num_resolutions=3, **BLK)
+    streams = [compress(synthetic_image(64, 56, 1, seed=40 + i), cp)
+               for i in range(3)]
+    ref = api.decompress_device_batch(streams, device="cpu")
+    staged = []
+    orig = api.stage_serving_batch
+
+    def spy(*a, **k):
+        staged.append(len(a[4]))
+        return orig(*a, **k)
+    monkeypatch.setattr(api, "stage_serving_batch", spy)
+    monkeypatch.setattr(api, "decompress_device", None)
+    general = _general_calls(monkeypatch)
+    calls = _count(monkeypatch, t1_decode, "t1_decode_lanes")
+    got = api.decompress_device_batch(streams, PDP(mesh=MESH), device="cpu")
+    assert staged == [3] and len(calls) == 8 and not general
+    assert len(got) == 3
+    assert all(torch.equal(a, b) for r, g in zip(ref, got)
+               for a, b in zip(r, g))
+
+
+def test_meshed_mode_switches_take_the_general_route(monkeypatch):
+    """A meshed Part-1 stream with mode switches (0x3F) is declined by the
+    serving decode and decoded by the general route, over the mesh (its
+    styled lanes on the first device), with the unmeshed planes."""
+    img = synthetic_image(48, 40, 1, seed=9)
+    cs = compress(img, JCP(num_resolutions=2, cblk_style=0x3F, **BLK))
+    ref = api.decompress_device(cs, device="cpu")
+    general = _general_calls(monkeypatch)
+    got = api.decompress_device(cs, PDP(mesh=MESH), device="cpu")
+    assert general == [0]
+    assert all(torch.equal(a, b) for a, b in zip(ref, got))
+    assert np.array_equal(got[0].numpy(), img)
 
 
 @pytest.mark.parametrize("kw", [
@@ -357,7 +427,8 @@ def test_mesh_probe_measurement_on_cpu():
     """tools/mesh_probe.py's giant_tile and finest_level (the measurement
     chip_smoke.py's phase 27 runs) at a small size on CPU shards: the
     meshed bytes and planes equal the unmeshed ones, one K5 and one K3
-    call a shard is kept for the recorded mesh."""
+    call a shard is kept for the recorded mesh, and both decodes were
+    served."""
     from grok_tpu_torch.tools import mesh_probe
     img = synthetic_image(48, 40, 1, seed=27)
     src = torch.from_numpy(img)
@@ -370,5 +441,6 @@ def test_mesh_probe_measurement_on_cpu():
     assert len(got["2 shards"]["k5_calls"]) == 2
     assert len(got["2 shards"]["k3_calls"]) == 2
     assert not got["unmeshed"]["k5_calls"]
+    assert got["2 shards"]["route"] == got["unmeshed"]["route"] == "served"
     times = mesh_probe.finest_level(src, meshes, reps=1)
     assert set(times) == set(meshes)
