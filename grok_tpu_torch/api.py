@@ -43,7 +43,7 @@ from grok_tpu_torch.pipeline.serve import (GeneralRoute, StagedBatch,
                                            try_decode_serving_batch)
 from grok_tpu_torch.pipeline.serve_enc import try_encode_serving_batch
 from grok_tpu_torch.pipeline.tile import decode_tile, stage_general
-from grok_tpu_torch.util.trace import trace
+from grok_tpu_torch.util.trace import count, trace
 
 
 def _params(dparams: DecompressParams | None,
@@ -117,30 +117,38 @@ def stage_device_batch(streams: list[bytes],
     stream: several tiles, different main headers, tile-part COD/QCD,
     tile-part overrides and packed headers, and every stream the
     serving decode declines to the general route."""
-    dev = _device(device)
-    dp = _params(dparams, dev)
-    if not streams:
-        raise ValueError("no streams to stage")
-    first_cs = jp2.locate_codestream(streams[0], permissive=not dp.strict)
-    hdr = j2k.read_main_header(first_cs)
-    mh = bytes(first_cs[:hdr.main_header_end])
-    bodies, ths = [], []
-    for s in streams:
-        cs = jp2.locate_codestream(s, permissive=not dp.strict)
-        if bytes(cs[:hdr.main_header_end]) != mh:
-            raise GeneralRoute("a batch of streams with different main "
-                               "headers")
-        parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
-        if hdr.siz.num_tiles != 1 or {p.tile_index for p in parts} != {0}:
-            raise GeneralRoute("a batch of multi-tile streams")
-        th, body = _tile_body(cs, hdr, parts)
-        if any(_th_ovr_key(th)):
-            raise GeneralRoute("a batch of streams with tile-part "
-                               "overrides")
-        bodies.append(body)
-        ths.append(th)
-    return stage_serving_batch(mh, hdr, 0, ths[0], bodies, dp, device=dev,
-                               ths=ths)
+    with trace("decode.stage"):
+        dev = _device(device)
+        dp = _params(dparams, dev)
+        if not streams:
+            raise ValueError("no streams to stage")
+        with trace("decode.stage.headers"):
+            first_cs = jp2.locate_codestream(streams[0],
+                                             permissive=not dp.strict)
+            hdr = j2k.read_main_header(first_cs)
+            mh = bytes(first_cs[:hdr.main_header_end])
+            bodies, ths = [], []
+            for s in streams:
+                cs = jp2.locate_codestream(s, permissive=not dp.strict)
+                if bytes(cs[:hdr.main_header_end]) != mh:
+                    raise GeneralRoute("a batch of streams with different "
+                                       "main headers")
+                parts = j2k.read_tile_parts(cs, hdr, strict=dp.strict)
+                if hdr.siz.num_tiles != 1 or \
+                        {p.tile_index for p in parts} != {0}:
+                    raise GeneralRoute("a batch of multi-tile streams")
+                th, body = _tile_body(cs, hdr, parts)
+                if any(_th_ovr_key(th)):
+                    raise GeneralRoute("a batch of streams with tile-part "
+                                       "overrides")
+                bodies.append(body)
+                ths.append(th)
+        staged = stage_serving_batch(mh, hdr, 0, ths[0], bodies, dp,
+                                     device=dev, ths=ths)
+        # the joined bodies die inside the span: freeing a large one
+        # (an unmap) is staging's cost too
+        del bodies, body
+        return staged
 
 
 def decompress_device_batch(streams: list[bytes],
@@ -162,22 +170,24 @@ def decompress_device_batch(streams: list[bytes],
     try:
         staged = stage_device_batch(streams, dparams, device=device)
     except GeneralRoute:
-        return [decompress_device(s, dparams, device=device)
-                for s in streams]
+        count("decode.general_streams", len(streams))
+        out = []
+        for s in streams:
+            with trace("decode.general"):
+                out.append(decompress_device(s, dparams, device=device))
+        return out
     return staged.run()
 
 
 def _decode_tile_on(cs, hdr, t: int, th, body: bytes, dp,
                     dev: torch.device) -> list:
     """Per-component tensors of one tile: served, or on GeneralRoute
-    decoded by the general device route (a host span "tile_decode" when
-    util/trace.py is on)."""
-    with trace("tile_decode", tile=t):
-        try:
-            return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
-                                            device=dev)[0]
-        except GeneralRoute:
-            return decode_tile(cs, hdr, t, th, body, dp, device=dev)
+    decoded by the general device route."""
+    try:
+        return try_decode_serving_batch(cs, hdr, t, th, [body], dp,
+                                        device=dev)[0]
+    except GeneralRoute:
+        return decode_tile(cs, hdr, t, th, body, dp, device=dev)
 
 
 def decompress_device(data: bytes, dparams: DecompressParams | None = None,

@@ -56,7 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="force output precision (bits); values are "
                         "shifted/clipped")
     p.add_argument("--trace", metavar="FILE",
-                   help="write a perfetto-compatible stage trace")
+                   help="write a perfetto-compatible trace of the "
+                        "decode's spans (util/trace.py), each with its "
+                        "parent and call id")
     p.add_argument("-v", "--verbose", action="store_true")
     return p
 

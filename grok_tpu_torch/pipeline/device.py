@@ -53,6 +53,7 @@ from grok_tpu_torch.ops.ht_decode import MARK_I64, ht_decode_lanes
 from grok_tpu_torch.ops.t1_decode import (t1_decode_lanes,
                                           t1_decode_lanes_sharded)
 from grok_tpu_torch.parallel.sharding import inv_2d_level_sharded
+from grok_tpu_torch.util.trace import trace
 
 # per-lane meta columns of the uploaded meta array: the HT lane (K1) and
 # the Part-1 lane (K3) of the same block
@@ -388,31 +389,38 @@ class DecodeProgram:
         device is the program's, over which K3's lanes (all default
         style, one segment) and the synthesis levels are sharded, or
         None.  Returns N lists of per-component int32 planes."""
-        # 1-2. the block decodes: K3 over every Part-1 lane (once, or
-        # once per group of bucket shapes; with a mesh once per shard of
-        # each), K1 per bucket on the first device
-        if any(d[4] for d in dims):
-            mq = self.decode_mq(self.stage_mq(body, meta), mesh=mesh)
-        ms2, ht = [], []
-        for bi, b in enumerate(self.buckets):
-            Lms, Lsuf, Dm, any_ht, any_mq = dims[bi]
-            n = self.N * len(b.blocks)
-            if any_ht:
-                args = self.stage(body, meta, bi, Lms, Lsuf, Dm)
-                out, err = ht_decode_lanes(*args, b.W, b.H)
-                ht.append((bi, args, err))
-            else:
-                out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
-                                  device=self.device)
-            if any_mq:
-                out = out + mq[bi]
-            ms2.append(out)
-        planes = self.synthesize(ms2, mesh=mesh)
-        wide = redecode_marked(
-            ms2, [(bi, args, None, err) for bi, args, err in ht],
-            lambda bi, a, _rf: ht_decode_lanes(
-                *a, self.buckets[bi].W, self.buckets[bi].H, i64=True)[0])
-        return planes if wide is None else self.synthesize(wide, mesh=mesh)
+        with trace("decode.program"):
+            # 1-2. the block decodes: K3 over every Part-1 lane (once, or
+            # once per group of bucket shapes; with a mesh once per shard
+            # of each), K1 per bucket on the first device
+            if any(d[4] for d in dims):
+                with trace("decode.program.k3"):
+                    mq = self.decode_mq(self.stage_mq(body, meta),
+                                        mesh=mesh)
+            ms2, ht = [], []
+            for bi, b in enumerate(self.buckets):
+                Lms, Lsuf, Dm, any_ht, any_mq = dims[bi]
+                n = self.N * len(b.blocks)
+                if any_ht:
+                    with trace("decode.program.k1_stage", W=b.W, H=b.H):
+                        args = self.stage(body, meta, bi, Lms, Lsuf, Dm)
+                    with trace("decode.program.k1", W=b.W, H=b.H):
+                        out, err = ht_decode_lanes(*args, b.W, b.H)
+                    ht.append((bi, args, err))
+                else:
+                    out = torch.zeros((n, b.H, b.W), dtype=torch.int32,
+                                      device=self.device)
+                if any_mq:
+                    out = out + mq[bi]
+                ms2.append(out)
+            planes = self.synthesize(ms2, mesh=mesh)
+            wide = redecode_marked(
+                ms2, [(bi, args, None, err) for bi, args, err in ht],
+                lambda bi, a, _rf: ht_decode_lanes(
+                    *a, self.buckets[bi].W, self.buckets[bi].H,
+                    i64=True)[0])
+            return planes if wide is None \
+                else self.synthesize(wide, mesh=mesh)
 
     def synthesize(self, outs: list, mct_round: bool = False,
                    mesh=None) -> list:
@@ -427,85 +435,88 @@ class DecodeProgram:
         every synthesis level row-sharded over it (inv_2d_level_sharded,
         equal to the unsharded level).  Returns N lists of per-component
         int32 planes."""
-        m = torch.cat([o.reshape(-1) for o in outs])[self.src]
+        with trace("decode.program.synth"):
+            m = torch.cat([o.reshape(-1) for o in outs])[self.src]
 
-        # 3. ROI Maxshift, dequantize + place (signed mag2 carries the
-        # half-bit, as the threshold of the Maxshift expects), each
-        # filter's samples into a flat buffer of its own dtype
-        m2 = m.abs()
-        if self.roi is not None:
-            big = m2.to(torch.int64) >= (1 << self.roi)
-            m2 = torch.where(big, m2 >> self.roi.to(torch.int32), m2)
-        flats = {}
-        for irrev, sel, tgt, scale in self.place:
-            ms, m2s = (m, m2) if sel is None else (m[sel], m2[sel])
-            if irrev:
-                sign = torch.where(ms < 0, -1.0, 1.0)
-                vals = sign * m2s.to(torch.float32) * scale
-                flat = torch.zeros(self.total, dtype=torch.float32,
-                                   device=self.device)
-            else:
-                vals = torch.where(ms < 0, -(m2s >> 1), m2s >> 1)
-                flat = torch.zeros(self.total, dtype=torch.int32,
-                                   device=self.device)
-            # int64 planes (redecode_marked): each coefficient sign *
-            # (mag2 >> 1) in int64, then wrapped to int32, as the JAX
-            # package's host decode places its int64 band arrays in int32
-            # synthesis buffers
-            flat[tgt] = vals.to(flat.dtype)
-            flats[irrev] = flat
+            # 3. ROI Maxshift, dequantize + place (signed mag2 carries the
+            # half-bit, as the threshold of the Maxshift expects), each
+            # filter's samples into a flat buffer of its own dtype
+            m2 = m.abs()
+            if self.roi is not None:
+                big = m2.to(torch.int64) >= (1 << self.roi)
+                m2 = torch.where(big, m2 >> self.roi.to(torch.int32), m2)
+            flats = {}
+            for irrev, sel, tgt, scale in self.place:
+                ms, m2s = (m, m2) if sel is None else (m[sel], m2[sel])
+                if irrev:
+                    sign = torch.where(ms < 0, -1.0, 1.0)
+                    vals = sign * m2s.to(torch.float32) * scale
+                    flat = torch.zeros(self.total, dtype=torch.float32,
+                                       device=self.device)
+                else:
+                    vals = torch.where(ms < 0, -(m2s >> 1), m2s >> 1)
+                    flat = torch.zeros(self.total, dtype=torch.int32,
+                                       device=self.device)
+                # int64 planes (redecode_marked): each coefficient sign *
+                # (mag2 >> 1) in int64, then wrapped to int32, as the JAX
+                # package's host decode places its int64 band arrays in int32
+                # synthesis buffers
+                flat[tgt] = vals.to(flat.dtype)
+                flats[irrev] = flat
 
-        N = self.N
+            N = self.N
 
-        def band(ci, r, orient):
-            pos, bh, bw = self.band_at[(ci, r, orient)]
-            flat = flats.get(self.irrevs[ci])
-            if flat is None:    # a component without code-blocks
-                flat = flats[not self.irrevs[ci]].new_zeros(
-                    self.total, dtype=torch.float32 if self.irrevs[ci]
-                    else torch.int32)
-                flats[self.irrevs[ci]] = flat
-            return flat[pos:pos + N * bh * bw].view(N, bh, bw)
+            def band(ci, r, orient):
+                pos, bh, bw = self.band_at[(ci, r, orient)]
+                flat = flats.get(self.irrevs[ci])
+                if flat is None:    # a component without code-blocks
+                    flat = flats[not self.irrevs[ci]].new_zeros(
+                        self.total, dtype=torch.float32 if self.irrevs[ci]
+                        else torch.int32)
+                    flats[self.irrevs[ci]] = flat
+                return flat[pos:pos + N * bh * bw].view(N, bh, bw)
 
-        # 4. inverse DWT per component, all N streams at once
-        level = dwt.inv_2d_level if mesh is None else partial(
-            inv_2d_level_sharded, mesh=mesh)
-        outs = []
-        for ci, cs in enumerate(self.comps_sig):
-            (rect_t, numres, r_lim, _prec, _sgnd, irrev, _bands) = cs
-            rect = Rect(*rect_t)
-            cur = band(ci, 0, BAND_LL)
-            nl = numres - 1
-            for r in range(1, r_lim):
-                s = 1 << (nl - r)
-                cur = level(cur, band(ci, r, 1), band(ci, r, 2),
-                            band(ci, r, 3), rect.ceil_scale(s, s), irrev)
-            outs.append(cur)
+            # 4. inverse DWT per component, all N streams at once
+            level = dwt.inv_2d_level if mesh is None else partial(
+                inv_2d_level_sharded, mesh=mesh)
+            outs = []
+            for ci, cs in enumerate(self.comps_sig):
+                (rect_t, numres, r_lim, _prec, _sgnd, irrev, _bands) = cs
+                rect = Rect(*rect_t)
+                cur = band(ci, 0, BAND_LL)
+                nl = numres - 1
+                for r in range(1, r_lim):
+                    s = 1 << (nl - r)
+                    with trace(f"decode.program.dwt.r{r}"):
+                        cur = level(cur, band(ci, r, 1), band(ci, r, 2),
+                                    band(ci, r, 3), rect.ceil_scale(s, s),
+                                    irrev)
+                outs.append(cur)
 
-        # 5. inverse MCT + DC unshift/clip
-        if self.custom_inv is not None:
-            outs = mct.custom_mct(outs, self.custom_inv)
-        elif self.mct_mode == 2 and len(outs) >= 3:
-            # ICT (component 0 on 9/7): a 5/3 plane among the three goes
-            # in as float32
-            outs[0], outs[1], outs[2] = mct.ict_inv(
-                *(o.to(torch.float32) for o in outs[:3]))
-        elif self.mct_mode and len(outs) >= 3:
-            outs[0], outs[1], outs[2] = mct.rct_inv(outs[0], outs[1],
-                                                    outs[2])
-        final = []
-        for ci, cs in enumerate(self.comps_sig):
-            (_rect, _numres, _r_lim, prec, sgnd, irrev, _bands) = cs
-            arr = outs[ci]
-            if irrev or (self.custom_inv is not None and mct_round):
-                arr = torch.round(arr)
-            elif arr.is_floating_point():
-                # a 5/3 plane through the ICT or a custom MCT: truncated
-                # toward zero, as the JAX package casts it
-                arr = torch.trunc(arr)
-            final.append(mct.dc_shift_inv(arr.to(torch.int32), prec, sgnd))
-        return [[final[ci][si] for ci in range(len(final))]
-                for si in range(N)]
+            # 5. inverse MCT + DC unshift/clip
+            if self.custom_inv is not None:
+                outs = mct.custom_mct(outs, self.custom_inv)
+            elif self.mct_mode == 2 and len(outs) >= 3:
+                # ICT (component 0 on 9/7): a 5/3 plane among the three goes
+                # in as float32
+                outs[0], outs[1], outs[2] = mct.ict_inv(
+                    *(o.to(torch.float32) for o in outs[:3]))
+            elif self.mct_mode and len(outs) >= 3:
+                outs[0], outs[1], outs[2] = mct.rct_inv(outs[0], outs[1],
+                                                        outs[2])
+            final = []
+            for ci, cs in enumerate(self.comps_sig):
+                (_rect, _numres, _r_lim, prec, sgnd, irrev, _bands) = cs
+                arr = outs[ci]
+                if irrev or (self.custom_inv is not None and mct_round):
+                    arr = torch.round(arr)
+                elif arr.is_floating_point():
+                    # a 5/3 plane through the ICT or a custom MCT: truncated
+                    # toward zero, as the JAX package casts it
+                    arr = torch.trunc(arr)
+                final.append(mct.dc_shift_inv(arr.to(torch.int32), prec, sgnd))
+            return [[final[ci][si] for ci in range(len(final))]
+                    for si in range(N)]
 
 
 def _lanes(args: tuple, k: torch.Tensor) -> tuple:
@@ -548,7 +559,9 @@ def redecode_marked(outs: list, ht: list, decode_i64) -> list | None:
     if not ht:
         return None
     flags = [(err == MARK_I64) for _bi, _a, _rf, err in ht]
-    if not bool(torch.stack([f.any() for f in flags]).any()):
+    with trace("decode.program.readback"):
+        marked = bool(torch.stack([f.any() for f in flags]).any())
+    if not marked:
         return None
     wide = [o.to(torch.int64) for o in outs]
     for (bi, args, rf, err), f in zip(ht, flags):

@@ -29,6 +29,7 @@ from grok_tpu_torch.pipeline.tile import (TileGeometry, band_window,
                                           canon_block_indices)
 from grok_tpu_torch.t2.progression import iter_packets
 from grok_tpu_torch.transform.mct_np import custom_mct_inverse
+from grok_tpu_torch.util.trace import count
 
 _PLANS: dict = {}
 _PLANS_MAX = 16
@@ -242,6 +243,7 @@ def _plan_for(cs: bytes, hdr, t: int, th, reduce: int = 0) -> ServePlan:
            _th_ovr_key(th))
     plan = _PLANS.get(key)
     if plan is None:
+        count("decode.plan_builds")
         plan = _build_plan(hdr, t, th, reduce)
         if len(_PLANS) >= _PLANS_MAX:
             _PLANS.pop(next(iter(_PLANS)))   # evict the oldest entry

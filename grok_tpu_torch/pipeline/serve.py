@@ -59,6 +59,7 @@ from grok_tpu_torch.pipeline.plan import (_plan_for, _th_ovr_key,
                                           window_mask)
 from grok_tpu_torch.t1ht import tables
 from grok_tpu_torch.pipeline.device import META_COLS, Bucket, DecodeProgram
+from grok_tpu_torch.util.trace import count, trace
 
 
 def _unsupported(route: str, why: str) -> NotImplementedError:
@@ -116,6 +117,7 @@ def _program(plan, N: int, device: torch.device) -> DecodeProgram:
         prog = DecodeProgram(plan.comps_sig, plan.mct_mode, N, buckets,
                              device, plan.roi, plan.custom_inv)
         plan.fast[key] = prog
+        count("decode.program_builds")
     return prog
 
 
@@ -136,6 +138,7 @@ def _upload(plan, arrays: list, device: torch.device) -> list:
     buffer kept on the plan (reused once its previous copy is done): one
     host-to-device copy, each array a view of it at a 16-byte-aligned
     offset."""
+    count("decode.upload_bytes", sum(a.nbytes for a in arrays))
     if device.type != "cuda":
         return [torch.from_numpy(a).to(device) for a in arrays]
     offs, total = [], 0
@@ -265,35 +268,38 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
     #                                           length, npass, numbps
     srcs = []          # per stream: raw body (mq, mixed), digest (ht, mixed)
     for si, body in enumerate(bodies):
-        parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
-                                          plan.eph)
-        if parsed is None:
-            raise GeneralRoute(f"stream {si}, whose packets the C Tier-2 "
-                               f"parse declines (cut short or corrupt)")
-        incl, zb, npass, chunks, _end = parsed
-        incl = np.asarray(incl, bool)
-        if dp.max_layers:
-            # a layer cap: drop the chunks of layers at or past it and
-            # rebuild inclusion and pass counts from the rest (zb stays
-            # valid: it was signalled at first inclusion), as
-            # grok_tpu/pipeline/serve.py does
-            chunks = chunks[chunks[:, 1] < dp.max_layers]
-            npass = np.zeros_like(npass)
-            np.add.at(npass, chunks[:, 0], chunks[:, 3])
-            incl = np.zeros_like(incl)
-            incl[chunks[:, 0]] = True
-        if (chunks[:, 2] != 0).any():
-            raise GeneralRoute("multi-segment code-blocks")
-        if len(chunks) != int(np.count_nonzero(incl)):
-            if plan.coder != "mq":
-                raise GeneralRoute("blocks spread over several layers (a "
-                                   "layered HT-mixed stream)")
-            body, offs, lens = _concat_layers(body, chunks, plan.n_blks)
-        else:
-            offs = np.zeros(plan.n_blks, np.int64)
-            lens = np.zeros(plan.n_blks, np.int32)
-            offs[chunks[:, 0]] = chunks[:, 4]
-            lens[chunks[:, 0]] = chunks[:, 5]
+        with trace("decode.stage.t2"):
+            parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
+                                              plan.eph)
+            if parsed is None:
+                raise GeneralRoute(f"stream {si}, whose packets the C "
+                                   f"Tier-2 parse declines (cut short or "
+                                   f"corrupt)")
+            incl, zb, npass, chunks, _end = parsed
+            incl = np.asarray(incl, bool)
+            if dp.max_layers:
+                # a layer cap: drop the chunks of layers at or past it
+                # and rebuild inclusion and pass counts from the rest (zb
+                # stays valid: it was signalled at first inclusion), as
+                # grok_tpu/pipeline/serve.py does
+                chunks = chunks[chunks[:, 1] < dp.max_layers]
+                npass = np.zeros_like(npass)
+                np.add.at(npass, chunks[:, 0], chunks[:, 3])
+                incl = np.zeros_like(incl)
+                incl[chunks[:, 0]] = True
+            if (chunks[:, 2] != 0).any():
+                raise GeneralRoute("multi-segment code-blocks")
+            if len(chunks) != int(np.count_nonzero(incl)):
+                if plan.coder != "mq":
+                    raise GeneralRoute("blocks spread over several layers "
+                                       "(a layered HT-mixed stream)")
+                body, offs, lens = _concat_layers(body, chunks,
+                                                  plan.n_blks)
+            else:
+                offs = np.zeros(plan.n_blks, np.int64)
+                lens = np.zeros(plan.n_blks, np.int32)
+                offs[chunks[:, 0]] = chunks[:, 4]
+                lens[chunks[:, 0]] = chunks[:, 5]
         keep = incl & plan.rok
         if wmask is not None:
             keep &= wmask
@@ -341,54 +347,65 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         if plan.coder != "mq":
             dig = b""
             if hsel.any():
-                scan, dig = _scan_ht(plan, body, offs[idx][hsel],
-                                     lens[idx][hsel], numbps[hsel], si)
+                with trace("decode.stage.ht_scan"):
+                    scan, dig = _scan_ht(plan, body, offs[idx][hsel],
+                                         lens[idx][hsel], numbps[hsel], si)
                 scans[si, pos[hsel]] = scan
                 valid[si, pos[hsel]] = True
             srcs.append(dig)
 
-    # one upload for all streams, each piece at a 16-byte-aligned base
-    bases = np.zeros(len(srcs), np.int64)
-    top = 0
-    for k, b in enumerate(srcs):
-        bases[k] = top
-        top += -(-len(b) // 16) * 16
-    body_cat = np.zeros(max(16, top), np.uint8)
-    for b, base in zip(srcs, bases):
-        body_cat[base:base + len(b)] = np.frombuffer(b, np.uint8) \
-            if not isinstance(b, np.ndarray) else b
-    per = len(srcs) // N
-    raw_base = bases[0::per] if plan.coder != "ht" else np.zeros(N)
-    dig_base = bases[per - 1::per] if plan.coder != "mq" else np.zeros(N)
+    if plan.coder != "ht":
+        # K3's lanes: their count, their coded bytes, the longest chain
+        mq_len = mqrows[:, :, 1][mqrows[:, :, 2] > 0]
+        count("decode.k3.lanes", mq_len.size)
+        count("decode.k3.bytes", int(mq_len.sum()))
+        count("decode.k3.lane_bytes_max", int(mq_len.max(initial=0)))
 
-    # full staging: a lane for every kept block of every stream (stream
-    # major); blocks a stream does not include, or codes with the other
-    # coder, stay zero (valid = 0, npass = 0)
-    prog = _program(plan, N, device)
-    metas, dims = [], []
-    for sel in bsel:
-        if sel.size == 0:
-            continue
-        sc = scans[:, sel].reshape(-1, 10)
-        v = valid[:, sel].reshape(-1)
-        mqr = mqrows[:, sel].reshape(-1, 4)
-        dbase = np.repeat(dig_base, sel.size)
-        meta = np.zeros((sc.shape[0], META_COLS), np.int32)
-        meta[:, 0] = np.where(v, sc[:, 1] + dbase, 0)
-        meta[:, 1] = sc[:, 2]
-        meta[:, 2] = np.where(v, sc[:, 3] + dbase, 0)
-        meta[:, 3] = sc[:, 4]
-        meta[:, 4] = sc[:, 0]
-        meta[:, 5] = v
-        mq_on = mqr[:, 2] > 0
-        meta[:, 6] = np.where(mq_on, mqr[:, 0] + np.repeat(raw_base,
-                                                           sel.size), 0)
-        meta[:, 7:10] = mqr[:, 1:4]
-        meta[:, 10:13] = sc[:, 7:10]
-        metas.append(meta)
-        dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
-    meta_all = np.concatenate(metas)
-    body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
+    with trace("decode.stage.pack"):
+        # one upload for all streams, each piece at a 16-byte-aligned base
+        bases = np.zeros(len(srcs), np.int64)
+        top = 0
+        for k, b in enumerate(srcs):
+            bases[k] = top
+            top += -(-len(b) // 16) * 16
+        body_cat = np.zeros(max(16, top), np.uint8)
+        for b, base in zip(srcs, bases):
+            body_cat[base:base + len(b)] = np.frombuffer(b, np.uint8) \
+                if not isinstance(b, np.ndarray) else b
+        per = len(srcs) // N
+        raw_base = bases[0::per] if plan.coder != "ht" else np.zeros(N)
+        dig_base = bases[per - 1::per] if plan.coder != "mq" \
+            else np.zeros(N)
+
+        # full staging: a lane for every kept block of every stream
+        # (stream major); blocks a stream does not include, or codes with
+        # the other coder, stay zero (valid = 0, npass = 0)
+        prog = _program(plan, N, device)
+        metas, dims = [], []
+        for sel in bsel:
+            if sel.size == 0:
+                continue
+            sc = scans[:, sel].reshape(-1, 10)
+            v = valid[:, sel].reshape(-1)
+            mqr = mqrows[:, sel].reshape(-1, 4)
+            dbase = np.repeat(dig_base, sel.size)
+            meta = np.zeros((sc.shape[0], META_COLS), np.int32)
+            meta[:, 0] = np.where(v, sc[:, 1] + dbase, 0)
+            meta[:, 1] = sc[:, 2]
+            meta[:, 2] = np.where(v, sc[:, 3] + dbase, 0)
+            meta[:, 3] = sc[:, 4]
+            meta[:, 4] = sc[:, 0]
+            meta[:, 5] = v
+            mq_on = mqr[:, 2] > 0
+            meta[:, 6] = np.where(mq_on, mqr[:, 0] + np.repeat(raw_base,
+                                                               sel.size), 0)
+            meta[:, 7:10] = mqr[:, 1:4]
+            meta[:, 10:13] = sc[:, 7:10]
+            metas.append(meta)
+            dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
+        meta_all = np.concatenate(metas)
+        with trace("decode.stage.upload"):
+            body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
     return StagedBatch(prog, body_d, meta_d, dims, dp.mesh)
 
 

@@ -108,17 +108,39 @@ def test_round_trips_are_exact(encoded, files):
     assert np.array_equal(got.reshape(deep.shape), deep)
 
 
-def test_decompress_trace_writes_a_perfetto_file(encoded):
+def test_decompress_trace_writes_a_perfetto_file(encoded, monkeypatch):
+    """--trace writes the CLI's spans and the decode's (a permissive HT
+    decode: the serving route), each decode span with its parent and the
+    call id of the CLI span that encloses it."""
+    from grok_tpu_torch.util import trace
+    monkeypatch.setattr(trace, "_enabled", False)
     d = encoded
     tr = d / "trace.json"
     err = io.StringIO()
     with contextlib.redirect_stderr(err):
-        assert pdecompress.main(["-i", str(d / "j_tiled.j2k"), "-o",
-                                 str(d / "tr.ppm"), "--trace", str(tr)]
-                                + CPU) == 0
-    names = {e["name"] for e in json.loads(tr.read_text())["traceEvents"]}
-    assert {"decompress", "tile_decode", "write_image"} <= names
-    assert json.loads(err.getvalue().splitlines()[-1])["stages"]
+        assert pdecompress.main(["-i", str(d / "j_ht.j2k"), "-o",
+                                 str(d / "tr.ppm"), "-f", "--trace",
+                                 str(tr)] + CPU) == 0
+    events = json.loads(tr.read_text())["traceEvents"]
+    names = {e["name"] for e in events}
+    assert {"decompress", "write_image", "decode.stage.t2",
+            "decode.stage.pack", "decode.stage.upload", "decode.program",
+            "decode.program.synth"} <= names
+    by_id = {e["args"]["id"]: e for e in events}
+    root = next(e for e in events if e["name"] == "decompress")
+    assert root["args"]["parent"] is None
+    for e in events:
+        if e["name"].startswith("decode."):
+            assert e["args"]["call"] == root["args"]["id"]
+            up = by_id[e["args"]["parent"]]
+            assert up["ts"] <= e["ts"] and \
+                e["ts"] + e["dur"] <= up["ts"] + up["dur"] + 1e-3
+    assert by_id[next(e for e in events if e["name"] ==
+                      "decode.stage.upload")["args"]["parent"]]["name"] \
+        == "decode.stage.pack"
+    stages = json.loads(err.getvalue().splitlines()[-1])["stages"]
+    assert stages["decode.program"]["self_s"] <= \
+        stages["decode.program"]["total_s"]
 
 
 @pytest.mark.parametrize("flags", [[], ["-v"], ["-j"]])
