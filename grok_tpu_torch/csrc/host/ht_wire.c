@@ -43,13 +43,13 @@ static const uint8_t REV8[256] = {
 typedef struct {
     uint8_t *out;
     long long n;        /* bytes emitted */
-    uint32_t acc;
+    uint64_t acc;
     int nb;
 } sink_t;
 
 static inline void sink_bits(sink_t *s, uint32_t v, int nbits)
 {
-    s->acc |= (v & ((1u << nbits) - 1u)) << s->nb;
+    s->acc |= (uint64_t)(v & ((1u << nbits) - 1u)) << s->nb;
     s->nb += nbits;
     while (s->nb >= 8) {
         s->out[s->n++] = (uint8_t)(s->acc & 0xFF);
@@ -297,6 +297,109 @@ int grk_ht_unstuff_batch_bits(const uint8_t *body, long long blen,
     return 0;
 }
 
+/* The word path loads 8 wire bytes as one little-endian word; elsewhere
+ * the MagSgn un-stuff keeps to the byte rule. */
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__
+#define HT_WORD_UNSTUFF 1
+#else
+#define HT_WORD_UNSTUFF 0
+#endif
+
+#define ONES8 0x0101010101010101ULL
+#define HIGH8 0x8080808080808080ULL
+#define LOW7 0x7F7F7F7F7F7F7F7FULL
+#define MID3 0x7070707070707070ULL
+#define EVEN16 0x00FF00FF00FF00FFULL
+
+/* MagSgn un-stuff, a word at a time: an 8-byte word with no 0xFF that
+ * follows a byte other than 0xFF carries 64 payload bits, appended to a
+ * 64-bit accumulator of fewer than 8 pending bits with one shift-or and
+ * one 8-byte store of whole clean bytes.  Every other word, and the tail
+ * under 8 bytes, takes the byte rule (7 payload bits after 0xFF, else 8).
+ * The final partial byte is flushed zero-padded.  Returns the clean
+ * bytes written to out; *nbits gets the clean bits, *wbytes the wire
+ * bytes the word path took. */
+static long long unstuff_ms(const uint8_t *seg, long long len, uint8_t *out,
+                            long long *nbits, long long *wbytes)
+{
+    sink_t s = { out, 0, 0, 0 };    /* s.nb < 8 between wire bytes */
+    long long j = 0, bits = 8 * len, words = 0;
+    int prev_ff = 0;
+    while (j < len) {
+        long long end = len;
+        if (HT_WORD_UNSTUFF && j + 8 <= len) {
+            uint64_t w;
+            memcpy(&w, seg + j, 8);
+            uint64_t x = ~w;    /* a 0xFF byte of w is a zero byte of x */
+            if (!prev_ff && !((x - ONES8) & w & HIGH8)) {
+                uint64_t lo = s.acc | (w << s.nb);
+                memcpy(s.out + s.n, &lo, 8);
+                s.n += 8;
+                s.acc = s.nb ? w >> (64 - s.nb) : 0;
+                j += 8;
+                words += 8;
+                continue;
+            }
+            end = j + 8;
+        }
+        for (; j < end; j++) {
+            int b = seg[j];
+            sink_bits(&s, (uint32_t)b, prev_ff ? 7 : 8);
+            bits -= prev_ff;
+            prev_ff = b == 0xFF;
+        }
+    }
+    *nbits = bits;
+    *wbytes = words;
+    return sink_flush(&s);
+}
+
+/* 0x80 in each byte of w that is zero, 0 elsewhere (exact per byte) */
+static inline uint64_t zero_bytes(uint64_t w)
+{
+    return ~(((w & LOW7) + LOW7) | w | LOW7);
+}
+
+/* the sum of the 8 byte lanes of c */
+static inline int lane_sum(uint64_t c)
+{
+    c = (c & EVEN16) + ((c >> 8) & EVEN16);
+    return (int)((c * 0x0001000100010001ULL) >> 48);
+}
+
+/* Over seg[j0 .. e): add the 0xFF bytes to *nff, the 0x7F bytes to *n7f
+ * and the 0x7F bytes followed by a byte > 0x8F (seg[e] included) to
+ * *pairs.  Eight bytes a step into byte-lane counters, summed every 255
+ * steps, before a lane could overflow; the tail under 8 bytes by the
+ * byte rule. */
+static void suffix_counts(const uint8_t *seg, long long j0, long long e,
+                          int *nff, int *n7f, int *pairs)
+{
+    long long j = j0;
+    while (j + 8 <= e) {
+        long long stop = e - j > 8 * 255 ? j + 8 * 255 : e;
+        uint64_t cf = 0, c7 = 0, cp = 0;
+        for (; j + 8 <= stop; j += 8) {
+            uint64_t w, v;
+            memcpy(&w, seg + j, 8);
+            memcpy(&v, seg + j + 1, 8);
+            uint64_t f7 = zero_bytes(w ^ LOW7);
+            cf += zero_bytes(~w) >> 7;
+            c7 += f7 >> 7;
+            cp += (f7 & v & ((v & MID3) + MID3)) >> 7;   /* v > 0x8F */
+        }
+        *nff += lane_sum(cf);
+        *n7f += lane_sum(c7);
+        *pairs += lane_sum(cp);
+    }
+    for (; j < e; j++) {
+        int is7f = seg[j] == 0x7F;
+        *nff += seg[j] == 0xFF;
+        *n7f += is7f;
+        *pairs += is7f & (seg[j + 1] > 0x8F);
+    }
+}
+
 /* Scan n cleanup segments at body[off[i] .. off[i]+len[i]): un-stuff
  * the MagSgn stream into clean LSB-first bytes appended to digest and
  * copy the raw SUFFIX (MEL+VLC+Scup region) verbatim after it — the
@@ -309,21 +412,22 @@ int grk_ht_unstuff_batch_bits(const uint8_t *body, long long blen,
  * VLC backward from the high nibble of byte L - 2 down to the suffix's
  * first byte), past which they read 1-bits.  Returns 0, or 1 if digest
  * capacity dcap would overflow (caller sizes dcap >= sum(2*len + 24)).
- * *dused gets the digest bytes written. */
+ * *dused gets the digest bytes written, *wbytes the MagSgn wire bytes
+ * the word path of unstuff_ms took. */
 int grk_ht_scan2_bits(const uint8_t *body, long long blen,
                       const long long *off, const int *len, int n,
                       int *out7, uint8_t *digest, long long dcap,
-                      long long *dused, int *bits3)
+                      long long *dused, int *bits3, long long *wbytes)
 {
-    long long d = 0;
+    long long d = 0, words = 0;
     for (int i = 0; i < n; i++) {
         long long o = off[i];
         long long L = len[i];
         int *r = out7 + 7 * (long long)i;
+        int *b3 = bits3 + 3 * (long long)i;
         r[0] = -1;
         r[1] = r[2] = r[3] = r[4] = r[5] = r[6] = 0;
-        bits3[3 * (long long)i] = bits3[3 * (long long)i + 1]
-            = bits3[3 * (long long)i + 2] = 0;
+        b3[0] = b3[1] = b3[2] = 0;
         if (o < 0 || L < 2 || o + L > blen)
             continue;
         const uint8_t *seg = body + o;
@@ -334,53 +438,36 @@ int grk_ht_scan2_bits(const uint8_t *body, long long blen,
         if (d + 2 * L + 24 > dcap)
             return 1;
 
-        /* MagSgn: forward LSB-first, 7 payload bits after 0xFF */
-        sink_t s = { digest + d, 0, 0, 0 };
-        int prev_ff = 0;
-        long long ms_bits = 0;
-        for (long long j = 0; j < suf; j++) {
-            int b = seg[j];
-            if (prev_ff)
-                sink_bits(&s, (uint32_t)(b & 0x7F), 7);
-            else
-                sink_bits(&s, (uint32_t)b, 8);
-            ms_bits += prev_ff ? 7 : 8;
-            prev_ff = (b == 0xFF);
-        }
+        long long ms_bits, wb;
         r[1] = (int)d;
-        r[2] = (int)sink_flush(&s);
+        r[2] = (int)unstuff_ms(seg, suf, digest + d, &ms_bits, &wb);
         d += r[2];
+        words += wb;
 
         /* raw suffix, verbatim (device un-stuffs MEL forward and VLC
          * backward from it); count the stuffing events so the device
-         * repack can size its shift-candidate set statically */
+         * repack can size its shift-candidate set statically.  One pass
+         * over seg[suf .. L-2) takes the 0xFF and 0x7F counts, and the
+         * pairs 0x7F, > 0x8F that the VLC reader takes 7 bits from; the
+         * MEL reader takes 7 bits after each 0xFF in seg[suf .. L-4]. */
         memcpy(digest + d, seg + suf, (size_t)scup);
-        int nff = 0, n7f = 0;
-        for (long long j = 0; j < scup; j++) {
-            nff += (seg[suf + j] == 0xFF);
-            n7f += (seg[suf + j] == 0x7F);
-        }
+        int nff = 0, n7f = 0, pairs = 0;
+        suffix_counts(seg, suf, L - 2, &nff, &n7f, &pairs);
+        int mel_ff = nff - (L - 3 >= suf && seg[L - 3] == 0xFF);
+        long long body_bits = 8 * (L - 2 - suf);
+        nff += (seg[L - 2] == 0xFF) + (seg[L - 1] == 0xFF);
+        n7f += (seg[L - 2] == 0x7F) + (seg[L - 1] == 0x7F);
         r[3] = (int)d;
         r[4] = (int)scup;
         r[5] = nff;
         r[6] = n7f;
         d += scup;
         r[0] = 0;
-        long long mel_bits = 0, vlc_bits = 4;
-        int pf = 0;
-        for (long long j = suf; j < L - 2; j++) {
-            mel_bits += pf ? 7 : 8;
-            pf = seg[j] == 0xFF;
-        }
-        int prev = seg[L - 2];
-        for (long long j = L - 3; j >= suf; j--) {
-            vlc_bits += (prev > 0x8F && seg[j] == 0x7F) ? 7 : 8;
-            prev = seg[j];
-        }
-        bits3[3 * (long long)i] = (int)ms_bits;
-        bits3[3 * (long long)i + 1] = (int)mel_bits;
-        bits3[3 * (long long)i + 2] = (int)vlc_bits;
+        b3[0] = (int)ms_bits;
+        b3[1] = (int)(body_bits - mel_ff);
+        b3[2] = (int)(4 + body_bits - pairs);
     }
     *dused = d;
+    *wbytes = words;
     return 0;
 }

@@ -15,6 +15,8 @@ import ctypes
 
 import numpy as np
 
+from grok_tpu_torch.util.trace import count
+
 _bound = None
 
 
@@ -40,7 +42,7 @@ def _lib():
         lib.grk_ht_scan2_bits.restype = ctypes.c_int
         lib.grk_ht_scan2_bits.argtypes = [
             ctypes.c_char_p, ctypes.c_longlong, llp, ip, ctypes.c_int, ip,
-            u8p, ctypes.c_longlong, llp, ip]
+            u8p, ctypes.c_longlong, llp, ip, llp]
         lib.grk_ht_assemble_batch.restype = ctypes.c_int
         lib.grk_ht_assemble_batch.argtypes = [
             u8p, llp, llp, llp, llp, llp, llp, ip, ctypes.c_int, u8p,
@@ -147,21 +149,30 @@ def ht_scan2(body: bytes, off: np.ndarray, lens: np.ndarray):
     offsets index the digest; ok = 0 for a valid framing, -1 otherwise;
     bits: each clean sub-stream's bits as the scalar decoder reads them,
     past which it reads 1-bits.  None if the digest overflowed (never for
-    well-formed input: capacity is 3*len + 16 per block)."""
+    well-formed input: capacity is 3*len + 16 per block).
+
+    Counts `decode.ht_scan.ms_bytes` (the valid rows' MagSgn wire bytes)
+    and `decode.ht_scan.word_bytes` (those the C scan's word path took)."""
     lib = _lib()
     n = len(off)
     off = np.ascontiguousarray(off, np.int64)
     lens = np.ascontiguousarray(lens, np.int32)
     out = np.zeros((n, 7), np.int32)
     dcap = int(3 * int(lens.sum()) + 24 * n + 64)
-    digest = np.zeros(dcap, np.uint8)
+    digest = np.empty(dcap, np.uint8)     # the scan writes digest[:used]
     used = ctypes.c_longlong(0)
+    words = ctypes.c_longlong(0)
     bits = np.zeros((n, 3), np.int32)
     rc = lib.grk_ht_scan2_bits(body, len(body), _llp(off), _ip(lens), n,
                                _ip(out), _u8p(digest), dcap,
-                               ctypes.byref(used), _ip(bits))
+                               ctypes.byref(used), _ip(bits),
+                               ctypes.byref(words))
     if rc:
         return None
+    valid = out[:, 0] == 0
+    count("decode.ht_scan.ms_bytes",
+          int(lens[valid].sum()) - int(out[valid, 4].sum()))
+    count("decode.ht_scan.word_bytes", words.value)
     return out, digest[:int(used.value)], bits
 
 

@@ -23,7 +23,9 @@ from grok_tpu.t1 import luts as jluts  # noqa: E402
 from grok_tpu.t1 import mq as jmq  # noqa: E402
 from grok_tpu.t1 import t1_scalar as jscalar  # noqa: E402
 from grok_tpu.t1ht import tables as T  # noqa: E402
-from grok_tpu.t1ht.scalar import ht_encode_block  # noqa: E402
+from grok_tpu.t1ht.mel import MELDecoder  # noqa: E402
+from grok_tpu.t1ht.scalar import (_FwdReader, _VLCReader,  # noqa: E402
+                                  ht_encode_block)
 from grok_tpu.util.oracle import synthetic_image as jsynth  # noqa: E402
 from grok_tpu_torch import native as pnative  # noqa: E402
 from grok_tpu_torch.codestream import j2k as pj2k  # noqa: E402
@@ -182,6 +184,124 @@ def test_c_t2_parse_and_ht_scan_give_the_same_outputs(streams):
     assert all(np.array_equal(a, b) for a, b in zip(
         pnative.ht_scan2(junk, offs, lens)[:2], native.ht_scan2(junk, offs,
                                                                 lens)))
+
+
+def _cleanup(ms, suffix, nib=0x5):
+    """A wire cleanup segment: MagSgn bytes, then the suffix bytes and the
+    two Scup bytes (the suffix's length in 12 bits under nibble nib)."""
+    scup = len(suffix) + 2
+    return bytes(ms) + bytes(suffix) + bytes(
+        [(nib << 4) | (scup & 0xF), scup >> 4])
+
+
+def _coded(rng, n):
+    """n bytes of coded data: no 0xFF, as most words of a MagSgn stream."""
+    return rng.integers(0, 0xFF, n).astype(np.uint8)
+
+
+def _scan_segments(case):
+    """(body, offs, lens) of HT cleanup segments at the edges of the C
+    scan's word path (8 MagSgn bytes a step, none 0xFF) and its suffix
+    counts (8 bytes a step, lanes summed every 255 steps)."""
+    rng = np.random.default_rng(22)
+    segs, extra = [], []
+    if case == "ff_at_each_offset":
+        for k in range(8):
+            for base in (0, 8, 24):
+                ms = _coded(rng, 40)
+                ms[base + k] = 0xFF
+                ms[base + k + 1] &= 0x7F
+                segs.append(_cleanup(ms, _coded(rng, 9)))
+    elif case == "ff_last_magsgn":
+        for n in (1, 7, 8, 9, 15, 16, 17, 64):
+            ms = _coded(rng, n)
+            ms[-1] = 0xFF
+            segs.append(_cleanup(ms, [0x10, 0x90]))
+            segs.append(_cleanup(ms, [0xFF, 0x7F, 0x80]))
+    elif case == "ff_runs":
+        for start, run in ((0, 8), (3, 2), (5, 11), (8, 16), (13, 30)):
+            ms = _coded(rng, 64)
+            ms[start:start + run] = 0xFF
+            segs.append(_cleanup(ms, _coded(rng, 12)))
+        segs.append(_cleanup([0xFF] * 33, [0xFF] * 21))
+    elif case == "short_and_whole_words":
+        for n in list(range(8)) + [8, 16, 24, 64, 1000]:
+            segs.append(_cleanup(_coded(rng, n), _coded(rng, 5)))
+    elif case == "suffix_7f":
+        pairs = [0x7F, 0x90, 0x7F, 0x8F, 0x7F, 0xFF, 0x7F, 0x7F, 0x91,
+                 0xFF, 0x7F, 0x00, 0x7F, 0x80]
+        for lead in range(9):
+            suf = list(_coded(rng, lead)) + pairs
+            segs.append(_cleanup(_coded(rng, 20), suf, nib=0x9))
+            segs.append(_cleanup(_coded(rng, 3), suf + [0xFF], nib=0xF))
+            segs.append(_cleanup(_coded(rng, 3), suf + [0x7F], nib=0xF))
+            segs.append(_cleanup(_coded(rng, 5), list(_coded(rng, lead))
+                                 + [0x7F, 0x8F, 0x7F, 0x90]))
+        segs.append(_cleanup(_coded(rng, 8), [], nib=0xF))
+        segs.append(_cleanup(_coded(rng, 8), [0x7F], nib=0xF))
+        # a suffix of 2,400 bytes: the lanes are summed past 255 steps
+        long = rng.choice(np.array([0xFF, 0x7F, 0x90, 0x8F], np.uint8), 2400)
+        segs.append(_cleanup(_coded(rng, 100), long))
+        segs.append(_cleanup(_coded(rng, 16), [0xFF] * 2100 + [0x7F] * 1900))
+    elif case == "invalid_framing":
+        segs.append(bytes([0x12, 0x01, 0x00]))              # scup 1
+        segs.append(bytes([0x34, 0x20, 0x01]))              # scup 16 > L
+        segs.append(bytes([0xAB, 0xF5]))                    # L 2, scup large
+        segs.append(_cleanup(_coded(rng, 30), _coded(rng, 4)))
+        segs.append(b"\xff")                                # L 1
+        segs.append(b"")                                    # L 0
+        # segments outside the body: a negative offset, one past its end
+        extra = [(-4, 20), (10, 10 ** 6)]
+    else:                                                   # mixed
+        alph = np.array([0xFF, 0x7F, 0x8F, 0x90, 0x00, 0x12], np.uint8)
+        for n in (0, 5, 8, 31, 64, 200):
+            for m in (0, 1, 9, 40):
+                segs.append(_cleanup(rng.choice(alph, n), rng.choice(alph, m),
+                                     nib=int(rng.integers(0, 16))))
+    body = b"".join(segs)
+    lens = [len(x) for x in segs] + [ln for _, ln in extra]
+    offs = list(np.cumsum([0] + lens[:len(segs) - 1])) + [o for o, _ in extra]
+    return (body, np.asarray(offs, np.int64)[:len(lens)],
+            np.asarray(lens, np.int32))
+
+
+def _reader_bits(seg: bytes, suf: int):
+    """(MagSgn, MEL, VLC) clean bits as the scalar decoder's readers take
+    them, each read until its next bit would be padding."""
+    L = len(seg)
+    ms, n_ms = _FwdReader(seg, 0, suf), 0
+    while ms.pos < suf or ms._n:
+        ms.bit()
+        n_ms += 1
+    mel, n_mel = MELDecoder(seg, suf, L - 2), 0
+    while mel.pos < mel.end or mel._nbits:
+        mel._read_bit()
+        n_mel += 1
+    vlc, n_vlc = _VLCReader(seg, suf, L), 0
+    while vlc.pos >= suf or vlc._n:
+        vlc.bit()
+        n_vlc += 1
+    return n_ms, n_mel, n_vlc
+
+
+@pytest.mark.parametrize("case", [
+    "ff_at_each_offset", "ff_last_magsgn", "ff_runs", "short_and_whole_words",
+    "suffix_7f", "invalid_framing", "mixed"])
+def test_c_ht_scan_word_path_edges(case):
+    body, offs, lens = _scan_segments(case)
+    jscan, jdig = native.ht_scan2(body, offs, lens)
+    pscan, pdig, bits = pnative.ht_scan2(body, offs, lens)
+    assert np.array_equal(pscan, jscan) and np.array_equal(pdig, jdig)
+    valid = pscan[:, 0] == 0
+    assert valid.sum() >= 1
+    if case == "invalid_framing":
+        assert valid.tolist() == [False, False, False, True, False, False,
+                                  False, False]
+    assert not bits[~valid].any()
+    for i in np.flatnonzero(valid):
+        seg = body[offs[i]:offs[i] + lens[i]]
+        suf = int(lens[i]) - int(pscan[i, 4])
+        assert tuple(bits[i]) == _reader_bits(seg, suf), i
 
 
 def test_c_ht_assemble_batch_gives_the_same_segments():

@@ -13,7 +13,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from grok_tpu_torch import api  # noqa: E402
+from grok_tpu_torch import api, native  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams  # noqa: E402
 from grok_tpu_torch.pipeline import plan as plan_mod  # noqa: E402
 from grok_tpu_torch.util import trace  # noqa: E402
@@ -219,6 +219,7 @@ def test_decode_spans_and_counters(batches, case, tracing, monkeypatch):
     else:
         assert calls["decode.program.k3"] == 1
         assert "decode.stage.ht_scan" not in calls
+        assert not any(k.startswith("decode.ht_scan.") for k in ctr)
         for k in ("k1", "k1_stage", "readback"):
             assert f"decode.program.{k}" not in calls
         assert 1 <= ctr["decode.k3.lanes"]
@@ -231,3 +232,41 @@ def test_decode_spans_and_counters(batches, case, tracing, monkeypatch):
     ctr2 = trace.collect()["counters"]
     assert "decode.plan_builds" not in ctr2
     assert "decode.program_builds" not in ctr2
+
+
+def test_ht_scan_counters(batches, tracing, monkeypatch):
+    """decode.ht_scan.ms_bytes: the MagSgn wire bytes of the scanned
+    segments, reckoned here from each segment's length and its Scup
+    bytes; word_bytes: the part of them the C scan took 8 at a time."""
+    _name, streams, frames = batches[0]
+    scanned = []
+    scan2 = native.ht_scan2
+
+    def spy(body, offs, lens):
+        scanned.append((body, np.array(offs), np.array(lens)))
+        return scan2(body, offs, lens)
+
+    monkeypatch.setattr(native, "ht_scan2", spy)
+    monkeypatch.setattr(plan_mod, "_PLANS", {})
+    trace.enable(False)
+    want = api.decompress_device_batch(streams, device="cpu")
+    assert len(scanned) == len(streams)
+    trace.collect()
+    scanned.clear()
+    trace.enable(True)
+    got = api.decompress_device_batch(streams, device="cpu")
+    ctr = trace.collect()["counters"]
+    for fw, fg, src in zip(want, got, frames):
+        for w, g, s in zip(fw, fg, src):
+            assert torch.equal(w, g) and torch.equal(g, s)
+    ms_bytes = 0
+    for body, offs, lens in scanned:
+        for o, n in zip(offs.tolist(), lens.tolist()):
+            seg = body[o:o + n]
+            scup = (seg[-1] << 4) | (seg[-2] & 0xF)
+            assert 2 <= scup <= n
+            ms_bytes += n - scup
+    assert len(scanned) == len(streams) and ms_bytes > 0
+    assert ctr["decode.ht_scan.ms_bytes"] == ms_bytes
+    assert 0 < ctr["decode.ht_scan.word_bytes"] <= ms_bytes
+    assert ctr["decode.ht_scan.word_bytes"] % 8 == 0
