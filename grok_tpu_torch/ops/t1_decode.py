@@ -55,6 +55,7 @@ from grok_tpu_torch.t1 import luts, mq
 from grok_tpu_torch.t1.records import (PASS_CLN, PASS_REF, PASS_SIG,
                                        is_raw_pass, pass_schedule,
                                        segment_pass_counts)
+from grok_tpu_torch.util.trace import count, trace
 
 MAX_NUMBPS = 30          # mag2 of 30 planes fills int32
 
@@ -558,25 +559,50 @@ def t1_decode_lanes_sharded(body, start, npass, nbps, orient, w, h, style,
     version on a CPU shard; the body copied to each device), the outputs
     back in lane order on the mesh's first device.  The arguments are
     t1_decode_lanes', on any device; a shard's failed launch raises.
-    Every shard's launch is issued before any output comes back: a copy
-    back to the first device makes its stream wait for that shard, and
-    the next shard's inputs are copied on that stream, so copying back
-    inside the loop would run the cards' launches one after another."""
+
+    Every shard's inputs are copied before any launch is issued, and
+    every launch before any output comes back.  A copy between cards runs
+    on the source card's stream (PyTorch's cross-device copy), behind
+    the work already issued there: a launch on the first card issued
+    before the other cards' inputs would hold their launches back until
+    it ends, and a copy back inside the loop would make the first card's
+    stream wait for that shard; either runs the cards one after another.
+
+    Traced (util/trace.py): the copies to the shards in a span
+    `decode.program.k3.scatter`, shard i's launch in
+    `decode.program.k3.card<i>` (arg `lanes`), the outputs' way back in
+    `decode.program.k3.gather`; counters `decode.mesh.lanes_max` and
+    `.lanes_min` (the fullest and the emptiest share) and
+    `decode.mesh.peer_bytes` (the body, lanes and outputs that go
+    between the first shard and the others)."""
     from grok_tpu_torch.parallel.sharding import on_device
     lanes = (start, npass, nbps, orient, w, h, style, ptbl)
+    q, r = divmod(start.shape[0], mesh.size)   # torch.tensor_split's shares
+    count("decode.mesh.lanes_max", q + (r > 0))
+    count("decode.mesh.lanes_min", q)
+    shards, lo = [], 0
+    for i, d in enumerate(mesh.devices):
+        hi = lo + q + (i < r)
+        if hi > lo:
+            shards.append((i, d, lo, hi))
+        lo = hi
+    with trace("decode.program.k3.scatter"):
+        args = [(body.to(d),) + tuple(t[lo:hi].to(d).contiguous()
+                                      for t in lanes)
+                for _i, d, lo, hi in shards]
     outs = []
-    for d, idx in zip(mesh.devices, torch.tensor_split(
-            torch.arange(start.shape[0]), mesh.size)):
-        if not idx.numel():
-            continue
-        lo, hi = int(idx[0]), int(idx[-1]) + 1
-        with on_device(d):
-            outs.append(t1_decode_lanes(
-                body.to(d), *(t[lo:hi].to(d).contiguous() for t in lanes),
-                W, H))
+    for (i, d, lo, hi), a in zip(shards, args):
+        with trace(f"decode.program.k3.card{i}", lanes=hi - lo), \
+                on_device(d):
+            outs.append(t1_decode_lanes(*a, W, H))
+    count("decode.mesh.peer_bytes", sum(
+        sum(t.nbytes for t in a) + o.nbytes
+        for (i, *_), a, o in zip(shards, args, outs) if i))
     if not outs:
         return torch.empty((0, H, W), dtype=torch.int32, device=mesh.first)
-    return torch.cat([o.to(mesh.first, non_blocking=True) for o in outs])
+    with trace("decode.program.k3.gather"):
+        return torch.cat([o.to(mesh.first, non_blocking=True)
+                          for o in outs])
 
 
 def t1_decode_lanes_v1(body, start, npass, nbps, orient, w, h, style, ptbl,

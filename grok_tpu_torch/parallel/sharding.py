@@ -35,6 +35,12 @@ Two strategies, as in the JAX package:
 
 A level too small to shard (R < 5 n rows or W < 8 columns, the JAX
 package's rule) runs ops/dwt.py on the mesh's first device.
+
+Traced (util/trace.py), a sharded level's copies between shards are
+spanned: `mesh.shard_rows` (the rows split onto the shards),
+`mesh.halo` (the exchange) and `mesh.gather_rows` (the rows back on the
+first device); an inverse level also counts them in
+`decode.mesh.peer_bytes`.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 from grok_tpu_torch.core.geometry import Rect
 from grok_tpu_torch.ops import dwt, mct
 from grok_tpu_torch.ops.dwt import ALPHA, BETA, DELTA, GAMMA, K
+from grok_tpu_torch.util.trace import count, trace
 
 HALO = 4           # rows of each neighbour a shard reads (both filters)
 
@@ -190,12 +197,13 @@ def _exchange(parts: list, halo: int) -> list:
     ops/dwt.py's extension does."""
     n = len(parts)
     out = []
-    for i, p in enumerate(parts):
-        top = p[..., 1:halo + 1, :].flip(-2) if i == 0 else \
-            parts[i - 1][..., -halo:, :].to(p.device, non_blocking=True)
-        bot = p[..., -halo - 1:-1, :].flip(-2) if i == n - 1 else \
-            parts[i + 1][..., :halo, :].to(p.device, non_blocking=True)
-        out.append(torch.cat([top, p, bot], -2))
+    with trace("mesh.halo"):
+        for i, p in enumerate(parts):
+            top = p[..., 1:halo + 1, :].flip(-2) if i == 0 else \
+                parts[i - 1][..., -halo:, :].to(p.device, non_blocking=True)
+            bot = p[..., -halo - 1:-1, :].flip(-2) if i == n - 1 else \
+                parts[i + 1][..., :halo, :].to(p.device, non_blocking=True)
+            out.append(torch.cat([top, p, bot], -2))
     return out
 
 
@@ -381,9 +389,26 @@ def _shard_rows(x: torch.Tensor, mesh: Mesh, pad: int) -> list:
     """(..., R, W) -> mesh.size equal row shards after `pad` mirror rows
     (rows R-2, R-3, ...: whole-sample symmetric about the last row)."""
     R = x.shape[-2]
-    if pad:
-        x = torch.cat([x, x[..., R - 1 - pad:R - 1, :].flip(-2)], -2)
-    return shard_tile_batch(x, mesh, dim=-2)
+    with trace("mesh.shard_rows"):
+        if pad:
+            x = torch.cat([x, x[..., R - 1 - pad:R - 1, :].flip(-2)], -2)
+        return shard_tile_batch(x, mesh, dim=-2)
+
+
+def _gather_rows(parts: list, mesh: Mesh) -> torch.Tensor:
+    """The row shards of a level back on the first device, in order."""
+    with trace("mesh.gather_rows"):
+        return unshard(parts, mesh, -2)
+
+
+def _row_peer_bytes(parts: list) -> int:
+    """The bytes a sharded level moves between its first shard and the
+    others, or between neighbours, from its row shards (all of one shape
+    and dtype): the rows split and gathered back, and a HALO-row strip
+    each way across each of the n - 1 boundaries."""
+    p = parts[0]
+    row = p.nbytes // p.shape[-2]
+    return 2 * (len(parts) - 1) * (p.nbytes + HALO * row)
 
 
 def fwd_2d_level_sharded(cur, rect: Rect, irrev: bool, mesh: Mesh) -> tuple:
@@ -398,7 +423,7 @@ def fwd_2d_level_sharded(cur, rect: Rect, irrev: bool, mesh: Mesh) -> tuple:
         return dwt.fwd_2d_level(cur, rect, irrev)
     fn = make_fwd_2d_level_sharded(mesh, (R + pad) // mesh.size, W, rect.x0,
                                    rect.y0, irrev)
-    inter = unshard(fn(_shard_rows(cur, mesh, pad)), mesh, -2)[..., :R, :]
+    inter = _gather_rows(fn(_shard_rows(cur, mesh, pad)), mesh)[..., :R, :]
     ye, xe = rect.y0 % 2, rect.x0 % 2
     return tuple(inter[..., a::2, b::2].contiguous()
                  for a, b in ((ye, xe), (ye, 1 - xe), (1 - ye, xe),
@@ -426,7 +451,9 @@ def inv_2d_level_sharded(ll, hl, lh, hh, rect: Rect, irrev: bool,
     inter[..., 1 - ye::2, 1 - xe::2] = hh
     fn = make_inv_2d_level_sharded(mesh, (R + pad) // mesh.size, W, rect.x0,
                                    rect.y0, irrev)
-    return unshard(fn(_shard_rows(inter, mesh, pad)), mesh, -2)[..., :R, :]
+    parts = _shard_rows(inter, mesh, pad)
+    count("decode.mesh.peer_bytes", _row_peer_bytes(parts))
+    return _gather_rows(fn(parts), mesh)[..., :R, :]
 
 
 def fwd_multilevel_sharded(samples, tc_rect: Rect, num_resolutions: int,

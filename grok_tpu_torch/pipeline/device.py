@@ -53,7 +53,7 @@ from grok_tpu_torch.ops.ht_decode import MARK_I64, ht_decode_lanes
 from grok_tpu_torch.ops.t1_decode import (t1_decode_lanes,
                                           t1_decode_lanes_sharded)
 from grok_tpu_torch.parallel.sharding import inv_2d_level_sharded
-from grok_tpu_torch.util.trace import trace
+from grok_tpu_torch.util.trace import count, trace
 
 # per-lane meta columns of the uploaded meta array: the HT lane (K1) and
 # the Part-1 lane (K3) of the same block
@@ -390,6 +390,8 @@ class DecodeProgram:
         style, one segment) and the synthesis levels are sharded, or
         None.  Returns N lists of per-component int32 planes."""
         with trace("decode.program"):
+            if mesh is not None:
+                count("decode.mesh.cards", mesh.size)
             # 1-2. the block decodes: K3 over every Part-1 lane (once, or
             # once per group of bucket shapes; with a mesh once per shard
             # of each), K1 per bucket on the first device

@@ -59,7 +59,7 @@ from grok_tpu_torch.pipeline.plan import (_plan_for, _th_ovr_key,
                                           window_mask)
 from grok_tpu_torch.t1ht import tables
 from grok_tpu_torch.pipeline.device import META_COLS, Bucket, DecodeProgram
-from grok_tpu_torch.util.trace import count, trace
+from grok_tpu_torch.util.trace import count, enabled as tracing_on, trace
 
 
 def _unsupported(route: str, why: str) -> NotImplementedError:
@@ -404,9 +404,24 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
             metas.append(meta)
             dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
         meta_all = np.concatenate(metas)
+        if dp.mesh is not None and plan.coder != "ht" and tracing_on():
+            count("decode.mesh.k3_bytes_max",
+                  _k3_bytes_max(prog, meta_all[:, 7], dp.mesh.size))
         with trace("decode.stage.upload"):
             body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
     return StagedBatch(prog, body_d, meta_d, dims, dp.mesh)
+
+
+def _k3_bytes_max(prog: DecodeProgram, dlen: np.ndarray, n: int) -> int:
+    """The coded bytes of K3's fullest shard over a mesh of n shards:
+    each group of prog.mq_groups has its lanes (in meta order) split in n
+    contiguous shares, as ops/t1_decode.py t1_decode_lanes_sharded
+    splits them, and each shard's bytes are summed over the groups."""
+    per = np.zeros(n, np.int64)
+    for _W, _H, bis in prog.mq_groups:
+        lens = np.concatenate([prog.lane_meta(dlen, bi) for bi in bis])
+        per += [int(s.sum(dtype=np.int64)) for s in np.array_split(lens, n)]
+    return int(per.max())
 
 
 def try_decode_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp,

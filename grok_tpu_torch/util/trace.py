@@ -50,6 +50,12 @@ def enable(on: bool = True):
     _enabled = on
 
 
+def enabled() -> bool:
+    """Whether spans and counters are recorded (for a counter whose
+    value costs more to reckon than a call of count())."""
+    return _enabled
+
+
 class _Off:
     """The context trace() returns while tracing is off."""
     __slots__ = ()

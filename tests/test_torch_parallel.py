@@ -212,6 +212,41 @@ def test_sharded_t1_block_decode_bit_exact(monkeypatch):
                enumerate(zip(auto, res)) if k != 3)
 
 
+def test_sharded_k3_copies_every_input_before_any_launch(monkeypatch):
+    """A copy between cards runs on the source card's stream, behind what
+    is issued there, so every shard's inputs go out before the first
+    launch, and the outputs come back after the last: the order of the
+    copies and the launches of one sharded K3 call over 4 shards."""
+    events, inside = [], []
+    to, launch = torch.Tensor.to, t1_decode.t1_decode_lanes
+
+    def to_spy(self, *a, **k):
+        if not inside:              # the plain K3's own conversions aside
+            events.append("copy")
+        return to(self, *a, **k)
+
+    def launch_spy(*a, **k):
+        events.append("launch")
+        inside.append(1)
+        try:
+            return launch(*a, **k)
+        finally:
+            inside.pop()
+
+    blocks, refs = _scalar_blocks(5, 6, 8)
+    args = ps._block_lanes(blocks, "cpu")
+    monkeypatch.setattr(torch.Tensor, "to", to_spy)
+    monkeypatch.setattr(t1_decode, "t1_decode_lanes", launch_spy)
+    out = t1_decode.t1_decode_lanes_sharded(*args, 8, 8,
+                                            mesh=Mesh(("cpu",) * 4))
+    monkeypatch.undo()
+    # 4 shards of 2, 2, 1, 1 lanes: the body and 8 lane arrays each, the
+    # 4 launches, then the 4 outputs back
+    assert events == ["copy"] * 36 + ["launch"] * 4 + ["copy"] * 4
+    for (mag, neg), got in zip(refs, out.numpy()):
+        assert np.array_equal(np.abs(got[:8, :8]) >> 1, mag)
+
+
 def test_decode_tile_sharded_end_to_end():
     """Sharded K3 + sharded synthesis levels equal the host multilevel
     synthesis (the JAX package's test, in 8x8 blocks)."""
@@ -340,6 +375,57 @@ def test_meshed_batch_decode_is_one_staged_batch(monkeypatch):
     assert len(got) == 3
     assert all(torch.equal(a, b) for r, g in zip(ref, got)
                for a, b in zip(r, g))
+
+
+def _scene12(h: int, w: int, seed: int) -> np.ndarray:
+    """A 12-bit panchromatic-like scene: a gradient under Gaussian noise
+    of sigma 193 (the benchmark's 12-bit content), so that the low bands
+    code 10 or more magnitude planes."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    img = 2048 + 24 * x - 16 * y + rng.normal(0, 193, (h, w))
+    return np.clip(np.rint(img), 0, 4095).astype(np.int32)
+
+
+@pytest.mark.parametrize("shards", [4])
+def test_meshed_12bit_scene_is_one_exact_staged_batch(monkeypatch, shards):
+    """A 12-bit Part-1 scene (16x16 blocks, 3 resolutions) decoded over
+    CPU shards as the four-card benchmark cell decodes it: one staged
+    batch, K3 once a shard, every synthesis level row-sharded, the
+    general route never entered; the planes equal the source and the
+    unmeshed decode's."""
+    img = _scene12(40, 32, 23)
+    cs, = api.compress_device_batch(
+        [[torch.from_numpy(img)]], PCP(num_resolutions=3, cblk_w_exp=4,
+                                       cblk_h_exp=4),
+        prec=12, sgnd=False, device="cpu")
+    ref = api.decompress_device_batch([cs], device="cpu")
+    staged, levels = [], []
+    stage, exchange = api.stage_serving_batch, ps._exchange
+
+    def stage_spy(*a, **k):
+        staged.append(stage(*a, **k))
+        return staged[-1]
+
+    def exchange_spy(parts, halo):
+        levels.append(len(parts))
+        return exchange(parts, halo)
+
+    monkeypatch.setattr(api, "stage_serving_batch", stage_spy)
+    monkeypatch.setattr(ps, "_exchange", exchange_spy)
+    monkeypatch.setattr(api, "decompress_device", None)
+    general = _general_calls(monkeypatch)
+    calls = _count(monkeypatch, t1_decode, "t1_decode_lanes")
+    mesh = Mesh(("cpu",) * shards)
+    got = api.decompress_device_batch([cs], PDP(mesh=mesh), device="cpu")
+    assert len(staged) == 1 and staged[0].mesh is mesh and not general
+    assert int(staged[0].meta[:, 9].max()) >= 10     # magnitude planes
+    nl = staged[0].meta.shape[0]
+    assert calls == [nl // shards + (i < nl % shards) for i in range(shards)]
+    assert levels == [shards] * 2
+    assert len(got) == 1 and len(got[0]) == 1
+    assert torch.equal(got[0][0], ref[0][0])
+    assert np.array_equal(got[0][0].numpy(), img)
 
 
 def test_meshed_mode_switches_take_the_general_route(monkeypatch):

@@ -1,8 +1,11 @@
 """The port's tracer (grok_tpu_torch/util/trace.py) and its spans and
 counters in the serving decode: nesting, parents, call ids and self
 times; the off path; the profiler's `grok:` annotations; the span tree
-and counters of an HT batch, a Part-1 batch and a batch the serving
-decode declines, with planes equal to an untraced decode's."""
+and counters of an HT batch, a Part-1 batch, a batch the serving
+decode declines and a 12-bit Part-1 scene decoded over four CPU shards
+(the per-shard K3 spans, the gather, the halos and the mesh counters,
+against their values reckoned from the staged shapes), with planes
+equal to an untraced decode's."""
 
 import json
 import threading
@@ -15,6 +18,8 @@ torch.set_num_threads(1)
 
 from grok_tpu_torch import api, native  # noqa: E402
 from grok_tpu_torch.core.params import CompressParams  # noqa: E402
+from grok_tpu_torch.core.params import DecompressParams  # noqa: E402
+from grok_tpu_torch.parallel.sharding import HALO, Mesh  # noqa: E402
 from grok_tpu_torch.pipeline import plan as plan_mod  # noqa: E402
 from grok_tpu_torch.util import trace  # noqa: E402
 
@@ -135,11 +140,18 @@ def _frames(rng, n, c, h, w, bits):
             for _ in range(n)]
 
 
+MESH4 = Mesh(("cpu",) * 4)
+SCENE = (40, 32)       # rows and columns of every synthesis level a
+#                        multiple of 4: the row shards need no mirror pad
+
+
 @pytest.fixture(scope="module")
 def batches():
     """(name, streams, frames) of an HT RGB batch of 2, a Part-1 batch of
-    1 and a batch of two HT streams of different sizes (declined by the
-    serving decode: different main headers)."""
+    1, a batch of two HT streams of different sizes (declined by the
+    serving decode: different main headers) and a 12-bit Part-1 scene
+    (a gradient under noise of sigma 193: 10 or more magnitude planes),
+    decoded over MESH4."""
     rng = np.random.default_rng(21)
     small = dict(num_resolutions=3, cblk_w_exp=4, cblk_h_exp=4)
     out = []
@@ -154,6 +166,12 @@ def batches():
     out.append(("general", [api.compress_device_batch(
         [f], CompressParams(ht=True, **small), prec=8, sgnd=False,
         device="cpu")[0] for f in fr], fr))
+    h, w = SCENE
+    y, x = np.mgrid[0:h, 0:w]
+    img = 2048 + 24 * x - 16 * y + rng.normal(0, 193, (h, w))
+    fr = [[torch.from_numpy(np.clip(np.rint(img), 0, 4095).astype(np.int32))]]
+    out.append(("mesh", api.compress_device_batch(
+        fr, CompressParams(**small), prec=12, sgnd=False, device="cpu"), fr))
     return out
 
 
@@ -164,15 +182,53 @@ def _tree(names: dict) -> dict:
             for n, ss in names.items()}
 
 
-@pytest.mark.parametrize("case", [0, 1, 2], ids=["ht", "mq", "general"])
+def _mesh_expected(staged) -> dict:
+    """The mesh counters of one meshed call, reckoned from the staged
+    batch's shapes: K3's lanes in 4 contiguous shares (one group), each
+    share's body, lane arguments (7 int32 and a 1x3 int32 segment row)
+    and (H, W) int32 outputs moved between the first shard and the
+    others; each synthesis level's rows (int32) split and gathered, and
+    a HALO-row strip each way across each of the 3 boundaries."""
+    (W, H, _),  = staged.program.mq_groups
+    nl = staged.meta.shape[0]
+    share = [nl // 4 + (i < nl % 4) for i in range(4)]
+    peer = sum(staged.body.numel() + n * (7 * 4 + 3 * 4 + H * W * 4)
+               for n in share[1:])
+    for rows, cols in (SCENE, (SCENE[0] // 2, SCENE[1] // 2)):
+        peer += 2 * 3 * (rows // 4 + HALO) * cols * 4
+    dlen = staged.meta[:, 7].numpy()
+    bounds = np.cumsum([0] + share)
+    return {"share": share, "decode.mesh.cards": 4,
+            "decode.mesh.lanes_max": max(share),
+            "decode.mesh.lanes_min": min(share),
+            "decode.mesh.peer_bytes": peer,
+            "decode.mesh.k3_bytes_max": max(
+                int(dlen[a:b].sum()) for a, b in zip(bounds, bounds[1:]))}
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 3],
+                         ids=["ht", "mq", "general", "mesh"])
 def test_decode_spans_and_counters(batches, case, tracing, monkeypatch):
     name, streams, frames = batches[case]
     monkeypatch.setattr(plan_mod, "_PLANS", {})
     trace.enable(False)
     want = api.decompress_device_batch(streams, device="cpu")
+    dp = DecompressParams(mesh=MESH4) if name == "mesh" else None
+    if dp is not None:
+        # off, a meshed decode records nothing either
+        api.decompress_device_batch(streams, dp, device="cpu")
+    assert trace.collect() == {"stages": {}, "counters": {}}
+    staged = []
+    stage = api.stage_serving_batch
+
+    def stage_spy(*a, **k):
+        staged.append(stage(*a, **k))
+        return staged[-1]
+
+    monkeypatch.setattr(api, "stage_serving_batch", stage_spy)
     trace.enable(True)
     monkeypatch.setattr(plan_mod, "_PLANS", {})
-    got = api.decompress_device_batch(streams, device="cpu")
+    got = api.decompress_device_batch(streams, dp, device="cpu")
     for fw, fg, src in zip(want, got, frames):
         for w, g, s in zip(fw, fg, src):
             assert torch.equal(w, g) and torch.equal(g, s)
@@ -206,6 +262,27 @@ def test_decode_spans_and_counters(batches, case, tracing, monkeypatch):
     assert tree["decode.stage.upload"] == ["decode.stage.pack"]
     assert tree["decode.program.synth"] == ["decode.program"]
     assert tree["decode.program.dwt.r2"] == ["decode.program.synth"]
+    if name == "mesh":
+        exp = _mesh_expected(staged[0])
+        assert int(staged[0].meta[:, 9].max()) >= 10
+        cards = [f"decode.program.k3.card{i}" for i in range(4)]
+        for card, lanes in zip(cards, exp.pop("share")):
+            assert [s[3] for s in names[card]] == [{"lanes": lanes}]
+            assert tree[card] == ["decode.program.k3"]
+        assert calls["decode.program.k3.scatter"] == 1
+        assert tree["decode.program.k3.scatter"] == ["decode.program.k3"]
+        assert calls["decode.program.k3.gather"] == 1
+        assert tree["decode.program.k3.gather"] == ["decode.program.k3"]
+        # 3 resolutions, one component: two row-sharded levels
+        for span in ("mesh.shard_rows", "mesh.halo", "mesh.gather_rows"):
+            assert calls[span] == 2
+            assert tree[span] == ["decode.program.dwt.r1",
+                                  "decode.program.dwt.r2"]
+        assert {k: ctr[k] for k in exp} == exp
+    else:
+        assert not any(k.startswith(("decode.program.k3.", "mesh."))
+                       for k in calls)
+        assert not any(k.startswith("decode.mesh.") for k in ctr)
     if name == "ht":
         assert calls["decode.stage.ht_scan"] == n
         assert tree["decode.stage.ht_scan"] == ["decode.stage"]
