@@ -89,15 +89,18 @@ def _main_header_packets(hdr, parts: list) -> tuple:
 
 
 def _tile_body(cs, hdr, parts, ppm: dict | None = None,
-               plm: dict | None = None):
+               plm: dict | None = None, view: bool = False):
     """(tile header, body) of one tile from its tile-parts: the PPM blobs
     of its tile-parts become its packed headers (th.ppt) and their PLM
-    lists its packet lengths (th.plt, where no PLT was given)."""
+    lists its packet lengths (th.plt, where no PLT was given).  The body
+    is the tile-parts' bodies joined into bytes; with `view`, a tile of
+    one tile-part keeps its body as a memoryview of `cs`, with no
+    copy."""
     th = TileHeader()
     chunks, packed, lens = [], [], []
     for p in sorted(parts, key=lambda p: p.part_index):
         j2k.read_tile_part_header(cs, p, hdr, th)
-        chunks.append(cs[p.data_start:p.data_end])
+        chunks.append(memoryview(cs)[p.data_start:p.data_end])
         lens += (plm or {}).get(p.header_start, [])
         if ppm and p.header_start in ppm:
             packed.append(ppm[p.header_start])
@@ -105,7 +108,17 @@ def _tile_body(cs, hdr, parts, ppm: dict | None = None,
         th.plt = lens
     if packed:
         th.ppt = b"".join(packed)
+    if view and len(chunks) == 1:
+        return th, chunks[0]
     return th, b"".join(chunks)
+
+
+def _codestream(data, dp: DecompressParams):
+    """The J2K codestream of `data`, a raw codestream or a JP2 file: the
+    caller's object itself, or a memoryview of the JP2 file's
+    codestream box (no copy)."""
+    s, e, _meta = _locate_codestream_span(data, permissive=not dp.strict)
+    return data if (s, e) == (0, len(data)) else memoryview(data)[s:e]
 
 
 def stage_device_batch(streams: list[bytes],
@@ -123,13 +136,12 @@ def stage_device_batch(streams: list[bytes],
         if not streams:
             raise ValueError("no streams to stage")
         with trace("decode.stage.headers"):
-            first_cs = jp2.locate_codestream(streams[0],
-                                             permissive=not dp.strict)
+            first_cs = _codestream(streams[0], dp)
             hdr = j2k.read_main_header(first_cs)
             mh = bytes(first_cs[:hdr.main_header_end])
             bodies, ths = [], []
             for s in streams:
-                cs = jp2.locate_codestream(s, permissive=not dp.strict)
+                cs = _codestream(s, dp)
                 if bytes(cs[:hdr.main_header_end]) != mh:
                     raise GeneralRoute("a batch of streams with different "
                                        "main headers")
@@ -137,18 +149,19 @@ def stage_device_batch(streams: list[bytes],
                 if hdr.siz.num_tiles != 1 or \
                         {p.tile_index for p in parts} != {0}:
                     raise GeneralRoute("a batch of multi-tile streams")
-                th, body = _tile_body(cs, hdr, parts)
+                # one tile-part: its body read in place, as a view of
+                # the caller's stream; several are joined
+                th, body = _tile_body(cs, hdr, parts, view=True)
                 if any(_th_ovr_key(th)):
                     raise GeneralRoute("a batch of streams with tile-part "
                                        "overrides")
+                count("decode.stage.body_views"
+                      if isinstance(body, memoryview)
+                      else "decode.stage.body_joins")
                 bodies.append(body)
                 ths.append(th)
-        staged = stage_serving_batch(mh, hdr, 0, ths[0], bodies, dp,
-                                     device=dev, ths=ths)
-        # the joined bodies die inside the span: freeing a large one
-        # (an unmap) is staging's cost too
-        del bodies, body
-        return staged
+        return stage_serving_batch(mh, hdr, 0, ths[0], bodies, dp,
+                                   device=dev, ths=ths)
 
 
 def decompress_device_batch(streams: list[bytes],

@@ -30,7 +30,7 @@ def _lib():
         u8p = ctypes.POINTER(ctypes.c_uint8)
         lib.grk_t2_parse.restype = ctypes.c_int
         lib.grk_t2_parse.argtypes = [
-            ctypes.c_char_p, ctypes.c_int,
+            u8p, ctypes.c_int,
             ctypes.c_int, ip, ip,             # n_ctx, style, band_start
             ip, ip, ip,                       # ttw, tth, blk_start
             ip, ip,                           # blk_x, blk_y
@@ -41,7 +41,7 @@ def _lib():
         ]
         lib.grk_ht_scan2_bits.restype = ctypes.c_int
         lib.grk_ht_scan2_bits.argtypes = [
-            ctypes.c_char_p, ctypes.c_longlong, llp, ip, ctypes.c_int, ip,
+            u8p, ctypes.c_longlong, llp, ip, ctypes.c_int, ip,
             u8p, ctypes.c_longlong, llp, ip, llp]
         lib.grk_ht_assemble_batch.restype = ctypes.c_int
         lib.grk_ht_assemble_batch.argtypes = [
@@ -78,6 +78,12 @@ def _u8p(arr):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
 
 
+def _u8(buf) -> np.ndarray:
+    """A contiguous buffer (bytes, bytearray, memoryview, uint8 array) as
+    a uint8 array over the same memory, with no copy."""
+    return np.frombuffer(buf, np.uint8)
+
+
 def t2_prepare(ctxs_flat: list, packets: list[tuple[int, int]]):
     """Build the flat descriptor arrays grk_t2_parse consumes.  The result
     is reusable across streams of the same geometry (the serving decode
@@ -105,13 +111,15 @@ def t2_prepare(ctxs_flat: list, packets: list[tuple[int, int]]):
             np.asarray([p[1] for p in packets], np.int32))
 
 
-def t2_parse_prepared(body: bytes, prep, sop: bool, eph: bool):
+def t2_parse_prepared(body, prep, sop: bool, eph: bool):
     """Tier-2 parse of a tile's whole packet sequence over prebuilt
-    descriptor arrays (see t2_prepare).  Returns (blk_included, blk_zb,
+    descriptor arrays (see t2_prepare); `body` is any contiguous buffer,
+    read in place.  Returns (blk_included, blk_zb,
     blk_numpasses, chunks ndarray (N, 6) [blk, layer, segno, numpasses,
     offset, length], body_pos), or None if the parser refused the
     body."""
     lib = _lib()
+    b = _u8(body)
     (n_ctx, ctx_style, ctx_band_start, band_ttw, band_tth,
      band_blk_start, blk_x, blk_y, pkt_ctx, pkt_layer) = prep
     n_blks = len(blk_x)
@@ -124,7 +132,7 @@ def t2_parse_prepared(body: bytes, prep, sop: bool, eph: bool):
     while True:
         chunks = np.zeros((cap, 6), np.int32)
         rc = lib.grk_t2_parse(
-            body, len(body), n_ctx, _ip(ctx_style), _ip(ctx_band_start),
+            _u8p(b), b.size, n_ctx, _ip(ctx_style), _ip(ctx_band_start),
             _ip(band_ttw), _ip(band_tth), _ip(band_blk_start),
             _ip(blk_x), _ip(blk_y),
             n_pkts, _ip(pkt_ctx), _ip(pkt_layer),
@@ -141,39 +149,48 @@ def t2_parse_prepared(body: bytes, prep, sop: bool, eph: bool):
             int(counts[1]))
 
 
-def ht_scan2(body: bytes, off: np.ndarray, lens: np.ndarray):
-    """Scan + split HT cleanup segments into clean sub-streams.
+def ht_scan2(body, off: np.ndarray, lens: np.ndarray, out=None,
+             at: int = 0):
+    """Scan + split HT cleanup segments of `body` (any contiguous buffer,
+    read in place) into clean sub-streams.
 
     Returns (out7 (n, 7) int32 [ok, ms_off, ms_len, suf_off, suf_len,
     n_ff, n_7f], digest uint8 array, bits (n, 3) int32 [ms, mel, vlc]) —
     offsets index the digest; ok = 0 for a valid framing, -1 otherwise;
     bits: each clean sub-stream's bits as the scalar decoder reads them,
-    past which it reads 1-bits.  None if the digest overflowed (never for
-    well-formed input: capacity is 3*len + 16 per block).
+    past which it reads 1-bits.  The digest is a new array of capacity
+    3*len + 24 per block + 64, or with `out` (a writable uint8 array) a
+    view of out[at:], whose remaining bytes are the capacity.  None if
+    the digest overflowed (never for well-formed input into a new
+    array).
 
     Counts `decode.ht_scan.ms_bytes` (the valid rows' MagSgn wire bytes)
     and `decode.ht_scan.word_bytes` (those the C scan's word path took)."""
     lib = _lib()
+    b = _u8(body)
     n = len(off)
     off = np.ascontiguousarray(off, np.int64)
     lens = np.ascontiguousarray(lens, np.int32)
-    out = np.zeros((n, 7), np.int32)
-    dcap = int(3 * int(lens.sum()) + 24 * n + 64)
-    digest = np.empty(dcap, np.uint8)     # the scan writes digest[:used]
+    res = np.zeros((n, 7), np.int32)
+    if out is None:
+        # the scan writes digest[:used]
+        out, at = np.empty(int(3 * int(lens.sum()) + 24 * n + 64),
+                           np.uint8), 0
+    digest = out[at:]
     used = ctypes.c_longlong(0)
     words = ctypes.c_longlong(0)
     bits = np.zeros((n, 3), np.int32)
-    rc = lib.grk_ht_scan2_bits(body, len(body), _llp(off), _ip(lens), n,
-                               _ip(out), _u8p(digest), dcap,
+    rc = lib.grk_ht_scan2_bits(_u8p(b), b.size, _llp(off), _ip(lens), n,
+                               _ip(res), _u8p(digest), digest.size,
                                ctypes.byref(used), _ip(bits),
                                ctypes.byref(words))
     if rc:
         return None
-    valid = out[:, 0] == 0
+    valid = res[:, 0] == 0
     count("decode.ht_scan.ms_bytes",
-          int(lens[valid].sum()) - int(out[valid, 4].sum()))
+          int(lens[valid].sum()) - int(res[valid, 4].sum()))
     count("decode.ht_scan.word_bytes", words.value)
-    return out, digest[:int(used.value)], bits
+    return res, digest[:int(used.value)], bits
 
 
 def ht_assemble_batch(buf: np.ndarray, ms_off, ms_bits, mel_off, mel_bits,

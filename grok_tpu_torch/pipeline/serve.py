@@ -8,10 +8,13 @@ ServePlan (pipeline/plan.py), the C Tier-2 parser and the C HT wire scan
 digest.  Part-1 blocks keep their raw codewords: a block's per-layer
 chunks of a multi-layer stream are concatenated into one compact body.
 HT-mixed streams route each block by the tile-part COM bitmap, and
-upload both the raw body and the digest.  The bytes and one per-lane
-meta array are uploaded from pinned host memory, and a DecodeProgram
-(pipeline/device.py), cached on the plan per table version, does the
-rest on the device.
+upload both the raw body and the digest.  Each stream's coded bytes are
+written once on the host, into a staging arena kept on the plan (pinned
+memory for a CUDA device) and reused across calls: a raw body copied
+from the caller's buffer, a digest written there by the C scan; the
+per-lane meta array follows, and one host-to-device copy takes it all.
+A DecodeProgram (pipeline/device.py), cached on the plan per table
+version, does the rest on the device.
 
 Scope: one tile of HT cleanup-only (whatever Part-1 mode-switch bits
 the style carries beside the HT bit: the HT decoder reads none of them),
@@ -133,36 +136,118 @@ def _full_index(plan):
     return got
 
 
+def _up16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _stream_bound(coder: str, n: int, n_blks: int) -> int:
+    """Arena bytes a stream of n coded bytes may take: its raw body
+    (Part-1, mixed) and the C scan's digest bound (HT, mixed), each
+    16-byte aligned."""
+    b = _up16(n) if coder != "ht" else 0
+    if coder != "mq":
+        b += _up16(3 * n + 24 * n_blks + 64)
+    return b
+
+
+def _arena_need(plan, bodies: list, meta_bytes: int) -> int:
+    """The arena's size up front for a batch: every stream's bound and
+    the lane meta."""
+    return sum(_stream_bound(plan.coder, len(b), plan.n_blks)
+               for b in bodies) + _up16(meta_bytes) + 16
+
+
+class _Arena:
+    """A batch's staging buffer, kept on the plan per device and reused
+    across calls: host memory (pinned for a CUDA device) that every
+    stream's coded bytes, digests and lane meta are written into once,
+    each piece at a 16-byte-aligned base with its padding zeroed, and
+    that one host-to-device copy uploads.  Its size is a multiple of
+    ROUND.  `written` counts the bytes written in the current call."""
+
+    ROUND = 1 << 20
+
+    def __init__(self, device: torch.device, cap: int):
+        self.device = device
+        self.buf, self.host = self._alloc(cap)
+        self.done = None        # the event of its last copy to the device
+        self.written = 0
+
+    def _alloc(self, need: int) -> tuple:
+        cap = -(-max(need, 1) // self.ROUND) * self.ROUND
+        buf = torch.empty(cap, dtype=torch.uint8,
+                          pin_memory=self.device.type == "cuda")
+        return buf, buf.numpy()
+
+    @classmethod
+    def of(cls, plan, device: torch.device, need: int) -> "_Arena":
+        """The plan's arena on `device`, of at least `need` bytes, once
+        its previous copy to the device is done."""
+        key = ("torch_arena", str(device))
+        arena = plan.fast.get(key)
+        if arena is None:
+            arena = plan.fast[key] = cls(device, need)
+        else:
+            if arena.done is not None:
+                arena.done.synchronize()
+                arena.done = None
+            if arena.host.size < need:
+                arena.grow(need, 0)
+        arena.written = 0
+        return arena
+
+    def grow(self, need: int, top: int) -> None:
+        """A larger buffer of at least `need` bytes, holding the first
+        `top` bytes written so far."""
+        count("decode.stage.arena_grows")
+        old = self.host
+        self.buf, self.host = self._alloc(need)
+        self.host[:top] = old[:top]
+        self.written += top
+
+    def put(self, at: int, data) -> None:
+        """`data` (any contiguous buffer) at `at`, its padding zeroed."""
+        v = np.frombuffer(data, np.uint8)
+        self.host[at:at + v.size] = v
+        self.written += v.size
+        self.pad(at + v.size)
+
+    def pad(self, end: int) -> None:
+        """Zero from `end` to the next 16-byte boundary."""
+        self.host[end:_up16(end)] = 0
+        self.written += _up16(end) - end
+
+    def upload(self, views: list) -> list:
+        """Device tensors of arrays written in the arena, given as
+        (offset, the numpy view of the arena there): one host-to-device
+        copy of the arena up to the last one's end."""
+        count("decode.upload_bytes", sum(v.nbytes for _o, v in views))
+        o, v = views[-1]
+        src = self.buf[:max(16, o + _up16(v.nbytes))]
+        if self.device.type == "cuda":
+            dev = src.to(self.device, non_blocking=True)
+            self.done = torch.cuda.Event()
+            self.done.record(torch.cuda.current_stream(self.device))
+        else:
+            # a copy: a staged batch never shares the arena's bytes
+            dev = src.to(self.device, copy=True)
+        return [dev[o:o + v.nbytes].view(torch.from_numpy(v[:0]).dtype)
+                .reshape(v.shape) for o, v in views]
+
+
 def _upload(plan, arrays: list, device: torch.device) -> list:
-    """Host numpy arrays -> device tensors, through one pinned staging
-    buffer kept on the plan (reused once its previous copy is done): one
-    host-to-device copy, each array a view of it at a 16-byte-aligned
-    offset."""
-    count("decode.upload_bytes", sum(a.nbytes for a in arrays))
-    if device.type != "cuda":
-        return [torch.from_numpy(a).to(device) for a in arrays]
+    """Host numpy arrays -> device tensors through the plan's staging
+    arena: each array copied there at a 16-byte-aligned offset, then one
+    host-to-device copy."""
     offs, total = [], 0
     for a in arrays:
         offs.append(total)
-        total += -(-a.nbytes // 16) * 16
-    key = ("torch_pinned", str(device))
-    slot = plan.fast.get(key)
-    if slot is None or slot[0].numel() < total:
-        cap = -(-total // (1 << 20)) * (1 << 20)
-        slot = [torch.empty(cap, dtype=torch.uint8, pin_memory=True), None]
-        plan.fast[key] = slot
-    buf, done = slot
-    if done is not None:
-        done.synchronize()
-    host = buf.numpy()
+        total += _up16(a.nbytes)
+    arena = _Arena.of(plan, device, total)
     for a, o in zip(arrays, offs):
-        host[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
-    dbuf = buf[:max(total, 16)].to(device, non_blocking=True)
-    out = [dbuf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
-           .reshape(a.shape) for a, o in zip(arrays, offs)]
-    slot[1] = torch.cuda.Event()
-    slot[1].record()
-    return out
+        arena.put(o, a.reshape(-1).view(np.uint8))
+    return arena.upload([(o, arena.host[o:o + a.nbytes].view(a.dtype)
+                          .reshape(a.shape)) for a, o in zip(arrays, offs)])
 
 
 def stage_dims(sc: np.ndarray) -> tuple:
@@ -181,14 +266,23 @@ def stage_dims(sc: np.ndarray) -> tuple:
             Dm)
 
 
-def _scan_ht(plan, body: bytes, offs, lens, numbps, si: int):
-    """C wire scan of a stream's HT blocks -> (scan rows with the cleanup
-    plane in column 0 and the clean MagSgn, MEL and VLC bits in columns 7
-    to 9, digest); raises outside the K1 route's scope."""
-    res = native.ht_scan2(body, offs, lens)
+def _scan_ht(plan, arena: _Arena, at: int, rest: int, body, offs, lens,
+             numbps, si: int):
+    """C wire scan of a stream's HT blocks, its digest written into the
+    arena at `at` (where it does not fit, the arena grows to hold `rest`
+    more bytes and the stream is scanned again) -> (scan rows with the
+    cleanup plane in column 0 and the clean MagSgn, MEL and VLC bits in
+    columns 7 to 9, the digest's length); raises outside the K1 route's
+    scope."""
+    res = native.ht_scan2(body, offs, lens, arena.host, at)
+    if res is None:
+        arena.grow(at + rest, at)
+        res = native.ht_scan2(body, offs, lens, arena.host, at)
     if res is None:
         raise _unsupported("general path", "HT wire scan overflow")
     scan, dig, bits = res
+    arena.written += dig.size
+    arena.pad(at + dig.size)
     if (scan[:, 0] < 0).any():
         # the general route decodes such a block as zeros, or raises the
         # scalar decoder's "bad framing" on a strict decode
@@ -200,13 +294,14 @@ def _scan_ht(plan, body: bytes, offs, lens, numbps, si: int):
     if scan.size and int(scan[:, 2:5:2].max()) > MAX_STREAM:
         raise _unsupported("general path", "a sub-stream longer than "
                            f"{MAX_STREAM} bytes")
-    return np.concatenate([scan, bits], 1), dig
+    return np.concatenate([scan, bits], 1), dig.size
 
 
-def _concat_layers(body: bytes, chunks: np.ndarray, n_blks: int):
+def _concat_layers(body, chunks: np.ndarray, n_blks: int):
     """Multi-layer Part-1: a default-style block's per-layer chunks are
     contributions to one codeword segment, concatenated per block (in
-    layer order) into a compact body.  Returns (body, offs, lens)."""
+    layer order) into a compact body.  Returns (body as a uint8 array,
+    offs, lens)."""
     ch = chunks[np.lexsort((chunks[:, 1], chunks[:, 0]))]
     bview = np.frombuffer(body, np.uint8)
     buf = np.empty(int(ch[:, 5].sum()), np.uint8)
@@ -221,12 +316,13 @@ def _concat_layers(body: bytes, chunks: np.ndarray, n_blks: int):
         buf[pos:pos + ln] = bview[off:off + ln]
         lens[b] += ln
         pos += ln
-    return buf.tobytes(), offs, lens
+    return buf, offs, lens
 
 
 def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
                         device, ths=None) -> StagedBatch:
-    """Host staging of N same-geometry tile bodies and their upload."""
+    """Host staging of N same-geometry tile bodies (any contiguous
+    buffers, read in place) and their upload."""
     device = torch.device(device)
     check_mesh(dp.mesh, device)
     if hdr.ppm is not None or any(
@@ -266,7 +362,19 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
     mqrows = np.zeros((N, nf, 4), np.int64)   # Part-1 lanes (K3): offset
     #                                           in the stream's raw body,
     #                                           length, npass, numbps
-    srcs = []          # per stream: raw body (mq, mixed), digest (ht, mixed)
+    # the arena: per stream its raw body (mq, mixed), copied in the pack
+    # step, then its digest (ht, mixed), written by the scan, each at a
+    # 16-byte-aligned base; then the lane meta (full staging: a lane for
+    # every kept block of every stream)
+    meta_bytes = N * nf * META_COLS * 4
+    arena = _Arena.of(plan, device, _arena_need(plan, bodies, meta_bytes))
+    # rest[si]: the most the batch may still write from stream si on
+    rest = np.cumsum([_stream_bound(plan.coder, len(b), plan.n_blks)
+                      for b in bodies][::-1])[::-1] + meta_bytes + 32
+    raws = []                                 # (base, raw body)
+    raw_base = np.zeros(N, np.int64)
+    dig_base = np.zeros(N, np.int64)
+    top = 0
     for si, body in enumerate(bodies):
         with trace("decode.stage.t2"):
             parsed = native.t2_parse_prepared(body, plan.prep, plan.sop,
@@ -340,19 +448,22 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
             raise _unsupported("general path", "a Part-1 block outside "
                                "1..109 passes or 0..30 magnitude planes")
         if plan.coder != "ht":
-            srcs.append(body)
+            raw_base[si] = top
+            raws.append((top, body))
+            top += _up16(len(body))
             m = ~hsel
             mqrows[si, pos[m]] = np.stack(
                 [offs[idx][m], lens[idx][m], npz[m], numbps[m]], 1)
         if plan.coder != "mq":
-            dig = b""
+            dig_base[si] = top
             if hsel.any():
                 with trace("decode.stage.ht_scan"):
-                    scan, dig = _scan_ht(plan, body, offs[idx][hsel],
-                                         lens[idx][hsel], numbps[hsel], si)
+                    scan, used = _scan_ht(
+                        plan, arena, top, int(rest[si]), body,
+                        offs[idx][hsel], lens[idx][hsel], numbps[hsel], si)
+                top += _up16(used)
                 scans[si, pos[hsel]] = scan
                 valid[si, pos[hsel]] = True
-            srcs.append(dig)
 
     if plan.coder != "ht":
         # K3's lanes: their count, their coded bytes, the longest chain
@@ -362,24 +473,15 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
         count("decode.k3.lane_bytes_max", int(mq_len.max(initial=0)))
 
     with trace("decode.stage.pack"):
-        # one upload for all streams, each piece at a 16-byte-aligned base
-        bases = np.zeros(len(srcs), np.int64)
-        top = 0
-        for k, b in enumerate(srcs):
-            bases[k] = top
-            top += -(-len(b) // 16) * 16
-        body_cat = np.zeros(max(16, top), np.uint8)
-        for b, base in zip(srcs, bases):
-            body_cat[base:base + len(b)] = np.frombuffer(b, np.uint8) \
-                if not isinstance(b, np.ndarray) else b
-        per = len(srcs) // N
-        raw_base = bases[0::per] if plan.coder != "ht" else np.zeros(N)
-        dig_base = bases[per - 1::per] if plan.coder != "mq" \
-            else np.zeros(N)
+        body_n = max(16, top)
+        need = body_n + _up16(meta_bytes)
+        if arena.host.size < need:
+            arena.grow(need, top)
+        for base, raw in raws:
+            arena.put(base, raw)
+        arena.host[top:body_n] = 0
+        arena.written += body_n - top
 
-        # full staging: a lane for every kept block of every stream
-        # (stream major); blocks a stream does not include, or codes with
-        # the other coder, stay zero (valid = 0, npass = 0)
         prog = _program(plan, N, device)
         metas, dims = [], []
         for sel in bsel:
@@ -403,12 +505,17 @@ def stage_serving_batch(cs: bytes, hdr, t: int, th, bodies: list, dp, *,
             meta[:, 10:13] = sc[:, 7:10]
             metas.append(meta)
             dims.append(stage_dims(sc) + (bool(v.any()), bool(mq_on.any())))
-        meta_all = np.concatenate(metas)
+        meta_all = arena.host[body_n:body_n + meta_bytes].view(
+            np.int32).reshape(N * nf, META_COLS)
+        np.concatenate(metas, out=meta_all)
+        arena.written += meta_bytes
+        count("decode.stage.arena_bytes", arena.written)
         if dp.mesh is not None and plan.coder != "ht" and tracing_on():
             count("decode.mesh.k3_bytes_max",
                   _k3_bytes_max(prog, meta_all[:, 7], dp.mesh.size))
         with trace("decode.stage.upload"):
-            body_d, meta_d = _upload(plan, [body_cat, meta_all], device)
+            body_d, meta_d = arena.upload([(0, arena.host[:body_n]),
+                                           (body_n, meta_all)])
     return StagedBatch(prog, body_d, meta_d, dims, dp.mesh)
 
 

@@ -186,6 +186,38 @@ def test_c_t2_parse_and_ht_scan_give_the_same_outputs(streams):
                                                                 lens)))
 
 
+def test_c_parse_and_scan_read_any_buffer_in_place(streams):
+    """The C Tier-2 parse and the HT scan on a memoryview at an offset
+    into a larger buffer, a bytearray and a uint8 array equal the same
+    calls on bytes; the scan into a caller's array at an offset writes
+    the same digest there, and declines an array too small."""
+    for data in streams[:2]:
+        hdr, th, body = _body(data)
+        plan = jserve._plan_for(data, hdr, 0, th, 0)
+        want = pnative.t2_parse_prepared(body, plan.prep, plan.sop, plan.eph)
+        chunks = want[3]
+        offs, lens = chunks[:, 4].astype(np.int64), chunks[:, 5]
+        wscan, wdig, wbits = pnative.ht_scan2(body, offs, lens)
+        for buf in (memoryview(b"\xff" * 13 + body + b"\xff" * 5)[13:-5],
+                    bytearray(body), np.frombuffer(body, np.uint8).copy()):
+            got = pnative.t2_parse_prepared(buf, plan.prep, plan.sop,
+                                            plan.eph)
+            assert all(np.array_equal(np.asarray(a), np.asarray(b))
+                       for a, b in zip(got, want))
+            scan, dig, bits = pnative.ht_scan2(buf, offs, lens)
+            assert np.array_equal(scan, wscan) and np.array_equal(bits, wbits)
+            assert np.array_equal(dig, wdig)
+        out = np.full(37 + 3 * len(body) + 24 * len(offs) + 64, 7, np.uint8)
+        scan, dig, bits = pnative.ht_scan2(memoryview(body), offs, lens,
+                                           out, 37)
+        assert np.array_equal(scan, wscan) and np.array_equal(bits, wbits)
+        assert np.array_equal(dig, wdig) and np.shares_memory(dig, out)
+        assert np.array_equal(out[37:37 + dig.size], wdig)
+        assert (out[:37] == 7).all()
+        assert pnative.ht_scan2(body, offs, lens, out[:37 + wdig.size // 2],
+                                37) is None
+
+
 def _cleanup(ms, suffix, nib=0x5):
     """A wire cleanup segment: MagSgn bytes, then the suffix bytes and the
     two Scup bytes (the suffix's length in 12 bits under nibble nib)."""

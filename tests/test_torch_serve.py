@@ -25,7 +25,14 @@ from grok_tpu.pipeline.device import (_make_word_stager,  # noqa: E402
                                       _unstuff_suffix)
 from grok_tpu.util.oracle import synthetic_image  # noqa: E402
 from grok_tpu_torch import api  # noqa: E402
+from grok_tpu_torch import native as pnative  # noqa: E402
+from grok_tpu_torch.codestream import j2k as pj2k  # noqa: E402
+from grok_tpu_torch.codestream import jp2 as pjp2  # noqa: E402
 from grok_tpu_torch.pipeline import device as tdev  # noqa: E402
+from grok_tpu_torch.pipeline import plan as pplan  # noqa: E402
+from grok_tpu_torch.pipeline import serve  # noqa: E402
+from grok_tpu_torch.util import trace as ptrace  # noqa: E402
+from staging_ref import joined_layout  # noqa: E402
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="no C toolchain")
@@ -227,3 +234,106 @@ def test_port_imports_and_decodes_without_jax():
     assert r.returncode == 0, r.stderr[-2000:]
     assert "GUARD-OK" in r.stdout
 
+
+
+# -- the staging arena (pipeline/serve.py _Arena): each stream's coded
+# bytes written once, into a buffer kept on the plan ----------------------
+
+def _stream_kinds(gray):
+    """The gray batch as bytes, bytearray, memoryviews at an offset,
+    JP2 files, and streams of two tile-parts a tile (joined)."""
+    imgs, streams = gray
+    two = [compress(im, CompressParams(max_tile_parts=2, **CP))
+           for im in imgs]
+    for s in two:
+        hdr = pj2k.read_main_header(s)
+        assert len(pj2k.read_tile_parts(s, hdr)) == 2
+    return {
+        "bytes": streams,
+        "bytearray": [bytearray(s) for s in streams],
+        "memoryview": [memoryview(b"\0" * 7 + s)[7:] for s in streams],
+        "jp2": [pjp2.wrap_jp2(s, width=96, height=80, numcomps=1, prec=8)
+                for s in streams],
+        "tile_parts": two,
+    }
+
+
+@pytest.mark.parametrize("kind", ["bytes", "bytearray", "memoryview",
+                                  "jp2", "tile_parts"])
+def test_arena_upload_equals_the_joined_layout(gray, kind, monkeypatch):
+    """The staged body and meta equal the plain layout (every tile body
+    joined, each digest an array of its own, copied into a zeroed
+    buffer) byte for byte, and the planes equal the stream-by-stream
+    decode and the source."""
+    monkeypatch.setattr(pplan, "_PLANS", {})
+    streams = _stream_kinds(gray)[kind]
+    staged = api.stage_device_batch(streams, device="cpu")
+    body_cat, meta = joined_layout(streams)
+    assert np.array_equal(staged.body.numpy(), body_cat)
+    assert np.array_equal(staged.meta.numpy(), meta)
+    for img, s, got in zip(gray[0], streams, staged.run()):
+        assert np.array_equal(_np(got), img)
+        assert np.array_equal(_np(got), _np(api.decompress_device(
+            bytes(s), device="cpu")))
+
+
+def test_arena_forced_small_grows_once_and_rescans(gray, monkeypatch):
+    """An arena too small for the first digest grows once, the stream is
+    scanned again, and the bytes and planes are those of a roomy
+    arena."""
+    imgs, streams = gray
+    monkeypatch.setattr(pplan, "_PLANS", {})
+    monkeypatch.setattr(serve._Arena, "ROUND", 16)
+    monkeypatch.setattr(serve, "_arena_need", lambda *a: 64)
+    scans = []
+    scan2 = pnative.ht_scan2
+    monkeypatch.setattr(pnative, "ht_scan2",
+                        lambda *a: scans.append(a[4:]) or scan2(*a))
+    monkeypatch.setattr(ptrace, "_enabled", True)
+    ptrace.collect()
+    try:
+        staged = api.stage_device_batch(streams, device="cpu")
+        ctr = ptrace.collect()["counters"]
+    finally:
+        ptrace.enable(False)
+        ptrace.collect()
+    assert ctr["decode.stage.arena_grows"] == 1
+    # the first stream scanned twice, at the arena's base
+    at = [a[0] for a in scans]
+    assert at[:2] == [0, 0] and len(at) == len(streams) + 1
+    body_cat, meta = joined_layout(streams)
+    assert np.array_equal(staged.body.numpy(), body_cat)
+    assert np.array_equal(staged.meta.numpy(), meta)
+    for img, got in zip(imgs, staged.run()):
+        assert np.array_equal(_np(got), img)
+
+
+def test_arena_is_reused_and_grown_by_a_larger_batch(gray, monkeypatch):
+    """One arena a plan: a batch of one makes it, a batch of three grows
+    it, a batch of one again reuses it as it is."""
+    imgs, streams = gray
+    monkeypatch.setattr(pplan, "_PLANS", {})
+    monkeypatch.setattr(serve._Arena, "ROUND", 16)
+    arenas = []
+    for n in (1, 3, 1):
+        staged = api.stage_device_batch(streams[:n], device="cpu")
+        (plan,) = pplan._PLANS.values()
+        arena = plan.fast[("torch_arena", "cpu")]
+        arenas.append((arena, arena.host.size, arena.buf.data_ptr()))
+        for img, got in zip(imgs, staged.run()):
+            assert np.array_equal(_np(got), img)
+    (a1, n1, p1), (a3, n3, p3), (a1b, n1b, p1b) = arenas
+    assert a1 is a3 is a1b
+    assert n1 < n3 == n1b and p1 != p3 == p1b
+
+
+def test_two_batches_staged_before_either_runs(gray):
+    """Two batches of one plan staged before either runs: neither shares
+    the other's bytes."""
+    imgs, streams = gray
+    first = api.stage_device_batch(streams[:2], device="cpu")
+    second = api.stage_device_batch(streams[1:], device="cpu")
+    for want, got in zip(imgs[1:], second.run()):
+        assert np.array_equal(_np(got), want)
+    for want, got in zip(imgs[:2], first.run()):
+        assert np.array_equal(_np(got), want)

@@ -184,3 +184,71 @@ def test_out_of_scope_streams_raise(gray, kw, what):
         assert j2k.read_main_header(data).ppm is not None
         with pytest.raises(GeneralRoute, match="PPM"):
             api.stage_device_batch([data], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def mixed_pair():
+    """(planes, [forced, natural]): an HT-mixed stream with HT blocks
+    forced as in test_decode_mixed_streams_with_ht_blocks, and a natural
+    one, of one frame."""
+    import grok_tpu.pipeline.tile as tile_pipe
+    a = synthetic_image(48, 40, 1, seed=9).astype(np.int32) >> 3
+    kw = dict(CP, cblk_w_exp=3, cblk_h_exp=3)
+    natural = compress(_img(a, 5), JCP(ht_mixed=True, **kw))
+    real = tile_pipe.encode_block
+    calls = {"n": 0}
+
+    def fat_every_other(mag, neg, orient, style):
+        e = real(mag, neg, orient, style)
+        calls["n"] += 1
+        if calls["n"] % 2 and e.data:
+            e.data = e.data + b"\x00" * 4096
+            e.seg_lens = [len(e.data)]
+        return e
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tile_pipe, "encode_block", fat_every_other)
+        forced = compress(_img(a, 5), JCP(ht_mixed=True, backend="scalar",
+                                          **kw))
+    return a, [forced, natural]
+
+
+@pytest.mark.parametrize("case", ["part1", "part1_layers", "mixed"])
+def test_arena_upload_equals_the_joined_layout(gray, own, mixed_pair, case,
+                                               monkeypatch):
+    """Part-1 batches (one layer: each raw body copied from a view of
+    its stream; two layers: the compact body of each block's chunks) and
+    an HT-mixed batch (raw body, then digest, a stream): the staged body
+    and meta equal the plain layout byte for byte, and the planes equal
+    the source (the stream-by-stream decode of the lossy layers)."""
+    from grok_tpu_torch.pipeline import plan as pplan
+    from grok_tpu_torch.pipeline import serve
+    from staging_ref import joined_layout
+    monkeypatch.setattr(pplan, "_PLANS", {})
+    joins = []
+    if case == "part1":
+        planes, streams = gray, own[0]
+    elif case == "part1_layers":
+        # lossy layers at 8 bits: every stream's blocks spread over both
+        streams = [compress(_img(synthetic_image(40, 56, 1, seed=20 + i)
+                                 .astype(np.int32), 8),
+                            JCP(num_layers=2, rates=[8.0, 2.0], **CP))
+                   for i in range(2)]
+        planes = [_np(api.decompress_device(s, device="cpu"))
+                  for s in streams]
+        concat = serve._concat_layers
+        monkeypatch.setattr(serve, "_concat_layers", lambda *a: (
+            joins.append(1), concat(*a))[1])
+    else:
+        a, streams = mixed_pair
+        planes = [a, a]
+    staged = api.stage_device_batch(streams, device="cpu")
+    assert len(joins) == (2 if case == "part1_layers" else 0)
+    body_cat, meta = joined_layout(streams)
+    assert np.array_equal(staged.body.numpy(), body_cat)
+    assert np.array_equal(staged.meta.numpy(), meta)
+    if case == "mixed":
+        # both coders' lanes: raw Part-1 bytes and HT digests
+        assert staged.meta[:, 5].any() and (staged.meta[:, 8] > 0).any()
+    for want, got in zip(planes, staged.run()):
+        assert np.array_equal(_np(got), want)

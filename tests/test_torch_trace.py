@@ -319,9 +319,9 @@ def test_ht_scan_counters(batches, tracing, monkeypatch):
     scanned = []
     scan2 = native.ht_scan2
 
-    def spy(body, offs, lens):
+    def spy(body, offs, lens, *into):
         scanned.append((body, np.array(offs), np.array(lens)))
-        return scan2(body, offs, lens)
+        return scan2(body, offs, lens, *into)
 
     monkeypatch.setattr(native, "ht_scan2", spy)
     monkeypatch.setattr(plan_mod, "_PLANS", {})
@@ -347,3 +347,35 @@ def test_ht_scan_counters(batches, tracing, monkeypatch):
     assert ctr["decode.ht_scan.ms_bytes"] == ms_bytes
     assert 0 < ctr["decode.ht_scan.word_bytes"] <= ms_bytes
     assert ctr["decode.ht_scan.word_bytes"] % 8 == 0
+
+
+@pytest.mark.parametrize("case", ["ht", "mq", "tile_parts"])
+def test_staging_arena_counters(batches, case, tracing, monkeypatch):
+    """decode.stage.arena_bytes equals decode.upload_bytes (one host
+    write a byte uploaded); decode.stage.arena_grows is absent (0) on a
+    second identical call; body_views counts the streams staged from a
+    view of their buffer, body_joins those of several tile-parts a
+    tile."""
+    if case == "tile_parts":
+        _name, _s, frames = batches[0]
+        streams = api.compress_device_batch(
+            frames, CompressParams(ht=True, mct=1, max_tile_parts=2,
+                                   num_resolutions=3, cblk_w_exp=4,
+                                   cblk_h_exp=4),
+            prec=8, sgnd=False, device="cpu")
+    else:
+        _name, streams, frames = batches[["ht", "mq"].index(case)]
+    n = len(streams)
+    monkeypatch.setattr(plan_mod, "_PLANS", {})
+    for call in range(2):
+        got = api.decompress_device_batch(streams, device="cpu")
+        for fg, src in zip(got, frames):
+            for g, s in zip(fg, src):
+                assert torch.equal(g, s)
+        ctr = trace.collect()["counters"]
+        assert ctr["decode.stage.arena_bytes"] == ctr["decode.upload_bytes"]
+        assert "decode.stage.arena_grows" not in ctr
+        views = ctr.get("decode.stage.body_views", 0)
+        joins = ctr.get("decode.stage.body_joins", 0)
+        assert (views, joins) == ((0, n) if case == "tile_parts"
+                                  else (n, 0))
